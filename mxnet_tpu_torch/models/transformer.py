@@ -1,0 +1,349 @@
+"""Transformer building blocks and the seq2seq Transformer, as
+``torch.nn`` modules.
+
+Counterpart of ``mxnet_tpu/models/transformer.py`` (BASELINE config 4,
+Transformer-big WMT14): the same layouts (``_split_heads`` to
+(B * H, T, hd)), the same masking constants (-1e9 in f32, -3e4 in 16-bit
+types), the ``sqrt(units)`` embedding scale, post-LN layers and the tied
+output projection.  Every LayerNorm runs kernel K1
+(``gluon.nn.LayerNorm``); the decoder's incremental ``step`` attends
+through a step-cache object, which for the serving engine is
+``serving.paged_cache.PagedStepCache`` (kernel K2).  The dense masked
+attention of the encoder and of cross-attention stays plain torch, as the
+JAX package leaves it to XLA.
+
+Parameter names follow Gluon's through ``convert.from_mxnet_tpu_params``.
+Gluon's ``Dense(flatten=False)`` is ``torch.nn.Linear`` here (weight
+(out, in) in both).  The feed-forward activation is ReLU, the WMT
+recipe's (the JAX classes' gelu option is not ported yet).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..base import MXNetError
+from ..context import resolve_device
+from ..gluon.nn import LayerNorm
+
+__all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
+           "TransformerEncoderCell", "TransformerEncoder",
+           "PositionalEmbedding", "TransformerDecoderCell",
+           "TransformerDecoder", "Transformer", "transformer_base",
+           "transformer_big"]
+
+
+def _split_heads(t, num_heads: int, head_dim: int):
+    # (B, T, C) -> (B*H, T, hd)
+    B, T, _ = t.shape
+    t = t.reshape(B, T, num_heads, head_dim).transpose(1, 2)
+    return t.reshape(B * num_heads, T, head_dim)
+
+
+def _merge_heads(t, num_heads: int):
+    # (B*H, T, hd) -> (B, T, C)
+    BH, T, hd = t.shape
+    t = t.reshape(BH // num_heads, num_heads, T, hd).transpose(1, 2)
+    return t.reshape(BH // num_heads, T, num_heads * hd)
+
+
+def _big_neg(dtype) -> float:
+    # -1e9 in f32; the half-safe -3e4 in 16-bit types, where -1e9 would
+    # overflow to -inf
+    return -3e4 if dtype in (torch.float16, torch.bfloat16) else -1e9
+
+
+def _mask_scores(scores, mask, num_heads: int):
+    """mask: (B, Tq, Tk), nonzero = keep, broadcast over the heads of the
+    (B*H, Tq, Tk) scores; masked-out positions take the big negative."""
+    B, Tq, Tk = mask.shape
+    m = (mask != 0)[:, None].expand(B, num_heads, Tq, Tk)
+    return torch.where(m.reshape(B * num_heads, Tq, Tk), scores,
+                       torch.full_like(scores, _big_neg(scores.dtype)))
+
+
+def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
+               causal: bool = False, drop=None):
+    """softmax(q k^T / sqrt(hd) [+ causal] [masked]) v over (B*H, T, hd)."""
+    scores = torch.bmm(q, k.transpose(1, 2)) / math.sqrt(head_dim)
+    if causal:
+        T = scores.shape[-1]
+        addend = torch.triu(torch.full((T, T), _big_neg(scores.dtype),
+                                       dtype=scores.dtype,
+                                       device=scores.device), diagonal=1)
+        scores = scores + addend[None]
+    if mask is not None:
+        scores = _mask_scores(scores, mask, num_heads)
+    attn = torch.softmax(scores, dim=-1)
+    if drop is not None:
+        attn = drop(attn)
+    return torch.bmm(attn, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Self attention with a fused qkv projection, weight (3*units, in)."""
+
+    def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
+                 causal: bool = False):
+        super().__init__()
+        if units % num_heads != 0:
+            raise MXNetError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = units // num_heads
+        self.causal = causal
+        self.qkv = nn.Linear(units, 3 * units)
+        self.proj = nn.Linear(units, units)
+        self.attn_drop = nn.Dropout(dropout)
+
+    def forward(self, x, mask=None):
+        q, k, v = self.qkv(x).chunk(3, dim=-1)
+        H, hd = self.num_heads, self.head_dim
+        out = _attention(_split_heads(q, H, hd), _split_heads(k, H, hd),
+                         _split_heads(v, H, hd), hd, H, mask, self.causal,
+                         self.attn_drop)
+        return self.proj(_merge_heads(out, H))
+
+
+class PositionwiseFFN(nn.Module):
+    def __init__(self, units: int, hidden_size: int, dropout: float = 0.0):
+        super().__init__()
+        self.ffn_1 = nn.Linear(units, hidden_size)
+        self.ffn_2 = nn.Linear(hidden_size, units)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.drop(self.ffn_2(torch.relu(self.ffn_1(x))))
+
+
+class TransformerEncoderCell(nn.Module):
+    """Post-LN encoder layer."""
+
+    def __init__(self, units: int, hidden_size: int, num_heads: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.attn = MultiHeadAttention(units, num_heads, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+        self.ln1 = LayerNorm(units)
+        self.ln2 = LayerNorm(units)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x, mask=None):
+        x = self.ln1(x + self.drop(self.attn(x, mask)))
+        return self.ln2(x + self.ffn(x))
+
+
+class PositionalEmbedding(nn.Module):
+    """Learned positional embedding: adds rows [0, T) of ``weight``."""
+
+    def __init__(self, max_length: int, units: int):
+        super().__init__()
+        self.max_length = max_length
+        self.weight = nn.Parameter(torch.empty(max_length, units))
+
+    def forward(self, x):
+        return x + self.weight[:x.shape[1]][None]
+
+
+class TransformerEncoder(nn.Module):
+    def __init__(self, num_layers: int, units: int, hidden_size: int,
+                 num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerEncoderCell(units, hidden_size, num_heads, dropout)
+            for _ in range(num_layers))
+
+    def forward(self, x, mask=None):
+        for cell in self.layers:
+            x = cell(x, mask)
+        return x
+
+
+class MultiHeadCrossAttention(nn.Module):
+    """Decoder->encoder attention: q from x, k/v from the encoder memory;
+    weights q (units, in), kv (2*units, in)."""
+
+    def __init__(self, units: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        if units % num_heads != 0:
+            raise MXNetError(f"units {units} not divisible by heads "
+                             f"{num_heads}")
+        self.num_heads = num_heads
+        self.head_dim = units // num_heads
+        self.q_proj = nn.Linear(units, units)
+        self.kv = nn.Linear(units, 2 * units)
+        self.proj = nn.Linear(units, units)
+        self.attn_drop = nn.Dropout(dropout)
+
+    def forward(self, x, mem, mask=None):
+        # x: (B, Tq, C); mem: (B, Tk, C); mask: (B, Tq, Tk), nonzero = keep
+        H, hd = self.num_heads, self.head_dim
+        k, v = self.kv(mem).chunk(2, dim=-1)
+        out = _attention(_split_heads(self.q_proj(x), H, hd),
+                         _split_heads(k, H, hd), _split_heads(v, H, hd),
+                         hd, H, mask, drop=self.attn_drop)
+        return self.proj(_merge_heads(out, H))
+
+
+class TransformerDecoderCell(nn.Module):
+    """Causal self-attention + cross-attention + FFN, post-LN (the WMT
+    recipe)."""
+
+    def __init__(self, units: int, hidden_size: int, num_heads: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.self_attn = MultiHeadAttention(units, num_heads, dropout,
+                                            causal=True)
+        self.cross_attn = MultiHeadCrossAttention(units, num_heads, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+        self.ln1 = LayerNorm(units)
+        self.ln2 = LayerNorm(units)
+        self.ln3 = LayerNorm(units)
+        self.drop = nn.Dropout(dropout)
+
+    def forward(self, x, mem, self_mask=None, cross_mask=None):
+        x = self.ln1(x + self.drop(self.self_attn(x, self_mask)))
+        x = self.ln2(x + self.drop(self.cross_attn(x, mem, cross_mask)))
+        return self.ln3(x + self.ffn(x))
+
+    def step(self, x_t, mem, cross_mask_t, cache):
+        """Incremental decode of ONE position with cached self-attention
+        K/V.  x_t: (B, 1, C); ``cache`` writes this position's k/v and
+        attends the query over every row written so far
+        (``update_and_attend``).  Inference only."""
+        sa = self.self_attn
+        q_t, k_t, v_t = sa.qkv(x_t).chunk(3, dim=-1)
+        a = sa.proj(cache.update_and_attend(sa, q_t, k_t, v_t))
+        x = self.ln1(x_t + a)
+        x = self.ln2(x + self.cross_attn(x, mem, cross_mask_t))
+        return self.ln3(x + self.ffn(x))
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, num_layers: int, units: int, hidden_size: int,
+                 num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderCell(units, hidden_size, num_heads, dropout)
+            for _ in range(num_layers))
+
+    def forward(self, x, mem, self_mask=None, cross_mask=None):
+        for cell in self.layers:
+            x = cell(x, mem, self_mask, cross_mask)
+        return x
+
+
+def _attend_cached(q_t, K, V, keep, num_heads: int, head_dim: int):
+    """One-query attention over a fixed-size cache: q_t (B, 1, C); K/V
+    (B, Lmax, C) with valid rows marked by keep (B, Lmax), 1 = attend."""
+    q = _split_heads(q_t, num_heads, head_dim)
+    k = _split_heads(K, num_heads, head_dim)
+    v = _split_heads(V, num_heads, head_dim)
+    out = _attention(q, k, v, head_dim, num_heads, mask=keep[:, None])
+    return _merge_heads(out, num_heads)
+
+
+class Transformer(nn.Module):
+    """Encoder-decoder Transformer with a shared source/target embedding
+    and tied output projection (the WMT14 recipe).
+
+    forward(src, tgt) -> logits (B, Tt, vocab).  Padding id 0 is masked
+    out of both attention directions; decoder self-attention is causal.
+
+    Weights are drawn from ``generator`` (a CPU ``torch.Generator``;
+    a fresh unseeded one when None) on the CPU — Xavier-uniform for every
+    matrix and embedding table, zero biases, unit LayerNorm scales, as
+    the JAX package's ``mx.init.Xavier()`` — then moved to ``device``
+    (default: :func:`context.default_device`)."""
+
+    def __init__(self, vocab_size: int, units: int = 512,
+                 hidden_size: int = 2048, num_heads: int = 8,
+                 num_layers: int = 6, max_length: int = 1024,
+                 dropout: float = 0.1, pad_id: int = 0, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.units = units
+        self.pad_id = pad_id
+        self.embed = nn.Embedding(vocab_size, units)
+        self.pos = PositionalEmbedding(max_length, units)
+        self.enc_drop = nn.Dropout(dropout)
+        self.encoder = TransformerEncoder(num_layers, units, hidden_size,
+                                          num_heads, dropout)
+        self.decoder = TransformerDecoder(num_layers, units, hidden_size,
+                                          num_heads, dropout)
+        self.reset_parameters(generator)
+        self.to(device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in self.modules():
+            if isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.Embedding, PositionalEmbedding)):
+                nn.init.xavier_uniform_(m.weight, generator=generator)
+
+    def _encode_h(self, src):
+        """(memory, src_keep): the encoder output and the (B, Ts) bool
+        key-padding mask, True = attend."""
+        src_keep = src != self.pad_id
+        B, Ts = src.shape
+        enc_mask = src_keep[:, None, :].expand(B, Ts, Ts)
+        mem = self.embed(src) * math.sqrt(self.units)
+        mem = self.enc_drop(self.pos(mem))
+        return self.encoder(mem, enc_mask), src_keep
+
+    def _logits(self, h):
+        # tied softmax: logits = h E^T with the shared embedding matrix
+        return h @ self.embed.weight.t()
+
+    def _decode_h(self, tgt, mem, src_keep):
+        B, Tt = tgt.shape
+        cross_mask = src_keep[:, None, :].expand(B, Tt, src_keep.shape[1])
+        self_mask = (tgt != self.pad_id)[:, None, :].expand(B, Tt, Tt)
+        h = self.embed(tgt) * math.sqrt(self.units)
+        h = self.enc_drop(self.pos(h))
+        return self._logits(self.decoder(h, mem, self_mask, cross_mask))
+
+    def forward(self, src, tgt):
+        mem, src_keep = self._encode_h(src)
+        return self._decode_h(tgt, mem, src_keep)
+
+    def _decode_step(self, tok_t, pos, mem, src_keep, caches):
+        """Logits (B, V) for one decode position using per-layer step
+        caches (see ``TransformerDecoderCell.step``).  Inference only.
+
+        ``pos`` holds per-row decode positions, (B,), or (1,) broadcasting
+        one position.  A position past the positional table clamps to its
+        last row, as the JAX package's gather does (the serving engine
+        keeps live positions inside the table)."""
+        x = self.embed(tok_t) * math.sqrt(self.units)        # (B, 1, C)
+        rows = torch.clamp(pos.long(), 0, self.pos.max_length - 1)
+        x = x + self.pos.weight[rows][:, None, :]
+        cross_mask_t = src_keep[:, None, :]                   # (B, 1, Ts)
+        for cell, cache in zip(self.decoder.layers, caches):
+            x = cell.step(x, mem, cross_mask_t, cache)
+        return self._logits(x.reshape(x.shape[0], -1))
+
+
+def transformer_base(vocab_size: int, **kwargs) -> Transformer:
+    """Transformer-base (WMT14): 6 layers, 512/2048, 8 heads."""
+    kwargs.setdefault("dropout", 0.1)
+    return Transformer(vocab_size, units=512, hidden_size=2048, num_heads=8,
+                       num_layers=6, **kwargs)
+
+
+def transformer_big(vocab_size: int, **kwargs) -> Transformer:
+    """Transformer-big (WMT14, BASELINE config 4): 6 layers, 1024/4096,
+    16 heads, dropout 0.3."""
+    kwargs.setdefault("dropout", 0.3)
+    return Transformer(vocab_size, units=1024, hidden_size=4096,
+                       num_heads=16, num_layers=6, **kwargs)

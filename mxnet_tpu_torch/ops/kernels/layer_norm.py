@@ -1,0 +1,93 @@
+"""Row LayerNorm over the last axis: kernel K1 (``csrc/layer_norm.cu``)
+and its plain version.
+
+Counterpart of ``mxnet_tpu/ops/pallas/fused.py::layer_norm`` (the
+``_ln_kernel`` Pallas kernel): f32 mean and rstd by the two-pass formula
+``var = mean((x - mu)^2)``, then ``(x - mu) * rstd * gamma + beta`` in
+x's type.  Both versions also return ``mu`` and ``rstd`` (f32, (N,)),
+which the backward of a later slice needs.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...base import MXNetError
+from . import _build
+
+__all__ = ["layer_norm", "layer_norm_ref"]
+
+
+def layer_norm_ref(x, gamma, beta, eps: float = 1e-5):
+    """Plain PyTorch version: x (N, C), gamma/beta (C,) ->
+    (out (N, C) in x's dtype, mu (N,) f32, rstd (N,) f32)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    out = xc * rstd * gamma.float() + beta.float()
+    return out.to(x.dtype), mu[:, 0], rstd[:, 0]
+
+
+def _lib():
+    lib = _build.load("layer_norm")
+    fn = lib.mx_layer_norm_f32
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        lib.mx_layer_norm_max_c.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(x, gamma, beta, max_c: int) -> None:
+    if x.dim() != 2:
+        raise MXNetError(f"layer_norm: x must be (N, C), got {tuple(x.shape)}")
+    C = x.shape[1]
+    for name, t, shape in (("x", x, tuple(x.shape)), ("gamma", gamma, (C,)),
+                           ("beta", beta, (C,))):
+        if t.device != x.device:
+            raise MXNetError(f"layer_norm: {name} on {t.device}, x on "
+                             f"{x.device}")
+        if t.dtype != torch.float32:
+            raise MXNetError(f"layer_norm: the kernel takes float32, "
+                             f"{name} is {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise MXNetError(f"layer_norm: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise MXNetError(f"layer_norm: {name} must be contiguous and "
+                             "16-byte aligned")
+    if C % 4 or C > max_c:
+        raise MXNetError(f"layer_norm: the kernel takes C % 4 == 0 and "
+                         f"C <= {max_c}, got C = {C}")
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """Row LayerNorm of x (N, C) -> (out, mu, rstd), as
+    :func:`layer_norm_ref`.  CPU tensors take the plain version; CUDA
+    tensors launch K1 on the current stream or raise."""
+    if x.device.type == "cpu":
+        return layer_norm_ref(x, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise MXNetError(f"layer_norm: no kernel for device {x.device}")
+    lib = _lib()
+    _check_args(x, gamma, beta, lib.mx_layer_norm_max_c())
+    N, C = x.shape
+    out = torch.empty_like(x)
+    mu = torch.empty((N,), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((N,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.mx_layer_norm_f32(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            mu.data_ptr(), rstd.data_ptr(), N, C, float(eps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "layer_norm")
+    layer_norm.launches += 1
+    return out, mu, rstd
+
+
+layer_norm.launches = 0
