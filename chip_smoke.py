@@ -10,7 +10,8 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           CUDA versions, and the seconds the kernel build
                           took (one nvcc per ``csrc/*.cu``, all at once).
   kernel_layer_norm       kernel K1 vs its plain version at (8, 1024),
-                          (64, 1024) and (8192, 1024) f32, atol 1e-5 on out,
+                          (64, 1024), (8192, 1024) and the training path's
+                          (16384, 768) f32, atol 1e-5 on out,
                           mu and rstd; times of the kernel, the plain version
                           and ``torch.nn.functional.layer_norm`` (the library
                           yardstick, never called by the port) beside the
@@ -30,13 +31,37 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           launch counters are zeroed just before and read
                           just after: each kernel must have run exactly as
                           often as the path calls it (K1 18 times per decode
-                          step and 12 per prefill, K2 6 times per step).
+                          step and 12 per prefill, K2 6 times per step,
+                          K3-K5 never: every attention there is masked).
   serve_parity            one request's encoder memory and first 4 decode
                           logits on the card vs the same weights on the CPU
                           through the plain versions, max abs diff <= 2e-3.
-  serve_profile           8 full slots decoding 32 steps under
-                          torch.profiler: device time by kernel and the
-                          device's busy share of the wall time.
+  kernel_flash_attention  kernels K3 (FA2 forward), K4 (dq) and K5 (dk, dv)
+                          vs the plain version (the forward, and
+                          torch.autograd.grad through it for the backward)
+                          at the training path's shape (N 384 = 32 x 12
+                          heads, L 512, hd 64) and a causal one (N 6, L 200,
+                          hd 128); atol 2e-5 on out and lse, 1e-4 on dq, dk
+                          and dv; times of each kernel and its plain version
+                          beside the bound, with
+                          ``scaled_dot_product_attention`` forward (K3) and
+                          its backward (fwd+bwd minus fwd; dq, dk and dv in
+                          one call, beside K4 and K5) as the library
+                          yardsticks.
+  train                   BERT-base MLM (vocab 30522, 12 layers, 768/3072,
+                          12 heads, dropout 0) with seeded random weights,
+                          trained by ``DataParallelStep`` with Adam (lr
+                          1e-4) on one fixed batch of 32 x 512 tokens, TF32
+                          off: one warm-up step, then 5 timed steps with the
+                          counters zeroed just before: K1 26, K3, K4 and K5
+                          12 times per step; losses finite, the last below
+                          the first; tokens/s, step ms, peak memory.
+  train_parity            one forward and backward of the same weights on
+                          the card and on the CPU (plain versions) on a
+                          (2, 128) batch: loss within relative 1e-5, three
+                          gradients within 1e-3 of their max abs.
+  train_profile           2 training steps under torch.profiler: device
+                          busy share, top kernels, K1 + K3-K5's share.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase makes
@@ -116,7 +141,16 @@ def phase_device(torch, ctx):
     return {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0],
-            "build_s": time.perf_counter() - t0}
+            "build_s": time.perf_counter() - t0,
+            "ptxas": {k: _ptxas(v) for k, v in _build.BUILD_LOG.items()}}
+
+
+def _ptxas(log: str) -> list:
+    """The per-kernel lines of ``ptxas -v`` (mangled name, then its
+    registers, shared memory and spills), as nvcc printed them."""
+    return [line.strip() for line in log.splitlines()
+            if "Function properties" in line or "spill" in line
+            or "Used" in line]
 
 
 def phase_layer_norm(torch, ctx):
@@ -126,7 +160,9 @@ def phase_layer_norm(torch, ctx):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     shapes, worst = [], 0.0
-    for n, c in ((8, 1024), (64, 1024), (8192, 1024)):
+    # decode (8) and prefill (64) rows of Transformer-big, a large batch
+    # at its width, and the training path's 32 x 512 rows of BERT-base
+    for n, c in ((8, 1024), (64, 1024), (8192, 1024), (16384, 768)):
         x = torch.randn(n, c, device=dev, generator=g) * 2 + 0.5
         gamma = torch.randn(c, device=dev, generator=g)
         beta = torch.randn(c, device=dev, generator=g)
@@ -221,6 +257,103 @@ def phase_paged_attention(torch, ctx):
     return {"atol": 1e-5, "cases": out, "ok": all(c["ok"] for c in out)}
 
 
+def _live_pairs(Lq, Lk, causal):
+    """(q, k) pairs the attention must compute: all, or those on and
+    below the diagonal."""
+    if not causal:
+        return Lq * Lk
+    return sum(min(i + 1, Lk) for i in range(Lq))
+
+
+def phase_flash_attention(torch, ctx):
+    from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
+                                             flash_attention_dkv_ref,
+                                             flash_attention_dq,
+                                             flash_attention_dq_ref,
+                                             flash_attention_fwd,
+                                             flash_attention_ref)
+
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    # the training path's attention (batch 32 x 12 heads), and a causal
+    # head-dim-128 shape with a ragged last tile
+    cases = {"train": (32 * 12, 512, 512, 64, False),
+             "causal_hd128": (6, 200, 200, 128, True)}
+    tol = {"out": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+    out_rows = {"flash_attention_fwd": [], "flash_attention_dq": [],
+                "flash_attention_dkv": []}
+    for name, (N, Lq, Lk, D, causal) in cases.items():
+        q = torch.randn(N, Lq, D, device=dev, generator=g)
+        k = torch.randn(N, Lk, D, device=dev, generator=g)
+        v = torch.randn(N, Lk, D, device=dev, generator=g)
+        do = torch.randn(N, Lq, D, device=dev, generator=g)
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        delta = (do * out).sum(-1)
+        dq = flash_attention_dq(q, k, v, do, lse, delta, causal)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out_r, lse_r = flash_attention_ref(*leaves, causal)
+        want = torch.autograd.grad(out_r, leaves, do)
+        torch.cuda.synchronize()
+        got = {"out": (out, out_r), "lse": (lse, lse_r), "dq": (dq, want[0]),
+               "dk": (dk, want[1]), "dv": (dv, want[2])}
+        err = {key: float((a - b.detach()).abs().max())
+               for key, (a, b) in got.items()}
+        del leaves, out_r, lse_r, want
+
+        pairs = _live_pairs(Lq, Lk, causal)
+        nq, nk = N * Lq * D * 4, N * Lk * D * 4
+        rows = N * Lq * 4
+        bounds = {"flash_attention_fwd": bound(2 * nq + 2 * nk + rows,
+                                               4 * N * pairs * D),
+                  "flash_attention_dq": bound(3 * nq + 2 * nk + 2 * rows,
+                                              6 * N * pairs * D),
+                  "flash_attention_dkv": bound(2 * nq + 4 * nk + 2 * rows,
+                                               8 * N * pairs * D)}
+        args = (q, k, v, do, lse, delta, causal, 1.0 / math.sqrt(D))
+        q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+        sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=causal))
+        l4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+        sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*l4, is_causal=causal), l4,
+            do4)) - sdpa_fwd
+        timed = {
+            "flash_attention_fwd": (
+                lambda: flash_attention_fwd(q, k, v, causal),
+                lambda: flash_attention_ref(q, k, v, causal), sdpa_fwd,
+                ("out", "lse")),
+            "flash_attention_dq": (
+                lambda: flash_attention_dq(*args),
+                lambda: flash_attention_dq_ref(*args), sdpa_bwd, ("dq",)),
+            "flash_attention_dkv": (
+                lambda: flash_attention_dkv(*args),
+                lambda: flash_attention_dkv_ref(*args), sdpa_bwd,
+                ("dk", "dv")),
+        }
+        for kname, (kern, plain, lib_ms, keys) in timed.items():
+            e = max(err[key] for key in keys)
+            b_ms, b_by = bounds[kname]
+            out_rows[kname].append({
+                "case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
+                "causal": causal, "max_abs_err": e,
+                "ok": all(err[key] <= tol[key] for key in keys),
+                "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+        del l4
+        torch.cuda.empty_cache()
+    for kname, rows_ in out_rows.items():
+        ctx[kname] = dict(rows_[0], max_abs_err=max(r["max_abs_err"]
+                                                    for r in rows_))
+        ctx[kname]["library_is"] = (
+            "scaled_dot_product_attention forward" if kname.endswith("fwd")
+            else "scaled_dot_product_attention backward (dq, dk and dv in "
+                 "one call: fwd+bwd minus fwd)")
+    return {"tol": tol, "kernels": out_rows,
+            "ok": all(r["ok"] for rows_ in out_rows.values() for r in rows_)}
+
+
 def _requests(n, vocab, seed):
     from mxnet_tpu_torch.serving import Request
 
@@ -235,7 +368,9 @@ def _requests(n, vocab, seed):
 
 def phase_serve(torch, ctx):
     from mxnet_tpu_torch.models.transformer import transformer_big
-    from mxnet_tpu_torch.ops.kernels import (layer_norm,
+    from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
+                                             flash_attention_dq,
+                                             flash_attention_fwd, layer_norm,
                                              paged_decode_attention)
     from mxnet_tpu_torch.serving import ServingEngine, TransformerAdapter
 
@@ -254,14 +389,18 @@ def phase_serve(torch, ctx):
 
     eng = ServingEngine(adapter, **kw)
     reqs, arrivals = _requests(16, vocab, SEED)
-    layer_norm.launches = 0
-    paged_decode_attention.launches = 0
+    counted = (layer_norm, paged_decode_attention, flash_attention_fwd,
+               flash_attention_dq, flash_attention_dkv)
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     out = eng.serve(reqs, arrival_steps=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    ctx["launches"] = {"serve": launches}
     ln, pa = layer_norm.launches, paged_decode_attention.launches
-    ctx["launches"] = {"layer_norm": ln, "paged_decode_attention": pa}
+    flash = sum(launches[n] for n in FLASH)
 
     steps = eng.step_count
     prefills = len(reqs) + sum(r.preemptions for r in reqs)
@@ -286,14 +425,15 @@ def phase_serve(torch, ctx):
         "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
         "decode_step_ms_median": statistics.median(step_ms),
         "prefill_ms_median": prefill_ms,
-        "launches": ctx["launches"],
+        "launches": launches,
         "launches_expected": {"layer_norm": 18 * steps + 12 * prefills,
-                              "paged_decode_attention": 6 * steps},
+                              "paged_decode_attention": 6 * steps,
+                              **{n: 0 for n in FLASH}},
         "card": ctx["smi"],
         "ok": bool(finished and lengths_ok and in_vocab and pages_back
                    and ln > 0 and pa > 0
                    and ln == 18 * steps + 12 * prefills
-                   and pa == 6 * steps),
+                   and pa == 6 * steps and flash == 0),
         "checks": {"finished": finished, "lengths": lengths_ok,
                    "in_vocab": bool(in_vocab), "pages_back": pages_back}}
 
@@ -368,14 +508,7 @@ def phase_serve_profile(torch, ctx):
         eng.serve(reqs)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    rows = _profile_rows(prof)
     busy = sum(ms for ms, _, _ in rows)
     ours = sum(ms for ms, _, k in rows
                if "ln_fwd_f32" in k or "paged_decode_f32" in k)
@@ -388,11 +521,178 @@ def phase_serve_profile(torch, ctx):
                     for ms, c, k in rows[:12]]}
 
 
+BERT_VOCAB = 30522
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 32, 512, 5
+FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
+# launches of each kernel per training step: embed_ln + 2 per layer +
+# mlm_ln LayerNorms, and one attention per layer
+TRAIN_PER_STEP = {"layer_norm": 26, "paged_decode_attention": 0,
+                  **{n: 12 for n in FLASH}}
+OUR_KERNELS = ("ln_fwd_f32", "paged_decode_f32", "flash_fwd_f32",
+               "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+
+
+def _mlm_loss(torch):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    def mlm(logits, labels):
+        return loss_fn(logits.reshape(-1, logits.shape[-1]),
+                       labels.reshape(-1))
+
+    return mlm
+
+
+def phase_train(torch, ctx):
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    for key in ("model", "adapter"):  # the serving phases are done
+        ctx.pop(key, None)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = bert_base(BERT_VOCAB, dropout=0.0,
+                      generator=torch.Generator().manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4})
+    ctx.update(bert=model, train_step=step)
+    rng = np.random.RandomState(SEED)
+    tokens = torch.from_numpy(rng.randint(
+        0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(np.int32)).cuda()
+    labels = tokens.float()
+    ctx["train_batch"] = (tokens, labels)
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step.step(tokens, labels))  # warm-up
+    torch.cuda.synchronize()
+
+    counted = {n: getattr(kernels, n) for n in TRAIN_PER_STEP}
+    for fn in counted.values():
+        fn.launches = 0
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(TRAIN_STEPS)]
+    handles = []
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        handles.append(step.step(tokens, labels))
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx["launches"]["train"] = launches
+    expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
+    losses = [first] + [float(h) for h in handles]
+    finite = all(math.isfinite(x) for x in losses)
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    return {
+        "model": "bert_base", "vocab": BERT_VOCAB, "params": n_params,
+        "init_s": init_s, "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "optimizer": "adam", "learning_rate": 1e-4, "steps": TRAIN_STEPS,
+        "wall_s": wall,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall,
+        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "losses": losses,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "launches_expected": expected,
+        "card": ctx["smi"],
+        "ok": bool(finite and losses[-1] < losses[0]
+                   and n_params == 133_545_786 and launches == expected)}
+
+
+def phase_train_parity(torch, ctx):
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    model = ctx["bert"]
+    cpu_model = bert_base(BERT_VOCAB, dropout=0.0, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               model.state_dict().items()})
+    names = ("bert.encoder.layers.0.attn.qkv.weight", "bert.embed_ln.weight",
+             "decoder.weight")
+    tokens = torch.from_numpy(np.random.RandomState(SEED + 4).randint(
+        0, BERT_VOCAB, (2, 128)).astype(np.int32))
+    mlm = _mlm_loss(torch)
+
+    def forward_backward(net, device):
+        net.train()
+        net.zero_grad(set_to_none=True)
+        t = tokens.to(device)
+        loss = mlm(net(t), t.float()).float().mean()
+        loss.backward()
+        params = dict(net.named_parameters())
+        grads = {n: params[n].grad.detach().cpu() for n in names}
+        net.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    loss_g, grads_g = forward_backward(model, torch.device("cuda", 0))
+    loss_c, grads_c = forward_backward(cpu_model, torch.device("cpu"))
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    diffs = {n: {"max_abs_diff": float((grads_g[n] - grads_c[n]).abs().max()),
+                 "max_abs": float(grads_c[n].abs().max())} for n in names}
+    grads_ok = all(d["max_abs_diff"] <= 1e-3 * d["max_abs"]
+                   for d in diffs.values())
+    return {"batch": [2, 128], "loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_rel_diff": rel, "grads": diffs,
+            "ok": rel <= 1e-5 and grads_ok}
+
+
+def _profile_rows(prof):
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def phase_train_profile(torch, ctx):
+    """Where the training time goes: 2 steps under torch.profiler (device
+    activity only), device time by kernel and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = ctx["train_step"]
+    tokens, labels = ctx["train_batch"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step.step(tokens, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof)
+    busy = sum(ms for ms, _, _ in rows)
+    ours = {k: sum(ms for ms, _, key in rows if k in key)
+            for k in OUR_KERNELS}
+    return {"steps": 2, "wall_ms": wall_ms,
+            "device_busy_ms": busy if rows else None,
+            "device_busy_share": busy / wall_ms if rows else None,
+            "device_ops": sum(c for _, c, _ in rows),
+            "our_kernels_ms": ours,
+            "our_kernels_share": sum(ours.values()) / busy if rows else None,
+            "top": [{"name": k[:100], "ms": ms, "count": c}
+                    for ms, c, k in rows[:15]]}
+
+
+# name, source, the TPU kernel it replaces, the path whose launches the
+# kernels line reports
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
-     "mxnet_tpu/ops/pallas/fused.py:98"),
+     "mxnet_tpu/ops/pallas/fused.py:98", "serve"),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
-     "mxnet_tpu/ops/pallas/paged_attention.py:38"),
+     "mxnet_tpu/ops/pallas/paged_attention.py:38", "serve"),
+    ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:72", "train"),
+    ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:131", "train"),
+    ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:158", "train"),
 )
 
 
@@ -414,9 +714,13 @@ def main() -> int:
     phases = (("device", phase_device),
               ("kernel_layer_norm", phase_layer_norm),
               ("kernel_paged_attention", phase_paged_attention),
+              ("kernel_flash_attention", phase_flash_attention),
               ("serve", phase_serve),
               ("serve_parity", phase_serve_parity),
-              ("serve_profile", phase_serve_profile))
+              ("serve_profile", phase_serve_profile),
+              ("train", phase_train),
+              ("train_parity", phase_train_parity),
+              ("train_profile", phase_train_profile))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -435,14 +739,19 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     kernels = []
-    for name, source, replaces in KERNELS:
+    for name, source, replaces, path in KERNELS:
         k = ctx[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": ctx["launches"][name],
+            "replaces": replaces, "launches": ctx["launches"][path][name],
+            "path": path,
+            "launches_by_path": {p: ctx["launches"][p][name]
+                                 for p in ctx["launches"]},
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms")}})
+                                       "library_ms")},
+            **({"library_is": k["library_is"]} if "library_is" in k
+               else {})})
     print(ctx["smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -8,12 +8,18 @@ gives for a ``mxnet_tpu`` net — and loads them into the port's
 ``mxnet_tpu``.
 
 Names map segment by segment: the net's own ``prefix`` is stripped, each
-module path step takes its Gluon prefix (``encoder`` -> ``enc``,
-``layers.3`` -> ``layer3``, ``self_attn`` -> ``self``, ``q_proj`` ->
-``q``, ``ffn_1`` -> ``ffn1``), and a LayerNorm's ``weight``/``bias`` are
-Gluon's ``gamma``/``beta``.  So ``decoder.layers.0.self_attn.qkv.weight``
-is ``<prefix>dec_layer0_self_qkv_weight`` and
-``encoder.layers.1.ln2.weight`` is ``<prefix>enc_layer1_ln2_gamma``.
+module path step takes its Gluon prefix from the model family's segment
+map (the top-level module's ``gluon_segments``; a segment the map does
+not name is its own prefix), ``layers.3`` is ``layer3``, and a
+LayerNorm's ``weight``/``bias`` are Gluon's ``gamma``/``beta``.  For the
+seq2seq ``Transformer`` (``encoder`` -> ``enc``, ``self_attn`` ->
+``self``, ``q_proj`` -> ``q``, ``ffn_1`` -> ``ffn1``, ...)
+``decoder.layers.0.self_attn.qkv.weight`` is
+``<prefix>dec_layer0_self_qkv_weight``; for BERT (``token_type_embed`` ->
+``type_embed``, ``ffn_1`` -> ``ffn1``, ``ffn_2`` -> ``ffn2``)
+``bert.encoder.layers.1.ln2.weight`` is
+``<prefix>bert_encoder_layer1_ln2_gamma`` and ``decoder.weight`` is
+``<prefix>decoder_weight``.
 """
 from __future__ import annotations
 
@@ -27,22 +33,20 @@ from .gluon.nn import LayerNorm
 
 __all__ = ["gluon_name", "from_mxnet_tpu_params"]
 
-_SEGMENT = {"encoder": "enc", "decoder": "dec", "self_attn": "self",
-            "cross_attn": "cross", "q_proj": "q", "ffn_1": "ffn1",
-            "ffn_2": "ffn2"}
 _LN_LEAF = {"weight": "gamma", "bias": "beta"}
 
 
 def gluon_name(model: torch.nn.Module, key: str) -> str:
     """The Gluon name (without the net's prefix) of ``state_dict`` key
     ``key`` of ``model``."""
+    segments = getattr(model, "gluon_segments", {})
     *path, leaf = key.split(".")
     parts = []
     for i, seg in enumerate(path):
         if seg.isdigit() and parts and path[i - 1] == "layers":
             parts[-1] = f"layer{seg}"
         else:
-            parts.append(_SEGMENT.get(seg, seg))
+            parts.append(segments.get(seg, seg))
     if isinstance(model.get_submodule(".".join(path)), LayerNorm):
         leaf = _LN_LEAF[leaf]
     return "_".join(parts + [leaf])

@@ -1,9 +1,11 @@
 """The Gluon layer of ``mxnet_tpu/gluon/nn/basic_layers.py`` that needs
 a kernel, as a ``torch.nn`` module.
 
-``LayerNorm`` runs kernel K1 (``ops.kernels.layer_norm``) on every call,
-as ``mxnet_tpu/ops/nn.py``'s ``LayerNorm`` op does on the TPU: the CUDA
-kernel for CUDA tensors, its plain version for CPU ones.  The other
+``LayerNorm`` runs kernel K1 (``ops.kernels.layer_norm``) once on every
+call, as ``mxnet_tpu/ops/nn.py``'s ``LayerNorm`` op does on the TPU: the
+CUDA kernel for CUDA tensors, its plain version for CPU ones.  It goes
+through ``LayerNormFunction``, so it has the gradient of the JAX
+package's ``_ln_bwd`` on every device.  The other
 layers the Transformer uses are torch's own: Gluon's
 ``Dense(flatten=False)`` is ``torch.nn.Linear`` (the weight is (out, in)
 in both), ``Embedding`` and ``Dropout`` are ``torch.nn``'s.
@@ -13,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.kernels import layer_norm
+from ..ops.kernels import LayerNormFunction
 
 __all__ = ["LayerNorm"]
 
@@ -30,6 +32,6 @@ class LayerNorm(nn.Module):
 
     def forward(self, x):
         C = x.shape[-1]
-        out, _, _ = layer_norm(x.reshape(-1, C).contiguous(), self.weight,
-                               self.bias, self.eps)
+        out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(),
+                                      self.weight, self.bias, self.eps)
         return out.reshape(x.shape)

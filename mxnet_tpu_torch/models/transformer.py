@@ -8,14 +8,19 @@ types), the ``sqrt(units)`` embedding scale, post-LN layers and the tied
 output projection.  Every LayerNorm runs kernel K1
 (``gluon.nn.LayerNorm``); the decoder's incremental ``step`` attends
 through a step-cache object, which for the serving engine is
-``serving.paged_cache.PagedStepCache`` (kernel K2).  The dense masked
-attention of the encoder and of cross-attention stays plain torch, as the
-JAX package leaves it to XLA.
+``serving.paged_cache.PagedStepCache`` (kernel K2).
+``MultiHeadAttention`` routes as the JAX class does: with no mask and
+attention dropout inactive (rate 0, or not training) it calls
+``ops.kernels.flash_attention`` (kernels K3-K5); otherwise it takes the
+dense masked attention, which stays plain torch, as the JAX package leaves
+it to XLA, and so does cross-attention.
 
 Parameter names follow Gluon's through ``convert.from_mxnet_tpu_params``.
 Gluon's ``Dense(flatten=False)`` is ``torch.nn.Linear`` here (weight
-(out, in) in both).  The feed-forward activation is ReLU, the WMT
-recipe's (the JAX classes' gelu option is not ported yet).
+(out, in) in both).  The feed-forward activation is ``"gelu"`` (exact
+erf, the JAX ``LeakyReLU(act_type="gelu")``) or ``"relu"``; the defaults
+are the JAX classes' (gelu in the encoder, relu in the decoder), and
+``Transformer`` passes relu, the WMT recipe's.
 """
 from __future__ import annotations
 
@@ -24,10 +29,12 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.nn import LayerNorm
+from ..ops.kernels import flash_attention
 
 __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
@@ -102,31 +109,47 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         H, hd = self.num_heads, self.head_dim
-        out = _attention(_split_heads(q, H, hd), _split_heads(k, H, hd),
-                         _split_heads(v, H, hd), hd, H, mask, self.causal,
-                         self.attn_drop)
+        q, k, v = (_split_heads(t, H, hd) for t in (q, k, v))
+        if mask is None and (self.attn_drop.p == 0.0 or not self.training):
+            # the fused path of the JAX class
+            # (mxnet_tpu/models/transformer.py:91): taken only when
+            # attention-prob dropout is inactive, so it computes what the
+            # dense path does
+            out = flash_attention(q, k, v, causal=self.causal)
+        else:
+            out = _attention(q, k, v, hd, H, mask, self.causal,
+                             self.attn_drop)
         return self.proj(_merge_heads(out, H))
 
 
+_ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="none"),
+                "relu": torch.relu}
+
+
 class PositionwiseFFN(nn.Module):
-    def __init__(self, units: int, hidden_size: int, dropout: float = 0.0):
+    def __init__(self, units: int, hidden_size: int, dropout: float = 0.0,
+                 activation: str = "gelu"):
         super().__init__()
+        if activation not in _ACTIVATIONS:
+            raise MXNetError(f"activation must be one of "
+                             f"{sorted(_ACTIVATIONS)}, got {activation!r}")
+        self.act = _ACTIVATIONS[activation]
         self.ffn_1 = nn.Linear(units, hidden_size)
         self.ffn_2 = nn.Linear(hidden_size, units)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x):
-        return self.drop(self.ffn_2(torch.relu(self.ffn_1(x))))
+        return self.drop(self.ffn_2(self.act(self.ffn_1(x))))
 
 
 class TransformerEncoderCell(nn.Module):
     """Post-LN encoder layer."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, activation: str = "gelu"):
         super().__init__()
         self.attn = MultiHeadAttention(units, num_heads, dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation)
         self.ln1 = LayerNorm(units)
         self.ln2 = LayerNorm(units)
         self.drop = nn.Dropout(dropout)
@@ -150,10 +173,12 @@ class PositionalEmbedding(nn.Module):
 
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, units: int, hidden_size: int,
-                 num_heads: int, dropout: float = 0.0):
+                 num_heads: int, dropout: float = 0.0,
+                 activation: str = "gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads, dropout)
+            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
+                                   activation)
             for _ in range(num_layers))
 
     def forward(self, x, mask=None):
@@ -198,7 +223,7 @@ class TransformerDecoderCell(nn.Module):
         self.self_attn = MultiHeadAttention(units, num_heads, dropout,
                                             causal=True)
         self.cross_attn = MultiHeadCrossAttention(units, num_heads, dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout)
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, "relu")
         self.ln1 = LayerNorm(units)
         self.ln2 = LayerNorm(units)
         self.ln3 = LayerNorm(units)
@@ -259,6 +284,11 @@ class Transformer(nn.Module):
     the JAX package's ``mx.init.Xavier()`` — then moved to ``device``
     (default: :func:`context.default_device`)."""
 
+    # module path segment -> Gluon prefix (convert.from_mxnet_tpu_params)
+    gluon_segments = {"encoder": "enc", "decoder": "dec", "self_attn": "self",
+                      "cross_attn": "cross", "q_proj": "q", "ffn_1": "ffn1",
+                      "ffn_2": "ffn2"}
+
     def __init__(self, vocab_size: int, units: int = 512,
                  hidden_size: int = 2048, num_heads: int = 8,
                  num_layers: int = 6, max_length: int = 1024,
@@ -272,7 +302,7 @@ class Transformer(nn.Module):
         self.pos = PositionalEmbedding(max_length, units)
         self.enc_drop = nn.Dropout(dropout)
         self.encoder = TransformerEncoder(num_layers, units, hidden_size,
-                                          num_heads, dropout)
+                                          num_heads, dropout, "relu")
         self.decoder = TransformerDecoder(num_layers, units, hidden_size,
                                           num_heads, dropout)
         self.reset_parameters(generator)

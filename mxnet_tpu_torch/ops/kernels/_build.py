@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-and is loaded through ``ctypes``.  Libraries land in ``build/`` at the
+and is loaded through ``ctypes``.  What ``ptxas -v`` reports (registers,
+shared memory and spills of each kernel) is kept in ``BUILD_LOG[name]``
+for the builds of this process.  Libraries land in ``build/`` at the
 repository root, named by a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one loads at once.  A failed
 build raises with nvcc's stderr; there is no fallback.
@@ -28,15 +30,17 @@ from typing import Dict, Iterable
 
 from ...base import MXNetError
 
-__all__ = ["load", "build_all", "check", "SOURCES", "CSRC", "BUILD_DIR"]
+__all__ = ["load", "build_all", "check", "SOURCES", "CSRC", "BUILD_DIR",
+           "BUILD_LOG"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("layer_norm", "paged_attention")
+SOURCES = ("layer_norm", "paged_attention", "flash_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -81,6 +85,7 @@ def _finish(name: str, out: Path, pending) -> None:
         tmp.unlink(missing_ok=True)
         raise MXNetError(f"nvcc failed for csrc/{name}.cu "
                          f"(exit {proc.returncode}):\n{err}")
+    BUILD_LOG[name] = err
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 

@@ -4,8 +4,13 @@ and its plain version.
 Counterpart of ``mxnet_tpu/ops/pallas/fused.py::layer_norm`` (the
 ``_ln_kernel`` Pallas kernel): f32 mean and rstd by the two-pass formula
 ``var = mean((x - mu)^2)``, then ``(x - mu) * rstd * gamma + beta`` in
-x's type.  Both versions also return ``mu`` and ``rstd`` (f32, (N,)),
-which the backward of a later slice needs.
+x's type.  Both versions also return ``mu`` and ``rstd`` (f32, (N,)).
+
+:class:`LayerNormFunction` gives K1 a gradient: its forward is
+:func:`layer_norm` and saves x, gamma, mu and rstd; its backward is
+:func:`layer_norm_bwd`, plain torch on every device, as the JAX package's
+backward (``fused.py::_ln_bwd``) is a ``jnp`` expression under
+``custom_vjp`` and not a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from ...base import MXNetError
 from . import _build
 
-__all__ = ["layer_norm", "layer_norm_ref"]
+__all__ = ["layer_norm", "layer_norm_ref", "layer_norm_bwd",
+           "LayerNormFunction"]
 
 
 def layer_norm_ref(x, gamma, beta, eps: float = 1e-5):
@@ -91,3 +97,35 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
 
 
 layer_norm.launches = 0
+
+
+def layer_norm_bwd(x, gamma, mu, rstd, g):
+    """(dx, dgamma, dbeta) of the row LayerNorm from the forward's mu and
+    rstd, the closed form of ``fused.py::_ln_bwd``."""
+    xf, gf = x.float(), g.float()
+    xhat = (xf - mu[:, None]) * rstd[:, None]
+    dgamma = (gf * xhat).sum(0)
+    dbeta = gf.sum(0)
+    dxhat = gf * gamma.float()[None, :]
+    c = x.shape[-1]
+    dx = rstd[:, None] / c * (c * dxhat - dxhat.sum(-1, keepdim=True)
+                              - xhat * (dxhat * xhat).sum(-1, keepdim=True))
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
+
+
+class LayerNormFunction(torch.autograd.Function):
+    """out = LayerNormFunction.apply(x, gamma, beta, eps) over x (N, C):
+    one :func:`layer_norm` call (K1 on CUDA tensors) forward,
+    :func:`layer_norm_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out, mu, rstd = layer_norm(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = layer_norm_bwd(x, gamma, mu, rstd, g)
+        return dx, dgamma, dbeta, None

@@ -1,0 +1,216 @@
+"""The port's FlashAttention-2 vs the JAX package's Pallas kernels.
+
+Kernels K3 (forward), K4 (dq) and K5 (dk, dv) are CUDA C++ and run only on
+the card; here, on the CPU, ``flash_attention`` runs through
+``FlashAttentionFunction`` with each kernel's plain version, and that is
+held against ``mxnet_tpu.ops.pallas.flash_attention`` in interpret mode
+(the Pallas ``_fwd_kernel``, ``_dq_kernel`` and ``_dkv_kernel``), with
+gradients from ``jax.vjp``.  The same numpy inputs, drawn from a seed, go
+to both.  Tolerances: out and lse atol = rtol = 1e-5, dq, dk and dv
+1e-4; both compute in f32 with sums in another order, and the gradients
+chain three products.
+"""
+import ctypes
+import importlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops.pallas.flash_attention import (
+    flash_attention as jax_flash_attention)
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops.kernels import (_build, flash_attention,
+                                         flash_attention_dkv,
+                                         flash_attention_dkv_ref,
+                                         flash_attention_dq,
+                                         flash_attention_dq_ref,
+                                         flash_attention_fwd,
+                                         flash_attention_ref)
+
+fa_mod = importlib.import_module("mxnet_tpu_torch.ops.kernels.flash_attention")
+
+OUT_TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+KERNELS = (flash_attention_fwd, flash_attention_dq, flash_attention_dkv)
+
+CASES = [
+    # N, Lq, Lk, D, causal
+    (3, 16, 16, 16, False),
+    (3, 16, 16, 16, True),
+    (2, 19, 33, 64, False),    # Lq != Lk, neither a multiple of 8
+    (2, 37, 37, 64, True),     # causal, not a multiple of 8
+    (2, 40, 27, 16, True),     # causal with Lq > Lk
+]
+
+
+def _inputs(seed, shape_q, shape_k):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(*shape_q).astype(np.float32)
+    k = rng.randn(*shape_k).astype(np.float32)
+    v = rng.randn(*shape_k).astype(np.float32)
+    do = rng.randn(*shape_q).astype(np.float32)
+    return q, k, v, do
+
+
+def _jax_reference(q, k, v, do, causal):
+    out, lse = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=causal,
+                                   return_lse=True)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c,
+                                                         causal=causal),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads = vjp(jnp.asarray(do))
+    return np.asarray(out), np.asarray(lse), [np.asarray(g) for g in grads]
+
+
+def _port(q, k, v, do, causal):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out, lse = flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    return out.detach().numpy(), lse.numpy(), [g.numpy() for g in grads]
+
+
+@pytest.mark.parametrize("N,Lq,Lk,D,causal", CASES)
+def test_flash_attention_matches_pallas(N, Lq, Lk, D, causal):
+    q, k, v, do = _inputs(N * Lq + Lk + D, (N, Lq, D), (N, Lk, D))
+    out_j, lse_j, grads_j = _jax_reference(q, k, v, do, causal)
+    before = [fn.launches for fn in KERNELS]
+    out, lse, grads = _port(q, k, v, do, causal)
+    np.testing.assert_allclose(out, out_j, **OUT_TOL)
+    np.testing.assert_allclose(lse, lse_j, **OUT_TOL)
+    for name, g, gj in zip("qkv", grads, grads_j):
+        np.testing.assert_allclose(g, gj, err_msg=f"d{name}", **GRAD_TOL)
+    # the CPU path is the plain versions: no kernel launched, none counted
+    assert [fn.launches for fn in KERNELS] == before
+
+
+def test_flash_attention_4d_matches_pallas():
+    """(B, H, L, D) inputs, as the JAX function takes them."""
+    q, k, v, do = _inputs(11, (2, 3, 24, 16), (2, 3, 24, 16))
+    out_j, lse_j, grads_j = _jax_reference(q, k, v, do, True)
+    out, lse, grads = _port(q, k, v, do, True)
+    assert out.shape == (2, 3, 24, 16) and lse.shape == (2, 3, 24)
+    np.testing.assert_allclose(out, out_j, **OUT_TOL)
+    np.testing.assert_allclose(lse, lse_j, **OUT_TOL)
+    for g, gj in zip(grads, grads_j):
+        np.testing.assert_allclose(g, gj, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_plain_versions_match_autograd_of_reference(causal):
+    """The plain versions of K4 and K5 (what the card's kernels are held
+    against) equal autograd through the dense reference, with a given
+    sm_scale."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(5, (2, 21, 32), (2, 30, 32)))
+    scale = 0.3
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out, lse = flash_attention_ref(tq, tk, tv, causal, scale)
+    want = torch.autograd.grad(out, (tq, tk, tv), do)
+    delta = (do * out.detach()).sum(-1)
+    dq = flash_attention_dq_ref(q, k, v, do, lse.detach(), delta, causal,
+                                scale)
+    dk, dv = flash_attention_dkv_ref(q, k, v, do, lse.detach(), delta,
+                                     causal, scale)
+    for got, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
+
+
+def test_backward_honours_needs_input_grad(monkeypatch):
+    """Only the kernels whose gradients are asked for run."""
+    calls = []
+    for name in ("flash_attention_dq", "flash_attention_dkv"):
+        real = getattr(fa_mod, name)
+        monkeypatch.setattr(fa_mod, name,
+                            lambda *a, _r=real, _n=name: (calls.append(_n),
+                                                          _r(*a))[1])
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(2, (1, 8, 16),
+                                                       (1, 8, 16)))
+    q.requires_grad_()
+    flash_attention(q, k, v).sum().backward()
+    assert calls == ["flash_attention_dq"]
+    calls.clear()
+    q.requires_grad_(False)
+    v.requires_grad_()
+    flash_attention(q, k, v).sum().backward()
+    assert calls == ["flash_attention_dkv"]
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    q = torch.empty((2, 8, 16), device="meta")
+    lse = torch.empty((2, 8), device="meta")
+    with pytest.raises(MXNetError, match="no kernel"):
+        flash_attention_fwd(q, q, q)
+    with pytest.raises(MXNetError, match="no kernel"):
+        flash_attention_dq(q, q, q, q, lse, lse)
+    with pytest.raises(MXNetError, match="no kernel"):
+        flash_attention_dkv(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(D=48), "head_dim"),
+    (dict(dtype=torch.float64), "float32"),
+    (dict(k_len=7, v_len=9), "shape"),
+    (dict(transpose=True), "contiguous"),
+])
+def test_kernel_argument_checks(change, match):
+    """What the kernels do not take is refused before any launch."""
+    D = change.get("D", 16)
+    dtype = change.get("dtype", torch.float32)
+    q = torch.zeros((2, 8, D), dtype=dtype)
+    k = torch.zeros((2, change.get("k_len", 8), D), dtype=dtype)
+    v = torch.zeros((2, change.get("v_len", 8), D), dtype=dtype)
+    if change.get("transpose"):
+        q = torch.zeros((2, D, 8)).transpose(1, 2)
+    with pytest.raises(MXNetError, match=match):
+        fa_mod._check("flash_attention_fwd", q, k, v=(v, tuple(k.shape)))
+
+
+def _c_argtypes(fn: str):
+    text = (_build.CSRC / "flash_attention.cu").read_text()
+    params = re.search(rf"\bint {fn}\(([^)]*)\)", text).group(1)
+    out = []
+    for p in params.split(","):
+        if "*" in p or "cudaStream_t" in p:
+            out.append(ctypes.c_void_p)
+        elif "float" in p:
+            out.append(ctypes.c_float)
+        else:
+            out.append(ctypes.c_int)
+    return out
+
+
+class _FakeFn:
+    def __init__(self):
+        self.argtypes = None
+        self.restype = ctypes.c_int
+
+
+class _FakeLib:
+    def __getattr__(self, name):
+        fn = _FakeFn()
+        setattr(self, name, fn)
+        return fn
+
+
+@pytest.mark.parametrize("fn", ["mx_flash_attention_fwd_f32",
+                                "mx_flash_attention_dq_f32",
+                                "mx_flash_attention_dkv_f32"])
+def test_ctypes_binding_matches_c_signature(monkeypatch, fn):
+    """Every argument of each C entry point is declared: without
+    ``argtypes`` a float cannot pass and a pointer is cut to 32 bits."""
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    fa_mod._lib()
+    got = getattr(fake, fn)
+    assert got.argtypes == _c_argtypes(fn)
+    assert got.restype is ctypes.c_int
+
+
+def test_flash_attention_is_built_with_the_other_kernels():
+    assert "flash_attention" in _build.SOURCES
+    assert (_build.CSRC / "flash_attention.cu").exists()
