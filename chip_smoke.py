@@ -62,15 +62,59 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           gradients within 1e-3 of their max abs.
   train_profile           2 training steps under torch.profiler: device
                           busy share, top kernels, K1 + K3-K5's share.
+  kernel_add_layer_norm   kernel K6 (LN(x + res) in one pass) vs its plain
+                          version at (16384, 768), (8192, 1024) and a
+                          ragged (37, 768) f32, atol 1e-5 on out, mu and
+                          rstd; times beside the bound, with ``x + r`` then
+                          ``F.layer_norm`` (two calls) as the library
+                          yardstick.
+  kernel_softmax_cross_entropy
+                          kernel K7 vs its plain version: the MLM logits
+                          of BERT-base, (16384, 30522) f32 with
+                          ignore_label -1 on 85% of the rows; all rows
+                          live at the same shape; (64, 32000); an odd C
+                          (33, 1001); and labels outside [0, C) with no
+                          ignore label.  Loss atol 2e-5, and the gradient
+                          through ``SoftmaxCrossEntropyFunction`` vs
+                          autograd through the plain version, atol 1e-5.
+                          Times beside the bound (the bytes of the rows
+                          that are not ignored), with
+                          ``F.cross_entropy(reduction="none",
+                          ignore_index=-1)`` as the library yardstick
+                          where every label is in [0, C) or -1.  Then the
+                          path ``softmax_cross_entropy``: counters zeroed,
+                          one forward and backward at the MLM shape; K7
+                          must launch once.
+  imperative              the MXNet imperative API on the card at
+                          BERT-base's widths: NDArrays with attach_grad,
+                          under ``autograd.record()``, through
+                          ``nd.contrib.add_layer_norm`` (16384, 768),
+                          ``nd.LayerNorm``, ``nd.contrib.flash_attention``
+                          (N 384, L 512, hd 64), ``nd.FullyConnected`` to
+                          the 30522-word vocabulary and the
+                          ``softmax_cross_entropy`` op, then
+                          ``backward()``; under
+                          ``PassPipeline([FusedKernelPass()])`` (launches
+                          exactly K6 1, K1 1, K3-K5 1 each per run) and
+                          with no pass (K6 0, the rest as before), after a
+                          warm-up of each, three runs of each in turns,
+                          their median host ms.  Loss within relative
+                          1e-5 and every gradient within 1e-3 of its max
+                          abs between the two; then the card vs the CPU
+                          (plain versions) on a (2 x 128)-token batch
+                          with the pass on, the same tolerances.  Two
+                          more runs with the pass under torch.profiler:
+                          device busy share and the top kernels per run.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase makes
 the script exit non-zero without that line, as does a machine without
 CUDA or a directory without the package.
 
-Times are CUDA-event medians of 25 samples of 10 back-to-back calls each,
-enqueued behind a device sleep so that host-side launch cost does not
-show as device time.  ``bound_ms`` is the larger of the bytes the
+Times are CUDA-event medians of 25 samples of 10 back-to-back calls each
+(at K7's (16384, 30522) shapes 10 samples of 5, and 5 of 2 for its plain
+version), enqueued behind a device sleep so that host-side launch cost
+does not show as device time.  ``bound_ms`` is the larger of the bytes the
 function must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (the H100 SXM data sheet at 700 W).
 """
@@ -368,10 +412,12 @@ def _requests(n, vocab, seed):
 
 def phase_serve(torch, ctx):
     from mxnet_tpu_torch.models.transformer import transformer_big
-    from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
+    from mxnet_tpu_torch.ops.kernels import (add_layer_norm,
+                                             flash_attention_dkv,
                                              flash_attention_dq,
                                              flash_attention_fwd, layer_norm,
-                                             paged_decode_attention)
+                                             paged_decode_attention,
+                                             softmax_cross_entropy)
     from mxnet_tpu_torch.serving import ServingEngine, TransformerAdapter
 
     vocab = 32000
@@ -390,7 +436,8 @@ def phase_serve(torch, ctx):
     eng = ServingEngine(adapter, **kw)
     reqs, arrivals = _requests(16, vocab, SEED)
     counted = (layer_norm, paged_decode_attention, flash_attention_fwd,
-               flash_attention_dq, flash_attention_dkv)
+               flash_attention_dq, flash_attention_dkv, add_layer_norm,
+               softmax_cross_entropy)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -398,9 +445,10 @@ def phase_serve(torch, ctx):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counted}
-    ctx["launches"] = {"serve": launches}
+    ctx.setdefault("launches", {})["serve"] = launches
     ln, pa = layer_norm.launches, paged_decode_attention.launches
     flash = sum(launches[n] for n in FLASH)
+    fused = launches["add_layer_norm"] + launches["softmax_cross_entropy"]
 
     steps = eng.step_count
     prefills = len(reqs) + sum(r.preemptions for r in reqs)
@@ -428,12 +476,14 @@ def phase_serve(torch, ctx):
         "launches": launches,
         "launches_expected": {"layer_norm": 18 * steps + 12 * prefills,
                               "paged_decode_attention": 6 * steps,
-                              **{n: 0 for n in FLASH}},
+                              **{n: 0 for n in FLASH},
+                              "add_layer_norm": 0,
+                              "softmax_cross_entropy": 0},
         "card": ctx["smi"],
         "ok": bool(finished and lengths_ok and in_vocab and pages_back
                    and ln > 0 and pa > 0
                    and ln == 18 * steps + 12 * prefills
-                   and pa == 6 * steps and flash == 0),
+                   and pa == 6 * steps and flash == 0 and fused == 0),
         "checks": {"finished": finished, "lengths": lengths_ok,
                    "in_vocab": bool(in_vocab), "pages_back": pages_back}}
 
@@ -527,7 +577,8 @@ FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 # launches of each kernel per training step: embed_ln + 2 per layer +
 # mlm_ln LayerNorms, and one attention per layer
 TRAIN_PER_STEP = {"layer_norm": 26, "paged_decode_attention": 0,
-                  **{n: 12 for n in FLASH}}
+                  **{n: 12 for n in FLASH}, "add_layer_norm": 0,
+                  "softmax_cross_entropy": 0}
 OUR_KERNELS = ("ln_fwd_f32", "paged_decode_f32", "flash_fwd_f32",
                "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
@@ -680,6 +731,305 @@ def phase_train_profile(torch, ctx):
                     for ms, c, k in rows[:15]]}
 
 
+ALL_KERNELS = ("layer_norm", "paged_decode_attention", *FLASH,
+               "add_layer_norm", "softmax_cross_entropy")
+
+
+def _counters():
+    """Every kernel wrapper by name; each counts its own launches."""
+    from mxnet_tpu_torch.ops import kernels
+
+    return {n: getattr(kernels, n) for n in ALL_KERNELS}
+
+
+def phase_add_layer_norm(torch, ctx):
+    from mxnet_tpu_torch.ops.kernels import add_layer_norm, add_layer_norm_ref
+
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shapes, worst = [], 0.0
+    # the imperative path's 32 x 512 rows of BERT-base, Transformer-big's
+    # width, and a row count no block size divides
+    for n, c in ((16384, 768), (8192, 1024), (37, 768)):
+        x = torch.randn(n, c, device=dev, generator=g) * 2 + 0.5
+        r = torch.randn(n, c, device=dev, generator=g)
+        gamma = torch.randn(c, device=dev, generator=g)
+        beta = torch.randn(c, device=dev, generator=g)
+        got = add_layer_norm(x, r, gamma, beta)
+        want = add_layer_norm_ref(x, r, gamma, beta)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        worst = max(worst, err)
+        b_ms, b_by = bound(4 * (3 * n * c + 2 * c + 2 * n), 9 * n * c)
+        shapes.append({
+            "shape": [n, c], "max_abs_err": err, "ok": err <= 1e-5,
+            "ms": time_ms(torch, lambda: add_layer_norm(x, r, gamma, beta)),
+            "plain_ms": time_ms(torch, lambda: add_layer_norm_ref(
+                x, r, gamma, beta)),
+            "library_ms": time_ms(torch, lambda: F.layer_norm(
+                x + r, (c,), gamma, beta, 1e-5)),
+            "bound_ms": b_ms, "bound_by": b_by})
+    ctx["add_layer_norm"] = dict(
+        shapes[0], max_abs_err=worst,
+        library_is="two calls: x + r, then F.layer_norm")
+    return {"atol": 1e-5, "shapes": shapes,
+            "ok": all(s["ok"] for s in shapes)}
+
+
+def _sce_labels(n, c, kind):
+    """Seeded labels: ``mlm`` keeps 15% of the rows (the rest -1),
+    ``valid`` all in [0, c), ``out_of_range`` mixes -5, -1, c and c + 7
+    with valid ones."""
+    rng = np.random.RandomState(SEED + n + c)
+    y = rng.randint(0, c, n)
+    if kind == "mlm":
+        y[rng.rand(n) >= 0.15] = -1
+    elif kind == "out_of_range":
+        y[0::4], y[1::4], y[2::8], y[3::8] = -1, c, c + 7, -5
+    return y.astype(np.int64)
+
+
+def phase_softmax_cross_entropy(torch, ctx):
+    from mxnet_tpu_torch.ops.kernels import (SoftmaxCrossEntropyFunction,
+                                             softmax_cross_entropy,
+                                             softmax_cross_entropy_ref)
+
+    F = torch.nn.functional
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tol = {"loss": 2e-5, "grad": 1e-5}
+    # name: (N, C, ignore_label, labels)
+    cases = {"path": (TRAIN_BATCH * TRAIN_LEN, BERT_VOCAB, -1, "mlm"),
+             "all_live": (TRAIN_BATCH * TRAIN_LEN, BERT_VOCAB, None, "valid"),
+             "vocab_32000": (64, 32000, None, "valid"),
+             "odd_c": (33, 1001, -1, "mlm"),
+             "out_of_range": (64, BERT_VOCAB, None, "out_of_range")}
+    rows = []
+    for name, (n, c, ignore, kind) in cases.items():
+        x = torch.randn(n, c, device=dev, generator=g) * 2
+        y_np = _sce_labels(n, c, kind)
+        y = torch.from_numpy(y_np).to(dev)
+        gvec = torch.randn(n, device=dev, generator=g)
+        got = softmax_cross_entropy(x, y, ignore)
+        want = softmax_cross_entropy_ref(x, y, ignore)
+        xg = x.clone().requires_grad_()
+        SoftmaxCrossEntropyFunction.apply(xg, y, ignore).backward(gvec)
+        xr = x.clone().requires_grad_()
+        softmax_cross_entropy_ref(xr, y, ignore).backward(gvec)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        gerr = float((xg.grad - xr.grad).abs().max())
+        del xg, xr, want
+        torch.cuda.empty_cache()
+        live = int((y_np != ignore).sum()) if ignore is not None else n
+        b_ms, b_by = bound(4 * live * c + 8 * n + 4 * n, 4 * live * c)
+        big = n * c > 10 ** 8
+        lib = None
+        if ((y_np >= 0) & (y_np < c) | (y_np == -1)).all():
+            # F.cross_entropy asserts on the device for any other label
+            lib = time_ms(torch, lambda: F.cross_entropy(
+                x, y, reduction="none", ignore_index=-1),
+                samples=10 if big else 25, reps=5 if big else 10)
+        rows.append({
+            "case": name, "N": n, "C": c, "ignore_label": ignore,
+            "live_rows": live, "max_abs_err": err, "grad_max_abs_err": gerr,
+            "ok": err <= tol["loss"] and gerr <= tol["grad"],
+            "ms": time_ms(torch, lambda: softmax_cross_entropy(x, y, ignore),
+                          samples=10 if big else 25, reps=5 if big else 10),
+            "plain_ms": time_ms(torch, lambda: softmax_cross_entropy_ref(
+                x, y, ignore), samples=5 if big else 25,
+                reps=2 if big else 10),
+            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
+        del x, y, got
+        torch.cuda.empty_cache()
+
+    # the kernel's own path: one forward and backward at the MLM shape
+    n, c, ignore, kind = cases["path"]
+    x = torch.randn(n, c, device=dev, generator=g).requires_grad_()
+    y = torch.from_numpy(_sce_labels(n, c, kind)).to(dev)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    loss = SoftmaxCrossEntropyFunction.apply(x, y, ignore)
+    loss.sum().backward()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ctx.setdefault("launches", {})["softmax_cross_entropy"] = launches
+    expected = {k: int(k == "softmax_cross_entropy") for k in ALL_KERNELS}
+    finite = bool(torch.isfinite(x.grad).all() and torch.isfinite(loss).all())
+    del x, loss
+    torch.cuda.empty_cache()
+    ctx["softmax_cross_entropy"] = dict(
+        rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
+        library_is="F.cross_entropy(reduction='none', ignore_index=-1)")
+    return {"tol": tol, "cases": rows, "path_launches": launches,
+            "path_launches_expected": expected, "path_finite": finite,
+            "ok": all(r["ok"] for r in rows) and launches == expected
+            and finite}
+
+
+IMP_H, IMP_HD = 12, 64
+# launches of one forward and backward of the imperative path
+IMP_PASS_ON = {"layer_norm": 1, "paged_decode_attention": 0,
+               **{n: 1 for n in FLASH}, "add_layer_norm": 1,
+               "softmax_cross_entropy": 0}
+IMP_PASS_OFF = dict(IMP_PASS_ON, add_layer_norm=0)
+
+
+def _imperative_inputs(B, L, seed):
+    rng = np.random.RandomState(seed)
+    C, N = IMP_H * IMP_HD, B * IMP_H
+
+    def f(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    arrays = {"x": f(B * L, C), "r": f(B * L, C),
+              "gamma1": 1 + f(C, scale=0.1), "beta1": f(C, scale=0.1),
+              "gamma2": 1 + f(C, scale=0.1), "beta2": f(C, scale=0.1),
+              "k": f(N, L, IMP_HD), "v": f(N, L, IMP_HD),
+              "weight": f(BERT_VOCAB, C, scale=0.02),
+              "bias": f(BERT_VOCAB, scale=0.02)}
+    labels = rng.randint(0, BERT_VOCAB, B * L).astype(np.float32)
+    return arrays, labels
+
+
+def _imperative_arrays(inputs, labels, dev):
+    """The path's arrays on ``dev``, each with ``attach_grad()`` (write:
+    every backward overwrites the buffers), and the labels."""
+    from mxnet_tpu_torch import nd
+
+    arrs = {k: nd.array(v, ctx=dev) for k, v in inputs.items()}
+    for a in arrs.values():
+        a.attach_grad()
+    return arrs, nd.array(labels, ctx=dev)
+
+
+def _imperative_run(torch, arrs, lab, B, L, fused):
+    """One forward and backward of the imperative path under the
+    fused_kernels pass or none: (loss, launches, wall ms)."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.passes import FusedKernelPass, PassPipeline
+
+    pipe = PassPipeline([FusedKernelPass()] if fused else [])
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    C = IMP_H * IMP_HD
+    arrs["x"].wait_to_read()
+    t0 = time.perf_counter()
+    with pipe.scope(), autograd.record():
+        y = nd.contrib.add_layer_norm(arrs["x"], arrs["r"], arrs["gamma1"],
+                                      arrs["beta1"])
+        h = nd.LayerNorm(y, arrs["gamma2"], arrs["beta2"])
+        q = h.reshape((B * IMP_H, L, IMP_HD))
+        att = nd.contrib.flash_attention(q, arrs["k"], arrs["v"])
+        logits = nd.FullyConnected(att.reshape((B * L, C)), arrs["weight"],
+                                   arrs["bias"], num_hidden=BERT_VOCAB)
+        loss = nd.softmax_cross_entropy(logits, lab)
+    loss.backward()
+    loss.wait_to_read()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return (float(loss.asscalar()),
+            {n: fn.launches for n, fn in counters.items()}, wall_ms)
+
+
+def _grads(arrs):
+    return {k: a.grad.asnumpy() for k, a in arrs.items()}
+
+
+def _compare(loss_a, grads_a, loss_b, grads_b):
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    diffs = {k: {"max_abs_diff": float(np.abs(grads_a[k] - grads_b[k]).max()),
+                 "max_abs": float(np.abs(grads_b[k]).max())}
+             for k in grads_b}
+    finite = all(np.isfinite(g).all() for g in grads_a.values()) \
+        and math.isfinite(loss_a)
+    ok = finite and rel <= 1e-5 and all(
+        d["max_abs_diff"] <= 1e-3 * d["max_abs"] for d in diffs.values())
+    return {"loss_rel_diff": rel, "grads": diffs, "finite": finite}, ok
+
+
+def phase_imperative(torch, ctx):
+    for key in ("bert", "train_step", "train_batch"):  # training is done
+        ctx.pop(key, None)
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    B, L = TRAIN_BATCH, TRAIN_LEN
+    arrs, lab = _imperative_arrays(*_imperative_inputs(B, L, SEED), dev)
+    for fused in (True, False):  # warm-up of both
+        _imperative_run(torch, arrs, lab, B, L, fused)
+    torch.cuda.reset_peak_memory_stats()
+    # pass on and off in turns; the last run of each gives its gradients
+    order = (True, False, False, True, True, False)
+    runs, grads, walls = {True: [], False: []}, {}, []
+    for i, fused in enumerate(order):
+        run = _imperative_run(torch, arrs, lab, B, L, fused)
+        runs[fused].append(run)
+        walls.append(["on" if fused else "off", run[2]])
+        if fused not in order[i + 1:]:
+            grads[fused] = _grads(arrs)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    profile = _imperative_profile(torch, arrs, lab, B, L)
+    del arrs, lab
+    on, off = runs[True][-1], runs[False][-1]
+    ctx.setdefault("launches", {})["imperative"] = on[1]
+    ctx["launches"]["imperative_pass_off"] = off[1]
+    on_off, on_off_ok = _compare(on[0], grads[True], off[0], grads[False])
+    launches_ok = (all(r[1] == IMP_PASS_ON for r in runs[True])
+                   and all(r[1] == IMP_PASS_OFF for r in runs[False]))
+    wall = {"wall_ms_pass_on": statistics.median(r[2] for r in runs[True]),
+            "wall_ms_pass_off": statistics.median(r[2] for r in runs[False]),
+            "wall_ms_runs": walls}
+    del grads
+
+    b2, l2 = 2, 128
+    small = _imperative_inputs(b2, l2, SEED + 5)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        arrs, lab = _imperative_arrays(*small, d)
+        loss = _imperative_run(torch, arrs, lab, b2, l2, True)[0]
+        res[d.type] = (loss, _grads(arrs))
+    card_cpu, card_cpu_ok = _compare(*res["cuda"], *res["cpu"])
+    return {"batch": [B, L], "hidden": IMP_H * IMP_HD, "heads": IMP_H,
+            "head_dim": IMP_HD, "vocab": BERT_VOCAB,
+            "launches_pass_on": on[1], "launches_pass_off": off[1],
+            "launches_expected_on": IMP_PASS_ON,
+            "launches_expected_off": IMP_PASS_OFF,
+            **wall, "pass_on_vs_off": on_off, "card_vs_cpu": dict(
+                card_cpu, batch=[b2, l2], loss_card=res["cuda"][0],
+                loss_cpu=res["cpu"][0]),
+            "tol": {"loss_rel": 1e-5, "grad_of_max_abs": 1e-3},
+            "max_memory_allocated_gb": peak_gb, "profile_pass_on": profile,
+            "ok": launches_ok and on_off_ok and card_cpu_ok}
+
+
+def _imperative_profile(torch, arrs, lab, B, L, runs=2):
+    """Where forward and backward with the pass go: ``runs`` runs under
+    torch.profiler, device time by kernel and the device's busy share;
+    per run, with the count of each of the path's kernels the trace
+    recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall_ms = sum(_imperative_run(torch, arrs, lab, B, L, True)[2]
+                      for _ in range(runs))
+    rows = _profile_rows(prof)
+    busy = sum(ms for ms, _, _ in rows)
+    ours = {k: {"ms": sum(ms for ms, _, key in rows if k in key) / runs,
+                "count": sum(c for _, c, key in rows if k in key)}
+            for k in ("add_layer_norm_f32",) + OUR_KERNELS
+            if k != "paged_decode_f32"}
+    return {"runs": runs, "wall_ms": wall_ms / runs,
+            "device_busy_ms": busy / runs if rows else None,
+            "device_busy_share": busy / wall_ms if rows else None,
+            "device_ops": sum(c for _, c, _ in rows),
+            "our_kernels": ours,
+            "top": [{"name": k[:100], "ms": ms / runs, "count": c}
+                    for ms, c, k in rows[:12]]}
+
+
 # name, source, the TPU kernel it replaces, the path whose launches the
 # kernels line reports
 KERNELS = (
@@ -693,6 +1043,10 @@ KERNELS = (
      "mxnet_tpu/ops/pallas/flash_attention.py:131", "train"),
     ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:158", "train"),
+    ("add_layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
+     "mxnet_tpu/ops/pallas/fused.py:166", "imperative"),
+    ("softmax_cross_entropy", "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
+     "mxnet_tpu/ops/pallas/fused.py:36", "softmax_cross_entropy"),
 )
 
 
@@ -715,12 +1069,15 @@ def main() -> int:
               ("kernel_layer_norm", phase_layer_norm),
               ("kernel_paged_attention", phase_paged_attention),
               ("kernel_flash_attention", phase_flash_attention),
+              ("kernel_add_layer_norm", phase_add_layer_norm),
+              ("kernel_softmax_cross_entropy", phase_softmax_cross_entropy),
               ("serve", phase_serve),
               ("serve_parity", phase_serve_parity),
               ("serve_profile", phase_serve_profile),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
-              ("train_profile", phase_train_profile))
+              ("train_profile", phase_train_profile),
+              ("imperative", phase_imperative))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

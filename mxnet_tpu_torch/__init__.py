@@ -1,7 +1,8 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu.
 
-Mirrors the JAX package's layout (``base``, ``context``, ``gluon.nn``,
-``models.transformer``, ``serving``) in plain PyTorch idiom: models are
+Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
+``autograd``, ``passes``, ``gluon.nn``, ``models.transformer``,
+``serving``) in plain PyTorch idiom: models are
 ``torch.nn.Module``s, state is tensors on an explicit ``torch.device``,
 randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
 kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``), built
@@ -13,5 +14,7 @@ The package imports ``torch``, numpy and the standard library only.
 """
 from .base import MXNetError
 from .context import cpu, default_device, gpu
+from . import autograd
+from . import ndarray as nd
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device"]
+__all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd"]

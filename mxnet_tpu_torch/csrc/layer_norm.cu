@@ -19,6 +19,16 @@
 // compile time (VPL float4 vectors per lane, C <= 128 * VPL), so C up to
 // 4096 is served by one of six instantiations.
 
+// K6, the fused residual add + LayerNorm in the same file, replaces
+// mxnet_tpu/ops/pallas/fused.py::_aln_kernel (reached through
+// fused.add_layer_norm, which the fused_kernels pass substitutes for the
+// _contrib_add_layer_norm op): LN(x + res) with the sum formed in VMEM and
+// never written.  Here the same: each lane loads its float4 slices of x and
+// res, adds them in registers and runs K1's two passes on the sum, so the
+// kernel reads two rows and writes one, about 3 * N * C * 4 bytes, and the
+// sum never reaches device memory.  It shares K1's row body (a template
+// flag adds the second load) but is a kernel of its own name.
+
 #include <cuda_runtime.h>
 #include <cstddef>
 
@@ -32,17 +42,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int VPL>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
-ln_fwd_f32(const float* __restrict__ x, const float* __restrict__ gamma,
-           const float* __restrict__ beta, float* __restrict__ out,
-           float* __restrict__ mu_out, float* __restrict__ rstd_out,
-           int n_rows, int C, float eps) {
+// One warp normalises one row of x (+ res when RES), from registers.
+template <int VPL, bool RES>
+__device__ __forceinline__ void row_ln(const float* __restrict__ x,
+                                       const float* __restrict__ res,
+                                       const float* __restrict__ gamma,
+                                       const float* __restrict__ beta,
+                                       float* __restrict__ out,
+                                       float* __restrict__ mu_out,
+                                       float* __restrict__ rstd_out,
+                                       int n_rows, int C, float eps) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const int C4 = C >> 2;
   const float4* xr = reinterpret_cast<const float4*>(x + (size_t)row * C);
+  const float4* rr = RES ? reinterpret_cast<const float4*>(res + (size_t)row * C)
+                         : nullptr;
 
   float4 v[VPL];
   float s = 0.f;
@@ -51,6 +67,10 @@ ln_fwd_f32(const float* __restrict__ x, const float* __restrict__ gamma,
     const int j = lane + 32 * i;
     if (j < C4) {
       v[i] = xr[j];
+      if (RES) {
+        const float4 r = rr[j];
+        v[i].x += r.x; v[i].y += r.y; v[i].z += r.z; v[i].w += r.w;
+      }
       s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
     } else {
       v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -90,13 +110,57 @@ ln_fwd_f32(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// K1
 template <int VPL>
-void launch(const float* x, const float* g, const float* b, float* out,
-            float* mu, float* rstd, int n_rows, int C, float eps,
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+ln_fwd_f32(const float* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, float* __restrict__ out,
+           float* __restrict__ mu_out, float* __restrict__ rstd_out,
+           int n_rows, int C, float eps) {
+  row_ln<VPL, false>(x, nullptr, gamma, beta, out, mu_out, rstd_out, n_rows,
+                     C, eps);
+}
+
+// K6
+template <int VPL>
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+add_layer_norm_f32(const float* __restrict__ x, const float* __restrict__ res,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ out,
+                   float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                   int n_rows, int C, float eps) {
+  row_ln<VPL, true>(x, res, gamma, beta, out, mu_out, rstd_out, n_rows, C,
+                    eps);
+}
+
+template <int VPL>
+void launch(const float* x, const float* res, const float* g, const float* b,
+            float* out, float* mu, float* rstd, int n_rows, int C, float eps,
             cudaStream_t stream) {
   const dim3 grid((n_rows + kRowsPerBlock - 1) / kRowsPerBlock);
-  ln_fwd_f32<VPL><<<grid, 32 * kRowsPerBlock, 0, stream>>>(
-      x, g, b, out, mu, rstd, n_rows, C, eps);
+  if (res == nullptr)
+    ln_fwd_f32<VPL><<<grid, 32 * kRowsPerBlock, 0, stream>>>(
+        x, g, b, out, mu, rstd, n_rows, C, eps);
+  else
+    add_layer_norm_f32<VPL><<<grid, 32 * kRowsPerBlock, 0, stream>>>(
+        x, res, g, b, out, mu, rstd, n_rows, C, eps);
+}
+
+// The instantiation with enough float4 slots per lane for C.
+int dispatch(const float* x, const float* res, const float* g, const float* b,
+             float* out, float* mu, float* rstd, int n_rows, int C, float eps,
+             cudaStream_t stream) {
+  if (C <= 0 || (C & 3) || C > 128 * 32) return (int)cudaErrorInvalidValue;
+  if (n_rows > 0) {
+    const int vpl = ((C >> 2) + 31) / 32;
+    if (vpl <= 1)       launch<1>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+    else if (vpl <= 2)  launch<2>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+    else if (vpl <= 4)  launch<4>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+    else if (vpl <= 8)  launch<8>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+    else if (vpl <= 16) launch<16>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+    else                launch<32>(x, res, g, b, out, mu, rstd, n_rows, C, eps, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -111,17 +175,14 @@ int mx_layer_norm_max_c() { return 128 * 32; }
 int mx_layer_norm_f32(const float* x, const float* gamma, const float* beta,
                       float* out, float* mu, float* rstd, int n_rows, int C,
                       float eps, cudaStream_t stream) {
-  if (C <= 0 || (C & 3) || C > mx_layer_norm_max_c()) return (int)cudaErrorInvalidValue;
-  if (n_rows > 0) {
-    const int vpl = ((C >> 2) + 31) / 32;
-    if (vpl <= 1)       launch<1>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-    else if (vpl <= 2)  launch<2>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-    else if (vpl <= 4)  launch<4>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-    else if (vpl <= 8)  launch<8>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-    else if (vpl <= 16) launch<16>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-    else                launch<32>(x, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
-  }
-  return (int)cudaGetLastError();
+  return dispatch(x, nullptr, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
+}
+
+// K6: LN(x + res); res like x, the rest as mx_layer_norm_f32.
+int mx_add_layer_norm_f32(const float* x, const float* res, const float* gamma,
+                          const float* beta, float* out, float* mu, float* rstd,
+                          int n_rows, int C, float eps, cudaStream_t stream) {
+  return dispatch(x, res, gamma, beta, out, mu, rstd, n_rows, C, eps, stream);
 }
 
 const char* mx_cuda_error_string(int err) {

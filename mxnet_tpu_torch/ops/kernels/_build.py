@@ -35,7 +35,8 @@ __all__ = ["load", "build_all", "check", "SOURCES", "CSRC", "BUILD_DIR",
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("layer_norm", "paged_attention", "flash_attention")
+SOURCES = ("layer_norm", "paged_attention", "flash_attention",
+           "softmax_cross_entropy")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

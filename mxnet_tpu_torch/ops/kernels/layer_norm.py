@@ -1,5 +1,6 @@
 """Row LayerNorm over the last axis: kernel K1 (``csrc/layer_norm.cu``)
-and its plain version.
+and its plain version; and the fused residual add + LayerNorm, kernel K6
+in the same source, and its plain version.
 
 Counterpart of ``mxnet_tpu/ops/pallas/fused.py::layer_norm`` (the
 ``_ln_kernel`` Pallas kernel): f32 mean and rstd by the two-pass formula
@@ -11,6 +12,12 @@ x's type.  Both versions also return ``mu`` and ``rstd`` (f32, (N,)).
 :func:`layer_norm_bwd`, plain torch on every device, as the JAX package's
 backward (``fused.py::_ln_bwd``) is a ``jnp`` expression under
 ``custom_vjp`` and not a Pallas kernel.
+
+K6 is the counterpart of ``fused.py::add_layer_norm`` (the ``_aln_kernel``
+Pallas kernel): LN(x + res) with the sum formed in f32 and never written
+out, ``out`` in x's type, mu and rstd f32 (N,).
+:class:`AddLayerNormFunction` gives it the gradient of ``_aln_bwd``
+(:func:`add_layer_norm_bwd`, plain torch): the same ``ds`` to x and res.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from ...base import MXNetError
 from . import _build
 
 __all__ = ["layer_norm", "layer_norm_ref", "layer_norm_bwd",
-           "LayerNormFunction"]
+           "LayerNormFunction", "add_layer_norm", "add_layer_norm_ref",
+           "add_layer_norm_bwd", "AddLayerNormFunction"]
 
 
 def layer_norm_ref(x, gamma, beta, eps: float = 1e-5):
@@ -45,30 +53,38 @@ def _lib():
         fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        aln = lib.mx_add_layer_norm_f32
+        aln.argtypes = [p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                  p]
+        aln.restype = ctypes.c_int
         lib.mx_layer_norm_max_c.restype = ctypes.c_int
     return lib
 
 
-def _check_args(x, gamma, beta, max_c: int) -> None:
+def _check_args(x, gamma, beta, max_c: int, res=None,
+                what: str = "layer_norm") -> None:
     if x.dim() != 2:
-        raise MXNetError(f"layer_norm: x must be (N, C), got {tuple(x.shape)}")
+        raise MXNetError(f"{what}: x must be (N, C), got {tuple(x.shape)}")
     C = x.shape[1]
-    for name, t, shape in (("x", x, tuple(x.shape)), ("gamma", gamma, (C,)),
-                           ("beta", beta, (C,))):
+    args = [("x", x, tuple(x.shape)), ("gamma", gamma, (C,)),
+            ("beta", beta, (C,))]
+    if res is not None:
+        args.append(("res", res, tuple(x.shape)))
+    for name, t, shape in args:
         if t.device != x.device:
-            raise MXNetError(f"layer_norm: {name} on {t.device}, x on "
+            raise MXNetError(f"{what}: {name} on {t.device}, x on "
                              f"{x.device}")
         if t.dtype != torch.float32:
-            raise MXNetError(f"layer_norm: the kernel takes float32, "
+            raise MXNetError(f"{what}: the kernel takes float32, "
                              f"{name} is {t.dtype}")
         if tuple(t.shape) != shape:
-            raise MXNetError(f"layer_norm: {name} has shape "
+            raise MXNetError(f"{what}: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError(f"layer_norm: {name} must be contiguous and "
+            raise MXNetError(f"{what}: {name} must be contiguous and "
                              "16-byte aligned")
     if C % 4 or C > max_c:
-        raise MXNetError(f"layer_norm: the kernel takes C % 4 == 0 and "
+        raise MXNetError(f"{what}: the kernel takes C % 4 == 0 and "
                          f"C <= {max_c}, got C = {C}")
 
 
@@ -129,3 +145,69 @@ class LayerNormFunction(torch.autograd.Function):
         x, gamma, mu, rstd = ctx.saved_tensors
         dx, dgamma, dbeta = layer_norm_bwd(x, gamma, mu, rstd, g)
         return dx, dgamma, dbeta, None
+
+
+# ---------------------------------------------------------------------------
+# K6: fused residual add + LayerNorm
+# ---------------------------------------------------------------------------
+def add_layer_norm_ref(x, res, gamma, beta, eps: float = 1e-5):
+    """Plain PyTorch version of K6: LN(x + res) with the sum in f32 ->
+    (out (N, C) in x's dtype, mu (N,) f32, rstd (N,) f32)."""
+    s = x.float() + res.float()
+    out, mu, rstd = layer_norm_ref(s, gamma, beta, eps)
+    return out.to(x.dtype), mu, rstd
+
+
+def add_layer_norm(x, res, gamma, beta, eps: float = 1e-5):
+    """LN(x + res) over rows of x, res (N, C) -> (out, mu, rstd), as
+    :func:`add_layer_norm_ref`.  CPU tensors take the plain version; CUDA
+    tensors launch K6 on the current stream or raise."""
+    if x.device.type == "cpu":
+        return add_layer_norm_ref(x, res, gamma, beta, eps)
+    if x.device.type != "cuda":
+        raise MXNetError(f"add_layer_norm: no kernel for device {x.device}")
+    lib = _lib()
+    _check_args(x, gamma, beta, lib.mx_layer_norm_max_c(), res=res,
+                what="add_layer_norm")
+    N, C = x.shape
+    out = torch.empty_like(x)
+    mu = torch.empty((N,), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((N,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.mx_add_layer_norm_f32(
+            x.data_ptr(), res.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N, C, float(eps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "add_layer_norm")
+    add_layer_norm.launches += 1
+    return out, mu, rstd
+
+
+add_layer_norm.launches = 0
+
+
+def add_layer_norm_bwd(x, res, gamma, mu, rstd, g):
+    """(dx, dres, dgamma, dbeta) of LN(x + res), the closed form of
+    ``fused.py::_aln_bwd``: the add hands the same ds to both inputs."""
+    s = x.float() + res.float()
+    ds, dgamma, dbeta = layer_norm_bwd(s, gamma, mu, rstd, g)
+    return ds.to(x.dtype), ds.to(res.dtype), dgamma, dbeta
+
+
+class AddLayerNormFunction(torch.autograd.Function):
+    """out = AddLayerNormFunction.apply(x, res, gamma, beta, eps) over
+    x, res (N, C): one :func:`add_layer_norm` call (K6 on CUDA tensors)
+    forward, :func:`add_layer_norm_bwd` backward."""
+
+    @staticmethod
+    def forward(ctx, x, res, gamma, beta, eps):
+        out, mu, rstd = add_layer_norm(x, res, gamma, beta, eps)
+        ctx.save_for_backward(x, res, gamma, mu, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, res, gamma, mu, rstd = ctx.saved_tensors
+        dx, dres, dgamma, dbeta = add_layer_norm_bwd(x, res, gamma, mu,
+                                                     rstd, g)
+        return dx, dres, dgamma, dbeta, None
