@@ -41,13 +41,18 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           torch.autograd.grad through it for the backward)
                           at the training path's shape (N 384 = 32 x 12
                           heads, L 512, hd 64) and a causal one (N 6, L 200,
-                          hd 128); atol 2e-5 on out and lse, 1e-4 on dq, dk
-                          and dv; times of each kernel and its plain version
-                          beside the bound, with
+                          hd 128), timed; checked but not timed at hd 16
+                          (N 8, L 96), hd 32 causal with Lq != Lk (N 4,
+                          Lq 130, Lk 70), ragged hd 64 (N 8, Lq 200, Lk
+                          333), and hd 48 causal through ``flash_attention``
+                          (zero-padded to 64); atol 2e-5 on out and lse,
+                          1e-4 on dq, dk and dv; K4 and K5 run twice and
+                          must agree bitwise.  Times of each kernel and its
+                          plain version beside both bounds, with
                           ``scaled_dot_product_attention`` forward (K3) and
                           its backward (fwd+bwd minus fwd; dq, dk and dv in
-                          one call, beside K4 and K5) as the library
-                          yardsticks.
+                          one call, beside K4 and K5 and their sum
+                          ``bwd_pair_ms``) as the library yardsticks.
   train                   BERT-base MLM (vocab 30522, 12 layers, 768/3072,
                           12 heads, dropout 0) with seeded random weights,
                           trained by ``DataParallelStep`` with Adam (lr
@@ -116,7 +121,10 @@ Times are CUDA-event medians of 25 samples of 10 back-to-back calls each
 version), enqueued behind a device sleep so that host-side launch cost
 does not show as device time.  ``bound_ms`` is the larger of the bytes the
 function must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s
-(the H100 SXM data sheet at 700 W).
+(the H100 SXM data sheet at 700 W); for K3-K5 the operations are f32-
+accurate products on the tensor cores, three TF32 products each (3xTF32)
+at 495 TFLOP/s, and the CUDA-core figure stays beside it as
+``bound_f32_cores_ms``.  No kernel may read faster than its bound.
 """
 from __future__ import annotations
 
@@ -133,6 +141,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
 SEED = 0
 
 
@@ -140,10 +149,16 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_3xtf32(n_bytes: float, n_flops: float):
+    """The bound of f32-accurate products on the tensor cores: each f32
+    product is three TF32 ones (3xTF32), at the dense TF32 rate."""
+    return bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
 
 
 def time_ms(torch, fn, samples: int = 25, reps: int = 10) -> float:
@@ -309,6 +324,63 @@ def _live_pairs(Lq, Lk, causal):
     return sum(min(i + 1, Lk) for i in range(Lq))
 
 
+def _flash_inputs(torch, g, N, Lq, Lk, D):
+    dev = g.device
+    return (torch.randn(N, Lq, D, device=dev, generator=g),
+            torch.randn(N, Lk, D, device=dev, generator=g),
+            torch.randn(N, Lk, D, device=dev, generator=g),
+            torch.randn(N, Lq, D, device=dev, generator=g))
+
+
+def _flash_errors(torch, q, k, v, do, causal):
+    """K3-K5 once, and twice more for K4 and K5 (bitwise equal: no
+    atomics), against the plain forward and autograd through it."""
+    from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
+                                             flash_attention_dq,
+                                             flash_attention_fwd,
+                                             flash_attention_ref)
+
+    out, lse = flash_attention_fwd(q, k, v, causal)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, 1.0 / math.sqrt(q.shape[-1]))
+    dq = flash_attention_dq(*args)
+    dk, dv = flash_attention_dkv(*args)
+    again = (flash_attention_dq(*args), *flash_attention_dkv(*args))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_r, lse_r = flash_attention_ref(*leaves, causal)
+    want = torch.autograd.grad(out_r, leaves, do)
+    torch.cuda.synchronize()
+    got = {"out": (out, out_r), "lse": (lse, lse_r), "dq": (dq, want[0]),
+           "dk": (dk, want[1]), "dv": (dv, want[2])}
+    err = {key: float((a - b.detach()).abs().max())
+           for key, (a, b) in got.items()}
+    same = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
+    return err, same, args
+
+
+def _padded_head_dim_case(torch, g, N, L, D, causal, tol):
+    """``flash_attention`` at a head dim the kernels do not take (zero-
+    padded to the next one): out and the gradients of q, k and v against
+    autograd through the plain forward at D."""
+    from mxnet_tpu_torch.ops.kernels import (flash_attention,
+                                             flash_attention_ref)
+
+    q, k, v, do = _flash_inputs(torch, g, N, L, L, D)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out_r, _ = flash_attention_ref(*ref_leaves, causal)
+    want = torch.autograd.grad(out_r, ref_leaves, do)
+    torch.cuda.synchronize()
+    err = {"out": float((out - out_r).detach().abs().max()),
+           **{n: float((a - b).abs().max())
+              for n, a, b in zip(("dq", "dk", "dv"), grads, want)}}
+    return {"case": f"padded_hd{D}", "N": N, "Lq": L, "Lk": L, "hd": D,
+            "causal": causal, "errors": err,
+            "ok": all(err[key] <= tol[key] for key in err)}
+
+
 def phase_flash_attention(torch, ctx):
     from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
                                              flash_attention_dkv_ref,
@@ -324,38 +396,38 @@ def phase_flash_attention(torch, ctx):
     # head-dim-128 shape with a ragged last tile
     cases = {"train": (32 * 12, 512, 512, 64, False),
              "causal_hd128": (6, 200, 200, 128, True)}
+    # checked, not timed: hd 16 and 32, Lq != Lk, ragged tiles
+    checked = {"hd16": (8, 96, 96, 16, False),
+               "hd32_causal_lq_ne_lk": (4, 130, 70, 32, True),
+               "ragged_hd64": (8, 200, 333, 64, False)}
     tol = {"out": 2e-5, "lse": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
-    out_rows = {"flash_attention_fwd": [], "flash_attention_dq": [],
-                "flash_attention_dkv": []}
+    outputs = {"flash_attention_fwd": ("out", "lse"),
+               "flash_attention_dq": ("dq",),
+               "flash_attention_dkv": ("dk", "dv")}
+    out_rows = {name: [] for name in outputs}
+    checks, pairs_out = [], []
+    for name, (N, Lq, Lk, D, causal) in checked.items():
+        err, same, _ = _flash_errors(torch, *_flash_inputs(torch, g, N, Lq,
+                                                          Lk, D), causal)
+        checks.append({"case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
+                       "causal": causal, "errors": err,
+                       "bwd_bitwise_repeatable": same,
+                       "ok": same and all(err[key] <= tol[key]
+                                          for key in err)})
+    checks.append(_padded_head_dim_case(torch, g, 4, 100, 48, True, tol))
     for name, (N, Lq, Lk, D, causal) in cases.items():
-        q = torch.randn(N, Lq, D, device=dev, generator=g)
-        k = torch.randn(N, Lk, D, device=dev, generator=g)
-        v = torch.randn(N, Lk, D, device=dev, generator=g)
-        do = torch.randn(N, Lq, D, device=dev, generator=g)
-        out, lse = flash_attention_fwd(q, k, v, causal)
-        delta = (do * out).sum(-1)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, causal)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal)
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out_r, lse_r = flash_attention_ref(*leaves, causal)
-        want = torch.autograd.grad(out_r, leaves, do)
-        torch.cuda.synchronize()
-        got = {"out": (out, out_r), "lse": (lse, lse_r), "dq": (dq, want[0]),
-               "dk": (dk, want[1]), "dv": (dv, want[2])}
-        err = {key: float((a - b.detach()).abs().max())
-               for key, (a, b) in got.items()}
-        del leaves, out_r, lse_r, want
+        q, k, v, do = _flash_inputs(torch, g, N, Lq, Lk, D)
+        err, same, args = _flash_errors(torch, q, k, v, do, causal)
 
         pairs = _live_pairs(Lq, Lk, causal)
         nq, nk = N * Lq * D * 4, N * Lk * D * 4
         rows = N * Lq * 4
-        bounds = {"flash_attention_fwd": bound(2 * nq + 2 * nk + rows,
-                                               4 * N * pairs * D),
-                  "flash_attention_dq": bound(3 * nq + 2 * nk + 2 * rows,
-                                              6 * N * pairs * D),
-                  "flash_attention_dkv": bound(2 * nq + 4 * nk + 2 * rows,
-                                               8 * N * pairs * D)}
-        args = (q, k, v, do, lse, delta, causal, 1.0 / math.sqrt(D))
+        work = {"flash_attention_fwd": (2 * nq + 2 * nk + rows,
+                                        4 * N * pairs * D),
+                "flash_attention_dq": (3 * nq + 2 * nk + 2 * rows,
+                                       6 * N * pairs * D),
+                "flash_attention_dkv": (2 * nq + 4 * nk + 2 * rows,
+                                        8 * N * pairs * D)}
         q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
         sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal))
@@ -366,36 +438,53 @@ def phase_flash_attention(torch, ctx):
         timed = {
             "flash_attention_fwd": (
                 lambda: flash_attention_fwd(q, k, v, causal),
-                lambda: flash_attention_ref(q, k, v, causal), sdpa_fwd,
-                ("out", "lse")),
+                lambda: flash_attention_ref(q, k, v, causal), sdpa_fwd),
             "flash_attention_dq": (
                 lambda: flash_attention_dq(*args),
-                lambda: flash_attention_dq_ref(*args), sdpa_bwd, ("dq",)),
+                lambda: flash_attention_dq_ref(*args), sdpa_bwd),
             "flash_attention_dkv": (
                 lambda: flash_attention_dkv(*args),
-                lambda: flash_attention_dkv_ref(*args), sdpa_bwd,
-                ("dk", "dv")),
+                lambda: flash_attention_dkv_ref(*args), sdpa_bwd),
         }
-        for kname, (kern, plain, lib_ms, keys) in timed.items():
+        for kname, (kern, plain, lib_ms) in timed.items():
+            keys = outputs[kname]
             e = max(err[key] for key in keys)
-            b_ms, b_by = bounds[kname]
+            b_ms, b_by = bound_3xtf32(*work[kname])
+            ms = time_ms(torch, kern)
             out_rows[kname].append({
                 "case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
                 "causal": causal, "max_abs_err": e,
-                "ok": all(err[key] <= tol[key] for key in keys),
-                "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by})
+                "bwd_bitwise_repeatable": same,
+                "ok": all(err[key] <= tol[key] for key in keys)
+                and same and ms >= b_ms,
+                "ms": ms, "plain_ms": time_ms(torch, plain),
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_f32_cores_ms": bound(*work[kname])[0]})
+        pair = (out_rows["flash_attention_dq"][-1]["ms"]
+                + out_rows["flash_attention_dkv"][-1]["ms"])
+        pairs_out.append({"case": name, "bwd_pair_ms": pair,
+                          "library_ms": sdpa_bwd,
+                          "bwd_pair_over_library": pair / sdpa_bwd})
+        for kname in ("flash_attention_dq", "flash_attention_dkv"):
+            out_rows[kname][-1]["bwd_pair_ms"] = pair
         del l4
         torch.cuda.empty_cache()
     for kname, rows_ in out_rows.items():
-        ctx[kname] = dict(rows_[0], max_abs_err=max(r["max_abs_err"]
-                                                    for r in rows_))
+        checked_err = [c["errors"][key] for c in checks
+                       for key in outputs[kname] if key in c["errors"]]
+        ctx[kname] = dict(rows_[0], max_abs_err=max(
+            [r["max_abs_err"] for r in rows_] + checked_err))
         ctx[kname]["library_is"] = (
             "scaled_dot_product_attention forward" if kname.endswith("fwd")
             else "scaled_dot_product_attention backward (dq, dk and dv in "
                  "one call: fwd+bwd minus fwd)")
-    return {"tol": tol, "kernels": out_rows,
-            "ok": all(r["ok"] for rows_ in out_rows.values() for r in rows_)}
+    return {"tol": tol, "kernels": out_rows, "bwd_pairs": pairs_out,
+            "checked": checks,
+            "bound_is": "bound_ms: bytes / 3.35 TB/s or 3 x f32 operations "
+                        "/ 495 TFLOP/s (3xTF32 on the tensor cores); "
+                        "bound_f32_cores_ms: f32 operations / 67 TFLOP/s",
+            "ok": all(r["ok"] for rows_ in out_rows.values() for r in rows_)
+            and all(c["ok"] for c in checks)}
 
 
 def _requests(n, vocab, seed):
@@ -1106,7 +1195,9 @@ def main() -> int:
                                  for p in ctx["launches"]},
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms")},
+                                       "library_ms", "bound_f32_cores_ms",
+                                       "bwd_pair_ms")
+               if key in k},
             **({"library_is": k["library_is"]} if "library_is" in k
                else {})})
     print(ctx["smi"], flush=True)

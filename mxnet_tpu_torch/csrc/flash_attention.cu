@@ -11,32 +11,71 @@
 // On the TPU one program holds the whole K/V (or Q/dO) of a head in VMEM and
 // the grid walks q (or k) blocks in order.
 //
-// Bound on this card: f32 operations.  At the BERT-base training shape
+// Bound on this card: operations.  At the BERT-base training shape
 // (N = 384 heads, L = 512, hd = 64) the forward does 4 N L^2 hd = 25.8 GFLOP
 // against 100 MB of q/k/v/out: ~250 flops per byte, far above the ~20 f32
-// flops per byte at which the card's 67 TFLOP/s outruns its 3.35 TB/s.
-// (The tensor cores would move the bound, but TF32 keeps ~3 digits, and the
-// kernels must match the f32 reference to 2e-5.)
+// flops per byte at which even the CUDA cores' 67 TFLOP/s outrun 3.35 TB/s.
+// K4 does 6 N L^2 hd = 38.7 GFLOP and K5 8 N L^2 hd = 51.5 GFLOP.  Done as
+// 3xTF32 on the tensor cores (three TF32 products per f32 product, 495
+// TFLOP/s dense) the least time is 3 x flops / 495 TFLOP/s: K4 0.234 ms, K5
+// 0.312 ms (K3 0.156 ms); on the CUDA cores it would be 0.577, 0.769 ms.
 //
-// Design: every kernel is one 128-thread block per (head, 64-row tile); the
-// other operand streams through shared memory in 64-row tiles, staged with
+// K3 (forward): one 128-thread block per (head, 64-row tile); the other
+// operand streams through shared memory in 64-row tiles, staged with
 // 16-byte coalesced loads into rows padded by 4 floats (so the strided
 // per-lane reads below hit distinct banks).  A 64 x 64 score tile is split
 // 4 x 8 per thread: lane = 8 * rg + kg of warp w owns tile rows
 // 16 w + rg + 4 a (a < 4) and columns kg + 8 b (b < 8), and each row's
 // softmax statistics reduce over the 8 lanes of its row group by shuffles.
-// A product with a 64-row operand (P V, dS K, P^T dO, dS^T Q) goes through a
-// per-warp 64 x 64 tile in shared memory; each thread accumulates its 4 rows
-// by hd / 8 columns, so a row's hd is split over 8 lanes and an hd-128
-// accumulator is 64 registers a thread, not 128 (cf. K2, which splits hd
-// over hd / 4 lanes).  Every partial sum lives in one block, so nothing
-// crosses blocks: no atomics, and gradients are deterministic.  Causal
-// forward and dq blocks skip k tiles wholly above the diagonal, and dk/dv
-// blocks skip q tiles wholly below it (there p is exactly 0).  Math is f32
-// FMA on the CUDA cores; no wgmma and no TMA yet.
+// A product with a 64-row operand (P V) goes through a per-warp 64 x 64 tile
+// in shared memory; each thread accumulates its 4 rows by hd / 8 columns,
+// so a row's hd is split over 8 lanes and an hd-128 accumulator is 64
+// registers a thread, not 128 (cf. K2, which splits hd over hd / 4 lanes).
+// Math is f32 FMA on the CUDA cores; causal blocks skip k tiles wholly
+// above the diagonal.
+//
+// K4 (dq) and K5 (dk, dv), for Hopper:
+// - Products on the tensor cores in 3xTF32: mma.sync m16n8k8 TF32 with f32
+//   accumulators.  Each operand is split at fragment load as x = big +
+//   small (big = x rounded to TF32 as cvt.rna.tf32.f32 rounds, small =
+//   x - big, which the tensor cores truncate to TF32), and small*big +
+//   big*small + big*big go into one accumulator; small*small is below
+//   f32's last bit.  That keeps f32 accuracy (the pair holds about 22 of
+//   f32's 24 significant bits: ~2^-21 relative per product) at a third
+//   of the TF32 rate, 2.5x the CUDA cores'.  The split is two integer ops
+//   and a subtraction (cvt.rna itself compiles to a longer sequence), and
+//   q * scale is formed once per staged tile, in shared memory.  mma.sync
+//   rather than wgmma: three of the five products (dS K, P^T dO, dS^T Q)
+//   reduce over the row axis of a row-major tile, and TF32 wgmma takes
+//   only K-major operands from shared memory.
+// - A warp owns 16 rows (m16): the score tiles S, dP (K4) or S^T, dP^T (K5)
+//   are its accumulators, P and dS are computed in place, and the
+//   accumulator of a 16 x 8 tile is the A operand of the next product as it
+//   stands once that product's k axis is permuted (k = t is column 2t,
+//   k = t + 4 is column 2t + 1): P and dS never touch shared memory.
+// - Staging is an asynchronous two-stage ring: cp.async.cg 16-byte copies,
+//   commit/wait groups, zero-fill (source size 0) for rows past Lq or Lk.
+//   The streamed operand (K/V in K4; Q, dO, lse and delta in K5) loads
+//   its next tile while this one is multiplied.
+// - Tiles are padded to a row stride of hd + 4 floats, so the operands of
+//   products over hd load by ldmatrix (four 8 x 4 f32 matrices an
+//   instruction) and those over tile rows, X[2t][g] (lane = 4g + t), by
+//   scalar loads, all without bank conflicts.  Score tiles with every
+//   (q, k) pair live skip the mask tests.
+// - Occupancy: at hd <= 64 a block is 4 warps and 64 rows, the other
+//   operand streams in 64-row tiles, and two blocks (8 warps) share an SM
+//   (K4 ~104 KB, K5 ~105 KB of shared memory at hd 64).  At hd 128 a block
+//   is 2 warps and 32 rows and the stream 32-row tiles: K5's two hd-wide
+//   accumulators take 2 x 64 registers a thread, and the small causal
+//   shapes get twice the blocks.
+// - Every output row is summed in one block: no atomics, deterministic
+//   gradients.  Causal dq blocks skip k tiles wholly above the diagonal and
+//   dk/dv blocks q tiles wholly below it (there p is exactly 0).
+// No wgmma and no TMA yet.
 
 #include <cuda_runtime.h>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -280,153 +319,483 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K4: dq.  Block (n, q tile); loops over k tiles.
+// K4 and K5: 3xTF32 products on the tensor cores, fed by a cp.async ring.
+// ---------------------------------------------------------------------------
+
+// cp.async: 16-byte copies bypassing L1, and 4-byte ones for row vectors;
+// a source size of 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Start copying rows row0 .. row0+ROWS-1 of a (n_rows, HD) matrix into a
+// tile of row stride HD + 4; rows past n_rows are zero-filled.
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_async(float* __restrict__ dst,
+                                            const float* __restrict__ src, int row0,
+                                            int n_rows) {
+  constexpr int V = HD / 4;
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+    const int r = i / V, c = i - r * V;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + r * Cfg<HD>::kStride + 4 * c,
+               ok ? src + (size_t)(row0 + r) * HD + 4 * c : src, ok);
+  }
+}
+
+// The same for entries row0 .. row0+ROWS-1 of a row vector (lse, delta).
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void stage_vec_async(float* __restrict__ dst,
+                                                const float* __restrict__ src, int row0,
+                                                int n_rows) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
+    const bool ok = row0 + i < n_rows;
+    cp_async4(dst + i, ok ? src + row0 + i : src, ok);
+  }
+}
+
+// An operand split as x = big + small: big is x rounded to TF32 (10
+// mantissa bits, to nearest, ties away from zero: cvt.rna.tf32.f32, done
+// on the bits), small = x - big exactly, passed as it is (the tensor cores
+// read a TF32 operand's 19 high bits, so small is truncated to TF32).  A
+// product is then the three TF32 products small*big + big*small + big*big
+// with an f32 accumulator; small*small, below f32's last bit, is dropped.
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ void split(Frag<N>& f, int i, float x) {
+  f.big[i] = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;  // finite x
+  f.small[i] = __float_as_uint(x - __uint_as_float(f.big[i]));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b, 16 x 8 x 8, in 3xTF32.
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a, const Frag<2>& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+// Four 8 x 4 f32 matrices from shared memory (ldmatrix at 16-bit
+// granularity, two halves a word): lane l gives the address of row l % 8 of
+// matrix l / 8 and receives word l % 4 of row l / 4 of each.
+__device__ __forceinline__ void ldm4(uint32_t (&r)[4], const float* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Fragments of m16n8k8 for lane = 4 g + t.  The accumulator holds rows g and
+// g + 8 and columns 2t, 2t + 1 of a 16 x 8 tile (c0, c1 row g; c2, c3 row g + 8).
+struct Quad {
+  int g, t;
+};
+
+__device__ __forceinline__ Quad quad_of() {
+  const int lane = threadIdx.x & 31;
+  return {lane >> 2, lane & 3};
+}
+
+// A (16 x 8) = X[r0 .. r0+15][d0 .. d0+7] from a staged tile, by one
+// ldmatrix: a product that reduces over the row (hd) axis.  The 8 rows of
+// 16 bytes of each matrix, HD + 4 floats apart, fall in distinct banks.
+template <int HD>
+__device__ __forceinline__ void load_a(Frag<4>& a, const float* __restrict__ X, int r0,
+                                       int d0) {
+  constexpr int S = Cfg<HD>::kStride;
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  uint32_t r[4];
+  ldm4(r, X + (r0 + (lane & 7) + 8 * (m & 1)) * S + d0 + 4 * (m >> 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(a, i, __uint_as_float(r[i]));
+}
+
+// B (8 x 8) of two column tiles, B_h[k][n] = Y[n0 + 8h + n][d0 + k]: the
+// other operand of a product over hd (the rows of Y are the columns of the
+// result).
+template <int HD>
+__device__ __forceinline__ void load_b_rows2(Frag<2> (&b)[2], const float* __restrict__ Y,
+                                             int n0, int d0) {
+  constexpr int S = Cfg<HD>::kStride;
+  const int lane = threadIdx.x & 31, m = lane >> 3;
+  uint32_t r[4];
+  ldm4(r, Y + (n0 + (lane & 7) + 8 * (m >> 1)) * S + d0 + 4 * (m & 1));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split(b[i >> 1], i & 1, __uint_as_float(r[i]));
+}
+
+// B (8 x 8), B[k][n] = X[j0 + 2k or 2k - 7][n0 + n]: the operand of a
+// product that reduces over the rows of a staged tile (dS K, P^T dO,
+// dS^T Q).  The k axis is permuted (k = t is row 2t, k = t + 4 is row
+// 2t + 1) so that the A operand is the score accumulator as it stands (see
+// a_from_acc); banks (2t (HD + 4) + g) mod 32 are distinct.
+template <int HD>
+__device__ __forceinline__ void load_b_cols(Frag<2>& b, const float* __restrict__ X, int j0,
+                                            int n0, Quad l) {
+  constexpr int S = Cfg<HD>::kStride;
+  const float* x = X + (j0 + 2 * l.t) * S + n0 + l.g;
+  split(b, 0, x[0]);
+  split(b, 1, x[S]);
+}
+
+// The A operand (rows g, g + 8; k = t, t + 4 as columns 2t, 2t + 1) of a
+// 16 x 8 accumulator tile, split: no trip through shared memory.
+__device__ __forceinline__ void a_from_acc(Frag<4>& a, const float (&c)[4]) {
+  split(a, 0, c[0]);
+  split(a, 1, c[2]);
+  split(a, 2, c[1]);
+  split(a, 3, c[3]);
+}
+
+// Multiply by scale, in place, the chunks of a tile that this thread
+// copied with stage_async (its own cp.async writes are visible to it after
+// the wait; the block's barrier publishes them).
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void scale_own(float* __restrict__ dst, float scale) {
+  constexpr int V = HD / 4;
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+    const int r = i / V, c = i - r * V;
+    float4* p = reinterpret_cast<float4*>(dst + r * Cfg<HD>::kStride + 4 * c);
+    float4 x = *p;
+    x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
+    *p = x;
+  }
+}
+
+// Tile sizes of K4 and K5: kWarps warps of 16 rows each own a block's
+// rows; the other operand streams in tiles of kBS rows, two in flight.
+template <int HD>
+struct Bwd {
+  static constexpr int kWarps = HD == 128 ? 2 : 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;  // q rows (K4) or k rows (K5) of a block
+  static constexpr int kBS = HD == 128 ? 32 : 64;
+  static constexpr int kRowTile = kRows * Cfg<HD>::kStride;
+  static constexpr int kTile = kBS * Cfg<HD>::kStride;
+};
+
+// p = exp(s - lse) where (qpos, kpos) is live, else exactly 0.  A tile
+// with every pair live takes kMask = false and skips the test.
+template <bool kMask>
+__device__ __forceinline__ float p_of(float s, float row_lse, int qpos, int kpos, int Lq,
+                                      int Lk, bool causal) {
+  return !kMask || live(qpos, kpos, Lq, Lk, causal) ? expf(s - row_lse) : 0.f;
+}
+
+// K4's dS = P (dP - delta) in place of S, for the accumulator entries of
+// q rows qpos, qpos + 8 and key columns kpos + 8j + {0, 1}.
+template <bool kMask, int NT>
+__device__ __forceinline__ void dq_scores(float (&s)[NT][4], const float (&dp)[NT][4],
+                                          const float (&row_lse)[2],
+                                          const float (&row_delta)[2], int qpos, int kpos,
+                                          int Lq, int Lk, bool causal) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const float p = p_of<kMask>(s[j][e], row_lse[h], qpos + 8 * h, kpos + 8 * j + (e & 1),
+                                  Lq, Lk, causal);
+      s[j][e] = p * (dp[j][e] - row_delta[h]);
+    }
+}
+
+// K5's P^T in place of S^T and dS^T = P^T (dP^T - delta) in place of dP^T,
+// for key rows kpos, kpos + 8 and q columns q0 + col, col = 8j + c + {0, 1}.
+template <bool kMask, int NT>
+__device__ __forceinline__ void dkv_scores(float (&s)[NT][4], float (&dp)[NT][4],
+                                           const float* __restrict__ lse_s,
+                                           const float* __restrict__ delta_s, int q0, int c,
+                                           int kpos, int Lq, int Lk, bool causal) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + c + (e & 1);
+      const float p = p_of<kMask>(s[j][e], lse_s[col], q0 + col, kpos + 8 * (e >> 1), Lq, Lk,
+                                  causal);
+      s[j][e] = p;
+      dp[j][e] = p * (dp[j][e] - delta_s[col]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K4: dq.  Block (n, kRows q rows); loops over k tiles of kBS rows.  Warp w
+// owns q rows 16w .. 16w+15: S = (q * scale) k^T and dP = do v^T as 16 x kBS
+// accumulators, dS = P (dP - delta) in place, dq += dS k.
 // ---------------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bwd<HD>::kThreads)
 flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dq, int Lq, int Lk, int q_tiles, int causal,
                  float sm_scale) {
+  using B = Bwd<HD>;
+  constexpr int NT = B::kBS / 8, DT = HD / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* dOs = Qs + Cfg<HD>::kTile;
-  float* Ks = dOs + Cfg<HD>::kTile;
-  float* Vs = Ks + Cfg<HD>::kTile;
-  float* dSs = Vs + Cfg<HD>::kTile;
+  float* dOs = Qs + B::kRowTile;
+  float* ring = dOs + B::kRowTile;  // two stages of (K, V)
 
   const int n = blockIdx.x / q_tiles;
-  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * kBlock;
-  const Lane ln = lane_of();
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * B::kRows;  // heaviest first
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
   const size_t qo = (size_t)n * Lq * HD, ko = (size_t)n * Lk * HD;
 
-  stage<HD>(Qs, q + qo, q0, Lq, sm_scale);
-  stage<HD>(dOs, dout + qo, q0, Lq, 1.f);
-  float row_lse[4], row_delta[4], acc[4][HD / 8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = q0 + ln.ra + 4 * a;
-    row_lse[a] = r < Lq ? lse[(size_t)n * Lq + r] : 0.f;
-    row_delta[a] = r < Lq ? delta[(size_t)n * Lq + r] : 0.f;
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) acc[a][i] = 0.f;
+  int k_tiles = (Lk + B::kBS - 1) / B::kBS;
+  if (causal) k_tiles = min(k_tiles, (min(q0 + B::kRows, Lq) - 1) / B::kBS + 1);
+  stage_async<HD, B::kRows, B::kThreads>(Qs, q + qo, q0, Lq);
+  stage_async<HD, B::kRows, B::kThreads>(dOs, dout + qo, q0, Lq);
+  if (k_tiles > 0) {
+    stage_async<HD, B::kBS, B::kThreads>(ring, k + ko, 0, Lk);
+    stage_async<HD, B::kBS, B::kThreads>(ring + B::kTile, v + ko, 0, Lk);
   }
+  cp_commit();
 
-  int k_tiles = (Lk + kBlock - 1) / kBlock;
-  if (causal) k_tiles = min(k_tiles, (min(q0 + kBlock, Lq) - 1) / kBlock + 1);
+  float row_lse[2], row_delta[2], acc[DT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    row_lse[h] = r < Lq ? lse[(size_t)n * Lq + r] : 0.f;
+    row_delta[h] = r < Lq ? delta[(size_t)n * Lq + r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
   for (int kt = 0; kt < k_tiles; ++kt) {
-    const int k0 = kt * kBlock;
+    if (kt + 1 < k_tiles) {  // the next K/V tile loads while this one is used
+      float* nxt = ring + ((kt + 1) & 1) * 2 * B::kTile;
+      stage_async<HD, B::kBS, B::kThreads>(nxt, k + ko, (kt + 1) * B::kBS, Lk);
+      stage_async<HD, B::kBS, B::kThreads>(nxt + B::kTile, v + ko, (kt + 1) * B::kBS, Lk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    if (kt == 0) scale_own<HD, B::kRows, B::kThreads>(Qs, sm_scale);  // q * sm_scale before q k^T
     __syncthreads();
-    stage<HD>(Ks, k + ko, k0, Lk, 1.f);
-    stage<HD>(Vs, v + ko, k0, Lk, 1.f);
-    __syncthreads();
+    const float* Ks = ring + (kt & 1) * 2 * B::kTile;
+    const float* Vs = Ks + B::kTile;
 
-    float s[4][8], dp[4][8];
-    tile_dot<HD>(Qs, Ks, ln, s);
-    tile_dot<HD>(dOs, Vs, ln, dp);
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + ln.ra + 4 * a;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int kpos = k0 + ln.kg + 8 * b;
-        const float p = live(qpos, kpos, Lq, Lk, causal) ? expf(s[a][b] - row_lse[a]) : 0.f;
-        dSs[(ln.ra + 4 * a) * kPStride + ln.kg + 8 * b] = p * (dp[a][b] - row_delta[a]);
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll (HD <= 32 ? HD / 8 : 2)
+    for (int d0 = 0; d0 < HD; d0 += 8) {
+      Frag<4> qa, da;
+      load_a<HD>(qa, Qs, r0, d0);
+      load_a<HD>(da, dOs, r0, d0);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        Frag<2> kb[2], vb[2];
+        load_b_rows2<HD>(kb, Ks, 8 * j, d0);
+        mma3(s[j], qa, kb[0]);
+        mma3(s[j + 1], qa, kb[1]);
+        load_b_rows2<HD>(vb, Vs, 8 * j, d0);
+        mma3(dp[j], da, vb[0]);
+        mma3(dp[j + 1], da, vb[1]);
       }
     }
-    __syncwarp();
-    tile_acc<HD>(dSs, Ks, ln, acc);
+    const int k0 = kt * B::kBS;
+    const bool all_live = k0 + B::kBS <= Lk && q0 + B::kRows <= Lq &&
+                          (!causal || k0 + B::kBS - 1 <= q0);
+    if (all_live)
+      dq_scores<false>(s, dp, row_lse, row_delta, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    else
+      dq_scores<true>(s, dp, row_lse, row_delta, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> a;
+      a_from_acc(a, s[j]);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> kb;
+        load_b_cols<HD>(kb, Ks, 8 * j, 8 * i, l);
+        mma3(acc[i], a, kb);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
-  const float mul[4] = {sm_scale, sm_scale, sm_scale, sm_scale};
-  store_rows<HD>(dq + qo, q0, Lq, ln, acc, mul);
+  cp_wait<0>();  // nothing in flight at exit (k_tiles may be 0)
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    if (r >= Lq) continue;
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<float2*>(dq + qo + (size_t)r * HD + 8 * i + 2 * l.t) =
+          make_float2(acc[i][2 * h] * sm_scale, acc[i][2 * h + 1] * sm_scale);
+  }
 }
 
 // ---------------------------------------------------------------------------
-// K5: dk and dv.  Block (n, k tile); loops over q tiles.  Tile rows are keys
-// here and tile columns queries: s^T = k (q * scale)^T.
+// K5: dk and dv.  Block (n, kRows k rows); loops over q tiles of kBS rows.
+// Warp w owns k rows 16w .. 16w+15: S^T = k (q * scale)^T and dP^T = v do^T,
+// P^T and dS^T in place, dv += P^T do, dk += dS^T (q * scale).
 // ---------------------------------------------------------------------------
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bwd<HD>::kThreads)
 flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk,
                   int k_tiles, int causal, float sm_scale) {
+  using B = Bwd<HD>;
+  constexpr int NT = B::kBS / 8, DT = HD / 8;
+  constexpr int kStage = 2 * B::kTile + 2 * B::kBS;  // Q, dO, lse, delta
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + Cfg<HD>::kTile;
-  float* Qs = Vs + Cfg<HD>::kTile;
-  float* dOs = Qs + Cfg<HD>::kTile;
-  float* Ps = dOs + Cfg<HD>::kTile;
-  float* dSs = Ps + kBlock * kPStride;
-  float* lse_s = dSs + kBlock * kPStride;
-  float* delta_s = lse_s + kBlock;
+  float* Vs = Ks + B::kRowTile;
+  float* ring = Vs + B::kRowTile;
 
   const int n = blockIdx.x / k_tiles;
-  const int k0 = (blockIdx.x % k_tiles) * kBlock;  // first k tiles are heaviest
-  const Lane ln = lane_of();
+  const int k0 = (blockIdx.x % k_tiles) * B::kRows;  // first k tiles are heaviest
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
   const size_t qo = (size_t)n * Lq * HD, ko = (size_t)n * Lk * HD;
+  const float* lse_n = lse + (size_t)n * Lq;
+  const float* delta_n = delta + (size_t)n * Lq;
 
-  stage<HD>(Ks, k + ko, k0, Lk, 1.f);
-  stage<HD>(Vs, v + ko, k0, Lk, 1.f);
-  float dk_acc[4][HD / 8], dv_acc[4][HD / 8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+  const int q_tiles = (Lq + B::kBS - 1) / B::kBS;
+  const int qt0 = causal ? k0 / B::kBS : 0;  // q tiles wholly above k0 have p = 0
+  auto stage_q = [&](int qt, float* dst) {
+    stage_async<HD, B::kBS, B::kThreads>(dst, q + qo, qt * B::kBS, Lq);
+    stage_async<HD, B::kBS, B::kThreads>(dst + B::kTile, dout + qo, qt * B::kBS, Lq);
+    stage_vec_async<B::kBS, B::kThreads>(dst + 2 * B::kTile, lse_n, qt * B::kBS, Lq);
+    stage_vec_async<B::kBS, B::kThreads>(dst + 2 * B::kTile + B::kBS, delta_n, qt * B::kBS, Lq);
+  };
+  stage_async<HD, B::kRows, B::kThreads>(Ks, k + ko, k0, Lk);
+  stage_async<HD, B::kRows, B::kThreads>(Vs, v + ko, k0, Lk);
+  if (qt0 < q_tiles) stage_q(qt0, ring);
+  cp_commit();
 
-  const int q_tiles = (Lq + kBlock - 1) / kBlock;
-  for (int qt = causal ? k0 / kBlock : 0; qt < q_tiles; ++qt) {
-    const int q0 = qt * kBlock;
-    __syncthreads();
-    stage<HD>(Qs, q + qo, q0, Lq, sm_scale);
-    stage<HD>(dOs, dout + qo, q0, Lq, 1.f);
-    if (threadIdx.x < kBlock) {
-      const int r = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = r < Lq ? lse[(size_t)n * Lq + r] : 0.f;
-      delta_s[threadIdx.x] = r < Lq ? delta[(size_t)n * Lq + r] : 0.f;
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int qt = qt0; qt < q_tiles; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < q_tiles) {  // the next Q/dO tile loads while this one is used
+      stage_q(qt + 1, ring + (buf ^ 1) * kStage);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
     }
+    float* Qs = ring + buf * kStage;
+    scale_own<HD, B::kBS, B::kThreads>(Qs, sm_scale);  // q * sm_scale before k q^T
     __syncthreads();
+    const float* dOs = Qs + B::kTile;
+    const float* lse_s = dOs + B::kTile;
+    const float* delta_s = lse_s + B::kBS;
 
-    float s[4][8];
-    tile_dot<HD>(Ks, Qs, ln, s);
+    float s[NT][4], dp[NT][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int kpos = k0 + ln.ra + 4 * a;
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int col = ln.kg + 8 * b;
-        const float p = live(q0 + col, kpos, Lq, Lk, causal) ? expf(s[a][b] - lse_s[col]) : 0.f;
-        Ps[(ln.ra + 4 * a) * kPStride + col] = p;
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll (HD <= 32 ? HD / 8 : 2)
+    for (int d0 = 0; d0 < HD; d0 += 8) {
+      Frag<4> ka, va;
+      load_a<HD>(ka, Ks, r0, d0);
+      load_a<HD>(va, Vs, r0, d0);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        Frag<2> qb[2], ob[2];
+        load_b_rows2<HD>(qb, Qs, 8 * j, d0);
+        mma3(s[j], ka, qb[0]);
+        mma3(s[j + 1], ka, qb[1]);
+        load_b_rows2<HD>(ob, dOs, 8 * j, d0);
+        mma3(dp[j], va, ob[0]);
+        mma3(dp[j + 1], va, ob[1]);
       }
     }
-    float dp[4][8];
-    tile_dot<HD>(Vs, dOs, ln, dp);
-    __syncwarp();  // P rows of this warp are written
+    const int q0 = qt * B::kBS;
+    const bool all_live = q0 + B::kBS <= Lq && k0 + B::kRows <= Lk &&
+                          (!causal || k0 + B::kRows - 1 <= q0);
+    if (all_live)
+      dkv_scores<false>(s, dp, lse_s, delta_s, q0, 2 * l.t, k0 + r0 + l.g, Lq, Lk, causal);
+    else
+      dkv_scores<true>(s, dp, lse_s, delta_s, q0, 2 * l.t, k0 + r0 + l.g, Lq, Lk, causal);
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> pa, da;
+      a_from_acc(pa, s[j]);
+      a_from_acc(da, dp[j]);
 #pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int col = ln.kg + 8 * b, at = (ln.ra + 4 * a) * kPStride + col;
-        dSs[at] = Ps[at] * (dp[a][b] - delta_s[col]);
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> ob, qb;
+        load_b_cols<HD>(ob, dOs, 8 * j, 8 * i, l);
+        mma3(dv_acc[i], pa, ob);
+        load_b_cols<HD>(qb, Qs, 8 * j, 8 * i, l);
+        mma3(dk_acc[i], da, qb);
       }
-    __syncwarp();
-    tile_acc<HD>(Ps, dOs, ln, dv_acc);
-    tile_acc<HD>(dSs, Qs, ln, dk_acc);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
   }
-  const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<HD>(dk + ko, k0, Lk, ln, dk_acc, one);
-  store_rows<HD>(dv + ko, k0, Lk, ln, dv_acc, one);
+  cp_wait<0>();  // nothing in flight at exit (no q tile may be live)
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + r0 + l.g + 8 * h;
+    if (r >= Lk) continue;
+    const size_t at = ko + (size_t)r * HD + 2 * l.t;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      *reinterpret_cast<float2*>(dk + at + 8 * i) =
+          make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + at + 8 * i) =
+          make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
+    }
+  }
 }
 
 template <int HD>
 constexpr size_t fwd_smem() { return (3 * Cfg<HD>::kTile + kBlock * kPStride) * sizeof(float); }
 template <int HD>
-constexpr size_t dq_smem() { return (4 * Cfg<HD>::kTile + kBlock * kPStride) * sizeof(float); }
+constexpr size_t dq_smem() {
+  using B = Bwd<HD>;
+  return (2 * B::kRowTile + 4 * B::kTile) * sizeof(float);
+}
 template <int HD>
 constexpr size_t dkv_smem() {
-  return (4 * Cfg<HD>::kTile + 2 * kBlock * kPStride + 2 * kBlock) * sizeof(float);
+  using B = Bwd<HD>;
+  return (2 * B::kRowTile + 2 * (2 * B::kTile + 2 * B::kBS)) * sizeof(float);
 }
 
 template <typename Kernel>
@@ -453,9 +822,9 @@ cudaError_t bwd_dq(const float* q, const float* k, const float* v, const float* 
   const size_t smem = dq_smem<HD>();
   cudaError_t err = allow_smem(flash_bwd_dq_f32<HD>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (Lq + kBlock - 1) / kBlock;
-  flash_bwd_dq_f32<HD><<<N * tiles, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq,
-                                                               Lq, Lk, tiles, causal, sm_scale);
+  const int tiles = (Lq + Bwd<HD>::kRows - 1) / Bwd<HD>::kRows;
+  flash_bwd_dq_f32<HD><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, Lq, Lk, tiles, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -466,8 +835,8 @@ cudaError_t bwd_dkv(const float* q, const float* k, const float* v, const float*
   const size_t smem = dkv_smem<HD>();
   cudaError_t err = allow_smem(flash_bwd_dkv_f32<HD>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (Lk + kBlock - 1) / kBlock;
-  flash_bwd_dkv_f32<HD><<<N * tiles, kThreads, smem, stream>>>(
+  const int tiles = (Lk + Bwd<HD>::kRows - 1) / Bwd<HD>::kRows;
+  flash_bwd_dkv_f32<HD><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Lq, Lk, tiles, causal, sm_scale);
   return cudaGetLastError();
 }

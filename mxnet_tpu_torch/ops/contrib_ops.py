@@ -3,10 +3,10 @@
 
 ``_contrib_flash_attention`` takes q/k/v as (N, L, D) or (B, H, L, D).  On a
 CUDA tensor it runs kernels K3-K5 (``ops.kernels.flash_attention``: f32,
-head dim 16/32/64/128, raising on others), as the JAX op runs its Pallas
-kernel wherever it compiles natively; on the CPU it is the JAX op's dense
-composition.  The ring/Ulysses sequence-parallel routes of the JAX op are
-not ported.
+head dims up to 128, zero-padded to 16/32/64/128; raising above), as the
+JAX op runs its Pallas kernel wherever it compiles natively; on the CPU it
+is the JAX op's dense composition.  The ring/Ulysses sequence-parallel
+routes of the JAX op are not ported.
 """
 from __future__ import annotations
 

@@ -15,7 +15,9 @@ the kernels check bounds instead.
 
 Every wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors (f32, D in {16, 32, 64, 128}, contiguous and
-16-byte aligned) or raises.
+16-byte aligned) or raises.  :func:`flash_attention` takes any D up to
+128: it zero-pads q, k and v to the next of those head dims
+(:func:`pad_head_dim`) and slices the results back.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_dq_ref", "flash_attention_dkv_ref",
-           "FlashAttentionFunction"]
+           "FlashAttentionFunction", "pad_head_dim"]
 
 _NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -252,18 +254,35 @@ class FlashAttentionFunction(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def pad_head_dim(q, k, v):
+    """(q, k, v) zero-padded along D to the next head dim in ``HEAD_DIMS``
+    when D <= 128 is not one of them, else as they are.  Zero columns
+    leave q k^T and the lse unchanged, give out zero columns and, through
+    the pad's autograd, slice dq, dk and dv back to D."""
+    D = q.shape[-1]
+    to = next((h for h in HEAD_DIMS if h >= D), D)
+    if to == D:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, to - D)) for t in (q, k, v))
+
+
 def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
                     return_lse: bool = False):
     """Fused attention softmax(q k^T * sm_scale [causal]) v, differentiable
     in q, k and v.  q: (N, Lq, D) or (B, H, Lq, D); k, v likewise with Lk.
-    ``return_lse`` also returns the row logsumexp (N, Lq) or (B, H, Lq) in
-    f32 (not differentiable)."""
+    ``sm_scale`` defaults to 1 / sqrt(D).  A D up to 128 outside
+    ``HEAD_DIMS`` runs zero-padded (:func:`pad_head_dim`).  ``return_lse``
+    also returns the row logsumexp (N, Lq) or (B, H, Lq) in f32 (not
+    differentiable)."""
     q4 = q.dim() == 4
     if q4:
         b, h = q.shape[:2]
         q, k, v = (t.reshape(b * h, *t.shape[2:]) for t in (q, k, v))
-    out, lse = FlashAttentionFunction.apply(q, k, v, bool(causal),
-                                            _scale(q, sm_scale))
+    D = q.shape[-1]
+    sm_scale = _scale(q, sm_scale)
+    out, lse = FlashAttentionFunction.apply(*pad_head_dim(q, k, v),
+                                            bool(causal), sm_scale)
+    out = out[..., :D]
     if q4:
         out = out.reshape(b, h, *out.shape[1:])
         lse = lse.reshape(b, h, lse.shape[-1])

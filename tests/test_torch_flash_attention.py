@@ -8,7 +8,11 @@ held against ``mxnet_tpu.ops.pallas.flash_attention`` in interpret mode
 gradients from ``jax.vjp``.  The same numpy inputs, drawn from a seed, go
 to both.  Tolerances: out and lse atol = rtol = 1e-5, dq, dk and dv
 1e-4; both compute in f32 with sums in another order, and the gradients
-chain three products.
+chain three products.  Head dims the kernels do not take (48, 80) run
+zero-padded and are held against the JAX function at their own D.  The
+kernels' precision plan (every product of K4 and K5 in 3xTF32 on the
+tensor cores) is emulated on the f32 bit patterns and held against the
+plain versions.
 """
 import ctypes
 import importlib
@@ -214,3 +218,113 @@ def test_ctypes_binding_matches_c_signature(monkeypatch, fn):
 def test_flash_attention_is_built_with_the_other_kernels():
     assert "flash_attention" in _build.SOURCES
     assert (_build.CSRC / "flash_attention.cu").exists()
+
+
+# ---------------------------------------------------------------------------
+# head dims outside {16, 32, 64, 128}
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("D", [48, 80])
+@pytest.mark.parametrize("causal", [False, True])
+def test_padded_head_dim_matches_pallas(D, causal):
+    """``flash_attention`` zero-pads a head dim the kernels do not take
+    to the next one and slices back; through the plain versions here, out,
+    lse and the three gradients still match the JAX function at D."""
+    q, k, v, do = _inputs(D + int(causal), (2, 40, D), (2, 33, D))
+    padded = fa_mod.pad_head_dim(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert all(t.shape[-1] == (64 if D == 48 else 128) for t in padded)
+    out_j, lse_j, grads_j = _jax_reference(q, k, v, do, causal)
+    out, lse, grads = _port(q, k, v, do, causal)
+    assert out.shape == (2, 40, D)
+    np.testing.assert_allclose(out, out_j, **OUT_TOL)
+    np.testing.assert_allclose(lse, lse_j, **OUT_TOL)
+    for name, g, gj in zip("qkv", grads, grads_j):
+        assert g.shape == gj.shape
+        np.testing.assert_allclose(g, gj, err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_pad_head_dim_leaves_supported_and_large_dims():
+    for D in (16, 32, 64, 128, 130):
+        t = torch.zeros(1, 4, D)
+        assert all(x is t for x in fa_mod.pad_head_dim(t, t, t))
+
+
+# ---------------------------------------------------------------------------
+# the precision plan of K4 and K5: products in 3xTF32
+# ---------------------------------------------------------------------------
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the bits of f32 ``x``: round to 10 mantissa
+    bits, ties away from zero (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    """What the tensor cores read of an f32 register given as TF32: the
+    10 high mantissa bits (the 13 low bits are dropped)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b with TF32 operands: one product of the rounded operands
+    (``passes`` 1), or 3xTF32 (``passes`` 3) as K4 and K5 form it: each
+    operand split as big = rna(x) and small = x - big, which the tensor
+    cores truncate to TF32, and small big + big small + big big summed in
+    f32."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small = _tf32_truncated(a - a_big)
+    b_small = _tf32_truncated(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _grads_tf32(q, k, v, do, lse, delta, causal, scale, passes):
+    """dq, dk, dv by the formulas of flash_attention_dq_ref and
+    flash_attention_dkv_ref, every product in TF32 (``_mm_tf32``)."""
+    qs = q * scale
+    s = _mm_tf32(qs, k.transpose(-1, -2), passes)
+    if causal:
+        keep = torch.ones(s.shape[-2:], dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, -1e30)
+    p = torch.exp(s - lse[..., None])
+    dp = _mm_tf32(do, v.transpose(-1, -2), passes)
+    ds = p * (dp - delta[..., None])
+    dq = _mm_tf32(ds, k, passes) * scale
+    dk = _mm_tf32(ds.transpose(-1, -2), qs, passes)
+    dv = _mm_tf32(p.transpose(-1, -2), do, passes)
+    return dq, dk, dv
+
+
+# a tenth of chip_smoke.py's 1e-4 on dq, dk and dv
+TF32X3_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("N,L,D", [(2, 128, 64), (2, 72, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_products_keep_f32_accuracy(N, L, D, causal):
+    """The kernels' products are 3xTF32 on the tensor cores: emulated
+    here, dq, dk and dv stay within a tenth of the card's tolerance of the
+    f32 plain versions, while single-pass TF32 misses that bound."""
+    q, k, v, do = (torch.from_numpy(a) for a in
+                   _inputs(L + D + int(causal), (N, L, D), (N, L, D)))
+    scale = 1.0 / np.sqrt(D)
+    out, lse = flash_attention_ref(q, k, v, causal, scale)
+    delta = (do * out).sum(-1)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    want = (flash_attention_dq_ref(*args), *flash_attention_dkv_ref(*args))
+    x3 = _grads_tf32(*args, passes=3)
+    x1 = _grads_tf32(*args, passes=1)
+    for name, got, w in zip(("dq", "dk", "dv"), x3, want):
+        err = float((got - w).abs().max())
+        assert err <= TF32X3_ATOL, (name, err)
+    assert max(float((g - w).abs().max()) for g, w in zip(x1, want)) \
+        > 10 * TF32X3_ATOL
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0])
+    assert torch.equal(_tf32(x), want)
