@@ -8,7 +8,12 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
 
   device                  card name and power limit (nvidia-smi), torch and
                           CUDA versions, and the seconds the kernel build
-                          took (one nvcc per ``csrc/*.cu``, all at once).
+                          took (one nvcc per ``csrc/*.cu``, all at once),
+                          with each kernel's ``ptxas -v`` lines (registers,
+                          spills); K3's block shape, shared memory and
+                          blocks per SM at hd 16, 32, 64 and 128; the floor of
+                          back-to-back launches, a one-element in-place
+                          add timed like the kernels (a yardstick only).
   kernel_layer_norm       kernel K1 vs its plain version at (8, 1024),
                           (64, 1024), (8192, 1024) and the training path's
                           (16384, 768) f32, atol 1e-5 on out,
@@ -46,8 +51,9 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           Lq 130, Lk 70), ragged hd 64 (N 8, Lq 200, Lk
                           333), and hd 48 causal through ``flash_attention``
                           (zero-padded to 64); atol 2e-5 on out and lse,
-                          1e-4 on dq, dk and dv; K4 and K5 run twice and
-                          must agree bitwise.  Times of each kernel and its
+                          1e-4 on dq, dk and dv; K3, K4 and K5 run twice
+                          and must agree bitwise.  K3's rows give the
+                          blocks it launched.  Times of each kernel and its
                           plain version beside both bounds, with
                           ``scaled_dot_product_attention`` forward (K3) and
                           its backward (fwd+bwd minus fwd; dq, dk and dv in
@@ -197,10 +203,24 @@ def phase_device(torch, ctx):
 
     t0 = time.perf_counter()
     _build.build_all()
+    build_s = time.perf_counter() - t0
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (HEAD_DIMS,
+                                                             _fwd_shape)
+
+    # K3's launch shape per head dim; its registers and spills are in the
+    # ptxas lines of flash_fwd_f32<hd> below
+    k3 = {hd: _fwd_shape(hd) for hd in HEAD_DIMS}
+    # the floor of back-to-back launches: a one-element in-place add, a
+    # yardstick that no path of the port calls
+    one = torch.zeros(1, device=torch.device("cuda", 0))
+    floor_ms = time_ms(torch, lambda: one.add_(1.0))
     return {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "torch": torch.__version__,
             "cuda": torch.version.cuda, "python": sys.version.split()[0],
-            "build_s": time.perf_counter() - t0,
+            "build_s": build_s, "launch_floor_ms": floor_ms,
+            "launch_floor_is": "one-element in-place add on cuda:0, "
+                               "back to back",
+            "flash_fwd_f32": k3,
             "ptxas": {k: _ptxas(v) for k, v in _build.BUILD_LOG.items()}}
 
 
@@ -333,14 +353,15 @@ def _flash_inputs(torch, g, N, Lq, Lk, D):
 
 
 def _flash_errors(torch, q, k, v, do, causal):
-    """K3-K5 once, and twice more for K4 and K5 (bitwise equal: no
-    atomics), against the plain forward and autograd through it."""
+    """K3-K5 once, and each once more (bitwise equal: no atomics), against
+    the plain forward and autograd through it."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
                                              flash_attention_dq,
                                              flash_attention_fwd,
                                              flash_attention_ref)
 
     out, lse = flash_attention_fwd(q, k, v, causal)
+    out2, lse2 = flash_attention_fwd(q, k, v, causal)
     delta = (do * out).sum(-1)
     args = (q, k, v, do, lse, delta, causal, 1.0 / math.sqrt(q.shape[-1]))
     dq = flash_attention_dq(*args)
@@ -355,7 +376,8 @@ def _flash_errors(torch, q, k, v, do, causal):
     err = {key: float((a - b.detach()).abs().max())
            for key, (a, b) in got.items()}
     same = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
-    return err, same, args
+    fwd_same = bool(torch.equal(out, out2)) and bool(torch.equal(lse, lse2))
+    return err, same, fwd_same, args
 
 
 def _padded_head_dim_case(torch, g, N, L, D, causal, tol):
@@ -388,6 +410,7 @@ def phase_flash_attention(torch, ctx):
                                              flash_attention_dq_ref,
                                              flash_attention_fwd,
                                              flash_attention_ref)
+    from mxnet_tpu_torch.ops.kernels.flash_attention import _fwd_shape
 
     F = torch.nn.functional
     dev = torch.device("cuda", 0)
@@ -407,17 +430,20 @@ def phase_flash_attention(torch, ctx):
     out_rows = {name: [] for name in outputs}
     checks, pairs_out = [], []
     for name, (N, Lq, Lk, D, causal) in checked.items():
-        err, same, _ = _flash_errors(torch, *_flash_inputs(torch, g, N, Lq,
-                                                          Lk, D), causal)
+        err, same, fwd_same, _ = _flash_errors(
+            torch, *_flash_inputs(torch, g, N, Lq, Lk, D), causal)
         checks.append({"case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
                        "causal": causal, "errors": err,
+                       "fwd_bitwise_repeatable": fwd_same,
                        "bwd_bitwise_repeatable": same,
-                       "ok": same and all(err[key] <= tol[key]
-                                          for key in err)})
+                       "ok": same and fwd_same and all(err[key] <= tol[key]
+                                                       for key in err)})
     checks.append(_padded_head_dim_case(torch, g, 4, 100, 48, True, tol))
     for name, (N, Lq, Lk, D, causal) in cases.items():
         q, k, v, do = _flash_inputs(torch, g, N, Lq, Lk, D)
-        err, same, args = _flash_errors(torch, q, k, v, do, causal)
+        err, same, fwd_same, args = _flash_errors(torch, q, k, v, do,
+                                                  causal)
+        rows_k3 = _fwd_shape(D)["rows"]
 
         pairs = _live_pairs(Lq, Lk, causal)
         nq, nk = N * Lq * D * 4, N * Lk * D * 4
@@ -451,14 +477,18 @@ def phase_flash_attention(torch, ctx):
             e = max(err[key] for key in keys)
             b_ms, b_by = bound_3xtf32(*work[kname])
             ms = time_ms(torch, kern)
+            fwd = kname == "flash_attention_fwd"
             out_rows[kname].append({
                 "case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
                 "causal": causal, "max_abs_err": e,
                 "bwd_bitwise_repeatable": same,
+                **({"fwd_bitwise_repeatable": fwd_same,
+                    "blocks": N * -(-Lq // rows_k3)} if fwd else {}),
                 "ok": all(err[key] <= tol[key] for key in keys)
-                and same and ms >= b_ms,
+                and same and (fwd_same or not fwd) and ms >= b_ms,
                 "ms": ms, "plain_ms": time_ms(torch, plain),
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "over_library": ms / lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by,
                 "bound_f32_cores_ms": bound(*work[kname])[0]})
         pair = (out_rows["flash_attention_dq"][-1]["ms"]
                 + out_rows["flash_attention_dkv"][-1]["ms"])

@@ -17,24 +17,10 @@
 // flops per byte at which even the CUDA cores' 67 TFLOP/s outrun 3.35 TB/s.
 // K4 does 6 N L^2 hd = 38.7 GFLOP and K5 8 N L^2 hd = 51.5 GFLOP.  Done as
 // 3xTF32 on the tensor cores (three TF32 products per f32 product, 495
-// TFLOP/s dense) the least time is 3 x flops / 495 TFLOP/s: K4 0.234 ms, K5
-// 0.312 ms (K3 0.156 ms); on the CUDA cores it would be 0.577, 0.769 ms.
+// TFLOP/s dense) the least time is 3 x flops / 495 TFLOP/s: K3 0.156 ms, K4
+// 0.234 ms, K5 0.312 ms; on the CUDA cores it would be 0.385, 0.577, 0.769 ms.
 //
-// K3 (forward): one 128-thread block per (head, 64-row tile); the other
-// operand streams through shared memory in 64-row tiles, staged with
-// 16-byte coalesced loads into rows padded by 4 floats (so the strided
-// per-lane reads below hit distinct banks).  A 64 x 64 score tile is split
-// 4 x 8 per thread: lane = 8 * rg + kg of warp w owns tile rows
-// 16 w + rg + 4 a (a < 4) and columns kg + 8 b (b < 8), and each row's
-// softmax statistics reduce over the 8 lanes of its row group by shuffles.
-// A product with a 64-row operand (P V) goes through a per-warp 64 x 64 tile
-// in shared memory; each thread accumulates its 4 rows by hd / 8 columns,
-// so a row's hd is split over 8 lanes and an hd-128 accumulator is 64
-// registers a thread, not 128 (cf. K2, which splits hd over hd / 4 lanes).
-// Math is f32 FMA on the CUDA cores; causal blocks skip k tiles wholly
-// above the diagonal.
-//
-// K4 (dq) and K5 (dk, dv), for Hopper:
+// All three kernels:
 // - Products on the tensor cores in 3xTF32: mma.sync m16n8k8 TF32 with f32
 //   accumulators.  Each operand is split at fragment load as x = big +
 //   small (big = x rounded to TF32 as cvt.rna.tf32.f32 rounds, small =
@@ -45,32 +31,43 @@
 //   of the TF32 rate, 2.5x the CUDA cores'.  The split is two integer ops
 //   and a subtraction (cvt.rna itself compiles to a longer sequence), and
 //   q * scale is formed once per staged tile, in shared memory.  mma.sync
-//   rather than wgmma: three of the five products (dS K, P^T dO, dS^T Q)
-//   reduce over the row axis of a row-major tile, and TF32 wgmma takes
-//   only K-major operands from shared memory.
-// - A warp owns 16 rows (m16): the score tiles S, dP (K4) or S^T, dP^T (K5)
-//   are its accumulators, P and dS are computed in place, and the
-//   accumulator of a 16 x 8 tile is the A operand of the next product as it
-//   stands once that product's k axis is permuted (k = t is column 2t,
-//   k = t + 4 is column 2t + 1): P and dS never touch shared memory.
+//   rather than wgmma: four of the six products (P V, dS K, P^T dO,
+//   dS^T Q) reduce over the row axis of a row-major tile, and TF32 wgmma
+//   takes only K-major operands from shared memory.
+// - A warp owns 16 rows (m16): the score tiles S (K3), S and dP (K4) or
+//   S^T and dP^T (K5) are its accumulators, P and dS are computed in
+//   place, and the accumulator of a 16 x 8 tile is the A operand of the
+//   next product as it stands once that product's k axis is permuted (k = t
+//   is column 2t, k = t + 4 is column 2t + 1): P and dS never touch shared
+//   memory.
+// - K3's online softmax runs in that accumulator layout: lane 4g + t holds
+//   rows g and g + 8, takes their max over its columns and then over the
+//   quad's four lanes (two shuffles), rescales its O accumulator by alpha
+//   and keeps its own share of each row sum, summed over the quad once, at
+//   the end.
 // - Staging is an asynchronous two-stage ring: cp.async.cg 16-byte copies,
 //   commit/wait groups, zero-fill (source size 0) for rows past Lq or Lk.
-//   The streamed operand (K/V in K4; Q, dO, lse and delta in K5) loads
-//   its next tile while this one is multiplied.
+//   The streamed operand (K/V in K3 and K4; Q, dO, lse and delta in K5)
+//   loads its next tile while this one is multiplied; K3 waits for a tile
+//   and refills the other stage behind a single barrier per tile.
 // - Tiles are padded to a row stride of hd + 4 floats, so the operands of
 //   products over hd load by ldmatrix (four 8 x 4 f32 matrices an
 //   instruction) and those over tile rows, X[2t][g] (lane = 4g + t), by
 //   scalar loads, all without bank conflicts.  Score tiles with every
 //   (q, k) pair live skip the mask tests.
-// - Occupancy: at hd <= 64 a block is 4 warps and 64 rows, the other
-//   operand streams in 64-row tiles, and two blocks (8 warps) share an SM
-//   (K4 ~104 KB, K5 ~105 KB of shared memory at hd 64).  At hd 128 a block
-//   is 2 warps and 32 rows and the stream 32-row tiles: K5's two hd-wide
-//   accumulators take 2 x 64 registers a thread, and the small causal
-//   shapes get twice the blocks.
-// - Every output row is summed in one block: no atomics, deterministic
-//   gradients.  Causal dq blocks skip k tiles wholly above the diagonal and
-//   dk/dv blocks q tiles wholly below it (there p is exactly 0).
+// - Occupancy: at hd <= 64 a block is 4 warps and 64 rows.  K4 and K5
+//   stream the other operand in 64-row tiles, and two blocks (8 warps)
+//   share an SM (104,448 and 105,472 B of shared memory at hd 64).  K3
+//   streams K and V in 32-row tiles (52,224 B at hd 64), keeps each warp's
+//   Q fragments split in registers, and three blocks (12 warps) share an
+//   SM.  At hd 128 a block is 2 warps and 32 rows and the stream 32-row
+//   tiles (K3 84,480 B, two blocks an SM): K5's two hd-wide accumulators
+//   take 2 x 64 registers a thread, and the small causal shapes get more
+//   blocks (42 for 6 heads of 200 rows, not 24 of 64 rows).
+// - Every output row is summed in one block: no atomics, so out, lse and
+//   the gradients are bitwise repeatable.  Causal q blocks (K3, K4) skip
+//   k tiles wholly above the diagonal, which are never loaded, and dk/dv
+//   blocks q tiles wholly below it (there p is exactly 0).
 // No wgmma and no TMA yet.
 
 #include <cuda_runtime.h>
@@ -79,247 +76,19 @@
 
 namespace {
 
-constexpr int kBlock = 64;     // rows of every tile (q tile and k tile)
-constexpr int kThreads = 128;  // 4 warps; warp w owns tile rows 16w .. 16w+15
-constexpr int kPStride = 72;   // row stride (floats) of a 64 x 64 P / dS tile
 constexpr float kNeg = -1e30f; // the TPU kernels' mask value
 
 template <int HD>
 struct Cfg {
-  static constexpr int kStride = HD + 4;             // padded row of a staged tile
-  static constexpr int kTile = kBlock * kStride;     // floats of a staged tile
-  static constexpr int kVec = HD >= 32 ? 4 : 2;      // accumulator vector width
-  static constexpr int kVecs = HD / (8 * kVec);      // vectors per row per lane
+  static constexpr int kStride = HD + 4;  // padded row of a staged tile
 };
-
-struct Lane {
-  int ra;  // first tile row of this thread (16 w + rg); its rows are ra + 4a
-  int kg;  // first tile column (kg); its columns are kg + 8b
-};
-
-__device__ __forceinline__ Lane lane_of() {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return {16 * w + (lane >> 3), lane & 7};
-}
-
-// Stage rows row0 .. row0+63 of a (n_rows, HD) matrix into a padded tile,
-// times scale; rows past n_rows are zero.
-template <int HD>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const float* __restrict__ src, int row0,
-                                      int n_rows, float scale) {
-  constexpr int V = HD / 4;
-  for (int i = threadIdx.x; i < kBlock * V; i += kThreads) {
-    const int r = i / V, c = i - r * V;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) {
-      x = __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * HD) + c);
-      x.x *= scale; x.y *= scale; x.z *= scale; x.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * Cfg<HD>::kStride + 4 * c) = x;
-  }
-}
-
-// s[a][b] = sum_d A[ra + 4a][d] * B[kg + 8b][d] over staged tiles.
-template <int HD>
-__device__ __forceinline__ void tile_dot(const float* __restrict__ A,
-                                         const float* __restrict__ B, Lane ln,
-                                         float (&s)[4][8]) {
-  constexpr int S = Cfg<HD>::kStride;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) s[a][b] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[8];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-      av[a] = *reinterpret_cast<const float4*>(A + (ln.ra + 4 * a) * S + d);
-#pragma unroll
-    for (int b = 0; b < 8; ++b)
-      bv[b] = *reinterpret_cast<const float4*>(B + (ln.kg + 8 * b) * S + d);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        float t = s[a][b];
-        t = fmaf(av[a].x, bv[b].x, t);
-        t = fmaf(av[a].y, bv[b].y, t);
-        t = fmaf(av[a].z, bv[b].z, t);
-        t = fmaf(av[a].w, bv[b].w, t);
-        s[a][b] = t;
-      }
-  }
-}
-
-// Column d of this lane's i-th accumulator element (vector c, lane e).
-template <int HD>
-__device__ __forceinline__ int acc_col(Lane ln, int c, int e) {
-  constexpr int W = Cfg<HD>::kVec;
-  return ln.kg * W + 8 * W * c + e;
-}
-
-// acc[a][c*W + e] += sum_j P[ra + 4a][j] * X[j][acc_col(c, e)], P a 64 x 64
-// tile (stride kPStride) and X a staged (64, HD) tile.
-template <int HD>
-__device__ __forceinline__ void tile_acc(const float* __restrict__ P,
-                                         const float* __restrict__ X, Lane ln,
-                                         float (&acc)[4][HD / 8]) {
-  constexpr int S = Cfg<HD>::kStride, W = Cfg<HD>::kVec, NV = Cfg<HD>::kVecs;
-#pragma unroll 4
-  for (int j = 0; j < kBlock; ++j) {
-    float p[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) p[a] = P[(ln.ra + 4 * a) * kPStride + j];
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      const float* x = X + j * S + acc_col<HD>(ln, c, 0);
-      float xv[W];
-      if constexpr (W == 4) {
-        const float4 t = *reinterpret_cast<const float4*>(x);
-        xv[0] = t.x; xv[1] = t.y; xv[2] = t.z; xv[3] = t.w;
-      } else {
-        const float2 t = *reinterpret_cast<const float2*>(x);
-        xv[0] = t.x; xv[1] = t.y;
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < W; ++e)
-          acc[a][c * W + e] = fmaf(p[a], xv[e], acc[a][c * W + e]);
-    }
-  }
-}
-
-// Write this lane's rows (row0 + ra + 4a < n_rows) of acc * mul[a] into a
-// (n_rows, HD) matrix.
-template <int HD>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0,
-                                           int n_rows, Lane ln,
-                                           const float (&acc)[4][HD / 8],
-                                           const float (&mul)[4]) {
-  constexpr int W = Cfg<HD>::kVec, NV = Cfg<HD>::kVecs;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int r = row0 + ln.ra + 4 * a;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int c = 0; c < NV; ++c) {
-      float* o = dst + (size_t)r * HD + acc_col<HD>(ln, c, 0);
-      if constexpr (W == 4) {
-        *reinterpret_cast<float4*>(o) =
-            make_float4(acc[a][c * W] * mul[a], acc[a][c * W + 1] * mul[a],
-                        acc[a][c * W + 2] * mul[a], acc[a][c * W + 3] * mul[a]);
-      } else {
-        *reinterpret_cast<float2*>(o) =
-            make_float2(acc[a][c * W] * mul[a], acc[a][c * W + 1] * mul[a]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float row_max8(float v) {
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum8(float v) {
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 __device__ __forceinline__ bool live(int qpos, int kpos, int Lq, int Lk, bool causal) {
   return qpos < Lq && kpos < Lk && (!causal || qpos >= kpos);
 }
 
 // ---------------------------------------------------------------------------
-// K3: forward.  Block (n, q tile); loops over k tiles with an online softmax.
-// ---------------------------------------------------------------------------
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int Lq, int Lk, int q_tiles, int causal,
-              float sm_scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + Cfg<HD>::kTile;
-  float* Vs = Ks + Cfg<HD>::kTile;
-  float* Ps = Vs + Cfg<HD>::kTile;
-
-  const int n = blockIdx.x / q_tiles;
-  // heaviest causal tiles (the last q rows) first
-  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * kBlock;
-  const Lane ln = lane_of();
-  const size_t qo = (size_t)n * Lq * HD, ko = (size_t)n * Lk * HD;
-
-  stage<HD>(Qs, q + qo, q0, Lq, sm_scale);  // q * sm_scale before q k^T
-  float m[4], l[4], acc[4][HD / 8];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m[a] = kNeg;
-    l[a] = 0.f;
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i) acc[a][i] = 0.f;
-  }
-
-  int k_tiles = (Lk + kBlock - 1) / kBlock;
-  if (causal) k_tiles = min(k_tiles, (min(q0 + kBlock, Lq) - 1) / kBlock + 1);
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage<HD>(Ks, k + ko, k0, Lk, 1.f);
-    stage<HD>(Vs, v + ko, k0, Lk, 1.f);
-    __syncthreads();
-
-    float s[4][8];
-    tile_dot<HD>(Qs, Ks, ln, s);
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + ln.ra + 4 * a;
-      float mt = m[a];
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const int kpos = k0 + ln.kg + 8 * b;
-        // rows past Lq are never written; keep them unmasked like the TPU's
-        // zero-padded rows
-        if (!(kpos < Lk && (!causal || qpos >= kpos))) s[a][b] = kNeg;
-        mt = fmaxf(mt, s[a][b]);
-      }
-      mt = row_max8(mt);
-      const float alpha = expf(m[a] - mt);
-      float rs = 0.f;
-#pragma unroll
-      for (int b = 0; b < 8; ++b) {
-        const float p = expf(s[a][b] - mt);
-        rs += p;
-        Ps[(ln.ra + 4 * a) * kPStride + ln.kg + 8 * b] = p;
-      }
-      l[a] = l[a] * alpha + row_sum8(rs);
-      m[a] = mt;
-#pragma unroll
-      for (int i = 0; i < HD / 8; ++i) acc[a][i] *= alpha;
-    }
-    __syncwarp();  // P rows of this warp are written
-    tile_acc<HD>(Ps, Vs, ln, acc);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float safe_l = l[a] == 0.f ? 1.f : l[a];
-    inv[a] = 1.f / safe_l;
-    const int r = q0 + ln.ra + 4 * a;
-    if (ln.kg == 0 && r < Lq) lse[(size_t)n * Lq + r] = m[a] + logf(safe_l);
-  }
-  store_rows<HD>(out + qo, q0, Lq, ln, acc, inv);
-}
-
-// ---------------------------------------------------------------------------
-// K4 and K5: 3xTF32 products on the tensor cores, fed by a cp.async ring.
+// 3xTF32 products on the tensor cores, fed by a cp.async ring.
 // ---------------------------------------------------------------------------
 
 // cp.async: 16-byte copies bypassing L1, and 4-byte ones for row vectors;
@@ -488,17 +257,196 @@ __device__ __forceinline__ void scale_own(float* __restrict__ dst, float scale) 
   }
 }
 
-// Tile sizes of K4 and K5: kWarps warps of 16 rows each own a block's
-// rows; the other operand streams in tiles of kBS rows, two in flight.
-template <int HD>
-struct Bwd {
+// Tile sizes of a block: kWarps warps of 16 rows each own the block's rows
+// (q rows in K3 and K4, k rows in K5); the other operand streams in tiles of
+// BS rows, two in flight.
+template <int HD, int BS>
+struct Tiles {
   static constexpr int kWarps = HD == 128 ? 2 : 4;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kRows = 16 * kWarps;  // q rows (K4) or k rows (K5) of a block
-  static constexpr int kBS = HD == 128 ? 32 : 64;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kBS = BS;
   static constexpr int kRowTile = kRows * Cfg<HD>::kStride;
   static constexpr int kTile = kBS * Cfg<HD>::kStride;
 };
+template <int HD>
+using Bwd = Tiles<HD, HD == 128 ? 32 : 64>;  // K4 and K5
+
+// e^x as exp2(x log2 e): a multiply and ex2, where expf adds a longer range
+// reduction.  Exactly 1 at x = 0, so a masked row still takes p = 1.
+__device__ __forceinline__ float exp_e(float x) { return exp2f(x * 1.4426950408889634f); }
+
+// K3's online softmax over one score tile, in place: s (q rows qpos,
+// qpos + 8; key columns kpos + 8j + {0, 1}) becomes p = exp(s - m_new),
+// the O accumulator is rescaled by alpha = exp(m - m_new), and row_sum,
+// this lane's share of each row's sum, becomes row_sum * alpha + its p.
+// A masked score is -1e30, so a row with no live key yet takes p = 1,
+// which a later alpha = 0 wipes, as on the TPU.
+template <bool kMask, int NT, int DT>
+__device__ __forceinline__ void fwd_softmax(float (&s)[NT][4], float (&acc)[DT][4],
+                                            float (&m)[2], float (&row_sum)[2], int qpos,
+                                            int kpos, int Lq, int Lk, bool causal) {
+  float m_new[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      if (kMask && !live(qpos + 8 * h, kpos + 8 * j + (e & 1), Lq, Lk, causal))
+        s[j][e] = kNeg;
+      m_new[h] = fmaxf(m_new[h], s[j][e]);
+    }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row's max over the quad's four lanes
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 1));
+    m_new[h] = fmaxf(m_new[h], __shfl_xor_sync(0xffffffffu, m_new[h], 2));
+    alpha[h] = exp_e(m[h] - m_new[h]);
+    m[h] = m_new[h];
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp_e(s[j][e] - m_new[e >> 1]);
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) row_sum[h] = row_sum[h] * alpha[h] + sum[h];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+}
+
+// ---------------------------------------------------------------------------
+// K3: forward.  Block (n, kRows q rows); loops over k tiles of kBS rows with
+// an online softmax.  Warp w owns q rows 16w .. 16w+15: S = (q * scale) k^T
+// as a 16 x kBS accumulator, P = exp(S - m) in place, O += P v.
+// ---------------------------------------------------------------------------
+// K3's tiles.  At hd <= 64 a warp keeps its Q tile's split A fragments in
+// registers (hd / 8 of them, 8 registers each), and three blocks share an SM.
+template <int HD>
+struct Fwd : Tiles<HD, 32> {
+  static constexpr bool kQRegs = HD <= 64;
+  static constexpr int kMinBlocks = HD <= 64 ? 3 : 1;  // per SM, for the register budget
+};
+
+template <int HD>
+__global__ void __launch_bounds__(Fwd<HD>::kThreads, Fwd<HD>::kMinBlocks)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int Lq, int Lk, int q_tiles, int causal,
+              float sm_scale) {
+  using F = Fwd<HD>;
+  constexpr int NT = F::kBS / 8, DT = HD / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* ring = Qs + F::kRowTile;  // two stages of (K, V)
+
+  const int n = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * F::kRows;  // heaviest first
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
+  const size_t qo = (size_t)n * Lq * HD, ko = (size_t)n * Lk * HD;
+
+  int k_tiles = (Lk + F::kBS - 1) / F::kBS;
+  if (causal) k_tiles = min(k_tiles, (min(q0 + F::kRows, Lq) - 1) / F::kBS + 1);
+  stage_async<HD, F::kRows, F::kThreads>(Qs, q + qo, q0, Lq);
+  if (k_tiles > 0) {
+    stage_async<HD, F::kBS, F::kThreads>(ring, k + ko, 0, Lk);
+    stage_async<HD, F::kBS, F::kThreads>(ring + F::kTile, v + ko, 0, Lk);
+  }
+  cp_commit();
+
+  float m[2] = {kNeg, kNeg}, row_sum[2] = {0.f, 0.f}, acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  Frag<4> qf[F::kQRegs ? DT : 1];
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_wait<0>();  // this thread's copies of tile kt (and at kt 0 of Q) are done
+    if (kt == 0) scale_own<HD, F::kRows, F::kThreads>(Qs, sm_scale);  // q * sm_scale before q k^T
+    // every copy is visible, and every warp is done with tile kt - 1,
+    // whose stage now takes tile kt + 1 while tile kt is multiplied
+    __syncthreads();
+    if (kt + 1 < k_tiles) {
+      float* nxt = ring + ((kt + 1) & 1) * 2 * F::kTile;
+      stage_async<HD, F::kBS, F::kThreads>(nxt, k + ko, (kt + 1) * F::kBS, Lk);
+      stage_async<HD, F::kBS, F::kThreads>(nxt + F::kTile, v + ko, (kt + 1) * F::kBS, Lk);
+      cp_commit();
+    }
+    if constexpr (F::kQRegs) {
+      if (kt == 0) {
+#pragma unroll
+        for (int d = 0; d < DT; ++d) load_a<HD>(qf[d], Qs, r0, 8 * d);
+      }
+    }
+    const float* Ks = ring + (kt & 1) * 2 * F::kTile;
+    const float* Vs = Ks + F::kTile;
+
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll (F::kQRegs || HD <= 32 ? DT : 2)
+    for (int d = 0; d < DT; ++d) {
+      Frag<4> qa;
+      if constexpr (F::kQRegs)
+        qa = qf[d];
+      else
+        load_a<HD>(qa, Qs, r0, 8 * d);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        Frag<2> kb[2];
+        load_b_rows2<HD>(kb, Ks, 8 * j, 8 * d);
+        mma3(s[j], qa, kb[0]);
+        mma3(s[j + 1], qa, kb[1]);
+      }
+    }
+    const int k0 = kt * F::kBS;
+    const bool all_live = k0 + F::kBS <= Lk && q0 + F::kRows <= Lq &&
+                          (!causal || k0 + F::kBS - 1 <= q0);
+    if (all_live)
+      fwd_softmax<false>(s, acc, m, row_sum, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    else
+      fwd_softmax<true>(s, acc, m, row_sum, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> pa;
+      a_from_acc(pa, s[j]);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> vb;
+        load_b_cols<HD>(vb, Vs, 8 * j, 8 * i, l);
+        mma3(acc[i], pa, vb);
+      }
+    }
+  }
+  cp_wait<0>();  // nothing in flight at exit (k_tiles may be 0)
+
+  float safe_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row sum over the quad's four lanes
+    float sum = row_sum[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    safe_l[h] = sum == 0.f ? 1.f : sum;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    if (r >= Lq) continue;  // rows past Lq are computed from zero q, never written
+    if (l.t == 0) lse[(size_t)n * Lq + r] = m[h] + logf(safe_l[h]);
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      *reinterpret_cast<float2*>(out + qo + (size_t)r * HD + 8 * i + 2 * l.t) =
+          make_float2(acc[i][2 * h] / safe_l[h], acc[i][2 * h + 1] / safe_l[h]);
+  }
+}
 
 // p = exp(s - lse) where (qpos, kpos) is live, else exactly 0.  A tile
 // with every pair live takes kMask = false and skips the test.
@@ -786,7 +734,10 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-constexpr size_t fwd_smem() { return (3 * Cfg<HD>::kTile + kBlock * kPStride) * sizeof(float); }
+constexpr size_t fwd_smem() {
+  using F = Fwd<HD>;
+  return (F::kRowTile + 4 * F::kTile) * sizeof(float);
+}
 template <int HD>
 constexpr size_t dq_smem() {
   using B = Bwd<HD>;
@@ -809,10 +760,21 @@ cudaError_t fwd(const float* q, const float* k, const float* v, float* out, floa
   const size_t smem = fwd_smem<HD>();
   cudaError_t err = allow_smem(flash_fwd_f32<HD>, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (Lq + kBlock - 1) / kBlock;
-  flash_fwd_f32<HD><<<N * tiles, kThreads, smem, stream>>>(q, k, v, out, lse, Lq, Lk, tiles,
-                                                            causal, sm_scale);
+  const int tiles = (Lq + Fwd<HD>::kRows - 1) / Fwd<HD>::kRows;
+  flash_fwd_f32<HD><<<N * tiles, Fwd<HD>::kThreads, smem, stream>>>(
+      q, k, v, out, lse, Lq, Lk, tiles, causal, sm_scale);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t fwd_shape(int* rows, int* threads, int* smem, int* per_sm) {
+  *rows = Fwd<HD>::kRows;
+  *threads = Fwd<HD>::kThreads;
+  *smem = (int)fwd_smem<HD>();
+  cudaError_t err = allow_smem(flash_fwd_f32<HD>, fwd_smem<HD>());
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, flash_fwd_f32<HD>,
+                                                       Fwd<HD>::kThreads, fwd_smem<HD>());
 }
 
 template <int HD>
@@ -863,6 +825,20 @@ int mx_flash_attention_fwd_f32(const float* q, const float* k, const float* v, f
     case 32: return (int)fwd<32>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
     case 64: return (int)fwd<64>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
     case 128: return (int)fwd<128>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K3's launch shape at head dim hd: q rows and threads of a block, its
+// dynamic shared memory in bytes, and how many such blocks an SM holds.  A
+// forward over N heads of Lq rows launches N * ceil(Lq / rows) blocks.
+int mx_flash_attention_fwd_shape(int hd, int* rows, int* threads, int* smem_bytes,
+                                 int* blocks_per_sm) {
+  switch (hd) {
+    case 16: return (int)fwd_shape<16>(rows, threads, smem_bytes, blocks_per_sm);
+    case 32: return (int)fwd_shape<32>(rows, threads, smem_bytes, blocks_per_sm);
+    case 64: return (int)fwd_shape<64>(rows, threads, smem_bytes, blocks_per_sm);
+    case 128: return (int)fwd_shape<128>(rows, threads, smem_bytes, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }

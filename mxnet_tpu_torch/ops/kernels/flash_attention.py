@@ -105,8 +105,10 @@ def _lib():
         fwd.argtypes = [p] * 5 + tail
         lib.mx_flash_attention_dq_f32.argtypes = [p] * 7 + tail
         lib.mx_flash_attention_dkv_f32.argtypes = [p] * 8 + tail
+        lib.mx_flash_attention_fwd_shape.argtypes = [i] + [p] * 4
         for fn in (fwd, lib.mx_flash_attention_dq_f32,
-                   lib.mx_flash_attention_dkv_f32):
+                   lib.mx_flash_attention_dkv_f32,
+                   lib.mx_flash_attention_fwd_shape):
             fn.restype = ctypes.c_int
     return lib
 
@@ -217,6 +219,24 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     _build.check(lib, err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
     return dk, dv
+
+
+def _fwd_shape(D: int) -> dict:
+    """K3's launch shape at head dim D, as the kernel's source sets it:
+    q ``rows`` and ``threads`` of a block, its dynamic shared memory
+    (``smem_bytes``) and ``blocks_per_sm``, the blocks an SM of the
+    current card holds.  A forward over N heads of Lq rows launches
+    N * ceil(Lq / rows) blocks.  Needs a card; a diagnostic for
+    ``chip_smoke.py`` that no path of the port calls."""
+    if D not in HEAD_DIMS:
+        raise MXNetError(f"_fwd_shape: head_dim {D} not in {HEAD_DIMS}")
+    lib = _lib()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.mx_flash_attention_fwd_shape(
+        D, *(ctypes.byref(x) for x in vals))
+    _build.check(lib, err, "_fwd_shape")
+    return dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm"),
+                    (x.value for x in vals)))
 
 
 flash_attention_fwd.launches = 0

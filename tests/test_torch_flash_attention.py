@@ -203,7 +203,8 @@ class _FakeLib:
 
 @pytest.mark.parametrize("fn", ["mx_flash_attention_fwd_f32",
                                 "mx_flash_attention_dq_f32",
-                                "mx_flash_attention_dkv_f32"])
+                                "mx_flash_attention_dkv_f32",
+                                "mx_flash_attention_fwd_shape"])
 def test_ctypes_binding_matches_c_signature(monkeypatch, fn):
     """Every argument of each C entry point is declared: without
     ``argtypes`` a float cannot pass and a pointer is cut to 32 bits."""
@@ -328,3 +329,80 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
                       one + 3 * ulp / 4, 3.0], dtype=torch.float32)
     want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0])
     assert torch.equal(_tf32(x), want)
+
+
+# ---------------------------------------------------------------------------
+# the precision plan of K3: its online softmax, products in 3xTF32
+# ---------------------------------------------------------------------------
+# keys per streamed K/V tile of K3 (Fwd<HD>::kBS in
+# csrc/flash_attention.cu), 32 at every head dim
+K3_TILE = 32
+# a tenth of chip_smoke.py's 2e-5 on out and lse
+FWD_TF32X3_ATOL = 2e-6
+LOG2E = 1.4426950408889634
+
+
+def _exp_k3(x):
+    """K3's exp: exp2(x log2 e), the product rounded to f32."""
+    return torch.exp2(x * LOG2E)
+
+
+def _fwd_tf32(q, k, v, causal, scale, passes):
+    """out and lse as K3 forms them: k and v stream in tiles of
+    ``K3_TILE`` keys, zero-filled past Lk, through an online softmax
+    (running max m, sum l, the accumulator rescaled by alpha = exp(m -
+    m_new), exp as ``_exp_k3``), masked scores at -1e30, and every
+    product in TF32
+    (``_mm_tf32``): s = (q * scale) k_tile^T, then acc += p v_tile with
+    p split as it comes out of the accumulator."""
+    N, Lq, D = q.shape
+    Lk, bs = k.shape[1], K3_TILE
+    pad = -Lk % bs
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    qs = q * scale
+    m = torch.full((N, Lq, 1), -1e30)
+    l = torch.zeros(N, Lq, 1)
+    acc = torch.zeros(N, Lq, D)
+    qpos = torch.arange(Lq)[:, None]
+    for k0 in range(0, Lk + pad, bs):
+        s = _mm_tf32(qs, k[:, k0:k0 + bs].transpose(-1, -2), passes)
+        kpos = k0 + torch.arange(bs)[None, :]
+        keep = (kpos < Lk) & ((qpos >= kpos) if causal else True)
+        s = s.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = _exp_k3(s - m_new)
+        alpha = _exp_k3(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _mm_tf32(p, v[:, k0:k0 + bs], passes)
+        m = m_new
+    safe_l = torch.where(l == 0.0, 1.0, l)
+    return acc / safe_l, (m + torch.log(safe_l))[..., 0]
+
+
+@pytest.mark.parametrize("N,Lq,Lk,D,causal", [
+    (2, 128, 128, 64, False),
+    (2, 128, 128, 64, True),
+    (2, 72, 72, 128, True),
+    (2, 200, 200, 128, True),
+    (4, 130, 70, 32, True),     # Lq != Lk, a ragged last k tile
+])
+def test_3xtf32_forward_keeps_f32_accuracy(N, Lq, Lk, D, causal):
+    """K3's online softmax with every product in 3xTF32, emulated tile by
+    tile at its stream-tile width: out and lse stay within a tenth of the
+    card's tolerance of the f32 plain version, while single-pass TF32
+    misses the card's tolerance itself."""
+    q, k, v, _ = (torch.from_numpy(a) for a in
+                  _inputs(Lq + Lk + D + int(causal), (N, Lq, D), (N, Lk, D)))
+    scale = 1.0 / np.sqrt(D)
+    want = flash_attention_ref(q, k, v, causal, scale)
+    errs = {}
+    for passes in (3, 1):
+        got = _fwd_tf32(q, k, v, causal, scale, passes)
+        errs[passes] = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    assert max(errs[3]) <= FWD_TF32X3_ATOL, errs[3]
+    assert max(errs[1]) > 10 * FWD_TF32X3_ATOL, errs[1]
+
+
+def test_fwd_shape_refuses_head_dims_without_a_kernel():
+    with pytest.raises(MXNetError, match="head_dim"):
+        fa_mod._fwd_shape(48)
