@@ -11,21 +11,27 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           took (one nvcc per ``csrc/*.cu``, all at once),
                           with each kernel's ``ptxas -v`` lines (registers,
                           spills); K3's block shape, shared memory and
-                          blocks per SM at hd 16, 32, 64 and 128; the floor of
+                          blocks per SM at hd 16, 32, 64, 128 and 256; the floor of
                           back-to-back launches, a one-element in-place
                           add timed like the kernels (a yardstick only).
   kernel_layer_norm       kernel K1 vs its plain version at (8, 1024),
                           (64, 1024), (8192, 1024) and the training path's
                           (16384, 768) f32, atol 1e-5 on out,
-                          mu and rstd; times of the kernel, the plain version
-                          and ``torch.nn.functional.layer_norm`` (the library
+                          mu and rstd; the same shapes in bf16 and f16, and
+                          C 30, 8192 and 5001 in f32, bf16 and f16
+                          (``ulp_ratio`` <= 1 on a 16-bit out, below); times
+                          of the kernel, the plain version and
+                          ``torch.nn.functional.layer_norm`` (the library
                           yardstick, never called by the port) beside the
                           bound.
   kernel_paged_attention  kernel K2 vs its plain version at the serving
                           path's shape (S 8, H 16, hd 64, pages of 16, 65-page
                           pools, P 9, ragged lengths with 0, 1, 16 and 132)
                           and at a long-context shape (lengths ~1000, P 64),
-                          atol 1e-5; times beside the bound, with
+                          atol 1e-5; then both shapes with bf16 pools under
+                          an f32 q, in f16 throughout, at hd 80 and 256 with
+                          bf16 pools, and with sm_scale 0.3, each run twice
+                          (bitwise equal); times beside the bound, with
                           ``scaled_dot_product_attention`` over the gathered
                           dense view as the library yardstick.
   serve                   Transformer-big (vocab 32000, 6+6 layers,
@@ -41,6 +47,14 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   serve_parity            one request's encoder memory and first 4 decode
                           logits on the card vs the same weights on the CPU
                           through the plain versions, max abs diff <= 2e-3.
+  serve_bf16              the serve cell with ``dtype="bfloat16"`` (bf16 KV
+                          pools and encoder memory, f32 weights), then the
+                          f32 engine again, both counted as in ``serve``;
+                          tokens/s, decode-step ms and pool bytes of each, a
+                          profile of the bf16 engine as ``serve_profile``
+                          takes it, and card vs CPU memory and first 4
+                          logits, both with bf16 pools, within the larger of
+                          2e-3 and how far bf16 pools move the CPU's logits.
   kernel_flash_attention  kernels K3 (FA2 forward), K4 (dq) and K5 (dk, dv)
                           vs the plain version (the forward, and
                           torch.autograd.grad through it for the backward)
@@ -53,7 +67,12 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           (zero-padded to 64); atol 2e-5 on out and lse,
                           1e-4 on dq, dk and dv; K3, K4 and K5 run twice
                           and must agree bitwise.  K3's rows give the
-                          blocks it launched.  Times of each kernel and its
+                          blocks it launched.  Then bf16 and f16 at the two
+                          timed shapes and hd 256 (N 48, L 512; causal N 6,
+                          L 200) in f32 and bf16, timed the same way (16-bit
+                          outputs by ``ulp_ratio``, lse atol 2e-5), and hd
+                          200 through ``flash_attention`` (zero-padded to
+                          256) in f32 and bf16, causal and not, checked.  Times of each kernel and its
                           plain version beside both bounds, with
                           ``scaled_dot_product_attention`` forward (K3) and
                           its backward (fwd+bwd minus fwd; dq, dk and dv in
@@ -92,8 +111,10 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           that are not ignored), with
                           ``F.cross_entropy(reduction="none",
                           ignore_index=-1)`` as the library yardstick
-                          where every label is in [0, C) or -1.  Then the
-                          path ``softmax_cross_entropy``: counters zeroed,
+                          where every label is in [0, C) or -1.  Every case
+                          again on bf16 and f16 logits (the loss f32 at
+                          atol 2e-5, the gradient by ``ulp_ratio``).  Then
+                          the path ``softmax_cross_entropy``: counters zeroed,
                           one forward and backward at the MLM shape; K7
                           must launch once.
   imperative              the MXNet imperative API on the card at
@@ -116,6 +137,16 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           with the pass on, the same tolerances.  Two
                           more runs with the pass under torch.profiler:
                           device busy share and the top kernels per run.
+  imperative_bf16         the same path with every array in bf16 (K6, K1
+                          and K3-K5 in bf16 from the MXNet entry points),
+                          pass on and off with the same launches, on vs off
+                          and the card vs the CPU at a (2 x 128)-token batch:
+                          loss within 2^-6 relative (two bf16 units), every
+                          gradient within 2^-5 of its max abs.
+
+16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
+two units in the last place of the plain value plus one unit at the
+tensor's largest value, since both sides compute in f32 and round once.
 
 Then the card's nvidia-smi line, one ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Any failed phase makes
@@ -167,6 +198,20 @@ def bound_3xtf32(n_bytes: float, n_flops: float):
     return bound(n_bytes, 3 * n_flops, TF32_FLOPS_PER_S)
 
 
+# 16-bit outputs: both sides compute in f32 and round once to the type, so
+# an element may differ by a unit in its last place where the f32 values
+# straddle a rounding boundary; the tolerance is two units relative to the
+# plain version's value plus one unit at the tensor's scale (max |value|)
+EPS16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+def ulp_ratio(got, want, eps: float) -> float:
+    """max |got - want| / (2 eps |want| + eps max|want|): <= 1 passes."""
+    g, w = got.detach().float(), want.detach().float()
+    allow = 2 * eps * w.abs() + eps * float(w.abs().max()) + 1e-30
+    return float(((g - w).abs() / allow).max())
+
+
 def time_ms(torch, fn, samples: int = 25, reps: int = 10) -> float:
     """Median device ms per call of ``fn``."""
     for _ in range(3):
@@ -208,7 +253,7 @@ def phase_device(torch, ctx):
                                                              _fwd_shape)
 
     # K3's launch shape per head dim; its registers and spills are in the
-    # ptxas lines of flash_fwd_f32<hd> below
+    # ptxas lines of flash_fwd<float, hd, ...> below
     k3 = {hd: _fwd_shape(hd) for hd in HEAD_DIMS}
     # the floor of back-to-back launches: a one-element in-place add, a
     # yardstick that no path of the port calls
@@ -260,8 +305,75 @@ def phase_layer_norm(torch, ctx):
                 x, (c,), gamma, beta, 1e-5)),
             "bound_ms": b_ms, "bound_by": b_by})
     ctx["layer_norm"] = dict(shapes[0], max_abs_err=worst)
-    return {"atol": 1e-5, "shapes": shapes,
-            "ok": all(s["ok"] for s in shapes)}
+    more = _ln_rows(torch, g, fused=False)
+    return {"atol": 1e-5, "shapes": shapes, "dtypes_and_widths": more,
+            "tol_16bit": "ulp_ratio <= 1 on out; mu, rstd atol 1e-5",
+            "ok": all(s["ok"] for s in shapes + more)}
+
+
+# the decode, prefill, training and imperative shapes again in 16 bits;
+# then widths the warp-per-row path does not take: C 30 (no 16-byte
+# vector), 8192 (a block per row, the row staged in shared memory) and
+# 5001 (odd: a block per row with scalar loads)
+LN_SHAPES_16 = ((8, 1024), (64, 1024), (8192, 1024), (16384, 768))
+LN_WIDTHS = ((37, 30), (16, 8192), (16, 5001))
+
+
+def _ln_rows(torch, g, fused: bool):
+    """K1 (or K6) against its plain version in bf16 and f16 at the path
+    shapes and in every dtype at the new widths, timed; K6 also with a
+    residual of its own type (bf16 x, f32 res)."""
+    cases = [(n, c, dt, None) for dt in ("bfloat16", "float16")
+             for n, c in LN_SHAPES_16]
+    cases += [(n, c, dt, None) for dt in ("float32", "bfloat16", "float16")
+              for n, c in LN_WIDTHS]
+    if fused:
+        cases.append((37, 768, "bfloat16", "float32"))
+    return [_ln_row(torch, g, *case, fused=fused) for case in cases]
+
+
+def _ln_row(torch, g, n, c, dtype, res_dtype, fused):
+    from mxnet_tpu_torch.ops.kernels import (add_layer_norm,
+                                             add_layer_norm_ref, layer_norm,
+                                             layer_norm_ref)
+
+    F = torch.nn.functional
+    dev = g.device
+    dt = getattr(torch, dtype)
+    x = (torch.randn(n, c, device=dev, generator=g) * 2 + 0.5).to(dt)
+    r = torch.randn(n, c, device=dev, generator=g).to(
+        getattr(torch, res_dtype or dtype))
+    gamma = torch.randn(c, device=dev, generator=g)
+    beta = torch.randn(c, device=dev, generator=g)
+    kern, plain = ((add_layer_norm, add_layer_norm_ref) if fused
+                   else (layer_norm, layer_norm_ref))
+    args = (x, r, gamma, beta) if fused else (x, gamma, beta)
+    got, want = kern(*args), plain(*args)
+    torch.cuda.synchronize()
+    stats_err = max(float((a - b).abs().max())
+                    for a, b in zip(got[1:], want[1:]))
+    if dtype == "float32":
+        out_err = float((got[0] - want[0]).abs().max())
+        ok = out_err <= 1e-5
+        err = {"max_abs_err": out_err}
+    else:
+        ratio = ulp_ratio(got[0], want[0], EPS16[dtype])
+        ok = ratio <= 1
+        err = {"max_abs_err": float((got[0].float() - want[0].float())
+                                    .abs().max()), "ulp_ratio": ratio}
+    rows = n * c * (x.element_size() * 2 + (r.element_size() if fused
+                                            else 0))
+    b_ms, b_by = bound(rows + 4 * (2 * c + 2 * n), (9 if fused else 8) * n * c)
+    lib_x = (lambda: x + r.to(dt)) if fused else (lambda: x)
+    return {"shape": [n, c], "dtype": dtype,
+            **({"res_dtype": res_dtype} if res_dtype else {}), **err,
+            "stats_max_abs_err": stats_err,
+            "ok": ok and stats_err <= 1e-5,
+            "ms": time_ms(torch, lambda: kern(*args)),
+            "plain_ms": time_ms(torch, lambda: plain(*args)),
+            "library_ms": time_ms(torch, lambda: F.layer_norm(
+                lib_x(), (c,), gamma.to(dt), beta.to(dt), 1e-5)),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _paged_case(torch, g, S, H, hd, ps, P, lengths):
@@ -333,7 +445,69 @@ def phase_paged_attention(torch, ctx):
             "bound_ms": b_ms, "bound_by": b_by})
     ctx["paged_decode_attention"] = dict(
         out[0], max_abs_err=max(c["max_abs_err"] for c in out))
-    return {"atol": 1e-5, "cases": out, "ok": all(c["ok"] for c in out)}
+    # 16-bit pools under an f32 q (the JAX engine's bf16 serving), f16
+    # throughout, head dims 80 and 256 with bf16 pools, and a scale of
+    # the caller's, each at both shapes, run twice (bitwise equal)
+    more = [_paged_row(torch, g, S, H, hd, ps, P, lengths, name, q_dt, kv_dt)
+            for hd, q_dt, kv_dt in ((64, "float32", "bfloat16"),
+                                    (64, "float16", "float16"),
+                                    (80, "float32", "bfloat16"),
+                                    (256, "float32", "bfloat16"))
+            for name, (P, lengths) in cases.items()]
+    more.append(_paged_row(torch, g, S, H, hd, ps, *cases["path"], "path",
+                           "float32", "float32", sm_scale=0.3))
+    return {"atol": 1e-5, "cases": out, "dtypes_and_widths": more,
+            "tol_16bit": "atol 1e-5 where out is f32 (an f32 q), else "
+                         "ulp_ratio <= 1",
+            "ok": all(c["ok"] for c in out + more)}
+
+
+def _paged_row(torch, g, S, H, hd, ps, P, lengths, name, q_dt, kv_dt,
+               sm_scale=None):
+    from mxnet_tpu_torch.ops.kernels import (paged_decode_attention,
+                                             paged_decode_attention_ref)
+
+    F = torch.nn.functional
+    dev = g.device
+    q, kp, vp, table, lens = _paged_case(torch, g, S, H, hd, ps, P, lengths)
+    q = q.to(getattr(torch, q_dt))
+    kp, vp = (t.to(getattr(torch, kv_dt)) for t in (kp, vp))
+    args = (q, kp, vp, table, lens)
+    got = paged_decode_attention(*args, sm_scale=sm_scale)
+    again = paged_decode_attention(*args, sm_scale=sm_scale)
+    want = paged_decode_attention_ref(*args, sm_scale=sm_scale)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    zero_ok = all(bool((got[s] == 0).all())
+                  for s, L in enumerate(lengths) if L == 0)
+    same = bool(torch.equal(got, again))
+    if q_dt == "float32":
+        tol_ok, extra = err <= 1e-5, {}
+    else:
+        ratio = ulp_ratio(got, want, EPS16[q_dt])
+        tol_ok, extra = ratio <= 1, {"ulp_ratio": ratio}
+    idx = table.reshape(-1).long()
+    K = kp.index_select(0, idx).reshape(S, P * ps, H, hd).transpose(1, 2)
+    V = vp.index_select(0, idx).reshape(S, P * ps, H, hd).transpose(1, 2)
+    K, V = K.to(q.dtype).contiguous(), V.to(q.dtype).contiguous()
+    keep = torch.arange(P * ps, device=dev)[None] < lens[:, None].long()
+    q4 = q[:, :, None, :]
+    live = sum(min(L, P * ps) for L in lengths)
+    n_bytes = (live * H * hd * 2 * kp.element_size()
+               + 2 * S * H * hd * q.element_size() + table.numel() * 4 + S * 4)
+    b_ms, b_by = bound(n_bytes, 4 * live * H * hd)
+    return {"case": name, "hd": hd, "q_dtype": q_dt, "pool_dtype": kv_dt,
+            **({"sm_scale": sm_scale} if sm_scale is not None else {}),
+            "P": P, "max_abs_err": err, **extra,
+            "zeros_for_length_0": zero_ok, "bitwise_repeatable": same,
+            "ok": tol_ok and zero_ok and same,
+            "ms": time_ms(torch, lambda: paged_decode_attention(
+                *args, sm_scale=sm_scale)),
+            "plain_ms": time_ms(torch, lambda: paged_decode_attention_ref(
+                *args, sm_scale=sm_scale)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, K, V, attn_mask=keep[:, None, None, :], scale=sm_scale)),
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _live_pairs(Lq, Lk, causal):
@@ -352,9 +526,10 @@ def _flash_inputs(torch, g, N, Lq, Lk, D):
             torch.randn(N, Lq, D, device=dev, generator=g))
 
 
-def _flash_errors(torch, q, k, v, do, causal):
+def _flash_errors(torch, q, k, v, do, causal, eps=None):
     """K3-K5 once, and each once more (bitwise equal: no atomics), against
-    the plain forward and autograd through it."""
+    the plain forward and autograd through it; with ``eps`` (16-bit
+    inputs) also the ulp ratios of out, dq, dk and dv."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
                                              flash_attention_dq,
                                              flash_attention_fwd,
@@ -362,7 +537,7 @@ def _flash_errors(torch, q, k, v, do, causal):
 
     out, lse = flash_attention_fwd(q, k, v, causal)
     out2, lse2 = flash_attention_fwd(q, k, v, causal)
-    delta = (do * out).sum(-1)
+    delta = (do.float() * out.float()).sum(-1)
     args = (q, k, v, do, lse, delta, causal, 1.0 / math.sqrt(q.shape[-1]))
     dq = flash_attention_dq(*args)
     dk, dv = flash_attention_dkv(*args)
@@ -373,21 +548,25 @@ def _flash_errors(torch, q, k, v, do, causal):
     torch.cuda.synchronize()
     got = {"out": (out, out_r), "lse": (lse, lse_r), "dq": (dq, want[0]),
            "dk": (dk, want[1]), "dv": (dv, want[2])}
-    err = {key: float((a - b.detach()).abs().max())
+    err = {key: float((a.float() - b.detach().float()).abs().max())
            for key, (a, b) in got.items()}
     same = all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
     fwd_same = bool(torch.equal(out, out2)) and bool(torch.equal(lse, lse2))
-    return err, same, fwd_same, args
+    ratios = {key: ulp_ratio(a, b, eps) for key, (a, b) in got.items()
+              if key != "lse"} if eps else {}
+    return err, same, fwd_same, args, ratios
 
 
-def _padded_head_dim_case(torch, g, N, L, D, causal, tol):
+def _padded_head_dim_case(torch, g, N, L, D, causal, tol,
+                          dtype="float32"):
     """``flash_attention`` at a head dim the kernels do not take (zero-
     padded to the next one): out and the gradients of q, k and v against
-    autograd through the plain forward at D."""
+    autograd through the plain forward at D (16-bit: by ulp ratio)."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention,
                                              flash_attention_ref)
 
-    q, k, v, do = _flash_inputs(torch, g, N, L, L, D)
+    q, k, v, do = (t.to(getattr(torch, dtype))
+                   for t in _flash_inputs(torch, g, N, L, L, D))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_attention(*leaves, causal=causal)
     grads = torch.autograd.grad(out, leaves, do)
@@ -395,12 +574,17 @@ def _padded_head_dim_case(torch, g, N, L, D, causal, tol):
     out_r, _ = flash_attention_ref(*ref_leaves, causal)
     want = torch.autograd.grad(out_r, ref_leaves, do)
     torch.cuda.synchronize()
-    err = {"out": float((out - out_r).detach().abs().max()),
-           **{n: float((a - b).abs().max())
-              for n, a, b in zip(("dq", "dk", "dv"), grads, want)}}
-    return {"case": f"padded_hd{D}", "N": N, "Lq": L, "Lk": L, "hd": D,
-            "causal": causal, "errors": err,
-            "ok": all(err[key] <= tol[key] for key in err)}
+    pairs = {"out": (out, out_r), **dict(zip(("dq", "dk", "dv"),
+                                             zip(grads, want)))}
+    err = {n: float((a.detach().float() - b.detach().float()).abs().max())
+           for n, (a, b) in pairs.items()}
+    row = {"case": f"padded_hd{D}", "dtype": dtype, "N": N, "Lq": L,
+           "Lk": L, "hd": D, "causal": causal, "errors": err}
+    if dtype == "float32":
+        return dict(row, ok=all(err[key] <= tol[key] for key in err))
+    ratios = {n: ulp_ratio(a, b, EPS16[dtype]) for n, (a, b) in pairs.items()}
+    return dict(row, ulp_ratios=ratios,
+                ok=all(r <= 1 for r in ratios.values()))
 
 
 def phase_flash_attention(torch, ctx):
@@ -430,7 +614,7 @@ def phase_flash_attention(torch, ctx):
     out_rows = {name: [] for name in outputs}
     checks, pairs_out = [], []
     for name, (N, Lq, Lk, D, causal) in checked.items():
-        err, same, fwd_same, _ = _flash_errors(
+        err, same, fwd_same, _, _ = _flash_errors(
             torch, *_flash_inputs(torch, g, N, Lq, Lk, D), causal)
         checks.append({"case": name, "N": N, "Lq": Lq, "Lk": Lk, "hd": D,
                        "causal": causal, "errors": err,
@@ -441,8 +625,8 @@ def phase_flash_attention(torch, ctx):
     checks.append(_padded_head_dim_case(torch, g, 4, 100, 48, True, tol))
     for name, (N, Lq, Lk, D, causal) in cases.items():
         q, k, v, do = _flash_inputs(torch, g, N, Lq, Lk, D)
-        err, same, fwd_same, args = _flash_errors(torch, q, k, v, do,
-                                                  causal)
+        err, same, fwd_same, args, _ = _flash_errors(torch, q, k, v, do,
+                                                     causal)
         rows_k3 = _fwd_shape(D)["rows"]
 
         pairs = _live_pairs(Lq, Lk, causal)
@@ -508,13 +692,91 @@ def phase_flash_attention(torch, ctx):
             "scaled_dot_product_attention forward" if kname.endswith("fwd")
             else "scaled_dot_product_attention backward (dq, dk and dv in "
                  "one call: fwd+bwd minus fwd)")
+    more = _flash_rows_16bit_and_wide(torch, g, tol)
+    checks += [_padded_head_dim_case(torch, g, 4, 100, 200, causal, tol, dt)
+               for dt in ("float32", "bfloat16") for causal in (False, True)]
     return {"tol": tol, "kernels": out_rows, "bwd_pairs": pairs_out,
-            "checked": checks,
+            "checked": checks, "dtypes_and_widths": more,
+            "tol_16bit": "ulp_ratio <= 1 on out, dq, dk, dv; lse atol 2e-5",
             "bound_is": "bound_ms: bytes / 3.35 TB/s or 3 x f32 operations "
                         "/ 495 TFLOP/s (3xTF32 on the tensor cores); "
                         "bound_f32_cores_ms: f32 operations / 67 TFLOP/s",
             "ok": all(r["ok"] for rows_ in out_rows.values() for r in rows_)
-            and all(c["ok"] for c in checks)}
+            and all(c["ok"] for c in checks + more)}
+
+
+# name: (N, Lq, Lk, D, causal) and the dtypes each runs in: the training
+# and causal shapes in 16 bits, and head dim 256 (two column windows)
+FLASH_MORE = {"train": ((32 * 12, 512, 512, 64, False),
+                        ("bfloat16", "float16")),
+              "causal_hd128": ((6, 200, 200, 128, True),
+                               ("bfloat16", "float16")),
+              "hd256": ((48, 512, 512, 256, False), ("float32", "bfloat16")),
+              "hd256_causal": ((6, 200, 200, 256, True),
+                               ("float32", "bfloat16"))}
+
+
+def _flash_rows_16bit_and_wide(torch, g, tol):
+    """K3-K5 at FLASH_MORE's cases against the plain versions, timed with
+    their plain versions and SDPA in the same dtype beside the bound."""
+    from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
+                                             flash_attention_dkv_ref,
+                                             flash_attention_dq,
+                                             flash_attention_dq_ref,
+                                             flash_attention_fwd,
+                                             flash_attention_ref)
+
+    F = torch.nn.functional
+    rows = []
+    for name, ((N, Lq, Lk, D, causal), dtypes) in FLASH_MORE.items():
+        for dtype in dtypes:
+            q, k, v, do = (t.to(getattr(torch, dtype))
+                           for t in _flash_inputs(torch, g, N, Lq, Lk, D))
+            eps = EPS16.get(dtype)
+            err, same, fwd_same, args, ratios = _flash_errors(
+                torch, q, k, v, do, causal, eps)
+            if eps:
+                ok = (all(r <= 1 for r in ratios.values())
+                      and err["lse"] <= tol["lse"])
+            else:
+                ok = all(err[key] <= tol[key] for key in err)
+            pairs = _live_pairs(Lq, Lk, causal)
+            nq, nk = (N * L * D * q.element_size() for L in (Lq, Lk))
+            vec = N * Lq * 4
+            work = {"fwd": (2 * nq + 2 * nk + vec, 4 * N * pairs * D),
+                    "dq": (3 * nq + 2 * nk + 2 * vec, 6 * N * pairs * D),
+                    "dkv": (2 * nq + 4 * nk + 2 * vec, 8 * N * pairs * D)}
+            q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+            sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal))
+            l4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+            sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*l4, is_causal=causal), l4,
+                do4)) - sdpa_fwd
+            timed = {"fwd": (lambda: flash_attention_fwd(q, k, v, causal),
+                             lambda: flash_attention_ref(q, k, v, causal),
+                             sdpa_fwd),
+                     "dq": (lambda: flash_attention_dq(*args),
+                            lambda: flash_attention_dq_ref(*args), sdpa_bwd),
+                     "dkv": (lambda: flash_attention_dkv(*args),
+                             lambda: flash_attention_dkv_ref(*args),
+                             sdpa_bwd)}
+            times = {}
+            for kname, (kern, plain, lib_ms) in timed.items():
+                b_ms, b_by = bound_3xtf32(*work[kname])
+                times[kname] = {"ms": time_ms(torch, kern),
+                                "plain_ms": time_ms(torch, plain),
+                                "library_ms": lib_ms, "bound_ms": b_ms,
+                                "bound_by": b_by}
+            rows.append({"case": name, "dtype": dtype, "N": N, "Lq": Lq,
+                         "Lk": Lk, "hd": D, "causal": causal,
+                         "errors": err, "ulp_ratios": ratios,
+                         "fwd_bitwise_repeatable": fwd_same,
+                         "bwd_bitwise_repeatable": same,
+                         "ok": ok and same and fwd_same, **times})
+            del l4, q, k, v, do, args
+            torch.cuda.empty_cache()
+    return rows
 
 
 def _requests(n, vocab, seed):
@@ -607,20 +869,23 @@ def phase_serve(torch, ctx):
                    "in_vocab": bool(in_vocab), "pages_back": pages_back}}
 
 
-def _first_logits(torch, model, src_np, steps, device, feed=None):
+def _first_logits(torch, model, src_np, steps, device, feed=None,
+                  dtype="float32"):
     """Encoder memory and the first ``steps`` decode logits of one
     request, teacher-forced with ``feed`` (greedy from this device's own
-    logits when None), through the paged cache the engine uses."""
+    logits when None), through the paged cache the engine uses, with the
+    pools and the memory in ``dtype`` as the engine keeps them."""
     from mxnet_tpu_torch.serving import (PagedKVCache, PagedStepCache,
                                          page_coords)
 
     ps = 16
     sa = model.decoder.layers[0].self_attn
     cache = PagedKVCache(len(model.decoder.layers), 2, ps, sa.num_heads,
-                         sa.head_dim, device=device)
+                         sa.head_dim, device=device, dtype=dtype)
     table = torch.tensor([[1]], dtype=torch.int32, device=device)
     with torch.no_grad():
         mem, keep = model._encode_h(torch.from_numpy(src_np).to(device))
+        mem = mem.to(cache.dtype)
         tok, toks, logits = 1, [], []
         for t in range(steps):
             pos = torch.tensor([t], dtype=torch.int32, device=device)
@@ -632,7 +897,7 @@ def _first_logits(torch, model, src_np, steps, device, feed=None):
             logits.append(lg.cpu())
             tok = int(feed[t]) if feed is not None else int(lg.argmax())
             toks.append(tok)
-    return mem.cpu(), torch.cat(logits), toks
+    return mem.float().cpu(), torch.cat(logits), toks
 
 
 def phase_serve_parity(torch, ctx):
@@ -643,6 +908,7 @@ def phase_serve_parity(torch, ctx):
                                 device="cpu").eval()
     cpu_model.load_state_dict({k: v.cpu() for k, v in
                                model.state_dict().items()})
+    ctx["cpu_model"] = cpu_model  # serve_bf16 compares with it too
     rng = np.random.RandomState(SEED + 2)
     src = np.zeros((1, 64), np.int32)
     src[0, :40] = rng.randint(3, 32000, 40)
@@ -659,7 +925,7 @@ def phase_serve_parity(torch, ctx):
             "ok": finite and d_lg <= 2e-3 and d_mem <= 2e-3}
 
 
-def phase_serve_profile(torch, ctx):
+def phase_serve_profile(torch, ctx, dtype="float32"):
     """Where the serving time goes: 8 full slots decoding 32 steps each
     under torch.profiler (device activity only), device time by kernel
     and the device's busy share of the wall time."""
@@ -667,7 +933,7 @@ def phase_serve_profile(torch, ctx):
 
     from mxnet_tpu_torch.serving import Request, ServingEngine
 
-    eng = ServingEngine(ctx["adapter"], **ctx["engine_kw"])
+    eng = ServingEngine(ctx["adapter"], dtype=dtype, **ctx["engine_kw"])
     rng = np.random.RandomState(SEED + 3)
     reqs = [Request(rng.randint(3, 32000, 64), max_new_tokens=32, bos_id=1,
                     eos_id=-1) for _ in range(8)]
@@ -680,7 +946,7 @@ def phase_serve_profile(torch, ctx):
     rows = _profile_rows(prof)
     busy = sum(ms for ms, _, _ in rows)
     ours = sum(ms for ms, _, k in rows
-               if "ln_fwd_f32" in k or "paged_decode_f32" in k)
+               if "ln_fwd_" in k or "paged_decode" in k)
     return {"requests": len(reqs), "decode_steps": eng.step_count,
             "wall_ms": wall_ms, "device_busy_ms": busy if rows else None,
             "device_busy_share": busy / wall_ms if rows else None,
@@ -688,6 +954,88 @@ def phase_serve_profile(torch, ctx):
             "k1_k2_device_ms": ours,
             "top": [{"name": k[:100], "ms": ms, "count": c}
                     for ms, c, k in rows[:12]]}
+
+
+def phase_serve_bf16(torch, ctx):
+    """The serve cell with bf16 KV pools and encoder memory
+    (``ServingEngine(..., dtype="bfloat16")``, the JAX engine's bf16
+    serving: f32 weights and queries, K2 over bf16 pools), then the same
+    requests with the f32 engine in this process; the launch counters of
+    each run against the path's counts.  Then one request's encoder memory
+    and first 4 decode logits on the card and on the CPU, both with bf16
+    pools, within a tolerance derived on the CPU: the larger of the f32
+    path's 2e-3 and how far bf16 pools move the CPU's own logits (the card
+    and the CPU can round a K/V value differently, never more than all of
+    them)."""
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    adapter, kw, vocab = ctx["adapter"], ctx["engine_kw"], 32000
+    ServingEngine(adapter, dtype="bfloat16", **kw).serve(
+        _requests(2, vocab, SEED + 1)[0])  # warm-up
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        eng = ServingEngine(adapter, dtype=dtype, **kw)
+        reqs, arrivals = _requests(16, vocab, SEED)
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve(reqs, arrival_steps=arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        steps = eng.step_count
+        prefills = len(reqs) + sum(r.preemptions for r in reqs)
+        expected = {n: 0 for n in ALL_KERNELS}
+        expected.update(layer_norm=18 * steps + 12 * prefills,
+                        paged_decode_attention=6 * steps)
+        n_tok = sum(len(v) for v in out.values())
+        runs[dtype] = {
+            "decode_steps": steps, "prefills": prefills, "tokens": n_tok,
+            "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "decode_step_ms_median": statistics.median(
+                1e3 * t / n for n, t in eng.burst_times),
+            "pool_bytes": eng.pool_bytes, "launches": launches,
+            "launches_ok": launches == expected and steps > 0,
+            "finished": all(r.stream.finished for r in reqs),
+            "pages_back": eng.pages_free == eng.num_pages - 1}
+    ctx.setdefault("launches", {})["serve_bf16"] = runs["bfloat16"]["launches"]
+    profile = phase_serve_profile(torch, ctx, dtype="bfloat16")
+
+    model, cpu_model = ctx["model"], ctx.pop("cpu_model")
+    rng = np.random.RandomState(SEED + 2)
+    src = np.zeros((1, 64), np.int32)
+    src[0, :40] = rng.randint(3, vocab, 40)
+    mem_g, lg_g, toks = _first_logits(torch, model, src, 4,
+                                      torch.device("cuda", 0),
+                                      dtype="bfloat16")
+    cpu = torch.device("cpu")
+    mem_c, lg_c, _ = _first_logits(torch, cpu_model, src, 4, cpu, feed=toks,
+                                   dtype="bfloat16")
+    mem_32, lg_32, _ = _first_logits(torch, cpu_model, src, 4, cpu,
+                                     feed=toks)
+    del cpu_model
+    tol = max(2e-3, float((lg_c - lg_32).abs().max()))
+    tol_mem = max(2e-3, float((mem_c - mem_32).abs().max()))
+    d_lg = float((lg_g - lg_c).abs().max())
+    d_mem = float((mem_g - mem_c).abs().max())
+    finite = bool(torch.isfinite(lg_g).all())
+    bf, f32 = runs["bfloat16"], runs["float32"]
+    return {"model": "transformer_big", "engine": kw, "dtype": "bfloat16",
+            "runs": runs, "profile_bf16": profile,
+            "tokens_per_s_over_f32": bf["tokens_per_s"] / f32["tokens_per_s"],
+            "pool_bytes_over_f32": bf["pool_bytes"] / f32["pool_bytes"],
+            "parity": {"steps": 4, "max_abs_diff_logits": d_lg,
+                       "tol_logits": tol, "max_abs_diff_memory": d_mem,
+                       "tol_memory": tol_mem,
+                       "cpu_bf16_vs_f32_logits": float(
+                           (lg_c - lg_32).abs().max()),
+                       "logit_abs_max": float(lg_c.abs().max())},
+            "card": ctx["smi"],
+            "ok": bool(all(r["launches_ok"] and r["finished"]
+                           and r["pages_back"] for r in runs.values())
+                       and finite and d_lg <= tol and d_mem <= tol_mem)}
 
 
 BERT_VOCAB = 30522
@@ -698,8 +1046,11 @@ FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
 TRAIN_PER_STEP = {"layer_norm": 26, "paged_decode_attention": 0,
                   **{n: 12 for n in FLASH}, "add_layer_norm": 0,
                   "softmax_cross_entropy": 0}
-OUR_KERNELS = ("ln_fwd_f32", "paged_decode_f32", "flash_fwd_f32",
-               "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+# substrings of the kernels' names in a trace (each is a template over the
+# element type and width: ln_fwd_warp<float, 4, 8>, flash_fwd<float, 64,
+# 64>, ...)
+OUR_KERNELS = ("ln_fwd_", "paged_decode", "flash_fwd", "flash_bwd_dq",
+               "flash_bwd_dkv")
 
 
 def _mlm_loss(torch):
@@ -719,7 +1070,7 @@ def phase_train(torch, ctx):
     from mxnet_tpu_torch.ops import kernels
     from mxnet_tpu_torch.parallel import DataParallelStep
 
-    for key in ("model", "adapter"):  # the serving phases are done
+    for key in ("model", "adapter", "cpu_model"):  # serving is done
         ctx.pop(key, None)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -892,8 +1243,10 @@ def phase_add_layer_norm(torch, ctx):
     ctx["add_layer_norm"] = dict(
         shapes[0], max_abs_err=worst,
         library_is="two calls: x + r, then F.layer_norm")
-    return {"atol": 1e-5, "shapes": shapes,
-            "ok": all(s["ok"] for s in shapes)}
+    more = _ln_rows(torch, g, fused=True)
+    return {"atol": 1e-5, "shapes": shapes, "dtypes_and_widths": more,
+            "tol_16bit": "ulp_ratio <= 1 on out; mu, rstd atol 1e-5",
+            "ok": all(s["ok"] for s in shapes + more)}
 
 
 def _sce_labels(n, c, kind):
@@ -963,6 +1316,10 @@ def phase_softmax_cross_entropy(torch, ctx):
         del x, y, got
         torch.cuda.empty_cache()
 
+    rows16 = [_sce_row16(torch, g, name, dtype, *case, tol)
+              for dtype in ("bfloat16", "float16")
+              for name, case in cases.items()]
+
     # the kernel's own path: one forward and backward at the MLM shape
     n, c, ignore, kind = cases["path"]
     x = torch.randn(n, c, device=dev, generator=g).requires_grad_()
@@ -982,10 +1339,59 @@ def phase_softmax_cross_entropy(torch, ctx):
     ctx["softmax_cross_entropy"] = dict(
         rows[0], max_abs_err=max(r["max_abs_err"] for r in rows),
         library_is="F.cross_entropy(reduction='none', ignore_index=-1)")
-    return {"tol": tol, "cases": rows, "path_launches": launches,
+    return {"tol": tol, "cases": rows, "dtypes": rows16,
+            "tol_16bit": "loss (f32) atol 2e-5; gradient (in the logits' "
+                         "type) ulp_ratio <= 1",
+            "path_launches": launches,
             "path_launches_expected": expected, "path_finite": finite,
-            "ok": all(r["ok"] for r in rows) and launches == expected
-            and finite}
+            "ok": all(r["ok"] for r in rows + rows16)
+            and launches == expected and finite}
+
+
+def _sce_row16(torch, g, name, dtype, n, c, ignore, kind, tol):
+    """K7 on 16-bit logits at one of the f32 cases: the loss (f32) and the
+    gradient (in the logits' type) against the plain version, timed."""
+    from mxnet_tpu_torch.ops.kernels import (SoftmaxCrossEntropyFunction,
+                                             softmax_cross_entropy,
+                                             softmax_cross_entropy_ref)
+
+    F = torch.nn.functional
+    dev = g.device
+    x = (torch.randn(n, c, device=dev, generator=g) * 2).to(
+        getattr(torch, dtype))
+    y_np = _sce_labels(n, c, kind)
+    y = torch.from_numpy(y_np).to(dev)
+    gvec = torch.randn(n, device=dev, generator=g)
+    err = float((softmax_cross_entropy(x, y, ignore)
+                 - softmax_cross_entropy_ref(x, y, ignore)).abs().max())
+    xg = x.clone().requires_grad_()
+    SoftmaxCrossEntropyFunction.apply(xg, y, ignore).backward(gvec)
+    xr = x.clone().requires_grad_()
+    softmax_cross_entropy_ref(xr, y, ignore).backward(gvec)
+    torch.cuda.synchronize()
+    ratio = ulp_ratio(xg.grad, xr.grad, EPS16[dtype])
+    del xg, xr
+    live = int((y_np != ignore).sum()) if ignore is not None else n
+    b_ms, b_by = bound(x.element_size() * live * c + 8 * n + 4 * n,
+                       4 * live * c)
+    big = n * c > 10 ** 8
+    lib = None
+    if ((y_np >= 0) & (y_np < c) | (y_np == -1)).all():
+        lib = time_ms(torch, lambda: F.cross_entropy(
+            x, y, reduction="none", ignore_index=-1),
+            samples=10 if big else 25, reps=5 if big else 10)
+    row = {"case": name, "dtype": dtype, "N": n, "C": c,
+           "ignore_label": ignore, "live_rows": live, "max_abs_err": err,
+           "grad_ulp_ratio": ratio, "ok": err <= tol["loss"] and ratio <= 1,
+           "ms": time_ms(torch, lambda: softmax_cross_entropy(x, y, ignore),
+                         samples=10 if big else 25, reps=5 if big else 10),
+           "plain_ms": time_ms(torch, lambda: softmax_cross_entropy_ref(
+               x, y, ignore), samples=5 if big else 25,
+               reps=2 if big else 10),
+           "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+    del x
+    torch.cuda.empty_cache()
+    return row
 
 
 IMP_H, IMP_HD = 12, 64
@@ -1013,12 +1419,13 @@ def _imperative_inputs(B, L, seed):
     return arrays, labels
 
 
-def _imperative_arrays(inputs, labels, dev):
-    """The path's arrays on ``dev``, each with ``attach_grad()`` (write:
-    every backward overwrites the buffers), and the labels."""
+def _imperative_arrays(inputs, labels, dev, dtype="float32"):
+    """The path's arrays on ``dev`` in ``dtype``, each with
+    ``attach_grad()`` (write: every backward overwrites the buffers), and
+    the labels."""
     from mxnet_tpu_torch import nd
 
-    arrs = {k: nd.array(v, ctx=dev) for k, v in inputs.items()}
+    arrs = {k: nd.array(v, ctx=dev, dtype=dtype) for k, v in inputs.items()}
     for a in arrs.values():
         a.attach_grad()
     return arrs, nd.array(labels, ctx=dev)
@@ -1057,15 +1464,17 @@ def _grads(arrs):
     return {k: a.grad.asnumpy() for k, a in arrs.items()}
 
 
-def _compare(loss_a, grads_a, loss_b, grads_b):
+def _compare(loss_a, grads_a, loss_b, grads_b, loss_rel=1e-5,
+             grad_of_max=1e-3):
     rel = abs(loss_a - loss_b) / abs(loss_b)
     diffs = {k: {"max_abs_diff": float(np.abs(grads_a[k] - grads_b[k]).max()),
                  "max_abs": float(np.abs(grads_b[k]).max())}
              for k in grads_b}
     finite = all(np.isfinite(g).all() for g in grads_a.values()) \
         and math.isfinite(loss_a)
-    ok = finite and rel <= 1e-5 and all(
-        d["max_abs_diff"] <= 1e-3 * d["max_abs"] for d in diffs.values())
+    ok = finite and rel <= loss_rel and all(
+        d["max_abs_diff"] <= grad_of_max * d["max_abs"]
+        for d in diffs.values())
     return {"loss_rel_diff": rel, "grads": diffs, "finite": finite}, ok
 
 
@@ -1123,6 +1532,55 @@ def phase_imperative(torch, ctx):
             "ok": launches_ok and on_off_ok and card_cpu_ok}
 
 
+# bf16 tolerances: the loss is a bf16 value (two units in its last place,
+# 2^-6 relative); a gradient goes through several bf16 roundings (on the
+# CPU, bf16 against f32 moves each by at most 1.5% of its max abs)
+IMP_BF16_TOL = {"loss_rel": 2.0 ** -6, "grad_of_max_abs": 2.0 ** -5}
+
+
+def phase_imperative_bf16(torch, ctx):
+    """The imperative path with every array in bf16, so that K6, K1 and
+    K3-K5 run in bf16 from the MXNet entry points: pass on and off (one
+    warm-up and one run each, launches as in ``imperative``), on against
+    off, then the card against the CPU on a (2 x 128)-token batch with the
+    pass on, at IMP_BF16_TOL."""
+    dev = torch.device("cuda", 0)
+    B, L = TRAIN_BATCH, TRAIN_LEN
+    tol = dict(loss_rel=IMP_BF16_TOL["loss_rel"],
+               grad_of_max=IMP_BF16_TOL["grad_of_max_abs"])
+    arrs, lab = _imperative_arrays(*_imperative_inputs(B, L, SEED), dev,
+                                   "bfloat16")
+    runs, grads = {}, {}
+    for fused in (True, False):
+        _imperative_run(torch, arrs, lab, B, L, fused)  # warm-up
+        runs[fused] = _imperative_run(torch, arrs, lab, B, L, fused)
+        grads[fused] = _grads(arrs)
+    del arrs, lab
+    torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    ctx.setdefault("launches", {})["imperative_bf16"] = on[1]
+    launches_ok = on[1] == IMP_PASS_ON and off[1] == IMP_PASS_OFF
+    on_off, on_off_ok = _compare(on[0], grads[True], off[0], grads[False],
+                                 **tol)
+    del grads
+    b2, l2 = 2, 128
+    small = _imperative_inputs(b2, l2, SEED + 5)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        arrs, lab = _imperative_arrays(*small, d, "bfloat16")
+        loss = _imperative_run(torch, arrs, lab, b2, l2, True)[0]
+        res[d.type] = (loss, _grads(arrs))
+    card_cpu, card_cpu_ok = _compare(*res["cuda"], *res["cpu"], **tol)
+    return {"dtype": "bfloat16", "batch": [B, L],
+            "launches_pass_on": on[1], "launches_pass_off": off[1],
+            "wall_ms_pass_on": on[2], "wall_ms_pass_off": off[2],
+            "pass_on_vs_off": on_off, "card_vs_cpu": dict(
+                card_cpu, batch=[b2, l2], loss_card=res["cuda"][0],
+                loss_cpu=res["cpu"][0]),
+            "tol": IMP_BF16_TOL,
+            "ok": launches_ok and on_off_ok and card_cpu_ok}
+
+
 def _imperative_profile(torch, arrs, lab, B, L, runs=2):
     """Where forward and backward with the pass go: ``runs`` runs under
     torch.profiler, device time by kernel and the device's busy share;
@@ -1138,8 +1596,8 @@ def _imperative_profile(torch, arrs, lab, B, L, runs=2):
     busy = sum(ms for ms, _, _ in rows)
     ours = {k: {"ms": sum(ms for ms, _, key in rows if k in key) / runs,
                 "count": sum(c for _, c, key in rows if k in key)}
-            for k in ("add_layer_norm_f32",) + OUR_KERNELS
-            if k != "paged_decode_f32"}
+            for k in ("add_layer_norm_",) + OUR_KERNELS
+            if k != "paged_decode"}
     return {"runs": runs, "wall_ms": wall_ms / runs,
             "device_busy_ms": busy / runs if rows else None,
             "device_busy_share": busy / wall_ms if rows else None,
@@ -1193,10 +1651,12 @@ def main() -> int:
               ("serve", phase_serve),
               ("serve_parity", phase_serve_parity),
               ("serve_profile", phase_serve_profile),
+              ("serve_bf16", phase_serve_bf16),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),
-              ("imperative", phase_imperative))
+              ("imperative", phase_imperative),
+              ("imperative_bf16", phase_imperative_bf16))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

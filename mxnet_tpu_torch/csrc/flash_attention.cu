@@ -1,4 +1,5 @@
-// FlashAttention-2 forward and backward, f32, for Hopper (sm_90a).
+// FlashAttention-2 forward and backward for Hopper (sm_90a): f32, bf16 or
+// f16 inputs, head dims 16, 32, 64, 128 and 256.
 //
 // Replaces the three Pallas kernels of mxnet_tpu/ops/pallas/flash_attention.py:
 //   _fwd_kernel (K3): out = softmax(q k^T * scale [masked]) v and the row
@@ -60,19 +61,35 @@
 //   share an SM (104,448 and 105,472 B of shared memory at hd 64).  K3
 //   streams K and V in 32-row tiles (52,224 B at hd 64), keeps each warp's
 //   Q fragments split in registers, and three blocks (12 warps) share an
-//   SM.  At hd 128 a block is 2 warps and 32 rows and the stream 32-row
-//   tiles (K3 84,480 B, two blocks an SM): K5's two hd-wide accumulators
+//   SM.  At hd 128 and 256 a block is 2 warps and 32 rows and the stream
+//   32-row tiles (K3 84,480 B at hd 128, two blocks an SM): K5's two
+//   accumulators
 //   take 2 x 64 registers a thread, and the small causal shapes get more
 //   blocks (42 for 6 heads of 200 rows, not 24 of 64 rows).
 // - Every output row is summed in one block: no atomics, so out, lse and
 //   the gradients are bitwise repeatable.  Causal q blocks (K3, K4) skip
 //   k tiles wholly above the diagonal, which are never loaded, and dk/dv
 //   blocks q tiles wholly below it (there p is exactly 0).
+// - bf16 and f16 inputs are converted to f32 on their way into shared
+//   memory (8-byte loads of four values, two to four in flight a thread,
+//   then f32 stores: cp.async cannot convert), so the f32 tiles, the 3xTF32
+//   core and its fragment loaders are the f32 kernels' own; outputs are
+//   rounded to the input type once, at the store; lse and delta stay f32.
+// - hd 256: the staged tiles are 256 wide (K3 166,400 B of shared memory,
+//   K4 199,680 B, K5 200,192 B, within the 227 KB a block may take), but a
+//   launch accumulates only a window of 128 output columns (template
+//   parameter DW, column offset c0), and the wrapper's call makes two
+//   launches, one per window, each recomputing the scores (and in K4, K5
+//   dP) over all 256: K5's two accumulators of 256 columns would need 256
+//   f32 registers a thread.  The row logsumexp is written by the first.
 // No wgmma and no TMA yet.
 
 #include <cuda_runtime.h>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -112,18 +129,62 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start copying rows row0 .. row0+ROWS-1 of a (n_rows, HD) matrix into a
-// tile of row stride HD + 4; rows past n_rows are zero-filled.
-template <int HD, int ROWS, int THREADS>
+// Start copying rows row0 .. row0+ROWS-1 of a (n_rows, HD) matrix of T into
+// an f32 tile of row stride HD + 4; rows past n_rows are zero-filled.  f32
+// goes by cp.async; bf16 and f16 (which cp.async cannot convert) by 8-byte
+// loads of four values into registers, batched so that several are in
+// flight, converted and stored to shared memory.  The tile is complete
+// for this thread after cp_wait (f32) or at once (16-bit), and for the
+// block after the next barrier either way.
+template <typename T, int HD, int ROWS, int THREADS>
 __device__ __forceinline__ void stage_async(float* __restrict__ dst,
-                                            const float* __restrict__ src, int row0,
+                                            const T* __restrict__ src, int row0,
                                             int n_rows) {
   constexpr int V = HD / 4;
-  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
-    const int r = i / V, c = i - r * V;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + r * Cfg<HD>::kStride + 4 * c,
-               ok ? src + (size_t)(row0 + r) * HD + 4 * c : src, ok);
+  if constexpr (std::is_same<T, float>::value) {
+    for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+      const int r = i / V, c = i - r * V;
+      const bool ok = row0 + r < n_rows;
+      cp_async16(dst + r * Cfg<HD>::kStride + 4 * c,
+                 ok ? src + (size_t)(row0 + r) * HD + 4 * c : src, ok);
+    }
+  } else {
+    // loads in flight a thread: few where the accumulators leave few
+    // registers (hd >= 128), more below
+    constexpr int kIter = (ROWS * V + THREADS - 1) / THREADS;
+    constexpr int kMaxBatch = HD >= 128 ? 2 : 4;
+    constexpr int kBatch = kIter < kMaxBatch ? kIter : kMaxBatch;
+#pragma unroll
+    for (int i0 = 0; i0 < kIter; i0 += kBatch) {
+      uint2 u[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = threadIdx.x + (i0 + b) * THREADS, r = i / V, c = i - r * V;
+        u[b] = make_uint2(0u, 0u);  // zero bits are zero in bf16 and f16
+        if (i < ROWS * V && row0 + r < n_rows)
+          u[b] = __ldg(reinterpret_cast<const uint2*>(src + (size_t)(row0 + r) * HD + 4 * c));
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int i = threadIdx.x + (i0 + b) * THREADS, r = i / V, c = i - r * V;
+        if (i < ROWS * V) {
+          const T* e = reinterpret_cast<const T*>(&u[b]);
+          *reinterpret_cast<float4*>(dst + r * Cfg<HD>::kStride + 4 * c) = make_float4(
+              mx::to_f32(e[0]), mx::to_f32(e[1]), mx::to_f32(e[2]), mx::to_f32(e[3]));
+        }
+      }
+    }
+  }
+}
+
+// Two adjacent outputs of one row, rounded to T.
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    T pair[2] = {mx::from_f32<T>(a), mx::from_f32<T>(b)};
+    *reinterpret_cast<uint32_t*>(p) = *reinterpret_cast<const uint32_t*>(pair);
   }
 }
 
@@ -262,7 +323,7 @@ __device__ __forceinline__ void scale_own(float* __restrict__ dst, float scale) 
 // BS rows, two in flight.
 template <int HD, int BS>
 struct Tiles {
-  static constexpr int kWarps = HD == 128 ? 2 : 4;
+  static constexpr int kWarps = HD >= 128 ? 2 : 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kRows = 16 * kWarps;
   static constexpr int kBS = BS;
@@ -270,7 +331,7 @@ struct Tiles {
   static constexpr int kTile = kBS * Cfg<HD>::kStride;
 };
 template <int HD>
-using Bwd = Tiles<HD, HD == 128 ? 32 : 64>;  // K4 and K5
+using Bwd = Tiles<HD, HD >= 128 ? 32 : 64>;  // K4 and K5
 
 // e^x as exp2(x log2 e): a multiply and ex2, where expf adds a longer range
 // reduction.  Exactly 1 at x = 0, so a masked row still takes p = 1.
@@ -332,14 +393,14 @@ struct Fwd : Tiles<HD, 32> {
   static constexpr int kMinBlocks = HD <= 64 ? 3 : 1;  // per SM, for the register budget
 };
 
-template <int HD>
+template <typename T, int HD, int DW>
 __global__ void __launch_bounds__(Fwd<HD>::kThreads, Fwd<HD>::kMinBlocks)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int Lq, int Lk, int q_tiles, int causal,
-              float sm_scale) {
+flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          T* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int q_tiles,
+          int causal, float sm_scale, int c0) {
   using F = Fwd<HD>;
-  constexpr int NT = F::kBS / 8, DT = HD / 8;
+  constexpr int NT = F::kBS / 8, DQ = HD / 8, DT = DW / 8;
+  const int cw = DW == HD ? 0 : c0;  // the window of output columns
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* ring = Qs + F::kRowTile;  // two stages of (K, V)
@@ -352,10 +413,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   int k_tiles = (Lk + F::kBS - 1) / F::kBS;
   if (causal) k_tiles = min(k_tiles, (min(q0 + F::kRows, Lq) - 1) / F::kBS + 1);
-  stage_async<HD, F::kRows, F::kThreads>(Qs, q + qo, q0, Lq);
+  stage_async<T, HD, F::kRows, F::kThreads>(Qs, q + qo, q0, Lq);
   if (k_tiles > 0) {
-    stage_async<HD, F::kBS, F::kThreads>(ring, k + ko, 0, Lk);
-    stage_async<HD, F::kBS, F::kThreads>(ring + F::kTile, v + ko, 0, Lk);
+    stage_async<T, HD, F::kBS, F::kThreads>(ring, k + ko, 0, Lk);
+    stage_async<T, HD, F::kBS, F::kThreads>(ring + F::kTile, v + ko, 0, Lk);
   }
   cp_commit();
 
@@ -364,7 +425,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < DT; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-  Frag<4> qf[F::kQRegs ? DT : 1];
+  Frag<4> qf[F::kQRegs ? DQ : 1];
 
   for (int kt = 0; kt < k_tiles; ++kt) {
     cp_wait<0>();  // this thread's copies of tile kt (and at kt 0 of Q) are done
@@ -374,14 +435,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
     if (kt + 1 < k_tiles) {
       float* nxt = ring + ((kt + 1) & 1) * 2 * F::kTile;
-      stage_async<HD, F::kBS, F::kThreads>(nxt, k + ko, (kt + 1) * F::kBS, Lk);
-      stage_async<HD, F::kBS, F::kThreads>(nxt + F::kTile, v + ko, (kt + 1) * F::kBS, Lk);
+      stage_async<T, HD, F::kBS, F::kThreads>(nxt, k + ko, (kt + 1) * F::kBS, Lk);
+      stage_async<T, HD, F::kBS, F::kThreads>(nxt + F::kTile, v + ko, (kt + 1) * F::kBS, Lk);
       cp_commit();
     }
     if constexpr (F::kQRegs) {
       if (kt == 0) {
 #pragma unroll
-        for (int d = 0; d < DT; ++d) load_a<HD>(qf[d], Qs, r0, 8 * d);
+        for (int d = 0; d < DQ; ++d) load_a<HD>(qf[d], Qs, r0, 8 * d);
       }
     }
     const float* Ks = ring + (kt & 1) * 2 * F::kTile;
@@ -392,8 +453,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll (F::kQRegs || HD <= 32 ? DT : 2)
-    for (int d = 0; d < DT; ++d) {
+#pragma unroll (F::kQRegs || HD <= 32 ? DQ : 2)
+    for (int d = 0; d < DQ; ++d) {
       Frag<4> qa;
       if constexpr (F::kQRegs)
         qa = qf[d];
@@ -421,7 +482,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < DT; ++i) {
         Frag<2> vb;
-        load_b_cols<HD>(vb, Vs, 8 * j, 8 * i, l);
+        load_b_cols<HD>(vb, Vs, 8 * j, cw + 8 * i, l);
         mma3(acc[i], pa, vb);
       }
     }
@@ -440,11 +501,11 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = q0 + r0 + l.g + 8 * h;
     if (r >= Lq) continue;  // rows past Lq are computed from zero q, never written
-    if (l.t == 0) lse[(size_t)n * Lq + r] = m[h] + logf(safe_l[h]);
+    if (l.t == 0 && cw == 0) lse[(size_t)n * Lq + r] = m[h] + logf(safe_l[h]);
 #pragma unroll
     for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<float2*>(out + qo + (size_t)r * HD + 8 * i + 2 * l.t) =
-          make_float2(acc[i][2 * h] / safe_l[h], acc[i][2 * h + 1] / safe_l[h]);
+      store2(out + qo + (size_t)r * HD + cw + 8 * i + 2 * l.t, acc[i][2 * h] / safe_l[h],
+             acc[i][2 * h + 1] / safe_l[h]);
   }
 }
 
@@ -498,15 +559,15 @@ __device__ __forceinline__ void dkv_scores(float (&s)[NT][4], float (&dp)[NT][4]
 // owns q rows 16w .. 16w+15: S = (q * scale) k^T and dP = do v^T as 16 x kBS
 // accumulators, dS = P (dP - delta) in place, dq += dS k.
 // ---------------------------------------------------------------------------
-template <int HD>
+template <typename T, int HD, int DW>
 __global__ void __launch_bounds__(Bwd<HD>::kThreads)
-flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq, int Lq, int Lk, int q_tiles, int causal,
-                 float sm_scale) {
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ dout, const float* __restrict__ lse,
+             const float* __restrict__ delta, T* __restrict__ dq, int Lq, int Lk, int q_tiles,
+             int causal, float sm_scale, int c0) {
   using B = Bwd<HD>;
-  constexpr int NT = B::kBS / 8, DT = HD / 8;
+  constexpr int NT = B::kBS / 8, DT = DW / 8;
+  const int cw = DW == HD ? 0 : c0;  // the window of output columns
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + B::kRowTile;
@@ -520,11 +581,11 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   int k_tiles = (Lk + B::kBS - 1) / B::kBS;
   if (causal) k_tiles = min(k_tiles, (min(q0 + B::kRows, Lq) - 1) / B::kBS + 1);
-  stage_async<HD, B::kRows, B::kThreads>(Qs, q + qo, q0, Lq);
-  stage_async<HD, B::kRows, B::kThreads>(dOs, dout + qo, q0, Lq);
+  stage_async<T, HD, B::kRows, B::kThreads>(Qs, q + qo, q0, Lq);
+  stage_async<T, HD, B::kRows, B::kThreads>(dOs, dout + qo, q0, Lq);
   if (k_tiles > 0) {
-    stage_async<HD, B::kBS, B::kThreads>(ring, k + ko, 0, Lk);
-    stage_async<HD, B::kBS, B::kThreads>(ring + B::kTile, v + ko, 0, Lk);
+    stage_async<T, HD, B::kBS, B::kThreads>(ring, k + ko, 0, Lk);
+    stage_async<T, HD, B::kBS, B::kThreads>(ring + B::kTile, v + ko, 0, Lk);
   }
   cp_commit();
 
@@ -543,8 +604,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = 0; kt < k_tiles; ++kt) {
     if (kt + 1 < k_tiles) {  // the next K/V tile loads while this one is used
       float* nxt = ring + ((kt + 1) & 1) * 2 * B::kTile;
-      stage_async<HD, B::kBS, B::kThreads>(nxt, k + ko, (kt + 1) * B::kBS, Lk);
-      stage_async<HD, B::kBS, B::kThreads>(nxt + B::kTile, v + ko, (kt + 1) * B::kBS, Lk);
+      stage_async<T, HD, B::kBS, B::kThreads>(nxt, k + ko, (kt + 1) * B::kBS, Lk);
+      stage_async<T, HD, B::kBS, B::kThreads>(nxt + B::kTile, v + ko, (kt + 1) * B::kBS, Lk);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -590,7 +651,7 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < DT; ++i) {
         Frag<2> kb;
-        load_b_cols<HD>(kb, Ks, 8 * j, 8 * i, l);
+        load_b_cols<HD>(kb, Ks, 8 * j, cw + 8 * i, l);
         mma3(acc[i], a, kb);
       }
     }
@@ -604,8 +665,8 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (r >= Lq) continue;
 #pragma unroll
     for (int i = 0; i < DT; ++i)
-      *reinterpret_cast<float2*>(dq + qo + (size_t)r * HD + 8 * i + 2 * l.t) =
-          make_float2(acc[i][2 * h] * sm_scale, acc[i][2 * h + 1] * sm_scale);
+      store2(dq + qo + (size_t)r * HD + cw + 8 * i + 2 * l.t, acc[i][2 * h] * sm_scale,
+             acc[i][2 * h + 1] * sm_scale);
   }
 }
 
@@ -614,15 +675,15 @@ flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Warp w owns k rows 16w .. 16w+15: S^T = k (q * scale)^T and dP^T = v do^T,
 // P^T and dS^T in place, dv += P^T do, dk += dS^T (q * scale).
 // ---------------------------------------------------------------------------
-template <int HD>
+template <typename T, int HD, int DW>
 __global__ void __launch_bounds__(Bwd<HD>::kThreads)
-flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dk, float* __restrict__ dv, int Lq, int Lk,
-                  int k_tiles, int causal, float sm_scale) {
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Lq,
+              int Lk, int k_tiles, int causal, float sm_scale, int c0) {
   using B = Bwd<HD>;
-  constexpr int NT = B::kBS / 8, DT = HD / 8;
+  constexpr int NT = B::kBS / 8, DT = DW / 8;
+  const int cw = DW == HD ? 0 : c0;  // the window of output columns
   constexpr int kStage = 2 * B::kTile + 2 * B::kBS;  // Q, dO, lse, delta
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -640,13 +701,13 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int q_tiles = (Lq + B::kBS - 1) / B::kBS;
   const int qt0 = causal ? k0 / B::kBS : 0;  // q tiles wholly above k0 have p = 0
   auto stage_q = [&](int qt, float* dst) {
-    stage_async<HD, B::kBS, B::kThreads>(dst, q + qo, qt * B::kBS, Lq);
-    stage_async<HD, B::kBS, B::kThreads>(dst + B::kTile, dout + qo, qt * B::kBS, Lq);
+    stage_async<T, HD, B::kBS, B::kThreads>(dst, q + qo, qt * B::kBS, Lq);
+    stage_async<T, HD, B::kBS, B::kThreads>(dst + B::kTile, dout + qo, qt * B::kBS, Lq);
     stage_vec_async<B::kBS, B::kThreads>(dst + 2 * B::kTile, lse_n, qt * B::kBS, Lq);
     stage_vec_async<B::kBS, B::kThreads>(dst + 2 * B::kTile + B::kBS, delta_n, qt * B::kBS, Lq);
   };
-  stage_async<HD, B::kRows, B::kThreads>(Ks, k + ko, k0, Lk);
-  stage_async<HD, B::kRows, B::kThreads>(Vs, v + ko, k0, Lk);
+  stage_async<T, HD, B::kRows, B::kThreads>(Ks, k + ko, k0, Lk);
+  stage_async<T, HD, B::kRows, B::kThreads>(Vs, v + ko, k0, Lk);
   if (qt0 < q_tiles) stage_q(qt0, ring);
   cp_commit();
 
@@ -708,9 +769,9 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < DT; ++i) {
         Frag<2> ob, qb;
-        load_b_cols<HD>(ob, dOs, 8 * j, 8 * i, l);
+        load_b_cols<HD>(ob, dOs, 8 * j, cw + 8 * i, l);
         mma3(dv_acc[i], pa, ob);
-        load_b_cols<HD>(qb, Qs, 8 * j, 8 * i, l);
+        load_b_cols<HD>(qb, Qs, 8 * j, cw + 8 * i, l);
         mma3(dk_acc[i], da, qb);
       }
     }
@@ -722,13 +783,11 @@ flash_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int h = 0; h < 2; ++h) {
     const int r = k0 + r0 + l.g + 8 * h;
     if (r >= Lk) continue;
-    const size_t at = ko + (size_t)r * HD + 2 * l.t;
+    const size_t at = ko + (size_t)r * HD + cw + 2 * l.t;
 #pragma unroll
     for (int i = 0; i < DT; ++i) {
-      *reinterpret_cast<float2*>(dk + at + 8 * i) =
-          make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + at + 8 * i) =
-          make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
+      store2(dk + at + 8 * i, dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
+      store2(dv + at + 8 * i, dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
     }
   }
 }
@@ -754,84 +813,148 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The columns of the output one launch accumulates: all of them up to
+// hd 128; at hd 256 two launches of 128 columns each, each recomputing the
+// scores over all 256 (K5's two accumulators of 256 columns would take 256
+// registers a thread).
 template <int HD>
-cudaError_t fwd(const float* q, const float* k, const float* v, float* out, float* lse,
-                int N, int Lq, int Lk, int causal, float sm_scale, cudaStream_t stream) {
+constexpr int window() {
+  return HD > 128 ? 128 : HD;
+}
+
+template <typename T, int HD>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* out, float* lse, int N,
+                int Lq, int Lk, int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int DW = window<HD>();
   const size_t smem = fwd_smem<HD>();
-  cudaError_t err = allow_smem(flash_fwd_f32<HD>, smem);
+  cudaError_t err = allow_smem(flash_fwd<T, HD, DW>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Lq + Fwd<HD>::kRows - 1) / Fwd<HD>::kRows;
-  flash_fwd_f32<HD><<<N * tiles, Fwd<HD>::kThreads, smem, stream>>>(
-      q, k, v, out, lse, Lq, Lk, tiles, causal, sm_scale);
-  return cudaGetLastError();
+  for (int c0 = 0; c0 < HD; c0 += DW) {
+    flash_fwd<T, HD, DW><<<N * tiles, Fwd<HD>::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, Lq, Lk, tiles, causal, sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <int HD>
 cudaError_t fwd_shape(int* rows, int* threads, int* smem, int* per_sm) {
+  constexpr int DW = window<HD>();
   *rows = Fwd<HD>::kRows;
   *threads = Fwd<HD>::kThreads;
   *smem = (int)fwd_smem<HD>();
-  cudaError_t err = allow_smem(flash_fwd_f32<HD>, fwd_smem<HD>());
+  cudaError_t err = allow_smem(flash_fwd<float, HD, DW>, fwd_smem<HD>());
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, flash_fwd_f32<HD>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, flash_fwd<float, HD, DW>,
                                                        Fwd<HD>::kThreads, fwd_smem<HD>());
 }
 
-template <int HD>
-cudaError_t bwd_dq(const float* q, const float* k, const float* v, const float* dout,
-                   const float* lse, const float* delta, float* dq, int N, int Lq, int Lk,
+template <typename T, int HD>
+cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, int N, int Lq, int Lk,
                    int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int DW = window<HD>();
   const size_t smem = dq_smem<HD>();
-  cudaError_t err = allow_smem(flash_bwd_dq_f32<HD>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq<T, HD, DW>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Lq + Bwd<HD>::kRows - 1) / Bwd<HD>::kRows;
-  flash_bwd_dq_f32<HD><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, Lq, Lk, tiles, causal, sm_scale);
-  return cudaGetLastError();
+  for (int c0 = 0; c0 < HD; c0 += DW) {
+    flash_bwd_dq<T, HD, DW><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Lq, Lk, tiles, causal,
+        sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-template <int HD>
-cudaError_t bwd_dkv(const float* q, const float* k, const float* v, const float* dout,
-                    const float* lse, const float* delta, float* dk, float* dv, int N, int Lq,
+template <typename T, int HD>
+cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, int N, int Lq,
                     int Lk, int causal, float sm_scale, cudaStream_t stream) {
+  constexpr int DW = window<HD>();
   const size_t smem = dkv_smem<HD>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_f32<HD>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv<T, HD, DW>, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Lk + Bwd<HD>::kRows - 1) / Bwd<HD>::kRows;
-  flash_bwd_dkv_f32<HD><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, Lq, Lk, tiles, causal, sm_scale);
-  return cudaGetLastError();
+  for (int c0 = 0; c0 < HD; c0 += DW) {
+    flash_bwd_dkv<T, HD, DW><<<N * tiles, Bwd<HD>::kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Lq,
+        Lk, tiles, causal, sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
-bool bad_args(int N, int Lq, int Lk) { return N < 0 || Lq < 0 || Lk < 0; }
+bool bad_args(int N, int Lq, int Lk, int dtype) {
+  return N < 0 || Lq < 0 || Lk < 0 || mx::bad_dtype(dtype);
+}
+
+// Call F<T>::template run<HD>(args...) for the element type of `dtype`
+// and the head dim `hd`, or return cudaErrorInvalidValue.
+template <template <typename> class F, typename... Args>
+int by_type_hd(int dtype, int hd, Args... args) {
+  auto on_hd = [&](auto tag) -> int {
+    using T = decltype(tag);
+    switch (hd) {
+      case 16: return (int)F<T>::template run<16>(args...);
+      case 32: return (int)F<T>::template run<32>(args...);
+      case 64: return (int)F<T>::template run<64>(args...);
+      case 128: return (int)F<T>::template run<128>(args...);
+      case 256: return (int)F<T>::template run<256>(args...);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  };
+  if (dtype == mx::kBF16) return on_hd(mx::bf16{});
+  if (dtype == mx::kF16) return on_hd(mx::f16{});
+  return on_hd(float{});
+}
+
+template <typename T>
+struct Fwd_ {
+  template <int HD, typename... A>
+  static cudaError_t run(A... a) { return fwd<T, HD>(a...); }
+};
+template <typename T>
+struct Dq_ {
+  template <int HD, typename... A>
+  static cudaError_t run(A... a) { return bwd_dq<T, HD>(a...); }
+};
+template <typename T>
+struct Dkv_ {
+  template <int HD, typename... A>
+  static cudaError_t run(A... a) { return bwd_dkv<T, HD>(a...); }
+};
 
 }  // namespace
 
 extern "C" {
 
 // The entry points take q, out, dout, dq: (N, Lq, hd); k, v, dk, dv:
-// (N, Lk, hd); lse, delta: (N, Lq); all contiguous f32, 16-byte aligned;
-// hd in {16, 32, 64, 128}.  Each returns cudaGetLastError() after the launch
-// (or the error of the shared-memory opt-in); nothing is launched for an
-// empty problem.
+// (N, Lk, hd), all contiguous, 16-byte aligned, of one element type
+// (dtype 0 f32, 1 bf16, 2 f16); lse, delta: (N, Lq) f32; hd in {16, 32,
+// 64, 128, 256}.  Each returns cudaGetLastError() after its launches (or
+// the error of the shared-memory opt-in); nothing is launched for an empty
+// problem.
 
-int mx_flash_attention_fwd_f32(const float* q, const float* k, const float* v, float* out,
-                               float* lse, int N, int Lq, int Lk, int hd, int causal,
-                               float sm_scale, cudaStream_t stream) {
-  if (bad_args(N, Lq, Lk)) return (int)cudaErrorInvalidValue;
+int mx_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
+                           int dtype, int N, int Lq, int Lk, int hd, int causal, float sm_scale,
+                           cudaStream_t stream) {
+  if (bad_args(N, Lq, Lk, dtype)) return (int)cudaErrorInvalidValue;
   if (N == 0 || Lq == 0) return (int)cudaSuccess;
-  switch (hd) {
-    case 16: return (int)fwd<16>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
-    case 32: return (int)fwd<32>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
-    case 64: return (int)fwd<64>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
-    case 128: return (int)fwd<128>(q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_type_hd<Fwd_>(dtype, hd, q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
 }
 
-// K3's launch shape at head dim hd: q rows and threads of a block, its
-// dynamic shared memory in bytes, and how many such blocks an SM holds.  A
-// forward over N heads of Lq rows launches N * ceil(Lq / rows) blocks.
+// K3's launch shape at head dim hd (f32): q rows and threads of a block,
+// its dynamic shared memory in bytes, and how many such blocks an SM holds.
+// A forward over N heads of Lq rows launches N * ceil(Lq / rows) blocks (at
+// hd 256 twice, one launch per window of 128 output columns).
 int mx_flash_attention_fwd_shape(int hd, int* rows, int* threads, int* smem_bytes,
                                  int* blocks_per_sm) {
   switch (hd) {
@@ -839,37 +962,29 @@ int mx_flash_attention_fwd_shape(int hd, int* rows, int* threads, int* smem_byte
     case 32: return (int)fwd_shape<32>(rows, threads, smem_bytes, blocks_per_sm);
     case 64: return (int)fwd_shape<64>(rows, threads, smem_bytes, blocks_per_sm);
     case 128: return (int)fwd_shape<128>(rows, threads, smem_bytes, blocks_per_sm);
+    case 256: return (int)fwd_shape<256>(rows, threads, smem_bytes, blocks_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int mx_flash_attention_dq_f32(const float* q, const float* k, const float* v, const float* dout,
-                              const float* lse, const float* delta, float* dq, int N, int Lq,
-                              int Lk, int hd, int causal, float sm_scale, cudaStream_t stream) {
-  if (bad_args(N, Lq, Lk)) return (int)cudaErrorInvalidValue;
+int mx_flash_attention_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, int dtype, int N,
+                          int Lq, int Lk, int hd, int causal, float sm_scale,
+                          cudaStream_t stream) {
+  if (bad_args(N, Lq, Lk, dtype)) return (int)cudaErrorInvalidValue;
   if (N == 0 || Lq == 0) return (int)cudaSuccess;
-  switch (hd) {
-    case 16: return (int)bwd_dq<16>(q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale, stream);
-    case 32: return (int)bwd_dq<32>(q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale, stream);
-    case 64: return (int)bwd_dq<64>(q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale, stream);
-    case 128: return (int)bwd_dq<128>(q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_type_hd<Dq_>(dtype, hd, q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale,
+                         stream);
 }
 
-int mx_flash_attention_dkv_f32(const float* q, const float* k, const float* v, const float* dout,
-                               const float* lse, const float* delta, float* dk, float* dv, int N,
-                               int Lq, int Lk, int hd, int causal, float sm_scale,
-                               cudaStream_t stream) {
-  if (bad_args(N, Lq, Lk)) return (int)cudaErrorInvalidValue;
+int mx_flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout,
+                           const float* lse, const float* delta, void* dk, void* dv, int dtype,
+                           int N, int Lq, int Lk, int hd, int causal, float sm_scale,
+                           cudaStream_t stream) {
+  if (bad_args(N, Lq, Lk, dtype)) return (int)cudaErrorInvalidValue;
   if (N == 0 || Lk == 0) return (int)cudaSuccess;
-  switch (hd) {
-    case 16: return (int)bwd_dkv<16>(q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, causal, sm_scale, stream);
-    case 32: return (int)bwd_dkv<32>(q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, causal, sm_scale, stream);
-    case 64: return (int)bwd_dkv<64>(q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, causal, sm_scale, stream);
-    case 128: return (int)bwd_dkv<128>(q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return by_type_hd<Dkv_>(dtype, hd, q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, causal,
+                          sm_scale, stream);
 }
 
 const char* mx_cuda_error_string(int err) {

@@ -1,13 +1,15 @@
-// Per-row softmax cross-entropy, f32 logits, for Hopper (sm_90a).
+// Per-row softmax cross-entropy for Hopper (sm_90a): f32, bf16 or f16
+// logits, an f32 loss.
 //
 // Replaces: mxnet_tpu/ops/pallas/fused.py::_sce_kernel (reached through
 // fused.softmax_cross_entropy): for each row of logits x (N, C) and its
 // integer label y, loss = logsumexp(x) - x[y], with 0 where y equals the
 // ignore label.  The TPU kernel holds a (256, C) block in VMEM and reduces
-// it in one pass; a label outside [0, C) matches no column there, so its
-// loss is the row's logsumexp.
+// it in one pass, reading the logits in their own type and computing in
+// f32; a label outside [0, C) matches no column there, so its loss is the
+// row's logsumexp.
 //
-// Bound on this card: memory bandwidth.  Each live row's C floats are read
+// Bound on this card: memory bandwidth.  Each live row's C values are read
 // once and one float is written, against one exp and a few flops per
 // element, so the time floor is the bytes of the rows that are not
 // ignored over 3.35 TB/s.
@@ -16,17 +18,19 @@
 // label writes 0 and reads nothing else.  Otherwise every thread walks its
 // share of the row once, keeping an online maximum m and a sum s of
 // exp(x - m) rescaled whenever m grows, so the row is read from device
-// memory exactly once.  The loads are float4 (16 bytes); a row of C % 4 != 0
-// floats starts off a 16-byte boundary every other row (BERT's vocabulary,
-// 30522, is 2 mod 4), so the first (16 - address % 16) / 4 floats are a
-// scalar prologue, the aligned middle is float4, and the last C % 4 floats
-// are a scalar tail.  The (m, s) pairs are merged by warp shuffles, then
+// memory exactly once.  The loads are 16 bytes (4 f32 or 8 bf16/f16 values,
+// converted to f32); a row whose bytes are not a multiple of 16 starts off
+// a 16-byte boundary on some rows (BERT's vocabulary, 30522, is 2 mod 4),
+// so the values before the first boundary are a scalar prologue, the
+// aligned middle is 16-byte vectors, and the rest is a scalar tail.  The (m, s) pairs are merged by warp shuffles, then
 // across the block's 8 warps in shared memory.  One thread reads x[y],
 // after checking 0 <= y < C.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "dtypes.cuh"
 
 namespace {
 
@@ -54,47 +58,66 @@ __device__ __forceinline__ void add1(MaxSum& a, float x) {
   }
 }
 
-__device__ __forceinline__ void add4(MaxSum& a, float4 v) {
-  const float m4 = fmaxf(fmaxf(v.x, v.y), fmaxf(v.z, v.w));
-  const float m = fmaxf(a.m, m4);
+// Fold N values into a (one rescale for all of them).
+template <int N>
+__device__ __forceinline__ void addn(MaxSum& a, const float* v) {
+  float mv = v[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) mv = fmaxf(mv, v[i]);
+  const float m = fmaxf(a.m, mv);
   if (m == -INFINITY) return;  // nothing but -inf so far
   const float scale = a.m == -INFINITY ? 0.f : expf(a.m - m);
-  a.s = a.s * scale + ((expf(v.x - m) + expf(v.y - m)) +
-                       (expf(v.z - m) + expf(v.w - m)));
+  float e[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) e[i] = expf(v[i] - m);
+#pragma unroll
+  for (int w = 1; w < N; w *= 2)  // a pairwise sum
+#pragma unroll
+    for (int i = 0; i + w < N; i += 2 * w) e[i] += e[i + w];
+  a.s = a.s * scale + e[0];
   a.m = m;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-sce_fwd_f32(const float* __restrict__ logits, const int64_t* __restrict__ labels,
-            float* __restrict__ loss, int C, int has_ignore, int ignore_label) {
+sce_fwd(const T* __restrict__ logits, const int64_t* __restrict__ labels,
+        float* __restrict__ loss, int C, int has_ignore, int ignore_label) {
+  constexpr int VE = mx::Vec16<T>::N;
   const int row = blockIdx.x;
   const int64_t y = labels[row];
   if (has_ignore && y == (int64_t)ignore_label) {
     if (threadIdx.x == 0) loss[row] = 0.f;
     return;
   }
-  const float* x = logits + (size_t)row * C;
+  const T* x = logits + (size_t)row * C;
 
   MaxSum acc = {-INFINITY, 0.f};
   // scalar prologue up to the first 16-byte boundary
-  const int head = min(C, (int)(((16u - ((uintptr_t)x & 15u)) & 15u) >> 2));
-  if ((int)threadIdx.x < head) add1(acc, x[threadIdx.x]);
-  const int n4 = (C - head) >> 2;
-  const float4* x4 = reinterpret_cast<const float4*>(x + head);
+  const int head =
+      min(C, (int)(((16u - ((uintptr_t)x & 15u)) & 15u) / (unsigned)sizeof(T)));
+  if ((int)threadIdx.x < head) add1(acc, mx::to_f32(x[threadIdx.x]));
+  const int nv = (C - head) / VE;
+  const T* xv = x + head;
   int j = threadIdx.x;
   // four independent 16-byte loads in flight per thread
-  for (; j + 3 * kThreads < n4; j += 4 * kThreads) {
-    const float4 a = __ldg(x4 + j), b = __ldg(x4 + j + kThreads),
-                 c = __ldg(x4 + j + 2 * kThreads), d = __ldg(x4 + j + 3 * kThreads);
-    add4(acc, a);
-    add4(acc, b);
-    add4(acc, c);
-    add4(acc, d);
+  for (; j + 3 * kThreads < nv; j += 4 * kThreads) {
+    float a[VE], b[VE], c[VE], d[VE];
+    mx::ldg16(xv + (size_t)j * VE, a);
+    mx::ldg16(xv + (size_t)(j + kThreads) * VE, b);
+    mx::ldg16(xv + (size_t)(j + 2 * kThreads) * VE, c);
+    mx::ldg16(xv + (size_t)(j + 3 * kThreads) * VE, d);
+    addn<VE>(acc, a);
+    addn<VE>(acc, b);
+    addn<VE>(acc, c);
+    addn<VE>(acc, d);
   }
-  for (; j < n4; j += kThreads) add4(acc, __ldg(x4 + j));
+  for (; j < nv; j += kThreads) {
+    float a[VE];
+    mx::ldg16(xv + (size_t)j * VE, a);
+    addn<VE>(acc, a);
+  }
   // scalar tail
-  const int tail0 = head + 4 * n4;
-  if (tail0 + (int)threadIdx.x < C) add1(acc, x[tail0 + threadIdx.x]);
+  for (int t = head + VE * nv + threadIdx.x; t < C; t += kThreads) add1(acc, mx::to_f32(x[t]));
 
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -117,29 +140,38 @@ sce_fwd_f32(const float* __restrict__ logits, const int64_t* __restrict__ labels
       acc = merge(acc, o);
     }
     if (lane == 0) {
-      const float picked = (y >= 0 && y < C) ? x[y] : 0.f;
+      const float picked = (y >= 0 && y < C) ? mx::to_f32(x[y]) : 0.f;
       loss[row] = (acc.m + logf(acc.s)) - picked;
     }
   }
+}
+
+template <typename T>
+int launch(const void* logits, const int64_t* labels, float* loss, int n_rows, int C,
+           int has_ignore, int ignore_label, cudaStream_t stream) {
+  sce_fwd<T><<<n_rows, kThreads, 0, stream>>>(static_cast<const T*>(logits), labels, loss, C,
+                                              has_ignore, ignore_label);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// logits: (n_rows, C) f32 contiguous (4-byte aligned is enough); labels:
-// (n_rows,) int64; loss: (n_rows,) f32.  Rows with labels[row] ==
-// ignore_label get 0 when has_ignore is non-zero.  Returns
-// cudaGetLastError() after the launch.
-int mx_softmax_cross_entropy_f32(const float* logits, const int64_t* labels,
-                                 float* loss, int n_rows, int C,
-                                 int has_ignore, int ignore_label,
-                                 cudaStream_t stream) {
-  if (C <= 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
-  if (n_rows > 0)
-    sce_fwd_f32<<<n_rows, kThreads, 0, stream>>>(logits, labels, loss, C,
-                                                 has_ignore, ignore_label);
-  return (int)cudaGetLastError();
+// logits: (n_rows, C) contiguous of logits_dtype (0 f32, 1 bf16, 2 f16;
+// any alignment of its type); labels: (n_rows,) int64; loss: (n_rows,)
+// f32.  Rows with labels[row] == ignore_label get 0 when has_ignore is
+// non-zero.  Returns cudaGetLastError() after the launch.
+int mx_softmax_cross_entropy(const void* logits, int logits_dtype, const int64_t* labels,
+                             float* loss, int n_rows, int C, int has_ignore, int ignore_label,
+                             cudaStream_t stream) {
+  if (C <= 0 || n_rows < 0 || mx::bad_dtype(logits_dtype)) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return (int)cudaSuccess;
+  if (logits_dtype == mx::kBF16)
+    return launch<mx::bf16>(logits, labels, loss, n_rows, C, has_ignore, ignore_label, stream);
+  if (logits_dtype == mx::kF16)
+    return launch<mx::f16>(logits, labels, loss, n_rows, C, has_ignore, ignore_label, stream);
+  return launch<float>(logits, labels, loss, n_rows, C, has_ignore, ignore_label, stream);
 }
 
 const char* mx_cuda_error_string(int err) {

@@ -206,6 +206,9 @@ class MultiHeadCrossAttention(nn.Module):
     def forward(self, x, mem, mask=None):
         # x: (B, Tq, C); mem: (B, Tk, C); mask: (B, Tq, Tk), nonzero = keep
         H, hd = self.num_heads, self.head_dim
+        # a memory kept in another type (the serving engine's bf16 state)
+        # is promoted to the weights', as jnp promotes bf16 x f32
+        mem = mem.to(torch.promote_types(mem.dtype, self.kv.weight.dtype))
         k, v = self.kv(mem).chunk(2, dim=-1)
         out = _attention(_split_heads(self.q_proj(x), H, hd),
                          _split_heads(k, H, hd), _split_heads(v, H, hd),

@@ -110,8 +110,13 @@ class NDArray:
     # host transfer / sync
     # ------------------------------------------------------------------
     def asnumpy(self) -> np.ndarray:
-        """Blocking copy to host."""
-        return self._data.detach().cpu().numpy()
+        """Blocking copy to host.  numpy has no bfloat16 (the JAX package
+        returns ``ml_dtypes.bfloat16``, which the port does not import), so
+        a bfloat16 array comes back as float32, every value exact."""
+        t = self._data.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
 
     def asscalar(self):
         if self.size != 1:

@@ -6,11 +6,13 @@ plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
-and is loaded through ``ctypes``.  What ``ptxas -v`` reports (registers,
-shared memory and spills of each kernel) is kept in ``BUILD_LOG[name]``
-for the builds of this process.  Libraries land in ``build/`` at the
-repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  A failed
+and is loaded through ``ctypes``.  The sources share ``csrc/dtypes.cuh``
+(element types and their f32 conversions).  What ``ptxas -v`` reports
+(registers, shared memory and spills of each kernel) is kept in
+``BUILD_LOG[name]`` for the builds of this process.  Libraries land in
+``build/`` at the repository root, named by a hash of the source, the
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads at once.  A failed
 build raises with nvcc's stderr; there is no fallback.
 
 :func:`build_all` starts one nvcc per source at the same time and waits
@@ -28,10 +30,12 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 from ...base import MXNetError
 
-__all__ = ["load", "build_all", "check", "SOURCES", "CSRC", "BUILD_DIR",
-           "BUILD_LOG"]
+__all__ = ["load", "build_all", "check", "dtype_code", "SOURCES", "CSRC",
+           "BUILD_DIR", "BUILD_LOG", "DTYPE_CODES"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -39,6 +43,10 @@ SOURCES = ("layer_norm", "paged_attention", "flash_attention",
            "softmax_cross_entropy")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the element types the kernels take, by the code their C entry points
+# read (csrc/dtypes.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
@@ -58,6 +66,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):  # every source may include one
+        src += header.read_bytes()
     digest = hashlib.sha256(src + repr(FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -114,6 +124,15 @@ def load(name: str) -> ctypes.CDLL:
         build_all([name])
         lib = _libs[name]
     return lib
+
+
+def dtype_code(t, what: str, name: str) -> int:
+    """The dtype code of tensor ``t`` for a C entry point, or raise."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise MXNetError(f"{what}: the kernel takes {name} as float32, "
+                         f"bfloat16 or float16, got {t.dtype}")
+    return code
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

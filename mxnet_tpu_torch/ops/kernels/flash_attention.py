@@ -14,9 +14,11 @@ lse padding and its padding of L to the block size have no counterpart:
 the kernels check bounds instead.
 
 Every wrapper takes its plain version for CPU tensors and launches its
-kernel for CUDA tensors (f32, D in {16, 32, 64, 128}, contiguous and
-16-byte aligned) or raises.  :func:`flash_attention` takes any D up to
-128: it zero-pads q, k and v to the next of those head dims
+kernel for CUDA tensors (float32, bfloat16 or float16, one type for q, k,
+v and do; D in {16, 32, 64, 128, 256}; contiguous and 16-byte aligned) or
+raises.  The kernels compute in f32 and round out, dq, dk and dv to the
+input type; lse and delta are f32.  :func:`flash_attention` takes any D
+up to 256: it zero-pads q, k and v to the next of those head dims
 (:func:`pad_head_dim`) and slices the results back.
 """
 from __future__ import annotations
@@ -35,7 +37,7 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_fwd",
            "FlashAttentionFunction", "pad_head_dim"]
 
 _NEG = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 # ---------------------------------------------------------------------------
@@ -98,23 +100,25 @@ def flash_attention_dkv_ref(q, k, v, do, lse, delta, causal: bool,
 # ---------------------------------------------------------------------------
 def _lib():
     lib = _build.load("flash_attention")
-    fwd = lib.mx_flash_attention_fwd_f32
+    fwd = lib.mx_flash_attention_fwd
     if fwd.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [i, i, i, i, i, f, p]  # N, Lq, Lk, hd, causal, scale, stream
+        # dtype, N, Lq, Lk, hd, causal, scale, stream
+        tail = [i, i, i, i, i, i, f, p]
         fwd.argtypes = [p] * 5 + tail
-        lib.mx_flash_attention_dq_f32.argtypes = [p] * 7 + tail
-        lib.mx_flash_attention_dkv_f32.argtypes = [p] * 8 + tail
+        lib.mx_flash_attention_dq.argtypes = [p] * 7 + tail
+        lib.mx_flash_attention_dkv.argtypes = [p] * 8 + tail
         lib.mx_flash_attention_fwd_shape.argtypes = [i] + [p] * 4
-        for fn in (fwd, lib.mx_flash_attention_dq_f32,
-                   lib.mx_flash_attention_dkv_f32,
+        for fn in (fwd, lib.mx_flash_attention_dq,
+                   lib.mx_flash_attention_dkv,
                    lib.mx_flash_attention_fwd_shape):
             fn.restype = ctypes.c_int
     return lib
 
 
-def _check(what: str, q, k, **others):
-    """q (N, Lq, D), k (N, Lk, D); ``others`` name -> (tensor, shape)."""
+def _check(what: str, q, k, **others) -> int:
+    """q (N, Lq, D), k (N, Lk, D); ``others`` name -> (tensor, shape), in
+    q's dtype, or (tensor, shape, dtype).  Returns q's dtype code."""
     if q.dim() != 3 or k.dim() != 3:
         raise MXNetError(f"{what}: expected q (N, Lq, D) and k (N, Lk, D), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
@@ -122,19 +126,23 @@ def _check(what: str, q, k, **others):
     if D not in HEAD_DIMS:
         raise MXNetError(f"{what}: the kernel takes head_dim in {HEAD_DIMS}, "
                          f"got {D}")
+    code = _build.dtype_code(q, what, "q")
     want = {"q": (q, tuple(q.shape)), "k": (k, (N, k.shape[1], D)), **others}
-    for name, (t, shape) in want.items():
+    for name, spec in want.items():
+        t, shape = spec[:2]
+        dtype = spec[2] if len(spec) > 2 else q.dtype
         if t.device != q.device:
             raise MXNetError(f"{what}: {name} on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise MXNetError(f"{what}: the kernel takes float32, {name} is "
-                             f"{t.dtype}")
+        if t.dtype != dtype:
+            raise MXNetError(f"{what}: the kernel takes {name} as {dtype}, "
+                             f"got {t.dtype}")
         if tuple(t.shape) != shape:
             raise MXNetError(f"{what}: {name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise MXNetError(f"{what}: {name} must be contiguous and 16-byte "
                              "aligned")
+    return code
 
 
 def _on_cuda(what: str, q) -> bool:
@@ -152,25 +160,26 @@ def flash_attention_fwd(q, k, v, causal: bool = False, sm_scale=None):
     sm_scale = _scale(q, sm_scale)
     if not _on_cuda("flash_attention_fwd", q):
         return flash_attention_ref(q, k, v, causal, sm_scale)
-    _check("flash_attention_fwd", q, k, v=(v, tuple(k.shape)))
+    dt = _check("flash_attention_fwd", q, k, v=(v, tuple(k.shape)))
     N, Lq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((N, Lq), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_fwd_f32(
+        err = lib.mx_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), N, Lq, k.shape[1], D, int(causal), sm_scale,
+            lse.data_ptr(), dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-def _bwd_check(what, q, k, v, do, lse, delta):
+def _bwd_check(what, q, k, v, do, lse, delta) -> int:
     N, Lq, _ = q.shape
-    _check(what, q, k, v=(v, tuple(k.shape)), do=(do, tuple(q.shape)),
-           lse=(lse, (N, Lq)), delta=(delta, (N, Lq)))
+    f32 = torch.float32
+    return _check(what, q, k, v=(v, tuple(k.shape)), do=(do, tuple(q.shape)),
+                  lse=(lse, (N, Lq), f32), delta=(delta, (N, Lq), f32))
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
@@ -182,14 +191,14 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
     if not _on_cuda("flash_attention_dq", q):
         return flash_attention_dq_ref(q, k, v, do, lse, delta, causal,
                                       sm_scale)
-    _bwd_check("flash_attention_dq", q, k, v, do, lse, delta)
+    dt = _bwd_check("flash_attention_dq", q, k, v, do, lse, delta)
     N, Lq, D = q.shape
     dq = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_dq_f32(
+        err = lib.mx_flash_attention_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), N, Lq,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dt, N, Lq,
             k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dq")
@@ -205,16 +214,16 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     if not _on_cuda("flash_attention_dkv", q):
         return flash_attention_dkv_ref(q, k, v, do, lse, delta, causal,
                                        sm_scale)
-    _bwd_check("flash_attention_dkv", q, k, v, do, lse, delta)
+    dt = _bwd_check("flash_attention_dkv", q, k, v, do, lse, delta)
     N, Lq, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _lib()
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_dkv_f32(
+        err = lib.mx_flash_attention_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            N, Lq, k.shape[1], D, int(causal), sm_scale,
+            dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
@@ -276,7 +285,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def pad_head_dim(q, k, v):
     """(q, k, v) zero-padded along D to the next head dim in ``HEAD_DIMS``
-    when D <= 128 is not one of them, else as they are.  Zero columns
+    when D <= 256 is not one of them, else as they are.  Zero columns
     leave q k^T and the lse unchanged, give out zero columns and, through
     the pad's autograd, slice dq, dk and dv back to D."""
     D = q.shape[-1]
@@ -290,7 +299,7 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
                     return_lse: bool = False):
     """Fused attention softmax(q k^T * sm_scale [causal]) v, differentiable
     in q, k and v.  q: (N, Lq, D) or (B, H, Lq, D); k, v likewise with Lk.
-    ``sm_scale`` defaults to 1 / sqrt(D).  A D up to 128 outside
+    ``sm_scale`` defaults to 1 / sqrt(D).  A D up to 256 outside
     ``HEAD_DIMS`` runs zero-padded (:func:`pad_head_dim`).  ``return_lse``
     also returns the row logsumexp (N, Lq) or (B, H, Lq) in f32 (not
     differentiable)."""

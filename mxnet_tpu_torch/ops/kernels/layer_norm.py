@@ -6,6 +6,9 @@ Counterpart of ``mxnet_tpu/ops/pallas/fused.py::layer_norm`` (the
 ``_ln_kernel`` Pallas kernel): f32 mean and rstd by the two-pass formula
 ``var = mean((x - mu)^2)``, then ``(x - mu) * rstd * gamma + beta`` in
 x's type.  Both versions also return ``mu`` and ``rstd`` (f32, (N,)).
+The kernels take x (and K6's res, of its own type) in float32, bfloat16
+or float16 and any C, with any alignment; gamma and beta of any float
+type are read as f32, as the Pallas kernels upcast them.
 
 :class:`LayerNormFunction` gives K1 a gradient: its forward is
 :func:`layer_norm` and saves x, gamma, mu and rstd; its backward is
@@ -47,25 +50,25 @@ def layer_norm_ref(x, gamma, beta, eps: float = 1e-5):
 
 def _lib():
     lib = _build.load("layer_norm")
-    fn = lib.mx_layer_norm_f32
+    fn = lib.mx_layer_norm
     if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, p]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, f, p]
         fn.restype = ctypes.c_int
-        aln = lib.mx_add_layer_norm_f32
-        aln.argtypes = [p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                  p]
+        aln = lib.mx_add_layer_norm
+        aln.argtypes = [p, i, p, i, p, p, p, p, p, i, i, f, p]
         aln.restype = ctypes.c_int
-        lib.mx_layer_norm_max_c.restype = ctypes.c_int
     return lib
 
 
-def _check_args(x, gamma, beta, max_c: int, res=None,
-                what: str = "layer_norm") -> None:
+def _check_args(x, gamma, beta, res=None, what: str = "layer_norm"):
+    """Check the operands; return (x's dtype code, res's or 0, gamma and
+    beta as contiguous f32, which is what the kernel reads of them)."""
     if x.dim() != 2:
         raise MXNetError(f"{what}: x must be (N, C), got {tuple(x.shape)}")
     C = x.shape[1]
+    if C == 0:
+        raise MXNetError(f"{what}: C must be positive")
     args = [("x", x, tuple(x.shape)), ("gamma", gamma, (C,)),
             ("beta", beta, (C,))]
     if res is not None:
@@ -74,18 +77,18 @@ def _check_args(x, gamma, beta, max_c: int, res=None,
         if t.device != x.device:
             raise MXNetError(f"{what}: {name} on {t.device}, x on "
                              f"{x.device}")
-        if t.dtype != torch.float32:
-            raise MXNetError(f"{what}: the kernel takes float32, "
-                             f"{name} is {t.dtype}")
+        if not t.dtype.is_floating_point:
+            raise MXNetError(f"{what}: {name} must be floating point, got "
+                             f"{t.dtype}")
         if tuple(t.shape) != shape:
             raise MXNetError(f"{what}: {name} has shape "
                              f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise MXNetError(f"{what}: {name} must be contiguous and "
-                             "16-byte aligned")
-    if C % 4 or C > max_c:
-        raise MXNetError(f"{what}: the kernel takes C % 4 == 0 and "
-                         f"C <= {max_c}, got C = {C}")
+        if not t.is_contiguous():
+            raise MXNetError(f"{what}: {name} must be contiguous")
+    x_dt = _build.dtype_code(x, what, "x")
+    res_dt = 0 if res is None else _build.dtype_code(res, what, "res")
+    return (x_dt, res_dt, gamma.to(torch.float32).contiguous(),
+            beta.to(torch.float32).contiguous())
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-5):
@@ -96,17 +99,17 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
         return layer_norm_ref(x, gamma, beta, eps)
     if x.device.type != "cuda":
         raise MXNetError(f"layer_norm: no kernel for device {x.device}")
+    x_dt, _, g32, b32 = _check_args(x, gamma, beta)
     lib = _lib()
-    _check_args(x, gamma, beta, lib.mx_layer_norm_max_c())
     N, C = x.shape
     out = torch.empty_like(x)
     mu = torch.empty((N,), dtype=torch.float32, device=x.device)
     rstd = torch.empty((N,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.mx_layer_norm_f32(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            mu.data_ptr(), rstd.data_ptr(), N, C, float(eps),
-            torch.cuda.current_stream().cuda_stream)
+        err = lib.mx_layer_norm(
+            x.data_ptr(), x_dt, g32.data_ptr(), b32.data_ptr(),
+            out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N, C,
+            float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "layer_norm")
     layer_norm.launches += 1
     return out, mu, rstd
@@ -166,18 +169,18 @@ def add_layer_norm(x, res, gamma, beta, eps: float = 1e-5):
         return add_layer_norm_ref(x, res, gamma, beta, eps)
     if x.device.type != "cuda":
         raise MXNetError(f"add_layer_norm: no kernel for device {x.device}")
+    x_dt, res_dt, g32, b32 = _check_args(x, gamma, beta, res=res,
+                                         what="add_layer_norm")
     lib = _lib()
-    _check_args(x, gamma, beta, lib.mx_layer_norm_max_c(), res=res,
-                what="add_layer_norm")
     N, C = x.shape
     out = torch.empty_like(x)
     mu = torch.empty((N,), dtype=torch.float32, device=x.device)
     rstd = torch.empty((N,), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.mx_add_layer_norm_f32(
-            x.data_ptr(), res.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N, C, float(eps),
-            torch.cuda.current_stream().cuda_stream)
+        err = lib.mx_add_layer_norm(
+            x.data_ptr(), x_dt, res.data_ptr(), res_dt, g32.data_ptr(),
+            b32.data_ptr(), out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N,
+            C, float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "add_layer_norm")
     add_layer_norm.launches += 1
     return out, mu, rstd

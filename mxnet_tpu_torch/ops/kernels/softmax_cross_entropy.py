@@ -5,7 +5,8 @@
 Counterpart of ``mxnet_tpu/ops/pallas/fused.py::softmax_cross_entropy``
 (the ``_sce_kernel`` Pallas kernel): for logits (N, C) and integer labels
 (N,), ``loss = logsumexp(logits) - logits[label]`` in f32, 0 where the
-label equals ``ignore_label``.  A label outside [0, C) picks nothing, so
+label equals ``ignore_label``.  The kernel reads float32, bfloat16 or
+float16 logits and computes in f32, as the Pallas kernel upcasts them.  A label outside [0, C) picks nothing, so
 its loss is the row's logsumexp, as ``cols == y`` matches no column in the
 Pallas kernel.  Labels are cast to int64 (the JAX package casts them to
 int32).
@@ -52,15 +53,16 @@ def softmax_cross_entropy_ref(logits, labels, ignore_label=None):
 
 def _lib():
     lib = _build.load("softmax_cross_entropy")
-    fn = lib.mx_softmax_cross_entropy_f32
+    fn = lib.mx_softmax_cross_entropy
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, i, p]
+        fn.argtypes = [p, i, p, p, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_args(logits, labels, ignore_label) -> None:
+def _check_args(logits, labels, ignore_label) -> int:
+    """Check the operands; return the logits' dtype code."""
     what = "softmax_cross_entropy"
     if logits.dim() != 2 or labels.dim() != 1 \
             or labels.shape[0] != logits.shape[0]:
@@ -70,9 +72,6 @@ def _check_args(logits, labels, ignore_label) -> None:
     if labels.device != logits.device:
         raise MXNetError(f"{what}: labels on {labels.device}, logits on "
                          f"{logits.device}")
-    if logits.dtype != torch.float32:
-        raise MXNetError(f"{what}: the kernel takes float32 logits, got "
-                         f"{logits.dtype}")
     if not logits.is_contiguous():
         raise MXNetError(f"{what}: logits must be contiguous")
     if labels.dtype.is_floating_point or labels.dtype == torch.bool:
@@ -84,6 +83,7 @@ def _check_args(logits, labels, ignore_label) -> None:
             and not _INT32[0] <= int(ignore_label) <= _INT32[1]:
         raise MXNetError(f"{what}: ignore_label {ignore_label} does not fit "
                          "int32")
+    return _build.dtype_code(logits, what, "logits")
 
 
 def softmax_cross_entropy(logits, labels, ignore_label=None):
@@ -95,14 +95,14 @@ def softmax_cross_entropy(logits, labels, ignore_label=None):
     if logits.device.type != "cuda":
         raise MXNetError(f"softmax_cross_entropy: no kernel for device "
                          f"{logits.device}")
-    _check_args(logits, labels, ignore_label)
+    dt = _check_args(logits, labels, ignore_label)
     lib = _lib()
     N, C = logits.shape
     labels = labels.to(torch.int64).contiguous()
     loss = torch.empty((N,), dtype=torch.float32, device=logits.device)
     with torch.cuda.device(logits.device):
-        err = lib.mx_softmax_cross_entropy_f32(
-            logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), N, C,
+        err = lib.mx_softmax_cross_entropy(
+            logits.data_ptr(), dt, labels.data_ptr(), loss.data_ptr(), N, C,
             int(ignore_label is not None),
             0 if ignore_label is None else int(ignore_label),
             torch.cuda.current_stream().cuda_stream)

@@ -33,7 +33,8 @@ import torch
 
 from ..base import MXNetError
 from ..context import resolve_device
-from .paged_cache import PagedKVCache, PagedStepCache, page_coords, pages_for
+from .paged_cache import (PagedKVCache, PagedStepCache, page_coords,
+                          pages_for, torch_dtype)
 from .scheduler import ContinuousBatchingScheduler, Request
 
 __all__ = ["ServingAdapter", "TransformerAdapter", "ServingEngine"]
@@ -51,9 +52,10 @@ class ServingAdapter:
     num_heads = 1
     head_dim = 1
 
-    def extra_state(self, slots: int, device):
+    def extra_state(self, slots: int, device, dtype=torch.float32):
         """Adapter-owned device state with a leading slot dim (e.g. the
-        encoder memory per slot).  OrderedDict name -> tensor."""
+        encoder memory per slot), its floating state in ``dtype`` (the
+        engine's).  OrderedDict name -> tensor."""
         raise NotImplementedError
 
     def prefill_src(self, request: Request):
@@ -108,10 +110,12 @@ class TransformerAdapter(ServingAdapter):
     def max_positions(self):
         return self.model.pos.max_length
 
-    def extra_state(self, slots, device):
+    def extra_state(self, slots, device, dtype=torch.float32):
+        # mem in the engine's dtype, as the JAX adapter keeps it; the
+        # decoder promotes it to its weights' type where it reads it
         return OrderedDict(
             mem=torch.zeros((slots, self.src_max, self.model.units),
-                            device=device),
+                            dtype=dtype, device=device),
             src_keep=torch.zeros((slots, self.src_max), dtype=torch.bool,
                                  device=device))
 
@@ -161,16 +165,21 @@ class ServingEngine:
     in which every slot can reach ``max_len`` (``pool_pages=None``), and
     a token readback every 4 steps.  ``device`` defaults to
     :func:`context.default_device` (``cuda:0``; raises without CUDA).
-    The pools and state are float32, the type kernel K2 takes.
+    ``dtype`` ("float32", "bfloat16" or "float16", as the JAX engine's)
+    is the type of the KV pools and of the adapter's floating state (the
+    Transformer's encoder memory); the model's weights and the queries
+    stay as they are, and kernel K2 reads the pools in their type.
 
     ``burst_times`` collects (steps, seconds) per dispatch burst, from
     the first dispatch to the end of the burst's token readback."""
 
     def __init__(self, adapter: ServingAdapter, slots: int = 8,
                  page_size: int = 16, pool_pages: Optional[int] = None,
-                 max_len: int = 64, stream_every: int = 4, device=None):
+                 max_len: int = 64, stream_every: int = 4, device=None,
+                 dtype: str = "float32"):
         self._adapter = adapter
         self._device = resolve_device(device)
+        self._dtype = torch_dtype(dtype)
         self._S = int(slots)
         self._ps = int(page_size)
         self._max_len = int(max_len)
@@ -186,7 +195,7 @@ class ServingEngine:
             else self._S * pages_for(self._max_len, self._ps) + 1
         self._cache = PagedKVCache(
             adapter.num_layers, n_pages, self._ps, adapter.num_heads,
-            adapter.head_dim, device=self._device)
+            adapter.head_dim, device=self._device, dtype=self._dtype)
         # table wide enough that positions overrun by a full burst (a
         # request finishing mid-burst keeps decoding until the stream
         # boundary) land on zero -> the trash page, never a live page
@@ -204,7 +213,7 @@ class ServingEngine:
             pos=torch.zeros((self._S,), dtype=torch.int32, device=dev),
             table=torch.zeros((self._S, self._P), dtype=torch.int32,
                               device=dev))
-        extra = adapter.extra_state(self._S, dev)
+        extra = adapter.extra_state(self._S, dev, self._dtype)
         self._extra_names = list(extra)
         state.update(extra)
         self._state = state
@@ -278,6 +287,12 @@ class ServingEngine:
     @property
     def num_pages(self) -> int:
         return self._cache.num_pages
+
+    @property
+    def pool_bytes(self) -> int:
+        """Bytes of the KV pools on the device (every layer's K and V)."""
+        return sum(t.numel() * t.element_size()
+                   for pair in self._cache.pools for t in pair)
 
     # ------------------------------------------------------------------
     # the hot dispatch body: no host syncs

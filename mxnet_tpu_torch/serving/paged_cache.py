@@ -37,7 +37,22 @@ from ..models.transformer import _attend_cached
 from ..ops.kernels import paged_decode_attention
 
 __all__ = ["PagedKVCache", "PagedStepCache", "page_coords", "write_page",
-           "gather_pages", "paged_attend", "pages_for"]
+           "gather_pages", "paged_attend", "pages_for", "torch_dtype"]
+
+# the pool dtypes the engine serves with (kernel K2 reads each)
+POOL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """The torch dtype of a pool, from its name (the JAX engine's
+    ``dtype`` strings) or a torch dtype."""
+    if isinstance(dtype, torch.dtype) and dtype in POOL_DTYPES.values():
+        return dtype
+    if dtype in POOL_DTYPES:
+        return POOL_DTYPES[dtype]
+    raise MXNetError(f"serving dtype {dtype!r}: expected one of "
+                     f"{sorted(POOL_DTYPES)}")
 
 
 def pages_for(n_tokens: int, page_size: int) -> int:
@@ -65,9 +80,10 @@ def page_coords(table, pos, page_size: int):
 
 def write_page(pool, pages, rows, vals) -> None:
     """Scatter one token's k (or v) per slot into the pool, IN PLACE
-    (``index_put_``).  pool: (N, page_size, H, hd); pages/rows: (S,);
+    (``index_put_``), cast to the pool's dtype as the JAX package's
+    ``.at[].set`` casts.  pool: (N, page_size, H, hd); pages/rows: (S,);
     vals: (S, H, hd)."""
-    pool.index_put_((pages, rows), vals)
+    pool.index_put_((pages, rows), vals.to(pool.dtype))
 
 
 def gather_pages(pool, table):
@@ -128,14 +144,16 @@ class PagedKVCache:
     """Fixed pool of KV pages per decoder layer + the host-side page
     allocator.
 
-    ``pools`` is a list of float32 (k_pool, v_pool) tensors on
+    ``pools`` is a list of (k_pool, v_pool) tensors of ``dtype``
+    (float32, bfloat16 or float16; a torch dtype or its name) on
     ``device``; this object otherwise owns only the bookkeeping: which
     pages are free and which owner holds which pages.  Page 0 is reserved
     (the trash page inactive slots write to), so ``num_pages`` must leave
     room for it."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
-                 num_heads: int, head_dim: int, device):
+                 num_heads: int, head_dim: int, device,
+                 dtype=torch.float32):
         if num_pages < 2:
             raise MXNetError("PagedKVCache needs >= 2 pages (page 0 is "
                              "the reserved trash page)")
@@ -144,10 +162,11 @@ class PagedKVCache:
         self.page_size = int(page_size)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
+        self.dtype = torch_dtype(dtype)
         shape = (self.num_pages, self.page_size, self.num_heads,
                  self.head_dim)
-        self.pools = [(torch.zeros(shape, device=device),
-                       torch.zeros(shape, device=device))
+        self.pools = [(torch.zeros(shape, dtype=self.dtype, device=device),
+                       torch.zeros(shape, dtype=self.dtype, device=device))
                       for _ in range(self.num_layers)]
         # LIFO free list: recently-freed (cache-warm) pages reused first
         self._free: List[int] = list(range(1, self.num_pages))

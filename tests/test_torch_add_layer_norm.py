@@ -107,11 +107,11 @@ class _FakeLib:
 
 
 def test_add_layer_norm_binding_matches_c_signature(monkeypatch):
-    """Every argument of ``mx_add_layer_norm_f32`` is declared to ctypes
+    """Every argument of ``mx_add_layer_norm`` is declared to ctypes
     with its C type: pointers and the stream as c_void_p, ints, the float
     eps."""
     text = (_build.CSRC / "layer_norm.cu").read_text()
-    params = re.search(r"\bint mx_add_layer_norm_f32\(([^)]*)\)",
+    params = re.search(r"\bint mx_add_layer_norm\(([^)]*)\)",
                        text).group(1).split(",")
     want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
             else ctypes.c_float if "float" in p else ctypes.c_int
@@ -119,5 +119,5 @@ def test_add_layer_norm_binding_matches_c_signature(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
     layer_norm_mod._lib()
-    assert fake.mx_add_layer_norm_f32.argtypes == want
-    assert fake.mx_add_layer_norm_f32.restype is ctypes.c_int
+    assert fake.mx_add_layer_norm.argtypes == want
+    assert fake.mx_add_layer_norm.restype is ctypes.c_int

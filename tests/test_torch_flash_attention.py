@@ -201,9 +201,9 @@ class _FakeLib:
         return fn
 
 
-@pytest.mark.parametrize("fn", ["mx_flash_attention_fwd_f32",
-                                "mx_flash_attention_dq_f32",
-                                "mx_flash_attention_dkv_f32",
+@pytest.mark.parametrize("fn", ["mx_flash_attention_fwd",
+                                "mx_flash_attention_dq",
+                                "mx_flash_attention_dkv",
                                 "mx_flash_attention_fwd_shape"])
 def test_ctypes_binding_matches_c_signature(monkeypatch, fn):
     """Every argument of each C entry point is declared: without
@@ -222,7 +222,7 @@ def test_flash_attention_is_built_with_the_other_kernels():
 
 
 # ---------------------------------------------------------------------------
-# head dims outside {16, 32, 64, 128}
+# head dims outside {16, 32, 64, 128, 256}
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("D", [48, 80])
 @pytest.mark.parametrize("causal", [False, True])
@@ -244,7 +244,7 @@ def test_padded_head_dim_matches_pallas(D, causal):
 
 
 def test_pad_head_dim_leaves_supported_and_large_dims():
-    for D in (16, 32, 64, 128, 130):
+    for D in (16, 32, 64, 128, 256, 300):
         t = torch.zeros(1, 4, D)
         assert all(x is t for x in fa_mod.pad_head_dim(t, t, t))
 

@@ -161,8 +161,8 @@ def _c_argtypes(source: str, fn: str):
 
 
 @pytest.mark.parametrize("module,source,fn", [
-    (layer_norm_mod, "layer_norm", "mx_layer_norm_f32"),
-    (paged_attention_mod, "paged_attention", "mx_paged_decode_attention_f32"),
+    (layer_norm_mod, "layer_norm", "mx_layer_norm"),
+    (paged_attention_mod, "paged_attention", "mx_paged_decode_attention"),
 ])
 def test_ctypes_binding_matches_c_signature(monkeypatch, module, source, fn):
     """The wrapper declares every argument of the C entry point: without

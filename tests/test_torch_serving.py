@@ -302,3 +302,31 @@ def test_engine_pool_pressure_preempts_and_matches_jax(trained, monkeypatch):
     roomy.serve([Request(src[i], max_new_tokens=6, bos_id=BOS, eos_id=-1)
                  for i in range(2)])
     assert teng.step_count > roomy.step_count
+
+
+def test_engine_bf16_pools_tokens_equal_jax_engine(trained, monkeypatch):
+    """``dtype="bfloat16"`` on both engines: bf16 KV pools and encoder
+    memory, f32 weights and queries (K2 reads an f32 q over bf16 pools);
+    the port emits the JAX engine's tokens."""
+    teng, treqs = _serve_both(
+        monkeypatch, trained, 6, 9, EOS, arrivals=[0, 0, 0, 2, 5, 9],
+        slots=3, page_size=4, max_len=12, stream_every=4, dtype="bfloat16")
+    assert all(k.dtype == v.dtype == torch.bfloat16
+               for k, v in teng._cache.pools)
+    assert teng._state["mem"].dtype == torch.bfloat16
+    assert teng._state["src_keep"].dtype == torch.bool
+    assert all(r.stream.finish_reason == "eos" for r in treqs)
+
+
+def test_engine_default_dtype_stays_float32(trained):
+    """Without ``dtype`` the pools and the memory are f32, as before; a
+    dtype the kernels do not take is refused."""
+    tnet = trained[1]
+    eng = ServingEngine(TransformerAdapter(tnet, src_max_len=7), slots=2,
+                        page_size=4, max_len=8, device="cpu")
+    assert all(k.dtype == v.dtype == torch.float32
+               for k, v in eng._cache.pools)
+    assert eng._state["mem"].dtype == torch.float32
+    with pytest.raises(MXNetError, match="serving dtype"):
+        ServingEngine(TransformerAdapter(tnet, src_max_len=7), slots=2,
+                      page_size=4, max_len=8, device="cpu", dtype="int8")

@@ -138,11 +138,11 @@ class _FakeLib:
 
 
 def test_binding_matches_c_signature(monkeypatch):
-    """Every argument of ``mx_softmax_cross_entropy_f32`` is declared:
+    """Every argument of ``mx_softmax_cross_entropy`` is declared:
     pointers (the int64 labels included) and the stream as c_void_p, the
     ints (C, the ignore flag and label) as c_int."""
     text = (_build.CSRC / "softmax_cross_entropy.cu").read_text()
-    params = re.search(r"\bint mx_softmax_cross_entropy_f32\(([^)]*)\)",
+    params = re.search(r"\bint mx_softmax_cross_entropy\(([^)]*)\)",
                        text).group(1).split(",")
     want = [ctypes.c_void_p if ("*" in p or "cudaStream_t" in p)
             else ctypes.c_float if "float" in p else ctypes.c_int
@@ -151,5 +151,5 @@ def test_binding_matches_c_signature(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
     sce_mod._lib()
-    assert fake.mx_softmax_cross_entropy_f32.argtypes == want
+    assert fake.mx_softmax_cross_entropy.argtypes == want
     assert "softmax_cross_entropy" in _build.SOURCES
