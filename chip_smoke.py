@@ -70,7 +70,10 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           blocks it launched.  Then bf16 and f16 at the two
                           timed shapes and hd 256 (N 48, L 512; causal N 6,
                           L 200) in f32 and bf16, timed the same way (16-bit
-                          outputs by ``ulp_ratio``, lse atol 2e-5), and hd
+                          outputs by ``ulp_ratio``, lse atol 2e-5), the same
+                          at hd 320 and 512 (chunks of 64 columns of D, a
+                          launch per 64 output columns; 10 samples of 3
+                          calls), and hd
                           200 through ``flash_attention`` (zero-padded to
                           256) in f32 and bf16, causal and not, checked.  Times of each kernel and its
                           plain version beside both bounds, with
@@ -143,6 +146,34 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           and the card vs the CPU at a (2 x 128)-token batch:
                           loss within 2^-6 relative (two bf16 units), every
                           gradient within 2^-5 of its max abs.
+  train_bf16              (after train_profile) BERT-base cast to bf16 as
+                          bench.py:677 does, Adam lr 1e-4, the train cell's
+                          batch: one warm-up and 5 timed steps, K1 26 and
+                          K3-K5 12 launches a step; losses finite and
+                          falling; tokens/s, step ms and peak memory beside
+                          the f32 train phase's; one profiled step with
+                          K3-K5's share of the busy time.
+  train_resnet            resnet50_v1b (BASELINE config 2), f32, NCHW,
+                          batch 256 at 224^2, seeded weights and images,
+                          SGD lr 0.1, momentum 0.9, wd 1e-4 (bench.py:781),
+                          cuDNN autotuning on, TF32 off: 2 warm-up and 5
+                          timed steps; images/s, step ms, peak memory, the
+                          losses (finite), the model-FLOP share (conv and
+                          dense FLOPs over median step ms x 67 TFLOP/s);
+                          every kernel counter 0, every module output
+                          contiguous.
+  train_resnet_bf16       the same in NHWC and bf16 (bf16 images), as
+                          bench_resnet runs on the TPU, against 989 TFLOP/s;
+                          one profiled step with no NCHW<->NHWC transpose
+                          kernel among its top 20.
+  train_resnet_parity     resnet50_v1b on the card vs the CPU, NCHW and
+                          NHWC, one training forward and backward of a
+                          (4, 3, 64, 64) batch: logits, loss, three
+                          gradients and every running stat, at tolerances
+                          5x the CPU's own f32-vs-float64 spread.
+  train_resnet_profile    one profiled step of each ResNet cell: busy share,
+                          top kernels, the largest gaps between device
+                          activities.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -254,7 +285,7 @@ def phase_device(torch, ctx):
 
     # K3's launch shape per head dim; its registers and spills are in the
     # ptxas lines of flash_fwd<float, hd, ...> below
-    k3 = {hd: _fwd_shape(hd) for hd in HEAD_DIMS}
+    k3 = {hd: _fwd_shape(hd) for hd in HEAD_DIMS + (320,)}
     # the floor of back-to-back launches: a one-element in-place add, a
     # yardstick that no path of the port calls
     one = torch.zeros(1, device=torch.device("cuda", 0))
@@ -706,14 +737,24 @@ def phase_flash_attention(torch, ctx):
 
 
 # name: (N, Lq, Lk, D, causal) and the dtypes each runs in: the training
-# and causal shapes in 16 bits, and head dim 256 (two column windows)
+# and causal shapes in 16 bits, head dim 256 (two column windows), and
+# head dims 320 and 512 (chunks of 64 columns of D, a launch per 64 output
+# columns)
 FLASH_MORE = {"train": ((32 * 12, 512, 512, 64, False),
                         ("bfloat16", "float16")),
               "causal_hd128": ((6, 200, 200, 128, True),
                                ("bfloat16", "float16")),
               "hd256": ((48, 512, 512, 256, False), ("float32", "bfloat16")),
               "hd256_causal": ((6, 200, 200, 256, True),
+                               ("float32", "bfloat16")),
+              "hd320": ((48, 512, 512, 320, False), ("float32", "bfloat16")),
+              "hd320_causal": ((6, 200, 200, 320, True),
+                               ("float32", "bfloat16")),
+              "hd512": ((48, 512, 512, 512, False), ("float32", "bfloat16")),
+              "hd512_causal": ((6, 200, 200, 512, True),
                                ("float32", "bfloat16"))}
+# the wide rows' calls take milliseconds: fewer samples of fewer calls
+WIDE_TIMING = {"samples": 10, "reps": 3}
 
 
 def _flash_rows_16bit_and_wide(torch, g, tol):
@@ -747,12 +788,13 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                     "dq": (3 * nq + 2 * nk + 2 * vec, 6 * N * pairs * D),
                     "dkv": (2 * nq + 4 * nk + 2 * vec, 8 * N * pairs * D)}
             q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+            tk = WIDE_TIMING if D > 256 else {}
             sdpa_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=causal))
+                q4, k4, v4, is_causal=causal), **tk)
             l4 = [t.clone().requires_grad_() for t in (q4, k4, v4)]
             sdpa_bwd = time_ms(torch, lambda: torch.autograd.grad(
                 F.scaled_dot_product_attention(*l4, is_causal=causal), l4,
-                do4)) - sdpa_fwd
+                do4), **tk) - sdpa_fwd
             timed = {"fwd": (lambda: flash_attention_fwd(q, k, v, causal),
                              lambda: flash_attention_ref(q, k, v, causal),
                              sdpa_fwd),
@@ -762,18 +804,21 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                              lambda: flash_attention_dkv_ref(*args),
                              sdpa_bwd)}
             times = {}
+            tk = WIDE_TIMING if D > 256 else {}
             for kname, (kern, plain, lib_ms) in timed.items():
                 b_ms, b_by = bound_3xtf32(*work[kname])
-                times[kname] = {"ms": time_ms(torch, kern),
-                                "plain_ms": time_ms(torch, plain),
+                times[kname] = {"ms": time_ms(torch, kern, **tk),
+                                "plain_ms": time_ms(torch, plain, **tk),
                                 "library_ms": lib_ms, "bound_ms": b_ms,
                                 "bound_by": b_by}
+                times[kname]["ok"] = times[kname]["ms"] >= b_ms
             rows.append({"case": name, "dtype": dtype, "N": N, "Lq": Lq,
                          "Lk": Lk, "hd": D, "causal": causal,
                          "errors": err, "ulp_ratios": ratios,
                          "fwd_bitwise_repeatable": fwd_same,
                          "bwd_bitwise_repeatable": same,
-                         "ok": ok and same and fwd_same, **times})
+                         "ok": ok and same and fwd_same
+                         and all(t["ok"] for t in times.values()), **times})
             del l4, q, k, v, do, args
             torch.cuda.empty_cache()
     return rows
@@ -1065,6 +1110,83 @@ def _mlm_loss(torch):
     return mlm
 
 
+def _train_steps(torch, step, data, label, steps):
+    """``steps`` training steps, a CUDA-event span around each one's
+    enqueue and the host clock around all of them, ending in a sync:
+    (losses, step ms, wall s)."""
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    handles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        handles.append(step.step(data, label))
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([float(h) for h in handles], [a.elapsed_time(b) for a, b in marks],
+            wall)
+
+
+def _host_gaps(trace_path, top=5):
+    """The largest gaps between consecutive device activities (kernels,
+    copies, sets) of a chrome trace, in ms, with what bounds each."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    acts = sorted((e["ts"], e["ts"] + e.get("dur", 0), e.get("name", ""))
+                  for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "ts" in e)
+    gaps, end, last = [], None, ""
+    for ts, te, name in acts:
+        if end is not None and ts > end:
+            gaps.append(((ts - end) / 1e3, last[:60], name[:60]))
+        if end is None or te > end:
+            end, last = te, name
+    gaps.sort(reverse=True)
+    return {"device_activities": len(acts),
+            "gaps_total_ms": sum(g for g, _, _ in gaps),
+            "largest": [{"ms": g, "after": a, "before": b}
+                        for g, a, b in gaps[:top]]}
+
+
+def _step_profile(torch, fn, steps=1, top=15, gaps=False):
+    """``steps`` calls of ``fn`` under torch.profiler (device activity
+    only), totals over the calls: device busy share, top kernels, our
+    kernels' ms and share of the busy time, optionally the largest host
+    gaps between device activities."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _profile_rows(prof)
+    busy = sum(ms for ms, _, _ in rows)
+    ours = {k: sum(ms for ms, _, key in rows if k in key)
+            for k in OUR_KERNELS}
+    out = {"steps": steps, "wall_ms": wall_ms,
+           "device_busy_ms": busy if rows else None,
+           "device_busy_share": busy / wall_ms if rows else None,
+           "device_ops": sum(c for _, c, _ in rows),
+           "our_kernels_ms": ours,
+           "our_kernels_share": sum(ours.values()) / busy if rows else None,
+           "top": [{"name": k[:100], "ms": ms, "count": c}
+                   for ms, c, k in rows[:top]]}
+    if gaps:
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", f"trace-{os.getpid()}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        out["host_gaps"] = _host_gaps(path)
+        os.remove(path)
+    return out
+
+
 def phase_train(torch, ctx):
     from mxnet_tpu_torch.models.bert import bert_base
     from mxnet_tpu_torch.ops import kernels
@@ -1093,23 +1215,17 @@ def phase_train(torch, ctx):
     counted = {n: getattr(kernels, n) for n in TRAIN_PER_STEP}
     for fn in counted.values():
         fn.launches = 0
-    marks = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-             for _ in range(TRAIN_STEPS)]
-    handles = []
-    t0 = time.perf_counter()
-    for start, end in marks:
-        start.record()
-        handles.append(step.step(tokens, labels))
-        end.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
+                                         TRAIN_STEPS)
     launches = {n: fn.launches for n, fn in counted.items()}
     ctx["launches"]["train"] = launches
     expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
-    losses = [first] + [float(h) for h in handles]
+    losses = [first] + losses
     finite = all(math.isfinite(x) for x in losses)
-    step_ms = [a.elapsed_time(b) for a, b in marks]
+    ctx["train_f32"] = {
+        "tokens_per_s": TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall,
+        "step_ms_median": statistics.median(step_ms),
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
     return {
         "model": "bert_base", "vocab": BERT_VOCAB, "params": n_params,
         "init_s": init_s, "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
@@ -1176,29 +1292,9 @@ def _profile_rows(prof):
 def phase_train_profile(torch, ctx):
     """Where the training time goes: 2 steps under torch.profiler (device
     activity only), device time by kernel and the busy share."""
-    from torch.profiler import ProfilerActivity, profile
-
     step = ctx["train_step"]
     tokens, labels = ctx["train_batch"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            step.step(tokens, labels)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = _profile_rows(prof)
-    busy = sum(ms for ms, _, _ in rows)
-    ours = {k: sum(ms for ms, _, key in rows if k in key)
-            for k in OUR_KERNELS}
-    return {"steps": 2, "wall_ms": wall_ms,
-            "device_busy_ms": busy if rows else None,
-            "device_busy_share": busy / wall_ms if rows else None,
-            "device_ops": sum(c for _, c, _ in rows),
-            "our_kernels_ms": ours,
-            "our_kernels_share": sum(ours.values()) / busy if rows else None,
-            "top": [{"name": k[:100], "ms": ms, "count": c}
-                    for ms, c, k in rows[:15]]}
+    return _step_profile(torch, lambda: step.step(tokens, labels), steps=2)
 
 
 ALL_KERNELS = ("layer_norm", "paged_decode_attention", *FLASH,
@@ -1607,6 +1703,445 @@ def _imperative_profile(torch, arrs, lab, B, L, runs=2):
                     for ms, c, k in rows[:12]]}
 
 
+# ---------------------------------------------------------------------------
+# bf16 BERT training (bench.py:660-690) and ResNet-50 v1b training
+# (bench.py:758-800)
+# ---------------------------------------------------------------------------
+def phase_train_bf16(torch, ctx):
+    """BERT-base cast to bf16 and trained with Adam at lr 1e-4, as
+    bench.py:660-690 runs it on the TPU: the train cell in bf16."""
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    for key in ("bert", "train_step"):  # the f32 model is done
+        ctx.pop(key, None)
+    torch.cuda.empty_cache()
+    model = cast(bert_base(BERT_VOCAB, dropout=0.0,
+                           generator=torch.Generator().manual_seed(SEED)),
+                 "bfloat16")
+    dtypes = sorted({str(t.dtype) for t in model.state_dict().values()
+                     if t.is_floating_point()})
+    step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4})
+    tokens, labels = ctx["train_batch"]
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step.step(tokens, labels))  # warm-up
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
+                                         TRAIN_STEPS)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    ctx["launches"]["train_bf16"] = launches
+    expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _step_profile(torch, lambda: step.step(tokens, labels))
+    flash = {k: prof["our_kernels_ms"][k]
+             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    busy = prof["device_busy_ms"]  # one step
+    losses = [first] + losses
+    f32 = ctx.get("train_f32", {})
+    tps = TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall
+    del step, model
+    torch.cuda.empty_cache()
+    return {
+        "model": "bert_base", "dtype": "bfloat16", "state_dtypes": dtypes,
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "optimizer": "adam",
+        "learning_rate": 1e-4, "steps": TRAIN_STEPS, "wall_s": wall,
+        "tokens_per_s": tps, "step_ms_median": statistics.median(step_ms),
+        "step_ms": step_ms, "losses": losses,
+        "max_memory_allocated_gb": peak_gb,
+        "f32_train_phase": f32,
+        "tokens_per_s_over_f32": tps / f32["tokens_per_s"] if f32 else None,
+        "launches": launches, "launches_expected": expected,
+        "profile_one_step": prof, "flash_ms": flash,
+        "flash_share_of_busy": sum(flash.values()) / busy if busy else None,
+        "card": ctx["smi"],
+        "ok": bool(all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0] and launches == expected
+                   and dtypes == ["torch.bfloat16"])}
+
+
+RESNET_BATCH, RESNET_RES = 256, 224  # bench.py:768-769
+RESNET_WARMUP, RESNET_STEPS = 2, 5
+RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# dense peaks of an H100 SXM at 700 W (data sheet): f32 on the CUDA
+# cores, bf16 on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# NCHW <-> NHWC conversion kernels (cuDNN's and generic transposes)
+TRANSPOSE_MARKS = ("nchwtonhwc", "nhwctonchw", "transpose")
+
+
+def _cudnn_settings(torch):
+    b = torch.backends.cudnn
+    return {"enabled": b.enabled, "benchmark": b.benchmark,
+            "deterministic": b.deterministic, "allow_tf32": b.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+def _resnet_census(torch, model, x1):
+    """From one forward of a single image: the multiply-adds of each
+    conv and the dense layer, and how many module outputs are not
+    contiguous in the net's layout (a channels_last leak shows there)."""
+    from mxnet_tpu_torch.gluon.nn import Conv2D, Dense
+
+    macs, loose = [], []
+
+    def hook(m, _inp, out):
+        if isinstance(m, Conv2D):
+            kh, kw = m.kwargs["kernel"]
+            macs.append((m, out.numel() * m.weight.shape[1] * kh * kw))
+        elif isinstance(m, Dense):
+            macs.append((m, out.numel() * m.weight.shape[1]))
+        if torch.is_tensor(out) and not out.is_contiguous():
+            loose.append(type(m).__name__)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()]
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x1)
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    stem = model.features[0]
+    fwd = 2 * sum(n for _, n in macs)
+    # backward: the weight gradient and the data gradient of each, but
+    # no data gradient for the stem (the images need none)
+    bwd = 2 * sum(n if m is stem else 2 * n for m, n in macs)
+    return fwd, bwd, loose
+
+
+def _resnet_cell(torch, ctx, layout, dtype):
+    """resnet50_v1b at batch 256, 224^2, trained by DataParallelStep with
+    SGD as bench.py:771-781, cuDNN autotuning on (benchmark) and TF32
+    off: warm-up, then timed steps with every kernel counter zeroed."""
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.resnet import resnet50_v1b
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = resnet50_v1b(layout=layout,
+                         generator=torch.Generator().manual_seed(SEED))
+    if dtype != "float32":
+        cast(model, dtype)
+    init_s = time.perf_counter() - t0
+    values = sum(t.numel() for t in model.state_dict().values())
+    step = DataParallelStep(model, SoftmaxCrossEntropyLoss(),
+                            optimizer="sgd", optimizer_params=RESNET_SGD)
+    B, R = RESNET_BATCH, RESNET_RES
+    rng = np.random.RandomState(SEED)
+    shape = (B, 3, R, R) if layout == "NCHW" else (B, R, R, 3)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).cuda().to(
+        getattr(torch, dtype))
+    y = torch.from_numpy(rng.randint(0, 1000, B).astype(np.float32)).cuda()
+    fwd1, bwd1, loose = _resnet_census(torch, model, x[:1])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = [float(step.step(x, y)) for _ in range(RESNET_WARMUP)]
+    warm_s = time.perf_counter() - t0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, wall = _train_steps(torch, step, x, y, RESNET_STEPS)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    ctx["launches"][f"train_resnet{'' if dtype == 'float32' else '_bf16'}"] \
+        = launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(step_ms)
+    flops = (fwd1 + bwd1) * B
+    ctx[f"resnet_{dtype}"] = (step, x, y)
+    losses = warm + losses
+    return {
+        "model": "resnet50_v1b", "layout": layout, "dtype": dtype,
+        "state_values": values, "init_s": init_s, "batch": B,
+        "resolution": R, "optimizer": "sgd", **RESNET_SGD,
+        "warmup_steps": RESNET_WARMUP, "warmup_s": warm_s,
+        "steps": RESNET_STEPS, "wall_s": wall,
+        "images_per_s": B * RESNET_STEPS / wall,
+        "step_ms_median": med, "step_ms": step_ms, "losses": losses,
+        "max_memory_allocated_gb": peak_gb,
+        "model_flops_per_step": flops,
+        "model_flops_fwd_per_image": fwd1, "model_flops_bwd_per_image": bwd1,
+        "peak_flops": PEAK_FLOPS[dtype],
+        "model_flop_share": flops / (med / 1e3) / PEAK_FLOPS[dtype],
+        "model_flop_share_is": "conv + dense fwd and bwd FLOPs / (median "
+                               "step ms x the dtype's dense peak)",
+        "non_contiguous_outputs": loose,
+        "launches": launches, "cudnn": _cudnn_settings(torch),
+        "card": ctx["smi"],
+        "ok": bool(all(math.isfinite(v) for v in losses)
+                   and values == 25_610_152 and not loose
+                   and all(v == 0 for v in launches.values()))}
+
+
+def phase_train_resnet(torch, ctx):
+    return _resnet_cell(torch, ctx, "NCHW", "float32")
+
+
+def _bf16_step_spread(torch, step, x, y):
+    """From the bf16 cell's state after its steps: one forward and
+    backward of the bf16 net and of an f32 copy of it on the same batch
+    (each tensor's |g_bf16 - g_f32| / |g_f32|, the measure of what bf16
+    rounding does to this step's gradient), and the share of the bf16
+    weights' elements that one more step leaves unchanged (an update
+    below half a bf16 spacing of its weight is lost)."""
+    import copy
+
+    from mxnet_tpu_torch.gluon.block import cast
+
+    f32 = cast(copy.deepcopy(step.block), "float32")
+    grads, losses = {}, {}
+    for tag, net, inp in (("bf16", step.block, x), ("f32", f32, x.float())):
+        net.train()
+        loss = step.loss_fn(net(inp), y).float().mean()
+        grads[tag] = torch.autograd.grad(loss, [p for p in net.parameters()
+                                                if p.requires_grad])
+        losses[tag] = float(loss.detach())
+    del f32
+    rel = sorted(float((a.float() - b).norm() / b.norm())
+                 for a, b in zip(grads["bf16"], grads["f32"]))
+    del grads
+    before = [p.detach().clone() for p in step.params]
+    step.step(x, y)
+    same = sum(int((p == b).sum()) for p, b in zip(step.params, before))
+    total = sum(p.numel() for p in step.params)
+    return {"loss_bf16": losses["bf16"], "loss_f32": losses["f32"],
+            "grad_rel_median": statistics.median(rel),
+            "grad_rel_max": rel[-1],
+            "grad_tensors_over_half": sum(r > 0.5 for r in rel),
+            "tensors": len(rel), "weights_unchanged_share": same / total}
+
+
+def phase_train_resnet_bf16(torch, ctx):
+    res = _resnet_cell(torch, ctx, "NHWC", "bfloat16")
+    step, x, y = ctx["resnet_bfloat16"]
+    prof = _step_profile(torch, lambda: step.step(x, y), top=20)
+    hits = [r["name"] for r in prof["top"]
+            if any(m in r["name"].lower() for m in TRANSPOSE_MARKS)]
+    res.update(profile_one_step=prof, transpose_kernels_in_top=hits,
+               bf16_vs_f32_step=_bf16_step_spread(torch, step, x, y),
+               ok=res["ok"] and not hits)
+    return res
+
+
+# card vs CPU on one training forward and backward: each tolerance is 5x
+# the spread between the port's own f32 and float64 runs on the CPU at
+# this batch (BatchNorm over 4 images at 2 x 2 in the last stage is badly
+# conditioned: f32 moves the stem's gradient by 2% of its max abs)
+RESNET_PARITY_TOL = {"logits_of_max_abs": 5e-4, "loss_rel": 5e-5,
+                     "conv_grad_of_max_abs": 0.1,
+                     "dense_grad_of_max_abs": 1e-3,
+                     "running_stats_of_max_abs": 3e-4}
+RESNET_PARITY_GRADS = ("features.0.weight", "features.5.0.body.4.weight",
+                       "output.weight")
+
+
+def phase_train_resnet_parity(torch, ctx):
+    """resnet50_v1b on the card vs the same weights on the CPU, in NCHW
+    and NHWC, f32: one training-mode forward and backward of a (4, 3,
+    64, 64) batch: logits, loss, three gradients and every running stat
+    after the forward.  Then bf16 NHWC: 3 SGD steps of the card against
+    the CPU, each from the CPU step's state (:func:`resnet_bf16_replay`)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.resnet import resnet50_v1b
+
+    tol = RESNET_PARITY_TOL
+    out, ok = {}, True
+    for layout in ("NCHW", "NHWC"):
+        cpu_net = resnet50_v1b(layout=layout, device="cpu",
+                               generator=torch.Generator().manual_seed(SEED))
+        card_net = resnet50_v1b(layout=layout,
+                                generator=torch.Generator().manual_seed(SEED))
+        rng = np.random.RandomState(SEED + 6)
+        shape = (4, 3, 64, 64) if layout == "NCHW" else (4, 64, 64, 3)
+        x = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, 1000, 4).astype(np.float32))
+        res = {}
+        for net, dev in ((card_net, "cuda"), (cpu_net, "cpu")):
+            net.train()
+            logits = net(x.to(dev))
+            loss = SoftmaxCrossEntropyLoss()(logits, y.to(dev)).float().mean()
+            loss.backward()
+            params = dict(net.named_parameters())
+            res[dev] = (logits.detach().cpu(), float(loss.detach()),
+                        {n: params[n].grad.cpu() for n in RESNET_PARITY_GRADS},
+                        {k: v.cpu() for k, v in net.state_dict().items()
+                         if "running" in k})
+
+        def rel(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+
+        (lg_g, l_g, g_g, s_g), (lg_c, l_c, g_c, s_c) = res["cuda"], res["cpu"]
+        row = {"logits_of_max_abs": rel(lg_g, lg_c),
+               "loss_card": l_g, "loss_cpu": l_c,
+               "loss_rel": abs(l_g - l_c) / abs(l_c),
+               "grads_of_max_abs": {n: rel(g_g[n], g_c[n]) for n in g_c},
+               "running_stats_of_max_abs": max(rel(s_g[k], s_c[k])
+                                               for k in s_c)}
+        row_ok = (row["logits_of_max_abs"] <= tol["logits_of_max_abs"]
+                  and row["loss_rel"] <= tol["loss_rel"]
+                  and row["running_stats_of_max_abs"]
+                  <= tol["running_stats_of_max_abs"]
+                  and all(v <= tol["dense_grad_of_max_abs" if n == "output."
+                                   "weight" else "conv_grad_of_max_abs"]
+                          for n, v in row["grads_of_max_abs"].items()))
+        out[layout] = dict(row, ok=row_ok)
+        ok = ok and row_ok
+        del card_net
+    t0 = time.perf_counter()
+    bf16 = resnet_bf16_replay(torch, "cuda")
+    bf16["seconds"] = time.perf_counter() - t0
+    return {"batch": [4, 3, 64, 64], "tol": tol, **out, "bf16_nhwc": bf16,
+            "cudnn": _cudnn_settings(torch), "ok": ok and bf16["ok"]}
+
+
+# card vs CPU in bf16 over 3 SGD steps, each from the CPU step's state
+# before it.  A ResNet's bf16 step is far from its f32 one (on the narrow
+# net of tests/test_torch_training_bf16.py the bf16 gradient is 30% of a
+# tensor's norm from the f32 one in the median, in both packages), so
+# free runs part within a step at lr 0.1, and every bound is set by a CPU
+# f32 step from the same state, the measure of what bf16 rounding does
+# there: two roundings of the same size differ by about sqrt(2) times
+# one.  The loss within 2x the f32 step's distance from the CPU bf16
+# step's plus one bf16 spacing (2^-7 relative); the momenta and the
+# running stats, each summed in squares over the tensors, within 2x the
+# f32 step's distance; each momentum tensor within 3x; each weight
+# element within its momentum's distance plus one bf16 spacing at its
+# value (both round w + m to bf16 once).
+RESNET_BF16_REPLAY_TOL = {"loss_vs_f32": 2.0, "loss_spacing": 2.0 ** -7,
+                          "summed_vs_f32": 2.0, "per_tensor_vs_f32": 3.0}
+
+
+def _bf16_spacing(torch, x):
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _copy_train_state(torch, dst_net, dst_step, src_net, src_step):
+    """Weights, running stats and momenta of ``src`` into ``dst`` (the
+    same model; dtypes and devices may differ)."""
+    dst_net.load_state_dict(src_net.state_dict())
+    with torch.no_grad():
+        for d, s in zip(dst_step.opt_state[0], src_step.opt_state[0]):
+            d.copy_(s)
+
+
+def _summed_ratio(torch, got, want, probe):
+    """(sqrt(sum |got - want|^2) / sqrt(sum |probe - want|^2), the worst
+    tensor's |got - want| / |probe - want|) over lists of tensors."""
+    off = floor = worst = 0.0
+    for g, w, p in zip(got, want, probe):
+        w = w.detach().float()
+        d = float((g.detach().cpu().float() - w).norm())
+        f = float((p.detach().float() - w).norm())
+        off, floor = off + d * d, floor + f * f
+        worst = max(worst, d / f if f > 0 else (0.0 if d == 0 else math.inf))
+    return ((off / floor) ** 0.5 if floor > 0 else math.inf), worst
+
+
+def resnet_bf16_replay(torch, device, steps=3, batch=16, res=64):
+    """resnet50_v1b NHWC in bf16: ``steps`` SGD steps on ``device``, each
+    from the CPU bf16 step's state before it, against that CPU step,
+    with a CPU f32 step from the same state as the measure of bf16
+    rounding (RESNET_BF16_REPLAY_TOL)."""
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.resnet import resnet50_v1b
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    tol = RESNET_BF16_REPLAY_TOL
+    rng = np.random.RandomState(SEED + 7)
+    x = torch.from_numpy(rng.rand(batch, res, res, 3).astype(
+        np.float32)).to(torch.bfloat16)
+    y = torch.from_numpy(rng.randint(0, 1000, batch).astype(np.float32))
+    runs = {}
+    for tag, dev, dtype in (("cpu", "cpu", "bfloat16"),
+                            ("f32", "cpu", "float32"),
+                            ("card", device, "bfloat16")):
+        net = cast(resnet50_v1b(layout="NHWC", device="cpu",
+                                generator=torch.Generator().manual_seed(
+                                    SEED)), "bfloat16")
+        if dtype == "float32":
+            cast(net, "float32")
+        runs[tag] = (net, DataParallelStep(
+            net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+            optimizer_params=RESNET_SGD, device=dev), getattr(torch, dtype))
+    ref_net, ref_step, _ = runs["cpu"]
+    names = [n for n, p in ref_net.named_parameters() if p.requires_grad]
+
+    def stats(tag):
+        return [b for n, b in runs[tag][0].named_buffers() if "running" in n]
+
+    rows, ok = [], True
+    for k in range(steps):
+        for tag in ("card", "f32"):
+            _copy_train_state(torch, *runs[tag][:2], ref_net, ref_step)
+        loss = {}
+        for tag in ("card", "f32", "cpu"):
+            _, step, dtype = runs[tag]
+            loss[tag] = float(step.step(x.to(step.device, dtype),
+                                        y.to(step.device)))
+        card, f32 = runs["card"][1], runs["f32"][1]
+        mom, mom_worst = _summed_ratio(torch, card.opt_state[0],
+                                       ref_step.opt_state[0],
+                                       f32.opt_state[0])
+        st, _ = _summed_ratio(torch, stats("card"), stats("cpu"),
+                              stats("f32"))
+        weights_off = []
+        for name, p_ref, p_card, m_ref, m_card in zip(
+                names, ref_step.params, card.params, ref_step.opt_state[0],
+                card.opt_state[0]):
+            w, wr = p_card.detach().cpu().float(), p_ref.detach().float()
+            allow = ((m_card.cpu() - m_ref).abs()
+                     + _bf16_spacing(torch, torch.maximum(w.abs(), wr.abs()))
+                     + 2.0 ** -23 * wr.abs())
+            if not bool(((w - wr).abs() <= allow).all()):
+                weights_off.append(name)
+        d_loss, f_loss = (abs(loss[t] - loss["cpu"]) for t in ("card", "f32"))
+        row = {"step": k + 1, "loss_card": loss["card"],
+               "loss_cpu": loss["cpu"], "loss_cpu_f32": loss["f32"],
+               "loss_vs_f32": d_loss / f_loss if f_loss > 0 else None,
+               "momenta_summed_vs_f32": mom,
+               "momentum_worst_tensor_vs_f32": mom_worst,
+               "running_stats_summed_vs_f32": st,
+               "weights_off": weights_off}
+        row["ok"] = bool(
+            math.isfinite(loss["card"])
+            and d_loss <= (tol["loss_vs_f32"] * f_loss
+                           + tol["loss_spacing"] * abs(loss["cpu"]))
+            and mom <= tol["summed_vs_f32"] and st <= tol["summed_vs_f32"]
+            and mom_worst <= tol["per_tensor_vs_f32"] and not weights_off)
+        ok = ok and row["ok"]
+        rows.append(row)
+    return {"model": "resnet50_v1b", "layout": "NHWC", "dtype": "bfloat16",
+            "batch": [batch, res, res, 3], "steps": rows, "tol": tol,
+            "ok": ok}
+
+
+def phase_train_resnet_profile(torch, ctx):
+    """One profiled training step of each ResNet cell, after one step
+    that is not profiled (the allocator regrows its pools after the
+    phases between): busy share, the top kernels by name and the largest
+    host gaps between device activities."""
+    torch.backends.cudnn.benchmark = True
+    res = {}
+    for dtype in ("bfloat16", "float32"):
+        step, x, y = ctx.pop(f"resnet_{dtype}")
+        step.step(x, y)
+        res[dtype] = _step_profile(torch, lambda: step.step(x, y),
+                                   gaps=True)
+        del step, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
 # name, source, the TPU kernel it replaces, the path whose launches the
 # kernels line reports
 KERNELS = (
@@ -1655,8 +2190,13 @@ def main() -> int:
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),
+              ("train_bf16", phase_train_bf16),
               ("imperative", phase_imperative),
-              ("imperative_bf16", phase_imperative_bf16))
+              ("imperative_bf16", phase_imperative_bf16),
+              ("train_resnet", phase_train_resnet),
+              ("train_resnet_bf16", phase_train_resnet_bf16),
+              ("train_resnet_parity", phase_train_resnet_parity),
+              ("train_resnet_profile", phase_train_resnet_profile))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

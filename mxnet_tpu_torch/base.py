@@ -1,10 +1,13 @@
 """Errors and environment helpers (the port's own copy of the parts of
-``mxnet_tpu/base.py`` it needs)."""
+``mxnet_tpu/base.py`` it needs), and :func:`tensor_from_numpy`."""
 from __future__ import annotations
 
 import os
 
-__all__ = ["MXNetError", "env_int", "env_str"]
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "env_int", "env_str", "tensor_from_numpy"]
 
 
 class MXNetError(RuntimeError):
@@ -20,3 +23,15 @@ def env_int(name: str, default: int) -> int:
 
 def env_str(name: str, default: str) -> str:
     return os.environ.get(name, default)
+
+
+def tensor_from_numpy(value) -> torch.Tensor:
+    """A CPU tensor with ``value``'s numbers and dtype.  numpy has no
+    bfloat16: an array whose ``dtype.name`` is ``bfloat16`` (``ml_dtypes``,
+    what the JAX package's ``net.cast("bfloat16")`` leaves) comes in bit
+    for bit through int16, without importing ``ml_dtypes``."""
+    value = np.ascontiguousarray(value)
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(value.copy())

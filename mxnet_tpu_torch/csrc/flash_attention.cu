@@ -1,5 +1,7 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a): f32, bf16 or
-// f16 inputs, head dims 16, 32, 64, 128 and 256.
+// f16 inputs, head dims 16, 32, 64, 128 and 256, and any multiple of 64
+// above 256 (chunked over D, one launch per 64 output columns: see
+// flash_fwd_wide).
 //
 // Replaces the three Pallas kernels of mxnet_tpu/ops/pallas/flash_attention.py:
 //   _fwd_kernel (K3): out = softmax(q k^T * scale [masked]) v and the row
@@ -82,6 +84,9 @@
 //   launches, one per window, each recomputing the scores (and in K4, K5
 //   dP) over all 256: K5's two accumulators of 256 columns would need 256
 //   f32 registers a thread.  The row logsumexp is written by the first.
+// - Above 256 the staged rows themselves outgrow shared memory: the scores
+//   are reduced over chunks of 64 columns of D, and a launch accumulates 64
+//   output columns (flash_fwd_wide, flash_bwd_dq_wide, flash_bwd_dkv_wide).
 // No wgmma and no TMA yet.
 
 #include <cuda_runtime.h>
@@ -129,8 +134,10 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start copying rows row0 .. row0+ROWS-1 of a (n_rows, HD) matrix of T into
-// an f32 tile of row stride HD + 4; rows past n_rows are zero-filled.  f32
+// Start copying rows row0 .. row0+ROWS-1 of a (n_rows, HD) matrix of T, whose
+// rows lie ld elements apart (HD, or the head dim when src points into a
+// chunk of wider rows), into an f32 tile of row stride HD + 4; rows past
+// n_rows are zero-filled.  f32
 // goes by cp.async; bf16 and f16 (which cp.async cannot convert) by 8-byte
 // loads of four values into registers, batched so that several are in
 // flight, converted and stored to shared memory.  The tile is complete
@@ -139,14 +146,14 @@ __device__ __forceinline__ void cp_wait() {
 template <typename T, int HD, int ROWS, int THREADS>
 __device__ __forceinline__ void stage_async(float* __restrict__ dst,
                                             const T* __restrict__ src, int row0,
-                                            int n_rows) {
+                                            int n_rows, int ld = HD) {
   constexpr int V = HD / 4;
   if constexpr (std::is_same<T, float>::value) {
     for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
       const int r = i / V, c = i - r * V;
       const bool ok = row0 + r < n_rows;
       cp_async16(dst + r * Cfg<HD>::kStride + 4 * c,
-                 ok ? src + (size_t)(row0 + r) * HD + 4 * c : src, ok);
+                 ok ? src + (size_t)(row0 + r) * ld + 4 * c : src, ok);
     }
   } else {
     // loads in flight a thread: few where the accumulators leave few
@@ -162,7 +169,7 @@ __device__ __forceinline__ void stage_async(float* __restrict__ dst,
         const int i = threadIdx.x + (i0 + b) * THREADS, r = i / V, c = i - r * V;
         u[b] = make_uint2(0u, 0u);  // zero bits are zero in bf16 and f16
         if (i < ROWS * V && row0 + r < n_rows)
-          u[b] = __ldg(reinterpret_cast<const uint2*>(src + (size_t)(row0 + r) * HD + 4 * c));
+          u[b] = __ldg(reinterpret_cast<const uint2*>(src + (size_t)(row0 + r) * ld + 4 * c));
       }
 #pragma unroll
       for (int b = 0; b < kBatch; ++b) {
@@ -792,6 +799,340 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256, any multiple of kChunk = 64 (the wrapper zero-pads D
+// to one).  A staged tile of such rows no longer fits beside its operands in
+// shared memory, so K3, K4 and K5 reduce the scores (and dP) over D in
+// chunks of 64 columns, each staged for the q rows and the streamed tile
+// behind a barrier, and a launch accumulates one window of 64 output columns
+// (c0): the call makes D / 64 launches, each recomputing the scores, as the
+// hd-256 windows do.  Blocks are 4 warps of 16 rows; the other operand
+// streams in tiles of 32 rows.  The staging is synchronous (copy, wait,
+// barrier): a simple design, not yet a fast one.  The fragment loaders,
+// the 3xTF32 core and the score functions are the narrow kernels' own.
+// ---------------------------------------------------------------------------
+constexpr int kChunk = 64;
+using Wide = Tiles<kChunk, 32>;
+
+// K3 at D > 256.  Block (n, 64 q rows); per k tile of 32 rows, S over D's
+// chunks, the online softmax, then O[:, c0 .. c0+63] += P v[:, c0 .. c0+63].
+template <typename T>
+__global__ void __launch_bounds__(Wide::kThreads)
+flash_fwd_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ out, float* __restrict__ lse, int Lq, int Lk, int D,
+               int q_tiles, int causal, float sm_scale, int c0) {
+  using W = Wide;
+  constexpr int NT = W::kBS / 8, DT = kChunk / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;               // a chunk of the block's q rows
+  float* Ks = Qs + W::kRowTile;   // a chunk of the k tile, then its v window
+
+  const int n = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * W::kRows;  // heaviest first
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
+  const size_t qo = (size_t)n * Lq * D, ko = (size_t)n * Lk * D;
+
+  int k_tiles = (Lk + W::kBS - 1) / W::kBS;
+  if (causal) k_tiles = min(k_tiles, (min(q0 + W::kRows, Lq) - 1) / W::kBS + 1);
+
+  float m[2] = {kNeg, kNeg}, row_sum[2] = {0.f, 0.f}, acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int k0 = kt * W::kBS;
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      __syncthreads();  // every warp is done with the staged tiles
+      stage_async<T, kChunk, W::kRows, W::kThreads>(Qs, q + qo + d0, q0, Lq, D);
+      stage_async<T, kChunk, W::kBS, W::kThreads>(Ks, k + ko + d0, k0, Lk, D);
+      cp_commit();
+      cp_wait<0>();
+      scale_own<kChunk, W::kRows, W::kThreads>(Qs, sm_scale);  // q * sm_scale before q k^T
+      __syncthreads();
+#pragma unroll 2
+      for (int dd = 0; dd < kChunk; dd += 8) {
+        Frag<4> qa;
+        load_a<kChunk>(qa, Qs, r0, dd);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          Frag<2> kb[2];
+          load_b_rows2<kChunk>(kb, Ks, 8 * j, dd);
+          mma3(s[j], qa, kb[0]);
+          mma3(s[j + 1], qa, kb[1]);
+        }
+      }
+    }
+    const bool all_live = k0 + W::kBS <= Lk && q0 + W::kRows <= Lq &&
+                          (!causal || k0 + W::kBS - 1 <= q0);
+    if (all_live)
+      fwd_softmax<false>(s, acc, m, row_sum, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    else
+      fwd_softmax<true>(s, acc, m, row_sum, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    __syncthreads();  // every warp is done with the k chunk
+    stage_async<T, kChunk, W::kBS, W::kThreads>(Ks, v + ko + c0, k0, Lk, D);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> pa;
+      a_from_acc(pa, s[j]);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> vb;
+        load_b_cols<kChunk>(vb, Ks, 8 * j, 8 * i, l);
+        mma3(acc[i], pa, vb);
+      }
+    }
+  }
+
+  float safe_l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row sum over the quad's four lanes
+    float sum = row_sum[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    safe_l[h] = sum == 0.f ? 1.f : sum;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    if (r >= Lq) continue;
+    if (l.t == 0 && c0 == 0) lse[(size_t)n * Lq + r] = m[h] + logf(safe_l[h]);
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      store2(out + qo + (size_t)r * D + c0 + 8 * i + 2 * l.t, acc[i][2 * h] / safe_l[h],
+             acc[i][2 * h + 1] / safe_l[h]);
+  }
+}
+
+// K4 at D > 256.  Block (n, 64 q rows); per k tile, S and dP over D's
+// chunks, dS in place of S, then dq[:, c0 .. c0+63] += dS k[:, c0 .. c0+63].
+template <typename T>
+__global__ void __launch_bounds__(Wide::kThreads)
+flash_bwd_dq_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, T* __restrict__ dq, int Lq, int Lk, int D,
+                  int q_tiles, int causal, float sm_scale, int c0) {
+  using W = Wide;
+  constexpr int NT = W::kBS / 8, DT = kChunk / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + W::kRowTile;
+  float* Ks = dOs + W::kRowTile;  // a chunk of the k tile, then its window
+  float* Vs = Ks + W::kTile;
+
+  const int n = blockIdx.x / q_tiles;
+  const int q0 = (q_tiles - 1 - blockIdx.x % q_tiles) * W::kRows;  // heaviest first
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
+  const size_t qo = (size_t)n * Lq * D, ko = (size_t)n * Lk * D;
+
+  int k_tiles = (Lk + W::kBS - 1) / W::kBS;
+  if (causal) k_tiles = min(k_tiles, (min(q0 + W::kRows, Lq) - 1) / W::kBS + 1);
+
+  float row_lse[2], row_delta[2], acc[DT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    row_lse[h] = r < Lq ? lse[(size_t)n * Lq + r] : 0.f;
+    row_delta[h] = r < Lq ? delta[(size_t)n * Lq + r] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int k0 = kt * W::kBS;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      __syncthreads();  // every warp is done with the staged tiles
+      stage_async<T, kChunk, W::kRows, W::kThreads>(Qs, q + qo + d0, q0, Lq, D);
+      stage_async<T, kChunk, W::kRows, W::kThreads>(dOs, dout + qo + d0, q0, Lq, D);
+      stage_async<T, kChunk, W::kBS, W::kThreads>(Ks, k + ko + d0, k0, Lk, D);
+      stage_async<T, kChunk, W::kBS, W::kThreads>(Vs, v + ko + d0, k0, Lk, D);
+      cp_commit();
+      cp_wait<0>();
+      scale_own<kChunk, W::kRows, W::kThreads>(Qs, sm_scale);  // q * sm_scale before q k^T
+      __syncthreads();
+#pragma unroll 2
+      for (int dd = 0; dd < kChunk; dd += 8) {
+        Frag<4> qa, da;
+        load_a<kChunk>(qa, Qs, r0, dd);
+        load_a<kChunk>(da, dOs, r0, dd);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          Frag<2> kb[2], vb[2];
+          load_b_rows2<kChunk>(kb, Ks, 8 * j, dd);
+          mma3(s[j], qa, kb[0]);
+          mma3(s[j + 1], qa, kb[1]);
+          load_b_rows2<kChunk>(vb, Vs, 8 * j, dd);
+          mma3(dp[j], da, vb[0]);
+          mma3(dp[j + 1], da, vb[1]);
+        }
+      }
+    }
+    const bool all_live = k0 + W::kBS <= Lk && q0 + W::kRows <= Lq &&
+                          (!causal || k0 + W::kBS - 1 <= q0);
+    if (all_live)
+      dq_scores<false>(s, dp, row_lse, row_delta, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    else
+      dq_scores<true>(s, dp, row_lse, row_delta, q0 + r0 + l.g, k0 + 2 * l.t, Lq, Lk, causal);
+    __syncthreads();  // every warp is done with the k chunk
+    stage_async<T, kChunk, W::kBS, W::kThreads>(Ks, k + ko + c0, k0, Lk, D);
+    cp_commit();
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> a;
+      a_from_acc(a, s[j]);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> kb;
+        load_b_cols<kChunk>(kb, Ks, 8 * j, 8 * i, l);
+        mma3(acc[i], a, kb);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + r0 + l.g + 8 * h;
+    if (r >= Lq) continue;
+#pragma unroll
+    for (int i = 0; i < DT; ++i)
+      store2(dq + qo + (size_t)r * D + c0 + 8 * i + 2 * l.t, acc[i][2 * h] * sm_scale,
+             acc[i][2 * h + 1] * sm_scale);
+  }
+}
+
+// K5 at D > 256.  Block (n, 64 k rows); per q tile of 32 rows, S^T and dP^T
+// over D's chunks, P^T and dS^T in place, then dv[:, c0 .. c0+63] += P^T
+// do[:, window] and dk[:, window] += dS^T (q * scale)[:, window].
+template <typename T>
+__global__ void __launch_bounds__(Wide::kThreads)
+flash_bwd_dkv_wide(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                   int Lq, int Lk, int D, int k_tiles, int causal, float sm_scale, int c0) {
+  using W = Wide;
+  constexpr int NT = W::kBS / 8, DT = kChunk / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + W::kRowTile;
+  float* Qs = Vs + W::kRowTile;  // a chunk of the q tile, then its window
+  float* dOs = Qs + W::kTile;
+  float* lse_s = dOs + W::kTile;
+  float* delta_s = lse_s + W::kBS;
+
+  const int n = blockIdx.x / k_tiles;
+  const int k0 = (blockIdx.x % k_tiles) * W::kRows;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  const Quad l = quad_of();
+  const size_t qo = (size_t)n * Lq * D, ko = (size_t)n * Lk * D;
+  const int q_tiles = (Lq + W::kBS - 1) / W::kBS;
+  const int qt0 = causal ? k0 / W::kBS : 0;  // q tiles wholly above k0 have p = 0
+
+  float dk_acc[DT][4], dv_acc[DT][4];
+#pragma unroll
+  for (int i = 0; i < DT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+
+  for (int qt = qt0; qt < q_tiles; ++qt) {
+    const int q0 = qt * W::kBS;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      __syncthreads();  // every warp is done with the staged tiles
+      stage_async<T, kChunk, W::kRows, W::kThreads>(Ks, k + ko + d0, k0, Lk, D);
+      stage_async<T, kChunk, W::kRows, W::kThreads>(Vs, v + ko + d0, k0, Lk, D);
+      stage_async<T, kChunk, W::kBS, W::kThreads>(Qs, q + qo + d0, q0, Lq, D);
+      stage_async<T, kChunk, W::kBS, W::kThreads>(dOs, dout + qo + d0, q0, Lq, D);
+      if (d0 == 0) {
+        stage_vec_async<W::kBS, W::kThreads>(lse_s, lse + (size_t)n * Lq, q0, Lq);
+        stage_vec_async<W::kBS, W::kThreads>(delta_s, delta + (size_t)n * Lq, q0, Lq);
+      }
+      cp_commit();
+      cp_wait<0>();
+      scale_own<kChunk, W::kBS, W::kThreads>(Qs, sm_scale);  // q * sm_scale before k q^T
+      __syncthreads();
+#pragma unroll 2
+      for (int dd = 0; dd < kChunk; dd += 8) {
+        Frag<4> ka, va;
+        load_a<kChunk>(ka, Ks, r0, dd);
+        load_a<kChunk>(va, Vs, r0, dd);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          Frag<2> qb[2], ob[2];
+          load_b_rows2<kChunk>(qb, Qs, 8 * j, dd);
+          mma3(s[j], ka, qb[0]);
+          mma3(s[j + 1], ka, qb[1]);
+          load_b_rows2<kChunk>(ob, dOs, 8 * j, dd);
+          mma3(dp[j], va, ob[0]);
+          mma3(dp[j + 1], va, ob[1]);
+        }
+      }
+    }
+    const bool all_live = q0 + W::kBS <= Lq && k0 + W::kRows <= Lk &&
+                          (!causal || k0 + W::kRows - 1 <= q0);
+    if (all_live)
+      dkv_scores<false>(s, dp, lse_s, delta_s, q0, 2 * l.t, k0 + r0 + l.g, Lq, Lk, causal);
+    else
+      dkv_scores<true>(s, dp, lse_s, delta_s, q0, 2 * l.t, k0 + r0 + l.g, Lq, Lk, causal);
+    __syncthreads();  // every warp is done with the q chunk
+    stage_async<T, kChunk, W::kBS, W::kThreads>(Qs, q + qo + c0, q0, Lq, D);
+    stage_async<T, kChunk, W::kBS, W::kThreads>(dOs, dout + qo + c0, q0, Lq, D);
+    cp_commit();
+    cp_wait<0>();
+    scale_own<kChunk, W::kBS, W::kThreads>(Qs, sm_scale);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      Frag<4> pa, da;
+      a_from_acc(pa, s[j]);
+      a_from_acc(da, dp[j]);
+#pragma unroll
+      for (int i = 0; i < DT; ++i) {
+        Frag<2> ob, qb;
+        load_b_cols<kChunk>(ob, dOs, 8 * j, 8 * i, l);
+        mma3(dv_acc[i], pa, ob);
+        load_b_cols<kChunk>(qb, Qs, 8 * j, 8 * i, l);
+        mma3(dk_acc[i], da, qb);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + r0 + l.g + 8 * h;
+    if (r >= Lk) continue;
+    const size_t at = ko + (size_t)r * D + c0 + 2 * l.t;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+      store2(dk + at + 8 * i, dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
+      store2(dv + at + 8 * i, dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
+    }
+  }
+}
+
 template <int HD>
 constexpr size_t fwd_smem() {
   using F = Fwd<HD>;
@@ -892,12 +1233,72 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
   return cudaSuccess;
 }
 
+// The launches at D > 256: one per window of kChunk output columns.
+constexpr size_t kFwdWideSmem = (Wide::kRowTile + Wide::kTile) * sizeof(float);
+constexpr size_t kDqWideSmem = (2 * Wide::kRowTile + 2 * Wide::kTile) * sizeof(float);
+constexpr size_t kDkvWideSmem =
+    (2 * Wide::kRowTile + 2 * Wide::kTile + 2 * Wide::kBS) * sizeof(float);
+
+template <typename T>
+cudaError_t fwd_wide(const void* q, const void* k, const void* v, void* out, float* lse, int N,
+                     int Lq, int Lk, int D, int causal, float sm_scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_fwd_wide<T>, kFwdWideSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Lq + Wide::kRows - 1) / Wide::kRows;
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    flash_fwd_wide<T><<<N * tiles, Wide::kThreads, kFwdWideSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, Lq, Lk, D, tiles, causal, sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t bwd_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dq, int N, int Lq, int Lk,
+                        int D, int causal, float sm_scale, cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_bwd_dq_wide<T>, kDqWideSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Lq + Wide::kRows - 1) / Wide::kRows;
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    flash_bwd_dq_wide<T><<<N * tiles, Wide::kThreads, kDqWideSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), Lq, Lk, D, tiles, causal,
+        sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t bwd_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, void* dk, void* dv, int N,
+                         int Lq, int Lk, int D, int causal, float sm_scale,
+                         cudaStream_t stream) {
+  cudaError_t err = allow_smem(flash_bwd_dkv_wide<T>, kDkvWideSmem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Lk + Wide::kRows - 1) / Wide::kRows;
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    flash_bwd_dkv_wide<T><<<N * tiles, Wide::kThreads, kDkvWideSmem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Lq,
+        Lk, D, tiles, causal, sm_scale, c0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 bool bad_args(int N, int Lq, int Lk, int dtype) {
   return N < 0 || Lq < 0 || Lk < 0 || mx::bad_dtype(dtype);
 }
 
 // Call F<T>::template run<HD>(args...) for the element type of `dtype`
-// and the head dim `hd`, or return cudaErrorInvalidValue.
+// and the head dim `hd`; above 256, F<T>::wide(args..., hd) if hd is a
+// multiple of kChunk; else return cudaErrorInvalidValue.
 template <template <typename> class F, typename... Args>
 int by_type_hd(int dtype, int hd, Args... args) {
   auto on_hd = [&](auto tag) -> int {
@@ -908,7 +1309,9 @@ int by_type_hd(int dtype, int hd, Args... args) {
       case 64: return (int)F<T>::template run<64>(args...);
       case 128: return (int)F<T>::template run<128>(args...);
       case 256: return (int)F<T>::template run<256>(args...);
-      default: return (int)cudaErrorInvalidValue;
+      default:
+        if (hd > 256 && hd % kChunk == 0) return (int)F<T>::wide(hd, args...);
+        return (int)cudaErrorInvalidValue;
     }
   };
   if (dtype == mx::kBF16) return on_hd(mx::bf16{});
@@ -920,16 +1323,33 @@ template <typename T>
 struct Fwd_ {
   template <int HD, typename... A>
   static cudaError_t run(A... a) { return fwd<T, HD>(a...); }
+  static cudaError_t wide(int D, const void* q, const void* k, const void* v, void* out,
+                          float* lse, int N, int Lq, int Lk, int causal, float sm_scale,
+                          cudaStream_t stream) {
+    return fwd_wide<T>(q, k, v, out, lse, N, Lq, Lk, D, causal, sm_scale, stream);
+  }
 };
 template <typename T>
 struct Dq_ {
   template <int HD, typename... A>
   static cudaError_t run(A... a) { return bwd_dq<T, HD>(a...); }
+  static cudaError_t wide(int D, const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, int N, int Lq, int Lk,
+                          int causal, float sm_scale, cudaStream_t stream) {
+    return bwd_dq_wide<T>(q, k, v, dout, lse, delta, dq, N, Lq, Lk, D, causal, sm_scale,
+                          stream);
+  }
 };
 template <typename T>
 struct Dkv_ {
   template <int HD, typename... A>
   static cudaError_t run(A... a) { return bwd_dkv<T, HD>(a...); }
+  static cudaError_t wide(int D, const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dk, void* dv, int N,
+                          int Lq, int Lk, int causal, float sm_scale, cudaStream_t stream) {
+    return bwd_dkv_wide<T>(q, k, v, dout, lse, delta, dk, dv, N, Lq, Lk, D, causal, sm_scale,
+                           stream);
+  }
 };
 
 }  // namespace
@@ -939,9 +1359,9 @@ extern "C" {
 // The entry points take q, out, dout, dq: (N, Lq, hd); k, v, dk, dv:
 // (N, Lk, hd), all contiguous, 16-byte aligned, of one element type
 // (dtype 0 f32, 1 bf16, 2 f16); lse, delta: (N, Lq) f32; hd in {16, 32,
-// 64, 128, 256}.  Each returns cudaGetLastError() after its launches (or
-// the error of the shared-memory opt-in); nothing is launched for an empty
-// problem.
+// 64, 128, 256} or a multiple of 64 above 256.  Each returns
+// cudaGetLastError() after its launches (or the error of the shared-memory
+// opt-in); nothing is launched for an empty problem.
 
 int mx_flash_attention_fwd(const void* q, const void* k, const void* v, void* out, float* lse,
                            int dtype, int N, int Lq, int Lk, int hd, int causal, float sm_scale,
@@ -954,7 +1374,8 @@ int mx_flash_attention_fwd(const void* q, const void* k, const void* v, void* ou
 // K3's launch shape at head dim hd (f32): q rows and threads of a block,
 // its dynamic shared memory in bytes, and how many such blocks an SM holds.
 // A forward over N heads of Lq rows launches N * ceil(Lq / rows) blocks (at
-// hd 256 twice, one launch per window of 128 output columns).
+// hd 256 twice, one launch per window of 128 output columns; above 256
+// hd / 64 times).
 int mx_flash_attention_fwd_shape(int hd, int* rows, int* threads, int* smem_bytes,
                                  int* blocks_per_sm) {
   switch (hd) {
@@ -963,7 +1384,17 @@ int mx_flash_attention_fwd_shape(int hd, int* rows, int* threads, int* smem_byte
     case 64: return (int)fwd_shape<64>(rows, threads, smem_bytes, blocks_per_sm);
     case 128: return (int)fwd_shape<128>(rows, threads, smem_bytes, blocks_per_sm);
     case 256: return (int)fwd_shape<256>(rows, threads, smem_bytes, blocks_per_sm);
-    default: return (int)cudaErrorInvalidValue;
+    default:
+      if (hd <= 256 || hd % kChunk) return (int)cudaErrorInvalidValue;
+      *rows = Wide::kRows;
+      *threads = Wide::kThreads;
+      *smem_bytes = (int)kFwdWideSmem;
+      {
+        const cudaError_t err = allow_smem(flash_fwd_wide<float>, kFwdWideSmem);
+        if (err != cudaSuccess) return (int)err;
+      }
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, flash_fwd_wide<float>, Wide::kThreads, kFwdWideSmem);
   }
 }
 

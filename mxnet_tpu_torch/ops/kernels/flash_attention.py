@@ -15,10 +15,12 @@ the kernels check bounds instead.
 
 Every wrapper takes its plain version for CPU tensors and launches its
 kernel for CUDA tensors (float32, bfloat16 or float16, one type for q, k,
-v and do; D in {16, 32, 64, 128, 256}; contiguous and 16-byte aligned) or
-raises.  The kernels compute in f32 and round out, dq, dk and dv to the
-input type; lse and delta are f32.  :func:`flash_attention` takes any D
-up to 256: it zero-pads q, k and v to the next of those head dims
+v and do; D in {16, 32, 64, 128, 256} or a multiple of 64 above 256;
+contiguous and 16-byte aligned) or raises.  The kernels compute in f32
+and round out, dq, dk and dv to the input type; lse and delta are f32.
+Above 256 the kernels reduce the scores over D in chunks of 64 columns
+and make one launch per 64 output columns.  :func:`flash_attention` takes
+any D: it zero-pads q, k and v to the next head dim a kernel takes
 (:func:`pad_head_dim`) and slices the results back.
 """
 from __future__ import annotations
@@ -38,6 +40,12 @@ __all__ = ["flash_attention", "flash_attention_ref", "flash_attention_fwd",
 
 _NEG = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# above 256 the kernels take any multiple of WIDE_STEP (their D chunk)
+WIDE_STEP = 64
+
+
+def _has_kernel(D: int) -> bool:
+    return D in HEAD_DIMS or (D > HEAD_DIMS[-1] and D % WIDE_STEP == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -123,9 +131,10 @@ def _check(what: str, q, k, **others) -> int:
         raise MXNetError(f"{what}: expected q (N, Lq, D) and k (N, Lk, D), "
                          f"got {tuple(q.shape)} and {tuple(k.shape)}")
     N, _, D = q.shape
-    if D not in HEAD_DIMS:
-        raise MXNetError(f"{what}: the kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {D}")
+    if not _has_kernel(D):
+        raise MXNetError(f"{what}: the kernel takes head_dim in {HEAD_DIMS} "
+                         f"or a multiple of {WIDE_STEP} above "
+                         f"{HEAD_DIMS[-1]}, got {D}")
     code = _build.dtype_code(q, what, "q")
     want = {"q": (q, tuple(q.shape)), "k": (k, (N, k.shape[1], D)), **others}
     for name, spec in want.items():
@@ -237,8 +246,10 @@ def _fwd_shape(D: int) -> dict:
     current card holds.  A forward over N heads of Lq rows launches
     N * ceil(Lq / rows) blocks.  Needs a card; a diagnostic for
     ``chip_smoke.py`` that no path of the port calls."""
-    if D not in HEAD_DIMS:
-        raise MXNetError(f"_fwd_shape: head_dim {D} not in {HEAD_DIMS}")
+    if not _has_kernel(D):
+        raise MXNetError(f"_fwd_shape: no kernel at head_dim {D} (it takes "
+                         f"{HEAD_DIMS} or a multiple of {WIDE_STEP} above "
+                         f"{HEAD_DIMS[-1]})")
     lib = _lib()
     vals = [ctypes.c_int(0) for _ in range(4)]
     err = lib.mx_flash_attention_fwd_shape(
@@ -284,12 +295,14 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 def pad_head_dim(q, k, v):
-    """(q, k, v) zero-padded along D to the next head dim in ``HEAD_DIMS``
-    when D <= 256 is not one of them, else as they are.  Zero columns
-    leave q k^T and the lse unchanged, give out zero columns and, through
-    the pad's autograd, slice dq, dk and dv back to D."""
+    """(q, k, v) zero-padded along D to the next head dim a kernel takes:
+    the next in ``HEAD_DIMS`` up to 256, above it the next multiple of
+    ``WIDE_STEP``; as they are when D is one already.  Zero columns leave
+    q k^T and the lse unchanged, give out zero columns and, through the
+    pad's autograd, slice dq, dk and dv back to D."""
     D = q.shape[-1]
-    to = next((h for h in HEAD_DIMS if h >= D), D)
+    to = next((h for h in HEAD_DIMS if h >= D),
+              -(-D // WIDE_STEP) * WIDE_STEP)
     if to == D:
         return q, k, v
     return tuple(torch.nn.functional.pad(t, (0, to - D)) for t in (q, k, v))
@@ -299,8 +312,8 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
                     return_lse: bool = False):
     """Fused attention softmax(q k^T * sm_scale [causal]) v, differentiable
     in q, k and v.  q: (N, Lq, D) or (B, H, Lq, D); k, v likewise with Lk.
-    ``sm_scale`` defaults to 1 / sqrt(D).  A D up to 256 outside
-    ``HEAD_DIMS`` runs zero-padded (:func:`pad_head_dim`).  ``return_lse``
+    ``sm_scale`` defaults to 1 / sqrt(D).  A D the kernels do not take
+    runs zero-padded (:func:`pad_head_dim`).  ``return_lse``
     also returns the row logsumexp (N, Lq) or (B, H, Lq) in f32 (not
     differentiable)."""
     q4 = q.dim() == 4

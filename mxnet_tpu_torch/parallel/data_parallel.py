@@ -17,12 +17,19 @@ formula, with ``learning_rate``, ``wd``, ``momentum``, ``beta1``,
           w -= lr * sqrt(1 - beta2^t) / (1 - beta1^t) * m / (sqrt(v) + eps)
 
 (MXNet's Adam adds eps to sqrt(v) before the bias correction, unlike
-``torch.optim.Adam``, which is not used.)  They run as multi-tensor
-``torch._foreach_*`` calls over the parameter list, in place on the
-gradients (which the step owns and discards) to save their memory.  A
-parameter the loss does not reach (BERT's pooler) gets a zero gradient,
-as ``jax.grad`` gives it.  Parameters with ``requires_grad=False`` are
-frozen, as Gluon's ``grad_req='null'``.
+``torch.optim.Adam``, which is not used.)  Every term is computed in f32
+from ``grad.float()`` and ``w.float()`` with f32 optimizer state, and a
+16-bit parameter is rounded to its dtype once per step, as the JAX
+updates do; there is no f32 master copy.  They run as multi-tensor
+``torch._foreach_*`` calls over the parameter list, in place on the f32
+gradients (which the step owns and discards) and, for f32 parameters, on
+the parameters themselves, to save memory.  A parameter the loss does not
+reach (BERT's pooler) gets a zero gradient, as ``jax.grad`` gives it.
+Parameters with ``requires_grad=False`` are frozen, as Gluon's
+``grad_req='null'``; buffers (BatchNorm's running stats) are not
+parameters: the block's forward moves them, in training mode, as
+Gluon's aux states.  Inputs keep their dtype (a bf16 image batch stays
+bf16; a numpy bfloat16 array comes in bit for bit).
 
 Not ported: meshes and sharding, ``accum_steps``, remat, loss scaling, the
 superstep, AOT executables, ``state_dict`` / checkpoints, telemetry, and
@@ -36,7 +43,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, tensor_from_numpy
 from ..context import resolve_device
 from .async_loss import AsyncLoss
 
@@ -72,7 +79,7 @@ class DataParallelStep:
 
     def _put(self, x):
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
+            x = tensor_from_numpy(x)
         return x.to(self.device, non_blocking=True)
 
     def step(self, data, label) -> AsyncLoss:
@@ -95,34 +102,41 @@ class DataParallelStep:
         self.num_update += 1
         return AsyncLoss(loss)
 
-    def _grad_terms(self, grads):
-        """g = clip(grad * rescale) + wd * w, in place on ``grads``."""
+    def _grad_terms(self, grads, w):
+        """g = clip(grad * rescale) + wd * w, in place on the f32
+        ``grads``; ``w`` the parameters in f32."""
         if self._rescale != 1.0:
             torch._foreach_mul_(grads, self._rescale)
         if self._clip is not None:
             torch._foreach_clamp_min_(grads, -float(self._clip))
             torch._foreach_clamp_max_(grads, float(self._clip))
         if self._wd:
-            torch._foreach_add_(grads, self.params, alpha=self._wd)
+            torch._foreach_add_(grads, w, alpha=self._wd)
         return grads
 
     def _update(self, grads) -> None:
-        g = self._grad_terms(grads)
+        # f32 views: the tensors themselves where they are f32, copies of
+        # 16-bit ones, which are rounded back once at the end
+        w = [p.float() for p in self.params]
+        g = self._grad_terms([x.float() for x in grads], w)
         lr = self.learning_rate
         if self.optimizer == "sgd":
             (mom,) = self.opt_state
             torch._foreach_mul_(mom, self._momentum)
             torch._foreach_add_(mom, g, alpha=-lr)
-            torch._foreach_add_(self.params, mom)
-            return
-        m, v = self.opt_state
-        b1, b2 = self._beta1, self._beta2
-        t = self.num_update + 1
-        corr = math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
-        torch._foreach_mul_(m, b1)
-        torch._foreach_add_(m, g, alpha=1 - b1)
-        torch._foreach_mul_(v, b2)
-        torch._foreach_addcmul_(v, g, g, value=1 - b2)
-        denom = torch._foreach_sqrt(v)
-        torch._foreach_add_(denom, self._eps)
-        torch._foreach_addcdiv_(self.params, m, denom, value=-lr * corr)
+            torch._foreach_add_(w, mom)
+        else:
+            m, v = self.opt_state
+            b1, b2 = self._beta1, self._beta2
+            t = self.num_update + 1
+            corr = math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, g, alpha=1 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, g, g, value=1 - b2)
+            denom = torch._foreach_sqrt(v)
+            torch._foreach_add_(denom, self._eps)
+            torch._foreach_addcdiv_(w, m, denom, value=-lr * corr)
+        low = [(p, x) for p, x in zip(self.params, w) if x is not p]
+        if low:
+            torch._foreach_copy_([p for p, _ in low], [x for _, x in low])

@@ -8,8 +8,9 @@ held against ``mxnet_tpu.ops.pallas.flash_attention`` in interpret mode
 gradients from ``jax.vjp``.  The same numpy inputs, drawn from a seed, go
 to both.  Tolerances: out and lse atol = rtol = 1e-5, dq, dk and dv
 1e-4; both compute in f32 with sums in another order, and the gradients
-chain three products.  Head dims the kernels do not take (48, 80) run
-zero-padded and are held against the JAX function at their own D.  The
+chain three products.  Head dims the kernels do not take (48, 80, 300)
+run zero-padded and are held against the JAX function at their own D,
+as are the wide ones the kernels take in chunks (320, 384).  The
 kernels' precision plan (every product of K4 and K5 in 3xTF32 on the
 tensor cores) is emulated on the f32 bit patterns and held against the
 plain versions.
@@ -157,6 +158,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 @pytest.mark.parametrize("change,match", [
     (dict(D=48), "head_dim"),
+    (dict(D=300), "head_dim"),
     (dict(dtype=torch.float64), "float32"),
     (dict(k_len=7, v_len=9), "shape"),
     (dict(transpose=True), "contiguous"),
@@ -244,9 +246,36 @@ def test_padded_head_dim_matches_pallas(D, causal):
 
 
 def test_pad_head_dim_leaves_supported_and_large_dims():
-    for D in (16, 32, 64, 128, 256, 300):
+    """Head dims a kernel takes stay as they are: {16, ..., 256} and the
+    multiples of 64 above 256; any other D pads to the next of them."""
+    for D in (16, 32, 64, 128, 256, 320, 384, 512):
         t = torch.zeros(1, 4, D)
         assert all(x is t for x in fa_mod.pad_head_dim(t, t, t))
+    for D, to in ((200, 256), (257, 320), (300, 320), (450, 512)):
+        t = torch.ones(1, 4, D)
+        for x in fa_mod.pad_head_dim(t, t, t):
+            assert x.shape == (1, 4, to)
+            assert torch.equal(x[..., :D], t) and not x[..., D:].any()
+
+
+# ---------------------------------------------------------------------------
+# head dims above 256 (chunked over D on the card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("D", [320, 384, 300])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_head_dim_matches_pallas(D, causal):
+    """At D > 256 (the kernels' chunked instantiation, 300 zero-padded to
+    320) out, lse and the three gradients match the JAX function, which
+    takes any D, through the plain versions here."""
+    q, k, v, do = _inputs(D + 7 * int(causal), (2, 40, D), (2, 33, D))
+    out_j, lse_j, grads_j = _jax_reference(q, k, v, do, causal)
+    out, lse, grads = _port(q, k, v, do, causal)
+    assert out.shape == (2, 40, D)
+    np.testing.assert_allclose(out, out_j, **OUT_TOL)
+    np.testing.assert_allclose(lse, lse_j, **OUT_TOL)
+    for name, g, gj in zip("qkv", grads, grads_j):
+        assert g.shape == gj.shape
+        np.testing.assert_allclose(g, gj, err_msg=f"d{name}", **GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -403,6 +432,14 @@ def test_3xtf32_forward_keeps_f32_accuracy(N, Lq, Lk, D, causal):
     assert max(errs[1]) > 10 * FWD_TF32X3_ATOL, errs[1]
 
 
-def test_fwd_shape_refuses_head_dims_without_a_kernel():
-    with pytest.raises(MXNetError, match="head_dim"):
-        fa_mod._fwd_shape(48)
+def test_fwd_shape_refuses_head_dims_without_a_kernel(monkeypatch):
+    """K3's launch shape is asked only at a head dim a kernel takes: 48
+    and 300 are refused before the library is touched, 320 reaches it."""
+    for D in (48, 300):
+        with pytest.raises(MXNetError, match="head_dim"):
+            fa_mod._fwd_shape(D)
+    fake = _FakeLib()
+    fake.mx_flash_attention_fwd_shape = lambda *args: 0
+    monkeypatch.setattr(fa_mod, "_lib", lambda: fake)
+    assert set(fa_mod._fwd_shape(320)) == {"rows", "threads", "smem_bytes",
+                                           "blocks_per_sm"}
