@@ -15,8 +15,9 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           back-to-back launches, a one-element in-place
                           add timed like the kernels (a yardstick only).
   kernel_layer_norm       kernel K1 vs its plain version at (8, 1024),
-                          (64, 1024), (8192, 1024) and the training path's
-                          (16384, 768) f32, atol 1e-5 on out,
+                          (64, 1024), (8192, 1024), BERT's training rows
+                          (16384, 768) and Transformer-big's (2048, 1024)
+                          and (2064, 1024) f32, atol 1e-5 on out,
                           mu and rstd; the same shapes in bf16 and f16, and
                           C 30, 8192 and 5001 in f32, bf16 and f16
                           (``ulp_ratio`` <= 1 on a 16-bit out, below); times
@@ -174,6 +175,54 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   train_resnet_profile    one profiled step of each ResNet cell: busy share,
                           top kernels, the largest gaps between device
                           activities.
+  train_transformer       Transformer-big (BASELINE config 4) trained as
+                          bench_transformer trains it (bench.py:706-751):
+                          vocab 32000, dropout 0.3, f32, 210,173,952
+                          parameters, seeded weights; sources 16 x 128 and
+                          targets 16 x 129 from RandomState(0) as
+                          bench.py:735-743 makes them; Adam lr 1e-4 on
+                          ``label_smoothed_ce(smoothing=0.1)`` through
+                          ``DataParallelStep.step((src, tgt_in), label)``:
+                          2 warm-up and 5 timed steps, K1 exactly 30
+                          launches a step and K2-K7 none (every attention is
+                          masked); losses finite, the last below the first;
+                          train tokens/s (16 x 129 x 5 / wall s, as
+                          bench.py:745 counts), step ms, peak memory, and
+                          one profiled step: busy share, top kernels, K1's
+                          share.
+  train_transformer_bf16  the same after ``gluon.block.cast(model,
+                          "bfloat16")``, as bench.py:729-730 casts it.
+  train_transformer_parity
+                          Transformer-big's widths at 2 + 2 layers, dropout
+                          0, on the card vs the CPU from the same weights: a
+                          padded batch (4 x 32 sources, 33-token targets),
+                          2 Adam steps under a CosineScheduler with warmup,
+                          clip_global_norm 1.0 and one parameter at lr_mult
+                          0.5; then again with accum_steps 2 and remat.
+                          The yardstick is the CPU in float64, LayerNorms
+                          included.  First one forward and backward on the
+                          card, on the CPU and in float64: the card's
+                          gradient within 1e-5 (relative L2) of float64's,
+                          the CPU's beside it, and the witness of their
+                          gap, the FFN ReLU inputs whose sign differs from
+                          float64's.  Then the runs on all three: losses
+                          within 1e-5 relative of float64's and of the
+                          CPU's, the card's update within 5e-4 (relative
+                          L2) of float64's over the model and 2e-2 in any
+                          tensor, where float64's gradient is not rounding
+                          noise (TT_PARITY_TOL); K1 20 launches in the
+                          first run and 80 in the second (a forward and
+                          its recomputation per microbatch).
+  optimizer               the imperative optimizer path: each of the 11
+                          classes (SGD, NAG, Adam, Adamax, Nadam, AdaGrad,
+                          AdaDelta, RMSProp, Ftrl, Signum, LAMB) through
+                          ``Updater`` for 3 updates of one BERT-base layer's
+                          parameter shapes, a FactorScheduler on and one
+                          parameter at lr_mult 0.5, on the card vs the CPU
+                          (rtol 1e-5, atol 1e-6); SGD, Adam and RMSProp
+                          through ``FusedUpdater.apply`` vs per parameter
+                          on the card (rtol 1e-6, atol 1e-7); and
+                          ``gluon.utils.clip_global_norm`` card vs CPU.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -210,6 +259,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12  # dense, on the tensor cores
+BF16_FLOPS_PER_S = 989e12  # dense bf16 or f16, on the tensor cores
 SEED = 0
 
 
@@ -315,9 +365,7 @@ def phase_layer_norm(torch, ctx):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     shapes, worst = [], 0.0
-    # decode (8) and prefill (64) rows of Transformer-big, a large batch
-    # at its width, and the training path's 32 x 512 rows of BERT-base
-    for n, c in ((8, 1024), (64, 1024), (8192, 1024), (16384, 768)):
+    for n, c in LN_SHAPES:
         x = torch.randn(n, c, device=dev, generator=g) * 2 + 0.5
         gamma = torch.randn(c, device=dev, generator=g)
         beta = torch.randn(c, device=dev, generator=g)
@@ -342,11 +390,17 @@ def phase_layer_norm(torch, ctx):
             "ok": all(s["ok"] for s in shapes + more)}
 
 
-# the decode, prefill, training and imperative shapes again in 16 bits;
-# then widths the warp-per-row path does not take: C 30 (no 16-byte
-# vector), 8192 (a block per row, the row staged in shared memory) and
-# 5001 (odd: a block per row with scalar loads)
-LN_SHAPES_16 = ((8, 1024), (64, 1024), (8192, 1024), (16384, 768))
+# decode (8) and prefill (64) rows of Transformer-big, a large batch at
+# its width, the training path's 32 x 512 rows of BERT-base, and
+# Transformer-big's training rows: the encoder's 16 x 128 and the
+# decoder's 16 x 129
+LN_SHAPES = ((8, 1024), (64, 1024), (8192, 1024), (16384, 768),
+             (2048, 1024), (2064, 1024))
+# the same shapes again in 16 bits; then widths the warp-per-row path does
+# not take: C 30 (no 16-byte vector), 8192 (a block per row, the row
+# staged in shared memory) and 5001 (odd: a block per row with scalar
+# loads)
+LN_SHAPES_16 = LN_SHAPES
 LN_WIDTHS = ((37, 30), (16, 8192), (16, 5001))
 
 
@@ -811,6 +865,13 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                                 "plain_ms": time_ms(torch, plain, **tk),
                                 "library_ms": lib_ms, "bound_ms": b_ms,
                                 "bound_by": b_by}
+                if dtype != "float32":
+                    # the least time for the work from 16-bit operands:
+                    # their bytes, and the products at the dense 16-bit
+                    # tensor-core rate
+                    times[kname]["bound_16bit_ms"], \
+                        times[kname]["bound_16bit_by"] = bound(
+                            *work[kname], BF16_FLOPS_PER_S)
                 times[kname]["ok"] = times[kname]["ms"] >= b_ms
             rows.append({"case": name, "dtype": dtype, "N": N, "Lq": Lq,
                          "Lk": Lk, "hd": D, "causal": causal,
@@ -2142,11 +2203,408 @@ def phase_train_resnet_profile(torch, ctx):
     return res
 
 
-# name, source, the TPU kernel it replaces, the path whose launches the
-# kernels line reports
+# ---------------------------------------------------------------------------
+# Transformer-big training (BASELINE config 4, bench.py:706-751) and the
+# optimizer layer
+# ---------------------------------------------------------------------------
+TT_VOCAB, TT_BATCH, TT_LEN = 32000, 16, 128  # bench.py:719-722
+TT_WARMUP, TT_STEPS = 2, 5
+TT_PARAMS = 210_173_952
+# K1 launches a step: 6 encoder cells x 2 LayerNorms + 6 decoder cells x
+# 3; every attention carries a padding mask, so no flash kernel runs
+TT_PER_STEP = {n: 0 for n in ALL_KERNELS}
+TT_PER_STEP["layer_norm"] = 30
+
+
+def _lsce(logits, labels):
+    from mxnet_tpu_torch.models.transformer import label_smoothed_ce
+
+    return label_smoothed_ce(logits, labels, smoothing=0.1)
+
+
+def _transformer_cell(torch, ctx, dtype):
+    """Transformer-big trained as bench_transformer trains it: vocab
+    32000, dropout 0.3, Adam lr 1e-4, label smoothing 0.1, a batch of 16
+    sources of 128 tokens and 129-token targets (bench.py:735-743)."""
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.models.transformer import transformer_big
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = transformer_big(TT_VOCAB,
+                            generator=torch.Generator().manual_seed(SEED))
+    if dtype == "bfloat16":
+        cast(model, dtype)  # bench.py:729-730
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    dtypes = sorted({str(t.dtype) for t in model.state_dict().values()
+                     if t.is_floating_point()})
+    step = DataParallelStep(model, _lsce, optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4})
+    rng = np.random.RandomState(SEED)
+    src = rng.randint(3, TT_VOCAB, (TT_BATCH, TT_LEN)).astype(np.int32)
+    tgt_in = np.concatenate([np.ones((TT_BATCH, 1), np.int32),
+                             src[:, ::-1]], axis=1)
+    tgt_out = np.concatenate([src[:, ::-1],
+                              np.full((TT_BATCH, 1), 2, np.int32)], axis=1)
+    dev = torch.device("cuda", 0)
+    data = (torch.from_numpy(src).to(dev),
+            torch.from_numpy(np.ascontiguousarray(tgt_in)).to(dev))
+    label = torch.from_numpy(tgt_out.astype(np.float32)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    warm = [float(step.step(data, label)) for _ in range(TT_WARMUP)]
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, wall = _train_steps(torch, step, data, label, TT_STEPS)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    path = "train_transformer" + ("_bf16" if dtype == "bfloat16" else "")
+    ctx["launches"][path] = launches
+    expected = {n: k * TT_STEPS for n, k in TT_PER_STEP.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _step_profile(torch, lambda: step.step(data, label))
+    busy = prof["device_busy_ms"]
+    ln_ms = prof["our_kernels_ms"]["ln_fwd_"]
+    losses = warm + losses
+    tps = TT_BATCH * (TT_LEN + 1) * TT_STEPS / wall  # bench.py:745
+    del step, model, data, label
+    torch.cuda.empty_cache()
+    return {
+        "model": "transformer_big", "dtype": dtype, "state_dtypes": dtypes,
+        "vocab": TT_VOCAB, "params": n_params, "dropout": 0.3,
+        "init_s": init_s, "batch": TT_BATCH, "src_len": TT_LEN,
+        "tgt_len": TT_LEN + 1, "optimizer": "adam", "learning_rate": 1e-4,
+        "loss": "label_smoothed_ce(smoothing=0.1)",
+        "warmup_steps": TT_WARMUP, "steps": TT_STEPS, "wall_s": wall,
+        "tokens_per_s": tps, "step_ms_median": statistics.median(step_ms),
+        "step_ms": step_ms, "losses": losses,
+        "max_memory_allocated_gb": peak_gb,
+        "launches": launches, "launches_expected": expected,
+        "profile_one_step": prof, "layer_norm_ms": ln_ms,
+        "layer_norm_share_of_busy": ln_ms / busy if busy else None,
+        "card": ctx["smi"],
+        "ok": bool(all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0] and launches == expected
+                   and n_params == TT_PARAMS
+                   and dtypes == [f"torch.{dtype}"])}
+
+
+def phase_train_transformer(torch, ctx):
+    return _transformer_cell(torch, ctx, "float32")
+
+
+def phase_train_transformer_bf16(torch, ctx):
+    return _transformer_cell(torch, ctx, "bfloat16")
+
+
+# card vs CPU on the step's features: Transformer-big's widths at 2 + 2
+# layers, dropout 0, a padded batch of 4 (sources 32, targets 33), 2 Adam
+# steps under a CosineScheduler with warmup, clip_global_norm 1.0 and one
+# parameter at lr_mult 0.5; then again with accum_steps 2 and remat.
+TT_PARITY_CFG = dict(units=1024, hidden_size=4096, num_heads=16,
+                     num_layers=2, dropout=0.0)
+TT_PARITY_RUNS = {"schedule_clip_mult": {},
+                  "accum_remat": {"accum_steps": 2, "remat": True}}
+# K1 a run of 2 steps: 2 x 2 + 2 x 3 LayerNorms a forward; one forward a
+# step, or per microbatch a forward and its recomputation under remat
+TT_PARITY_K1 = {"schedule_clip_mult": 10 * 2, "accum_remat": 2 * 2 * 20}
+# The yardstick is the same model on the CPU in float64, its LayerNorms
+# included (torch's own layer_norm there: the port's LayerNorm computes in
+# f32 whatever its input, as K1 does); its update is the step's own f32
+# arithmetic on the float64 gradient.  A ReLU input that lies within
+# rounding of zero lands on either side in an f32 forward, and its
+# gradient then flows or does not: the witness counts, per device, the
+# FFN ReLU inputs whose sign differs from the yardstick's.  The card's
+# gradient is held to the yardstick; the CPU's f32 one is reported beside
+# it.  Adam moves an element whose gradient is rounding noise by a full lr
+# step of either sign, so the updates are compared where the yardstick's
+# gradient at the start is not zero to within rounding (|g| at least 1e-6
+# of the model's largest |g|, the rule of
+# tests/test_torch_transformer_training.py).
+TT_PARITY_TOL = {"loss_rel": 1e-5, "grad_rel_model": 1e-5,
+                 "update_rel_model": 5e-4, "update_rel_tensor": 2e-2}
+TT_PARITY_NOISE = 1e-6
+
+
+def _parity_batch():
+    rng = np.random.RandomState(SEED + 5)
+    src = rng.randint(3, TT_VOCAB, (4, 32)).astype(np.int32)
+    src[1, 20:] = 0
+    src[3, 9:] = 0
+    tgt = rng.randint(3, TT_VOCAB, (4, 32)).astype(np.int32)
+    tgt[2, 25:] = 0
+    tgt[0, 30:] = 0
+    tgt_in = np.concatenate([np.ones((4, 1), np.int32), tgt], axis=1)
+    tgt_out = np.concatenate([tgt, np.full((4, 1), 2, np.int32)], axis=1)
+    tgt_out[2, 26:] = 0
+    tgt_out[0, 31:] = 0
+    return src, tgt_in, tgt_out.astype(np.float32)
+
+
+def _parity_net(torch, start, device, float64=False):
+    """The parity model from ``start``; with ``float64`` the CPU yardstick,
+    its LayerNorms in float64 too."""
+    from mxnet_tpu_torch.gluon.nn import LayerNorm
+    from mxnet_tpu_torch.models.transformer import Transformer
+
+    net = Transformer(TT_VOCAB, device=device, **TT_PARITY_CFG)
+    net.load_state_dict(start)
+    if float64:
+        net.double()
+        for m in net.modules():
+            if isinstance(m, LayerNorm):
+                m.forward = (lambda x, m=m: torch.nn.functional.layer_norm(
+                    x, (x.shape[-1],), m.weight, m.bias, m.eps))
+    return net
+
+
+def _parity_inputs(torch, device):
+    return tuple(torch.from_numpy(a).to(device) for a in _parity_batch())
+
+
+def _parity_run(torch, start, device, opts, float64=False):
+    from mxnet_tpu_torch.optimizer.lr_scheduler import CosineScheduler
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    net = _parity_net(torch, start, device, float64)
+    net.encoder.layers[0].attn.qkv.weight.lr_mult = 0.5
+    step = DataParallelStep(
+        net, _lsce, optimizer="adam", device=device, clip_global_norm=1.0,
+        optimizer_params={"learning_rate": 1e-4,
+                          "lr_scheduler": CosineScheduler(
+                              max_update=4, warmup_steps=1,
+                              warmup_begin_lr=1e-5)}, **opts)
+    src, tgt_in, label = _parity_inputs(torch, device)
+    losses = [float(step.step((src, tgt_in), label)) for _ in range(2)]
+    return losses, {k: v.detach().cpu().double()
+                    for k, v in net.state_dict().items()}
+
+
+def _rel_l2(got, want):
+    """(relative L2 distance over every tensor, worst (ratio, name))."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for key, w in want.items():
+        diff, ref = float((got[key] - w).norm()), float(w.norm())
+        num, den = num + diff ** 2, den + ref ** 2
+        if ref > 0:
+            worst = max(worst, (diff / ref, key))
+    return math.sqrt(num / den), worst
+
+
+def _parity_grads(torch, start, device, float64=False):
+    """The loss, every parameter's gradient and every FFN's ReLU input of
+    one training forward and backward from ``start``."""
+    net = _parity_net(torch, start, device, float64).train()
+    relu_in = []
+    for m in net.modules():
+        if hasattr(m, "ffn_1"):
+            m.ffn_1.register_forward_hook(
+                lambda mod, inp, out: relu_in.append(out.detach().cpu()))
+    src, tgt_in, label = _parity_inputs(torch, device)
+    loss = _lsce(net(src, tgt_in), label)
+    loss.backward()
+    return (float(loss.detach()),
+            {k: p.grad.detach().cpu().double()
+             for k, p in net.named_parameters()}, relu_in)
+
+
+def _relu_flips(relu_in, ref):
+    """How many ReLU inputs lie on the other side of zero than the
+    yardstick's, and the largest |input| of the yardstick among them."""
+    n, worst = 0, 0.0
+    for z, z64 in zip(relu_in, ref):
+        flip = (z > 0) != (z64 > 0)
+        n += int(flip.sum())
+        if flip.any():
+            worst = max(worst, float(z64[flip].abs().max()))
+    return {"flips": n, "max_abs_float64_input_at_flips": worst}
+
+
+def phase_train_transformer_parity(torch, ctx):
+    from mxnet_tpu_torch.models.transformer import Transformer
+
+    start = Transformer(TT_VOCAB, device="cpu",
+                        generator=torch.Generator().manual_seed(SEED + 6),
+                        **TT_PARITY_CFG).state_dict()
+    losses, grads, relu = {}, {}, {}
+    for name, dev, f64 in (("card", torch.device("cuda", 0), False),
+                           ("cpu", "cpu", False),
+                           ("float64", "cpu", True)):
+        losses[name], grads[name], relu[name] = _parity_grads(torch, start,
+                                                              dev, f64)
+    ref = grads.pop("float64")
+    top = max(float(g.abs().max()) for g in ref.values())
+    # the elements whose gradient is rounding noise
+    noise = {k: g.abs() < TT_PARITY_NOISE * top for k, g in ref.items()}
+    grad = {f"{name}_vs_float64": _rel_l2(g, ref)[0]
+            for name, g in grads.items()}
+    grad["card_vs_cpu"] = _rel_l2(grads["card"], grads["cpu"])[0]
+    witness = {name: _relu_flips(relu[name], relu["float64"])
+               for name in ("card", "cpu")}
+    del grads, ref, relu
+    ok = grad["card_vs_float64"] <= TT_PARITY_TOL["grad_rel_model"]
+    k1 = _counters()["layer_norm"]
+    runs = {}
+    for name, opts in TT_PARITY_RUNS.items():
+        k1.launches = 0
+        loss_g, w_g = _parity_run(torch, start, torch.device("cuda", 0),
+                                  opts)
+        launches = k1.launches
+        loss_c, w_c = _parity_run(torch, start, "cpu", opts)
+        loss_y, w_y = _parity_run(torch, start, "cpu", opts, float64=True)
+        upd = {k: {dev: (w[k] - w0.double())[~noise[k]]
+                   for dev, w in (("card", w_g), ("cpu", w_c),
+                                  ("float64", w_y))}
+               for k, w0 in start.items()}
+        model_rel, worst = _rel_l2({k: u["card"] for k, u in upd.items()},
+                                   {k: u["float64"] for k, u in upd.items()})
+        cpu_rel = _rel_l2({k: u["cpu"] for k, u in upd.items()},
+                          {k: u["float64"] for k, u in upd.items()})
+        rel = [abs(a - b) / abs(b) for a, b in zip(loss_g, loss_y)]
+        rel_cpu = [abs(a - b) / abs(b) for a, b in zip(loss_g, loss_c)]
+        res = {"opts": opts, "losses_card": loss_g, "losses_cpu": loss_c,
+               "losses_float64": loss_y, "loss_rel_diff": rel,
+               "loss_rel_diff_card_vs_cpu": rel_cpu,
+               "update_rel_model": model_rel,
+               "update_rel_worst_tensor": worst[0], "worst_tensor": worst[1],
+               "cpu_update_rel_model": cpu_rel[0],
+               "cpu_update_rel_worst_tensor": cpu_rel[1][0],
+               "k1_launches": launches, "k1_expected": TT_PARITY_K1[name]}
+        res["ok"] = bool(
+            max(rel + rel_cpu) <= TT_PARITY_TOL["loss_rel"]
+            and model_rel <= TT_PARITY_TOL["update_rel_model"]
+            and worst[0] <= TT_PARITY_TOL["update_rel_tensor"]
+            and launches == TT_PARITY_K1[name]
+            and loss_g[1] < loss_g[0])
+        ok = ok and res["ok"]
+        runs[name] = res
+    torch.cuda.empty_cache()
+    n_noise = sum(int(m.sum()) for m in noise.values())
+    return {"config": TT_PARITY_CFG, "batch": [4, 32, 33],
+            "tol": TT_PARITY_TOL, "losses_one_forward": losses,
+            "grad_rel_l2": grad, "relu_sign_vs_float64": witness,
+            "noise_elements": n_noise,
+            "noise_share": n_noise / sum(w.numel() for w in start.values()),
+            "runs": runs, "ok": ok}
+
+
+# one BERT-base layer's parameter shapes (qkv, proj, ffn_1, ffn_2, a
+# LayerNorm gamma, ffn_1's bias) and the position embedding
+OPT_SHAPES = ((2304, 768), (768, 768), (3072, 768), (768, 3072), (768,),
+              (3072,), (512, 768))
+OPT_CLASSES = {"sgd": dict(momentum=0.9), "nag": dict(momentum=0.9),
+               "adam": {}, "adamax": {}, "nadam": {}, "adagrad": {},
+               "adadelta": {}, "rmsprop": dict(centered=True), "ftrl": {},
+               "signum": dict(wd_lh=1e-3), "lamb": {}}
+OPT_FUSED = ("sgd", "adam", "rmsprop")
+# card vs CPU: the same f32 element-wise formulas, rounded in another
+# order where the card's compiler contracts a multiply and an add (and
+# LAMB's norms sum in another order); fused vs per-parameter on the card
+# at the JAX fused test's tolerance
+OPT_TOL = {"card_vs_cpu": {"rtol": 1e-5, "atol": 1e-6},
+           "fused_vs_per_param": {"rtol": 1e-6, "atol": 1e-7}}
+
+
+def _opt_inputs(rng, steps=3):
+    ws = [rng.standard_normal(s).astype(np.float32) * 0.05
+          for s in OPT_SHAPES]
+    # each element keeps one sign over the updates, at least 0.5 away
+    # from zero, so no momentum sits at zero where sign() (Signum) jumps
+    signs = [np.sign(rng.standard_normal(s)).astype(np.float32)
+             for s in OPT_SHAPES]
+    gs = [[sg * (0.5 + rng.random_sample(s).astype(np.float32))
+           for sg, s in zip(signs, OPT_SHAPES)] for _ in range(steps)]
+    return ws, gs
+
+
+def _opt_run(torch, name, device, ws, gs, fused):
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import FusedUpdater, Updater, create
+    from mxnet_tpu_torch.optimizer.lr_scheduler import FactorScheduler
+
+    opt = create(name, learning_rate=0.01, wd=1e-3, rescale_grad=0.5,
+                 clip_gradient=1.2,
+                 lr_scheduler=FactorScheduler(step=1, factor=0.9),
+                 **OPT_CLASSES[name])
+    opt.set_lr_mult({1: 0.5})
+    upd = FusedUpdater(opt) if fused else Updater(opt)
+    w = [NDArray(torch.tensor(x, device=device)) for x in ws]
+    for g in gs:
+        entries = [(i, NDArray(torch.tensor(x, device=device)), w[i])
+                   for i, x in enumerate(g)]
+        if fused:
+            upd.apply(entries)
+        else:
+            for i, gi, wi in entries:
+                upd(i, gi, wi)
+    return [x.data.cpu() for x in w], (upd.last_info if fused else None)
+
+
+def _close(torch, got, want, tol):
+    return max(float(((a - b).abs() - tol["rtol"] * b.abs()).max())
+               for a, b in zip(got, want)) <= tol["atol"]
+
+
+def phase_optimizer(torch, ctx):
+    """The imperative optimizer path on the card: each of the 11 classes
+    through ``Updater`` for 3 updates of one BERT-base layer's parameters
+    (an lr scheduler on, one parameter at lr_mult 0.5), against the same
+    updates on the CPU; SGD, Adam and RMSProp also through the fused
+    updater, against the per-parameter one; ``clip_global_norm``."""
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    from mxnet_tpu_torch.ndarray import NDArray
+
+    dev = torch.device("cuda", 0)
+    ws, gs = _opt_inputs(np.random.RandomState(SEED + 7))
+    classes, ok = {}, True
+    for name in OPT_CLASSES:
+        t0 = time.perf_counter()
+        card, _ = _opt_run(torch, name, dev, ws, gs, fused=False)
+        cpu, _ = _opt_run(torch, name, "cpu", ws, gs, fused=False)
+        err = max(float((a - b).abs().max()) for a, b in zip(card, cpu))
+        row = {"max_abs_diff_card_vs_cpu": err,
+               "card_vs_cpu_ok": _close(torch, card, cpu,
+                                        OPT_TOL["card_vs_cpu"])}
+        if name in OPT_FUSED:
+            fused, info = _opt_run(torch, name, dev, ws, gs, fused=True)
+            row.update(fused_info=info,
+                       max_abs_diff_fused_vs_per_param=max(
+                           float((a - b).abs().max())
+                           for a, b in zip(fused, card)),
+                       fused_ok=_close(torch, fused, card,
+                                       OPT_TOL["fused_vs_per_param"])
+                       and info["n_fused"] == len(OPT_SHAPES))
+        row["moved"] = max(float((a - torch.from_numpy(w0)).abs().max())
+                           for a, w0 in zip(card, ws))
+        row["seconds"] = time.perf_counter() - t0
+        row["ok"] = bool(row["card_vs_cpu_ok"] and row.get("fused_ok", True)
+                         and row["moved"] > 0)
+        ok = ok and row["ok"]
+        classes[name] = row
+    # clip_global_norm: the norm and the scaled arrays, card vs CPU
+    arrs = {d: [NDArray(torch.tensor(x, device=d)) for x in gs[0]]
+            for d in (dev, "cpu")}
+    norms = {d: clip_global_norm(a, 10.0) for d, a in arrs.items()}
+    clip_ok = (abs(norms[dev] - norms["cpu"]) <= 1e-5 * norms["cpu"]
+               and _close(torch, [a.data.cpu() for a in arrs[dev]],
+                          [a.data for a in arrs["cpu"]],
+                          OPT_TOL["card_vs_cpu"]))
+    return {"shapes": [list(s) for s in OPT_SHAPES], "tol": OPT_TOL,
+            "classes": classes,
+            "clip_global_norm": {"norm_card": norms[dev],
+                                 "norm_cpu": norms["cpu"], "ok": clip_ok},
+            "ok": bool(ok and clip_ok)}
+
+
+# name, source, the TPU kernel it replaces, the paths whose launches the
+# kernels line reports (summed)
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
-     "mxnet_tpu/ops/pallas/fused.py:98", "serve"),
+     "mxnet_tpu/ops/pallas/fused.py:98",
+     ("serve", "train_transformer", "train_transformer_bf16")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38", "serve"),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -2196,7 +2654,11 @@ def main() -> int:
               ("train_resnet", phase_train_resnet),
               ("train_resnet_bf16", phase_train_resnet_bf16),
               ("train_resnet_parity", phase_train_resnet_parity),
-              ("train_resnet_profile", phase_train_resnet_profile))
+              ("train_resnet_profile", phase_train_resnet_profile),
+              ("train_transformer", phase_train_transformer),
+              ("train_transformer_bf16", phase_train_transformer_bf16),
+              ("train_transformer_parity", phase_train_transformer_parity),
+              ("optimizer", phase_optimizer))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -2215,12 +2677,14 @@ def main() -> int:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
     kernels = []
-    for name, source, replaces, path in KERNELS:
+    for name, source, replaces, paths in KERNELS:
         k = ctx[name]
+        paths = (paths,) if isinstance(paths, str) else paths
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": ctx["launches"][path][name],
-            "path": path,
+            "replaces": replaces,
+            "launches": sum(ctx["launches"][p][name] for p in paths),
+            "path": paths[0] if len(paths) == 1 else list(paths),
             "launches_by_path": {p: ctx["launches"][p][name]
                                  for p in ctx["launches"]},
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",

@@ -2,7 +2,7 @@
 
 Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
 ``autograd``, ``passes``, ``gluon.nn``, ``models.transformer``,
-``serving``) in plain PyTorch idiom: models are
+``optimizer``, ``parallel``, ``serving``) in plain PyTorch idiom: models are
 ``torch.nn.Module``s, state is tensors on an explicit ``torch.device``,
 randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
 kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``), built
@@ -16,5 +16,7 @@ from .base import MXNetError
 from .context import cpu, default_device, gpu
 from . import autograd
 from . import ndarray as nd
+from . import optimizer
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd"]
+__all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd",
+           "optimizer"]

@@ -18,9 +18,20 @@ it to XLA, and so does cross-attention.
 Parameter names follow Gluon's through ``convert.from_mxnet_tpu_params``.
 Gluon's ``Dense(flatten=False)`` is ``torch.nn.Linear`` here (weight
 (out, in) in both).  The feed-forward activation is ``"gelu"`` (exact
-erf, the JAX ``LeakyReLU(act_type="gelu")``) or ``"relu"``; the defaults
-are the JAX classes' (gelu in the encoder, relu in the decoder), and
-``Transformer`` passes relu, the WMT recipe's.
+erf, the JAX ``LeakyReLU(act_type="gelu")``) or one of the ``Activation``
+op's (``"relu"``, ``"sigmoid"``, ``"tanh"``, ``"softrelu"``,
+``"softsign"``); the defaults are the JAX classes' (gelu in the encoder,
+relu in the decoder and in ``Transformer``, the WMT recipe's).  The cells,
+and the encoder and decoder, are post-LN unless built with
+``pre_norm=True`` (the deep-net variant, the same branches as the JAX
+cells); ``Transformer`` builds them post-LN, as the JAX class does
+(switch a cell's ``pre_norm`` attribute for the other branch).
+``Transformer(tie_embeddings=False)``
+projects to the vocabulary through its own ``out_proj`` (Gluon prefix
+``out_``) instead of the shared embedding.
+
+:func:`label_smoothed_ce` is the training loss of BASELINE config 4
+(``bench.py:706-751``), with the JAX function's roundings.
 """
 from __future__ import annotations
 
@@ -33,14 +44,16 @@ from torch.nn import functional as F
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon.loss import log_softmax
 from ..gluon.nn import LayerNorm
 from ..ops.kernels import flash_attention
+from ..ops.nn import activation as _activation_op
 
 __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
            "PositionalEmbedding", "TransformerDecoderCell",
            "TransformerDecoder", "Transformer", "transformer_base",
-           "transformer_big"]
+           "transformer_big", "label_smoothed_ce"]
 
 
 def _split_heads(t, num_heads: int, head_dim: int):
@@ -123,7 +136,9 @@ class MultiHeadAttention(nn.Module):
 
 
 _ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="none"),
-                "relu": torch.relu}
+                **{a: (lambda h, a=a: _activation_op(h, a))
+                   for a in ("relu", "sigmoid", "tanh", "softrelu",
+                             "softsign")}}
 
 
 class PositionwiseFFN(nn.Module):
@@ -143,11 +158,13 @@ class PositionwiseFFN(nn.Module):
 
 
 class TransformerEncoderCell(nn.Module):
-    """Post-LN encoder layer."""
+    """Post-LN (or, with ``pre_norm``, pre-LN) encoder layer."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
-                 dropout: float = 0.0, activation: str = "gelu"):
+                 dropout: float = 0.0, activation: str = "gelu",
+                 pre_norm: bool = False):
         super().__init__()
+        self.pre_norm = pre_norm
         self.attn = MultiHeadAttention(units, num_heads, dropout)
         self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation)
         self.ln1 = LayerNorm(units)
@@ -155,6 +172,9 @@ class TransformerEncoderCell(nn.Module):
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x, mask=None):
+        if self.pre_norm:
+            x = x + self.drop(self.attn(self.ln1(x), mask))
+            return x + self.ffn(self.ln2(x))
         x = self.ln1(x + self.drop(self.attn(x, mask)))
         return self.ln2(x + self.ffn(x))
 
@@ -174,11 +194,11 @@ class PositionalEmbedding(nn.Module):
 class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, units: int, hidden_size: int,
                  num_heads: int, dropout: float = 0.0,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", pre_norm: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerEncoderCell(units, hidden_size, num_heads, dropout,
-                                   activation)
+                                   activation, pre_norm)
             for _ in range(num_layers))
 
     def forward(self, x, mask=None):
@@ -218,21 +238,27 @@ class MultiHeadCrossAttention(nn.Module):
 
 class TransformerDecoderCell(nn.Module):
     """Causal self-attention + cross-attention + FFN, post-LN (the WMT
-    recipe)."""
+    recipe; ``pre_norm=True`` for the deep-net variant)."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, activation: str = "relu",
+                 pre_norm: bool = False):
         super().__init__()
+        self.pre_norm = pre_norm
         self.self_attn = MultiHeadAttention(units, num_heads, dropout,
                                             causal=True)
         self.cross_attn = MultiHeadCrossAttention(units, num_heads, dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, "relu")
+        self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation)
         self.ln1 = LayerNorm(units)
         self.ln2 = LayerNorm(units)
         self.ln3 = LayerNorm(units)
         self.drop = nn.Dropout(dropout)
 
     def forward(self, x, mem, self_mask=None, cross_mask=None):
+        if self.pre_norm:
+            x = x + self.drop(self.self_attn(self.ln1(x), self_mask))
+            x = x + self.drop(self.cross_attn(self.ln2(x), mem, cross_mask))
+            return x + self.ffn(self.ln3(x))
         x = self.ln1(x + self.drop(self.self_attn(x, self_mask)))
         x = self.ln2(x + self.drop(self.cross_attn(x, mem, cross_mask)))
         return self.ln3(x + self.ffn(x))
@@ -243,8 +269,13 @@ class TransformerDecoderCell(nn.Module):
         attends the query over every row written so far
         (``update_and_attend``).  Inference only."""
         sa = self.self_attn
-        q_t, k_t, v_t = sa.qkv(x_t).chunk(3, dim=-1)
+        h = self.ln1(x_t) if self.pre_norm else x_t
+        q_t, k_t, v_t = sa.qkv(h).chunk(3, dim=-1)
         a = sa.proj(cache.update_and_attend(sa, q_t, k_t, v_t))
+        if self.pre_norm:
+            x = x_t + a
+            x = x + self.cross_attn(self.ln2(x), mem, cross_mask_t)
+            return x + self.ffn(self.ln3(x))
         x = self.ln1(x_t + a)
         x = self.ln2(x + self.cross_attn(x, mem, cross_mask_t))
         return self.ln3(x + self.ffn(x))
@@ -252,10 +283,12 @@ class TransformerDecoderCell(nn.Module):
 
 class TransformerDecoder(nn.Module):
     def __init__(self, num_layers: int, units: int, hidden_size: int,
-                 num_heads: int, dropout: float = 0.0):
+                 num_heads: int, dropout: float = 0.0,
+                 activation: str = "relu", pre_norm: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerDecoderCell(units, hidden_size, num_heads, dropout)
+            TransformerDecoderCell(units, hidden_size, num_heads, dropout,
+                                   activation, pre_norm)
             for _ in range(num_layers))
 
     def forward(self, x, mem, self_mask=None, cross_mask=None):
@@ -276,7 +309,8 @@ def _attend_cached(q_t, K, V, keep, num_heads: int, head_dim: int):
 
 class Transformer(nn.Module):
     """Encoder-decoder Transformer with a shared source/target embedding
-    and tied output projection (the WMT14 recipe).
+    and, by default, a tied output projection (the WMT14 recipe;
+    ``tie_embeddings=False`` gives it an ``out_proj`` of its own).
 
     forward(src, tgt) -> logits (B, Tt, vocab).  Padding id 0 is masked
     out of both attention directions; decoder self-attention is causal.
@@ -290,24 +324,29 @@ class Transformer(nn.Module):
     # module path segment -> Gluon prefix (convert.from_mxnet_tpu_params)
     gluon_segments = {"encoder": "enc", "decoder": "dec", "self_attn": "self",
                       "cross_attn": "cross", "q_proj": "q", "ffn_1": "ffn1",
-                      "ffn_2": "ffn2"}
+                      "ffn_2": "ffn2", "out_proj": "out"}
 
     def __init__(self, vocab_size: int, units: int = 512,
                  hidden_size: int = 2048, num_heads: int = 8,
                  num_layers: int = 6, max_length: int = 1024,
-                 dropout: float = 0.1, pad_id: int = 0, device=None,
+                 dropout: float = 0.1, pad_id: int = 0,
+                 tie_embeddings: bool = True, activation: str = "relu",
+                 device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         device = resolve_device(device)
         self.units = units
         self.pad_id = pad_id
+        self.tie_embeddings = tie_embeddings
         self.embed = nn.Embedding(vocab_size, units)
         self.pos = PositionalEmbedding(max_length, units)
         self.enc_drop = nn.Dropout(dropout)
         self.encoder = TransformerEncoder(num_layers, units, hidden_size,
-                                          num_heads, dropout, "relu")
+                                          num_heads, dropout, activation)
         self.decoder = TransformerDecoder(num_layers, units, hidden_size,
-                                          num_heads, dropout)
+                                          num_heads, dropout, activation)
+        if not tie_embeddings:
+            self.out_proj = nn.Linear(units, vocab_size)
         self.reset_parameters(generator)
         self.to(device)
 
@@ -335,6 +374,8 @@ class Transformer(nn.Module):
         return self.encoder(mem, enc_mask), src_keep
 
     def _logits(self, h):
+        if not self.tie_embeddings:
+            return self.out_proj(h)
         # tied softmax: logits = h E^T with the shared embedding matrix
         return h @ self.embed.weight.t()
 
@@ -365,6 +406,31 @@ class Transformer(nn.Module):
         for cell, cache in zip(self.decoder.layers, caches):
             x = cell.step(x, mem, cross_mask_t, cache)
         return self._logits(x.reshape(x.shape[0], -1))
+
+
+def label_smoothed_ce(logits, labels, smoothing: float = 0.1,
+                      pad_id: int = 0):
+    """Label-smoothed cross entropy over (B, T, V) logits, pad positions
+    ignored: the scalar mean over the tokens whose label is not
+    ``pad_id`` of ``(1 - s) * nll + s * (-mean log p)``.
+
+    ``mxnet_tpu/models/transformer.py::label_smoothed_ce`` step for step,
+    in its dtypes: the log-softmax rounds where ``jax.nn.log_softmax``
+    does in the logits' type (``gluon.loss.log_softmax``); the weights
+    ``1 - s`` and ``s`` round to that type, as the JAX package's scalar
+    operands do; the mean over V accumulates in f32 and rounds to it.
+    Labels may arrive as floats (``bench.py:743``): the keep mask is then
+    of their type and promotes the loss to it, as ``jnp`` promotes."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    lab = labels.reshape(-1)
+    logp = log_softmax(flat, -1)
+    nll = -logp.gather(-1, lab.long().clamp(0, flat.shape[-1] - 1)[:, None])
+    smooth = -logp.mean(dim=-1, dtype=torch.float32).to(logp.dtype)
+    w_nll, w_smooth = (float(torch.tensor(w, dtype=logp.dtype))
+                       for w in (1.0 - smoothing, smoothing))
+    loss = w_nll * nll[:, 0] + w_smooth * smooth
+    keep = (lab != pad_id).to(lab.dtype)
+    return (loss * keep).sum() / torch.clamp(keep.sum(), min=1.0)
 
 
 def transformer_base(vocab_size: int, **kwargs) -> Transformer:

@@ -9,6 +9,7 @@ from . import reduce_ops  # noqa: F401
 from . import matrix  # noqa: F401
 from . import nn  # noqa: F401
 from . import contrib_ops  # noqa: F401
+from . import optimizer_ops  # noqa: F401
 
 __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
            "list_ops"]

@@ -35,7 +35,17 @@ bad = sorted(n for n in set(sys.modules) - before
 print("LOADED", len([n for n in sys.modules
                      if n.startswith("mxnet_tpu_torch")]))
 print("BAD", bad)
+print("MISSING", sorted(m for m in NEEDED if m not in sys.modules))
 """
+# the modules each slice added, which the walk above must load
+NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
+          "mxnet_tpu_torch.optimizer.fused",
+          "mxnet_tpu_torch.optimizer.foreach",
+          "mxnet_tpu_torch.optimizer.lr_scheduler",
+          "mxnet_tpu_torch.ops.optimizer_ops",
+          "mxnet_tpu_torch.gluon.utils",
+          "mxnet_tpu_torch.parallel.data_parallel",
+          "mxnet_tpu_torch.models.transformer")
 
 
 def _no_cuda():
@@ -45,13 +55,15 @@ def _no_cuda():
 
 def test_port_loads_no_jax_and_no_mxnet_tpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", _CHILD], cwd=ROOT, env=env,
+    child = f"NEEDED = {NEEDED!r}\n" + _CHILD
+    out = subprocess.run([sys.executable, "-c", child], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = dict(ln.split(" ", 1) for ln in out.stdout.splitlines()
-                 if ln.startswith(("LOADED", "BAD")))
+                 if ln.startswith(("LOADED", "BAD", "MISSING")))
     assert int(lines["LOADED"]) >= 10
     assert lines["BAD"] == "[]", lines["BAD"]
+    assert lines["MISSING"] == "[]", lines["MISSING"]
 
 
 def test_port_sources_import_no_jax_and_no_mxnet_tpu():
