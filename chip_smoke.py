@@ -223,6 +223,39 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           through ``FusedUpdater.apply`` vs per parameter
                           on the card (rtol 1e-6, atol 1e-7); and
                           ``gluon.utils.clip_global_norm`` card vs CPU.
+  gluon_mnist             BASELINE config 1 as ``examples/train_mnist.py``
+                          runs it, on the port: LeNet through
+                          ``HybridSequential`` with deferred shapes,
+                          ``initialize(Xavier)``, ``hybridize()``, Adam lr
+                          0.01 through ``gluon.Trainer``,
+                          ``SoftmaxCrossEntropyLoss``, ``metric.Accuracy``,
+                          3 epochs of ``synthetic_mnist(2048)`` at batch 64
+                          on ``cuda:0``: train accuracy > 0.95 (the
+                          example's gate), every kernel counter 0, one
+                          CachedOp entry; images/s and step ms of each
+                          epoch, 8 profiled steps (busy share).
+  gluon_bert              BERT-base (vocab 30522, dropout 0) at 32 x 512
+                          through the Gluon loop: ``initialize(Normal(0.02))``,
+                          ``hybridize()``, ``gluon.Trainer`` Adam lr 1e-4,
+                          ``autograd.record()`` -> per-token
+                          ``SoftmaxCrossEntropyLoss`` -> ``backward()`` ->
+                          ``trainer.step(32 * 512)``; 2 warm-up and 5 timed
+                          steps with the counters zeroed just before: K1 26
+                          and K3-K5 12 a step, the loss falling, every
+                          Parameter through ``FusedUpdater.apply``, one
+                          CachedOp entry for the training signature;
+                          tokens/s, step ms and peak memory beside the
+                          ``train`` phase's, the host ms of a recorded 1 x 8
+                          forward as an NDArray call and as a tensor call,
+                          one profiled step.
+  gluon_bert_parity       BERT-base initialized on the CPU, carried by
+                          ``save_parameters`` / ``load_parameters``; one
+                          Trainer step on a (2, 128) batch on the card, on
+                          the CPU and on the CPU in float64 (LayerNorms
+                          too): loss, gradient and update of the card
+                          against float64's and the f32 CPU's, relative L2
+                          over the model and in the worst tensor
+                          (GB_PARITY_TOL).
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -2604,20 +2637,368 @@ def phase_optimizer(torch, ctx):
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
-     ("serve", "train_transformer", "train_transformer_bf16")),
+     ("serve", "train_transformer", "train_transformer_bf16",
+      "gluon_bert")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38", "serve"),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:72", "train"),
+     "mxnet_tpu/ops/pallas/flash_attention.py:72", ("train", "gluon_bert")),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:131", "train"),
+     "mxnet_tpu/ops/pallas/flash_attention.py:131", ("train", "gluon_bert")),
     ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:158", "train"),
+     "mxnet_tpu/ops/pallas/flash_attention.py:158", ("train", "gluon_bert")),
     ("add_layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:166", "imperative"),
     ("softmax_cross_entropy", "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
      "mxnet_tpu/ops/pallas/fused.py:36", "softmax_cross_entropy"),
 )
+
+
+# ---------------------------------------------------------------------------
+# the Gluon loop: Gluon core, the kvstore and the Trainer
+# ---------------------------------------------------------------------------
+MNIST_N, MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 2048, 64, 3, 0.01
+GB_WARMUP, GB_STEPS = 2, 5
+GB_PARITY_BATCH = (2, 128)
+# one Adam step of BERT-base through gluon.Trainer, card vs the CPU in
+# float64 (LayerNorms included) and vs the f32 CPU, the same bounds as the
+# Transformer's step (TT_PARITY_TOL) with the gradient's worst tensor
+# beside its whole; updates compared where float64's gradient is not
+# rounding noise (TT_PARITY_NOISE)
+GB_PARITY_TOL = {"loss_rel": 1e-5, "grad_rel_model": 1e-5,
+                 "grad_rel_tensor": 1e-3, "update_rel_model": 5e-4,
+                 "update_rel_tensor": 2e-2}
+
+
+def _synthetic_mnist(n=MNIST_N):
+    """``examples/train_mnist.py``'s ``synthetic_mnist`` (that file imports
+    the JAX package): class-conditional blobs from ``RandomState(0)``."""
+    rng = np.random.RandomState(0)
+    X = np.zeros((n, 1, 28, 28), np.float32)
+    y = rng.randint(0, 10, n)
+    for i in range(n):
+        c = y[i]
+        cx, cy = 8 + (c % 4) * 4, 8 + (c // 4) * 4
+        X[i, 0, cy - 3:cy + 3, cx - 3:cx + 3] = 1.0
+        X[i, 0] += rng.randn(28, 28) * 0.15
+    return X, y.astype(np.float32)
+
+
+def _lenet(gluon):
+    """``examples/train_mnist.py``'s ``build_net("lenet")``."""
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Conv2D(20, 5, activation="relu"),
+            gluon.nn.MaxPool2D(2, 2),
+            gluon.nn.Conv2D(50, 5, activation="relu"),
+            gluon.nn.MaxPool2D(2, 2), gluon.nn.Flatten(),
+            gluon.nn.Dense(500, activation="relu"), gluon.nn.Dense(10))
+    return net
+
+
+def phase_gluon_mnist(torch, ctx):
+    """BASELINE config 1 as ``examples/train_mnist.py`` runs it, on the
+    port: LeNet with deferred shapes, ``initialize(Xavier)``,
+    ``hybridize()``, Adam through ``gluon.Trainer``, ``metric.Accuracy``,
+    3 epochs of ``synthetic_mnist(2048)`` at batch 64 on ``cuda:0``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    counted = _counters()
+    for fn in counted.values():
+        fn.launches = 0
+    dev = mx.gpu(0)
+    mx.random.seed(42)
+    X, y = _synthetic_mnist()
+    net = _lenet(gluon)
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": MNIST_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    metric = mx.metric.Accuracy()
+    B = MNIST_BATCH
+    shuffle = np.random.RandomState(42)
+
+    def step(idx):
+        data, label = nd.array(X[idx], ctx=dev), nd.array(y[idx], ctx=dev)
+        with autograd.record():
+            out = net(data)
+            loss = loss_fn(out, label)
+        loss.backward()
+        trainer.step(B)
+        metric.update(label, out)
+
+    epochs = []
+    for epoch in range(MNIST_EPOCHS):
+        metric.reset()
+        perm = shuffle.permutation(len(X))
+        starts = range(0, len(X) - B + 1, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in starts:
+            step(perm[i:i + B])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs.append({"epoch": epoch, "accuracy": metric.get()[1],
+                       "wall_s": wall,
+                       "images_per_s": len(starts) * B / wall,
+                       "step_ms": wall * 1e3 / len(starts)})
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["gluon_mnist"] = launches
+    batches = iter(shuffle.permutation(len(X))[:8 * B].reshape(8, B))
+    prof = _step_profile(torch, lambda: step(next(batches)), steps=8)
+    last = epochs[-1]
+    ctx["gluon_mnist"] = {k: last[k] for k in ("images_per_s", "step_ms")}
+    return {"net": "lenet", "images": MNIST_N, "batch": B,
+            "optimizer": "adam", "learning_rate": MNIST_LR,
+            "epochs": epochs, "images_per_s": last["images_per_s"],
+            "step_ms": last["step_ms"], "train_accuracy": last["accuracy"],
+            "cached_op_entries": net._cached_op.num_entries,
+            "launches": launches, "profile_8_steps": prof,
+            "card": ctx["smi"],
+            "ok": bool(last["accuracy"] > 0.95
+                       and not any(launches.values())
+                       and net._cached_op.num_entries == 1)}
+
+
+def _gluon_mlm(net, loss_fn, data, label):
+    """The per-token MLM losses of BERT through the Gluon call (one value
+    per token, as ``SoftmaxCrossEntropyLoss`` gives per sample)."""
+    out = net(data)
+    return loss_fn(out.reshape((-1, BERT_VOCAB)), label.reshape((-1,)))
+
+
+def _nd_call_host_ms(torch, net, dev, rounds=6, reps=10):
+    """Host ms of one recorded forward of a 1 x 8 batch as an NDArray call
+    (the Gluon convention: leaves, train flag, wrapping, CachedOp) and as
+    a tensor call: medians over ``rounds`` rounds, each taking the two in
+    turns (ABBA), ``reps`` calls ending in a sync each."""
+    from mxnet_tpu_torch import autograd, nd
+
+    x_nd = nd.array(np.zeros((1, 8), np.int32), ctx=dev, dtype=np.int32)
+    x_t = x_nd.data
+
+    def nd_call():
+        with autograd.record():
+            net(x_nd)
+
+    def tensor_call():
+        with torch.enable_grad():
+            net(x_t)
+
+    def run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    run(nd_call)
+    run(tensor_call)
+    got = {"ndarray_call_ms": [], "tensor_call_ms": []}
+    for i in range(rounds):
+        order = ((nd_call, tensor_call) if i % 2 == 0
+                 else (tensor_call, nd_call))
+        for fn in order:
+            key = "ndarray_call_ms" if fn is nd_call else "tensor_call_ms"
+            got[key].append(run(fn))
+    out = {k: statistics.median(v) for k, v in got.items()}
+    out["convention_ms"] = out["ndarray_call_ms"] - out["tensor_call_ms"]
+    out["samples"] = got
+    return out
+
+
+def phase_gluon_bert(torch, ctx):
+    """BERT-base at full width through the Gluon loop: ``initialize(
+    Normal(0.02))`` (``examples/bert_pretrain.py:69``), ``hybridize()``,
+    ``gluon.Trainer`` with Adam lr 1e-4; each step ``autograd.record()``
+    -> per-token loss -> ``backward()`` -> ``trainer.step(tokens)``; 2
+    warm-up and 5 timed steps on the train phase's batch."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.optimizer import FusedUpdater
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    mx.random.seed(SEED)
+    t0 = time.perf_counter()
+    net = bert_base(BERT_VOCAB, dropout=0.0, init_weights=False)
+    net.initialize(mx.init.Normal(0.02), ctx=dev)
+    net.hybridize()
+    init_s = time.perf_counter() - t0
+    params = net.collect_params()
+    n_params = sum(p.data().size for p in params.values())
+    trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    tokens = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(np.int32)
+    data = nd.array(tokens, ctx=dev, dtype=np.int32)
+    label = nd.array(tokens.astype(np.float32), ctx=dev)
+    n_tok = TRAIN_BATCH * TRAIN_LEN
+
+    def step():
+        with autograd.record():
+            loss = _gluon_mlm(net, loss_fn, data, label)
+        loss.backward()
+        trainer.step(n_tok)
+        return loss.mean()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step().asscalar()) for _ in range(GB_WARMUP)]
+    counted = _counters()
+    for fn in counted.values():
+        fn.launches = 0
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(GB_STEPS)]
+    handles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        handles.append(step())
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["gluon_bert"] = launches
+    losses += [float(h.asscalar()) for h in handles]
+    step_ms = [a.elapsed_time(b) for a, b in marks]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    upd = trainer._updaters[0]
+    info = dict(upd.last_info)
+    entries = [{"train": k[0], "signature": str(k[1]), **v}
+               for k, v in net._cached_op.entries.items()]
+    host = _nd_call_host_ms(torch, net, dev)
+    prof = _step_profile(torch, step, steps=1)
+    expected = {n: k * GB_STEPS for n, k in TRAIN_PER_STEP.items()}
+    tokens_per_s = n_tok * GB_STEPS / wall
+    train_entries = [e for e in entries if e["train"] and
+                     f"({TRAIN_BATCH}, {TRAIN_LEN})" in e["signature"]]
+    return {
+        "model": "bert_base", "vocab": BERT_VOCAB, "params": n_params,
+        "init_s": init_s, "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+        "steps": GB_STEPS, "wall_s": wall, "tokens_per_s": tokens_per_s,
+        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "max_memory_allocated_gb": peak,
+        "train_phase": ctx.get("train_f32"),
+        "losses": losses, "launches": launches,
+        "launches_expected": expected, "updater": type(upd).__name__,
+        "updater_last_info": info, "cached_op_entries": entries,
+        "host_call": host, "profile_1_step": prof, "card": ctx["smi"],
+        "ok": bool(all(math.isfinite(x) for x in losses)
+                   and losses[-1] < losses[0] and launches == expected
+                   and n_params == 133_545_786
+                   and isinstance(upd, FusedUpdater)
+                   and info["n_fused"] == len(params)
+                   and info["n_fallback"] == 0
+                   and len(train_entries) == 1)}
+
+
+def _gluon_bert_step(torch, fname, device, float64=False):
+    """One ``gluon.Trainer`` Adam step of BERT-base loaded from ``fname``
+    on ``device`` (with ``float64`` the CPU yardstick, LayerNorms in
+    float64 too) on the parity batch: (mean loss, gradients, updates),
+    float64 CPU tensors by structural name."""
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.gluon.nn import LayerNorm
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    net = bert_base(BERT_VOCAB, dropout=0.0, init_weights=False)
+    net.load_parameters(fname, ctx=device)
+    if float64:
+        net.cast("float64")
+        for m in net.modules():
+            if isinstance(m, LayerNorm):
+                m.forward = (lambda x, m=m: torch.nn.functional.layer_norm(
+                    x, (x.shape[-1],), m.weight, m.bias, m.eps))
+    net.hybridize()
+    # by structural name: each net's Gluon prefix takes the next count
+    params = net._collect_params_with_prefix()
+    before = {k: p.data().data.detach().cpu().double().clone()
+              for k, p in params.items()}
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4})
+    tokens = np.random.RandomState(SEED + 7).randint(
+        0, BERT_VOCAB, GB_PARITY_BATCH).astype(np.int32)
+    data = nd.array(tokens, ctx=device, dtype=np.int32)
+    label = nd.array(tokens.astype(np.float32), ctx=device)
+    with autograd.record():
+        loss = _gluon_mlm(net, gluon.loss.SoftmaxCrossEntropyLoss(), data,
+                          label)
+    loss.backward()
+    grads = {k: p.grad().data.detach().cpu().double().clone()
+             for k, p in params.items()}
+    trainer.step(tokens.size)
+    upd = {k: p.data().data.detach().cpu().double() - before[k]
+           for k, p in params.items()}
+    return float(loss.mean().asscalar()), grads, upd
+
+
+def phase_gluon_bert_parity(torch, ctx):
+    """One Trainer step of BERT-base at full width on a (2, 128) batch,
+    from weights made on the CPU (``initialize(Normal(0.02))``) and
+    carried by ``save_parameters`` / ``load_parameters``: the card vs the
+    CPU in float64 and vs the f32 CPU (GB_PARITY_TOL)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    fname = os.path.join(here, "build", f"gluon_bert-{os.getpid()}.params")
+    os.makedirs(os.path.dirname(fname), exist_ok=True)
+    mx.random.seed(SEED + 6)
+    start = bert_base(BERT_VOCAB, dropout=0.0, init_weights=False)
+    start.initialize(mx.init.Normal(0.02), ctx=mx.cpu())
+    start.save_parameters(fname)
+    del start
+    try:
+        runs = {name: _gluon_bert_step(torch, fname, dev, f64)
+                for name, dev, f64 in (("card", mx.gpu(0), False),
+                                       ("cpu", mx.cpu(), False),
+                                       ("float64", mx.cpu(), True))}
+    finally:
+        os.remove(fname)
+    loss_y, grad_y, upd_y = runs.pop("float64")
+    top = max(float(g.abs().max()) for g in grad_y.values())
+    keep = {k: g.abs() >= TT_PARITY_NOISE * top for k, g in grad_y.items()}
+    tol = GB_PARITY_TOL
+    res, ok = {}, True
+    for name, (loss, grad, upd) in runs.items():
+        g_model, g_worst = _rel_l2(grad, grad_y)
+        u_model, u_worst = _rel_l2({k: u[keep[k]] for k, u in upd.items()},
+                                   {k: u[keep[k]] for k, u in upd_y.items()})
+        res[f"{name}_vs_float64"] = {
+            "loss_rel": abs(loss - loss_y) / abs(loss_y),
+            "grad_rel_model": g_model, "grad_rel_worst_tensor": g_worst[0],
+            "grad_worst_tensor": g_worst[1], "update_rel_model": u_model,
+            "update_rel_worst_tensor": u_worst[0],
+            "update_worst_tensor": u_worst[1]}
+    loss_g, grad_g, upd_g = runs["card"]
+    loss_c, grad_c, upd_c = runs["cpu"]
+    g_model, g_worst = _rel_l2(grad_g, grad_c)
+    u_model, u_worst = _rel_l2({k: u[keep[k]] for k, u in upd_g.items()},
+                               {k: u[keep[k]] for k, u in upd_c.items()})
+    res["card_vs_cpu"] = {
+        "loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+        "grad_rel_model": g_model, "grad_rel_worst_tensor": g_worst[0],
+        "grad_worst_tensor": g_worst[1], "update_rel_model": u_model,
+        "update_rel_worst_tensor": u_worst[0],
+        "update_worst_tensor": u_worst[1]}
+    for key in ("card_vs_float64", "card_vs_cpu"):
+        r = res[key]
+        ok = ok and (r["loss_rel"] <= tol["loss_rel"]
+                     and r["grad_rel_model"] <= tol["grad_rel_model"]
+                     and r["grad_rel_worst_tensor"] <= tol["grad_rel_tensor"]
+                     and r["update_rel_model"] <= tol["update_rel_model"]
+                     and r["update_rel_worst_tensor"]
+                     <= tol["update_rel_tensor"])
+    n_keep = sum(int(m.sum()) for m in keep.values())
+    return {"batch": list(GB_PARITY_BATCH), "tol": tol,
+            "losses": {"card": loss_g, "cpu": loss_c, "float64": loss_y},
+            "compared_share": n_keep / sum(m.numel() for m in keep.values()),
+            **res, "ok": bool(ok)}
 
 
 def main() -> int:
@@ -2658,7 +3039,10 @@ def main() -> int:
               ("train_transformer", phase_train_transformer),
               ("train_transformer_bf16", phase_train_transformer_bf16),
               ("train_transformer_parity", phase_train_transformer_parity),
-              ("optimizer", phase_optimizer))
+              ("optimizer", phase_optimizer),
+              ("gluon_mnist", phase_gluon_mnist),
+              ("gluon_bert", phase_gluon_bert),
+              ("gluon_bert_parity", phase_gluon_bert_parity))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

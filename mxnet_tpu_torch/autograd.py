@@ -14,7 +14,13 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause`` scopes,
     writes each buffer by its ``grad_req``: ``write`` replaces it on
     every call (torch itself would accumulate), ``add`` adds to it;
     ``null`` has no buffer.  A head with no gradient given is seeded with
-    ones, whatever its shape (torch wants a scalar).
+    ones, whatever its shape (torch wants a scalar);
+  * a Gluon ``Parameter`` takes part as its ``data()`` array, whose leaf
+    is the module's ``nn.Parameter`` and whose buffer is that tensor's
+    ``.grad`` (``gluon.parameter``): a block called with NDArrays under
+    ``record()`` registers them (``register_leaves``), and the buffer is
+    written in place by the Parameter's ``grad_req``, ``add``
+    accumulating until ``zero_grad``.
 
 ``is_training()`` is this module's flag, set by ``record``/``train_mode``
 and the ``train_mode`` arguments, not ``nn.Module.training``.

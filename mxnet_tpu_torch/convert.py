@@ -7,24 +7,14 @@ gives for a ``mxnet_tpu`` net — and loads them into the port's
 ``state_dict``.  numpy is the only currency, so the port never imports
 ``mxnet_tpu``.
 
-Names map segment by segment: the net's own ``prefix`` is stripped, each
-module path step takes its Gluon prefix from the model family's segment
-map (the top-level module's ``gluon_segments``; a segment the map does
-not name is its own prefix), ``layers.3`` is ``layer3``, and a
-LayerNorm's or BatchNorm's ``weight``/``bias`` are Gluon's
-``gamma``/``beta``.  A module that carries a ``gluon_prefix`` (the layers
-of ``models.resnet``, which reproduce Gluon's per-scope counters:
-``stage1_conv2d3_``) is named by it instead of by its path, and a module
-with a ``from_gluon(leaf, tensor)`` hook turns the Gluon layout into its
-own (an NHWC convolution's ``(O, kh, kw, I)`` weight into torch's
-OIHW).  For the seq2seq ``Transformer`` (``encoder`` -> ``enc``, ``self_attn`` ->
-``self``, ``q_proj`` -> ``q``, ``ffn_1`` -> ``ffn1``, ...)
-``decoder.layers.0.self_attn.qkv.weight`` is
-``<prefix>dec_layer0_self_qkv_weight``; for BERT (``token_type_embed`` ->
-``type_embed``, ``ffn_1`` -> ``ffn1``, ``ffn_2`` -> ``ffn2``)
-``bert.encoder.layers.1.ln2.weight`` is
-``<prefix>bert_encoder_layer1_ln2_gamma`` and ``decoder.weight`` is
-``<prefix>decoder_weight``.
+The port's models are Gluon blocks made in the JAX classes' name scopes,
+so each tensor's Gluon name is the name of the Gluon ``Parameter`` that
+wraps it (``gluon_name``, without the net's prefix):
+``bert.encoder.layers.1.ln2.weight`` is ``<prefix>bert_encoder_layer1_ln2_gamma``,
+``decoder.layers.0.self_attn.qkv.weight`` of the seq2seq ``Transformer``
+``<prefix>dec_layer0_self_qkv_weight``.  A module with a
+``from_gluon(leaf, tensor)`` hook turns the Gluon layout into its own (an
+NHWC convolution's ``(O, kh, kw, I)`` weight into torch's OIHW).
 
 ``gluon_shape`` and ``from_gluon_layout`` give a parameter's Gluon shape
 (where initializers take their fans) and turn a Gluon-layout array into
@@ -40,12 +30,9 @@ import numpy as np
 import torch
 
 from .base import MXNetError, tensor_from_numpy
-from .gluon.nn import BatchNorm, LayerNorm
 
 __all__ = ["gluon_name", "gluon_shape", "from_gluon_layout",
            "from_mxnet_tpu_params"]
-
-_NORM_LEAF = {"weight": "gamma", "bias": "beta"}
 
 
 def _owner(model: torch.nn.Module, key: str):
@@ -56,22 +43,15 @@ def _owner(model: torch.nn.Module, key: str):
 
 
 def gluon_name(model: torch.nn.Module, key: str) -> str:
-    """The Gluon name (without the net's prefix) of ``state_dict`` key
-    ``key`` of ``model``."""
-    path, module, leaf = _owner(model, key)
-    if isinstance(module, (LayerNorm, BatchNorm)):
-        leaf = _NORM_LEAF.get(leaf, leaf)
-    prefix = getattr(module, "gluon_prefix", None)
-    if prefix is not None:
-        return prefix + leaf
-    segments = getattr(model, "gluon_segments", {})
-    parts = []
-    for i, seg in enumerate(path):
-        if seg.isdigit() and parts and path[i - 1] == "layers":
-            parts[-1] = f"layer{seg}"
-        else:
-            parts.append(segments.get(seg, seg))
-    return "_".join(parts + [leaf])
+    """The Gluon name (without ``model``'s prefix) of ``state_dict`` key
+    ``key`` of ``model``: the name of the Gluon Parameter around it."""
+    _, module, leaf = _owner(model, key)
+    for param in getattr(module, "_reg_params", {}).values():
+        if param._attr == leaf:
+            prefix = getattr(model, "prefix", "")
+            return (param.name[len(prefix):] if param.name.startswith(prefix)
+                    else param.name)
+    raise MXNetError(f"{key} is not wrapped by a Gluon Parameter")
 
 
 def gluon_shape(model: torch.nn.Module, key: str, tensor: torch.Tensor):

@@ -9,8 +9,10 @@ LayerNorm runs kernel K1; with no ``valid_length`` and attention dropout
 inactive, every attention runs kernels K3-K5 (``flash_attention``), and
 with a ``valid_length`` the masked dense path, as in the JAX package.
 
-Parameter names follow Gluon's through ``convert.from_mxnet_tpu_params``
-(``BERTForMLM.gluon_segments``).  The tensor-parallel sharding rules of
+The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
+scopes with their prefixes, so ``collect_params()`` gives the JAX net's
+names (``bertformlm0_bert_encoder_layer0_attn_qkv_weight``), which
+``convert.from_mxnet_tpu_params`` maps.  The tensor-parallel sharding rules of
 the JAX module are not ported.
 """
 from __future__ import annotations
@@ -22,7 +24,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..context import resolve_device
-from ..gluon.nn import LayerNorm
+from ..gluon.block import HybridBlock
+from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from .transformer import PositionalEmbedding, TransformerEncoder
 
 __all__ = ["BERTModel", "BERTForMLM", "bert_base", "bert_small"]
@@ -37,31 +40,38 @@ def _init_normal(module: nn.Module, generator: Optional[torch.Generator],
         if isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, nn.Linear):
+        elif isinstance(m, Dense):
             nn.init.normal_(m.weight, 0.0, sigma, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.Embedding, PositionalEmbedding)):
+        elif isinstance(m, (Embedding, PositionalEmbedding)):
             nn.init.normal_(m.weight, 0.0, sigma, generator=generator)
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """forward(inputs, token_types=None, valid_length=None) ->
     (sequence output (B, T, units), pooled (B, units))."""
 
     def __init__(self, vocab_size: int = 30522, units: int = 768,
                  hidden_size: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, max_length: int = 512,
-                 type_vocab: int = 2, dropout: float = 0.1):
-        super().__init__()
-        self.word_embed = nn.Embedding(vocab_size, units)
-        self.token_type_embed = nn.Embedding(type_vocab, units)
-        self.pos_embed = PositionalEmbedding(max_length, units)
-        self.embed_ln = LayerNorm(units)
-        self.embed_drop = nn.Dropout(dropout)
-        self.encoder = TransformerEncoder(num_layers, units, hidden_size,
-                                          num_heads, dropout, "gelu")
-        self.pooler = nn.Linear(units, units)
+                 type_vocab: int = 2, dropout: float = 0.1, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.word_embed = Embedding(vocab_size, units,
+                                        prefix="word_embed_")
+            self.token_type_embed = Embedding(type_vocab, units,
+                                              prefix="type_embed_")
+            self.pos_embed = PositionalEmbedding(max_length, units,
+                                                 prefix="pos_embed_")
+            self.embed_ln = LayerNorm(units, prefix="embed_ln_")
+            self.embed_drop = Dropout(dropout)
+            self.encoder = TransformerEncoder(num_layers, units, hidden_size,
+                                              num_heads, dropout, "gelu",
+                                              prefix="encoder_")
+            self.pooler = Dense(units, flatten=False, in_units=units,
+                                prefix="pooler_")
 
     def forward(self, inputs, token_types=None, valid_length=None):
         x = self.word_embed(inputs)
@@ -77,33 +87,39 @@ class BERTModel(nn.Module):
         return out, torch.tanh(self.pooler(out[:, 0]))
 
 
-class BERTForMLM(nn.Module):
+class BERTForMLM(HybridBlock):
     """BERT with the masked-LM head: forward(inputs, token_types=None,
     valid_length=None) -> logits (B, T, vocab).
 
     Weights are drawn from ``generator`` (a CPU ``torch.Generator``; a
     fresh unseeded one when None) on the CPU as ``mx.init.Normal(0.02)``
     draws them, then moved to ``device`` (default:
-    :func:`context.default_device`)."""
+    :func:`context.default_device`).  With ``init_weights=False`` nothing
+    is drawn or moved: the Gluon Parameters wait for
+    ``initialize(init, ctx)``, as the JAX net's do."""
 
-    # module path segment -> Gluon prefix (convert.from_mxnet_tpu_params)
-    gluon_segments = {"token_type_embed": "type_embed", "ffn_1": "ffn1",
-                      "ffn_2": "ffn2"}
 
     def __init__(self, vocab_size: int = 30522, units: int = 768,
                  hidden_size: int = 3072, num_layers: int = 12,
                  num_heads: int = 12, max_length: int = 512,
                  dropout: float = 0.1, device=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        device = resolve_device(device)
-        self.bert = BERTModel(vocab_size, units, hidden_size, num_layers,
-                              num_heads, max_length, dropout=dropout)
-        self.mlm_dense = nn.Linear(units, units)
-        self.mlm_ln = LayerNorm(units)
-        self.decoder = nn.Linear(units, vocab_size)
-        _init_normal(self, generator)
-        self.to(device)
+                 generator: Optional[torch.Generator] = None,
+                 init_weights: bool = True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.bert = BERTModel(vocab_size, units, hidden_size, num_layers,
+                                  num_heads, max_length, dropout=dropout,
+                                  prefix="bert_")
+            self.mlm_dense = Dense(units, flatten=False, in_units=units,
+                                   prefix="mlm_dense_")
+            self.mlm_ln = LayerNorm(units, prefix="mlm_ln_")
+            self.decoder = Dense(vocab_size, flatten=False, in_units=units,
+                                 prefix="decoder_")
+        if init_weights:
+            device = resolve_device(device)
+            _init_normal(self, generator)
+            self.to(device)
+            self._mark_initialized()
 
     def forward(self, inputs, token_types=None, valid_length=None):
         seq, _ = self.bert(inputs, token_types, valid_length)

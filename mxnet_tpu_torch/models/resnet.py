@@ -18,9 +18,10 @@ kernel, so no kernel of the port runs here.
 Parameter names: the JAX package names layers by counters within name
 scopes (``resnetv10_conv2d0_weight``, ``resnetv10_stage1_conv2d3_weight``
 for the first block's downsample conv, created after the body's three,
-..., ``resnetv10_dense0_bias``), so the modules here are created in the
-JAX package's order and each takes its Gluon prefix from a
-:class:`_Scope`'s counters (``convert`` reads ``gluon_prefix``).
+..., ``resnetv10_dense0_bias``), so the blocks here are created in the
+JAX package's order in the same name scopes (the net's, and each stage's
+``stage<i>_``; the containers and residual blocks have the empty prefix):
+``collect_params()`` gives the JAX net's names, which ``convert`` maps.
 ``resnet50_v1b`` has 267 arrays and 25,610,152 values in both layouts.
 
 Weights are drawn on the CPU from ``generator`` by
@@ -32,10 +33,10 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-from torch import nn
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon.block import HybridBlock
 from ..gluon.nn import (Activation, BatchNorm, Conv2D, Dense,
                         GlobalAvgPool2D, HybridSequential, MaxPool2D)
 from ..initializer import Xavier, initialize
@@ -45,53 +46,41 @@ __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
            "resnet152_v1", "resnet50_v1b", "resnet101_v1b"]
 
 
-class _Scope:
-    """Gluon's per-scope name counters: the n-th layer of a kind created
-    in a scope is ``<scope><kind><n>_``."""
-
-    def __init__(self, prefix: str = ""):
-        self.prefix = prefix
-        self._counts = {}
-
-    def __call__(self, kind: str) -> str:
-        n = self._counts.get(kind, 0)
-        self._counts[kind] = n + 1
-        return f"{self.prefix}{kind}{n}_"
-
-
 def _bn_axis(layout: str) -> int:
     return -1 if layout == "NHWC" else 1
 
 
-def _conv(names, channels, kernel, stride, pad, in_channels, layout):
+def _conv(channels, kernel, stride, pad, in_channels, layout):
     return Conv2D(channels, kernel, strides=stride, padding=pad,
-                  use_bias=False, in_channels=in_channels, layout=layout,
-                  prefix=names("conv2d"))
+                  use_bias=False, in_channels=in_channels, layout=layout)
 
 
-def _bn(names, channels, layout):
-    return BatchNorm(channels, axis=_bn_axis(layout),
-                     prefix=names("batchnorm"))
+def _bn(channels, layout):
+    return BatchNorm(channels, axis=_bn_axis(layout))
 
 
-def _downsample(names, channels, stride, in_channels, layout):
-    return HybridSequential(
-        _conv(names, channels, 1, stride, 0, in_channels, layout),
-        _bn(names, channels, layout))
+def _seq(*layers) -> HybridSequential:
+    seq = HybridSequential(prefix="")
+    seq.add(*layers)
+    return seq
 
 
-class BasicBlockV1(nn.Module):
+def _downsample(channels, stride, in_channels, layout):
+    return _seq(_conv(channels, 1, stride, 0, in_channels, layout),
+                _bn(channels, layout))
+
+
+class BasicBlockV1(HybridBlock):
     def __init__(self, channels: int, stride: int, downsample: bool = False,
-                 in_channels: int = 0, layout: str = "NCHW",
-                 names: Optional[_Scope] = None):
-        super().__init__()
-        names = names or _Scope()
-        self.body = HybridSequential(
-            _conv(names, channels, 3, stride, 1, in_channels, layout),
-            _bn(names, channels, layout), Activation("relu"),
-            _conv(names, channels, 3, 1, 1, channels, layout),
-            _bn(names, channels, layout))
-        self.downsample = (_downsample(names, channels, stride, in_channels,
+                 in_channels: int = 0, layout: str = "NCHW", prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self.body = _seq(
+            _conv(channels, 3, stride, 1, in_channels, layout),
+            _bn(channels, layout), Activation("relu"),
+            _conv(channels, 3, 1, 1, channels, layout),
+            _bn(channels, layout))
+        self.downsample = (_downsample(channels, stride, in_channels,
                                        layout) if downsample else None)
 
     def forward(self, x):
@@ -102,22 +91,21 @@ class BasicBlockV1(nn.Module):
         return torch.relu(residual + x)
 
 
-class BottleneckV1(nn.Module):
+class BottleneckV1(HybridBlock):
     def __init__(self, channels: int, stride: int, downsample: bool = False,
                  in_channels: int = 0, stride_in_1x1: bool = True,
-                 layout: str = "NCHW", names: Optional[_Scope] = None):
-        super().__init__()
-        names = names or _Scope()
+                 layout: str = "NCHW", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         mid = channels // 4
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
-        self.body = HybridSequential(
-            _conv(names, mid, 1, s1, 0, in_channels, layout),
-            _bn(names, mid, layout), Activation("relu"),
-            _conv(names, mid, 3, s3, 1, mid, layout),
-            _bn(names, mid, layout), Activation("relu"),
-            _conv(names, channels, 1, 1, 0, mid, layout),
-            _bn(names, channels, layout))
-        self.downsample = (_downsample(names, channels, stride, in_channels,
+        self.body = _seq(
+            _conv(mid, 1, s1, 0, in_channels, layout),
+            _bn(mid, layout), Activation("relu"),
+            _conv(mid, 3, s3, 1, mid, layout),
+            _bn(mid, layout), Activation("relu"),
+            _conv(channels, 1, 1, 0, mid, layout),
+            _bn(channels, layout))
+        self.downsample = (_downsample(channels, stride, in_channels,
                                        layout) if downsample else None)
 
     def forward(self, x):
@@ -128,47 +116,51 @@ class BottleneckV1(nn.Module):
         return torch.relu(x + residual)
 
 
-class ResNetV1(nn.Module):
+class ResNetV1(HybridBlock):
     """forward(x) -> logits (N, classes); x is (N, C, H, W) or, with
-    ``layout="NHWC"``, (N, H, W, C)."""
+    ``layout="NHWC"``, (N, H, W, C).  With ``init_weights=False`` nothing
+    is drawn or moved: the Gluon Parameters wait for
+    ``initialize(init, ctx)``."""
 
     def __init__(self, block, layers: Sequence[int],
                  channels: Sequence[int], classes: int = 1000,
                  thumbnail: bool = False, stride_in_1x1: bool = True,
                  layout: str = "NCHW", in_channels: int = 3, device=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
+                 generator: Optional[torch.Generator] = None,
+                 init_weights: bool = True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if len(layers) != len(channels) - 1:
             raise MXNetError("ResNetV1 needs len(layers) == len(channels) - 1")
-        device = resolve_device(device)
-        names = _Scope()
-        self.features = HybridSequential()
-        if thumbnail:
-            self.features.add(_conv(names, channels[0], 3, 1, 1,
-                                    in_channels, layout))
-        else:
-            self.features.add(
-                _conv(names, channels[0], 7, 2, 3, in_channels, layout),
-                _bn(names, channels[0], layout), Activation("relu"),
-                MaxPool2D(3, 2, 1, layout=layout))
-        for i, num_layer in enumerate(layers):
-            stage = _Scope(f"stage{i + 1}_")
-            stride = 1 if i == 0 else 2
-            kw = ({"stride_in_1x1": stride_in_1x1}
-                  if block is BottleneckV1 else {})
-            layer = HybridSequential(block(
-                channels[i + 1], stride, channels[i + 1] != channels[i],
-                in_channels=channels[i], layout=layout, names=stage, **kw))
-            for _ in range(num_layer - 1):
-                layer.add(block(channels[i + 1], 1, False,
-                                in_channels=channels[i + 1], layout=layout,
-                                names=stage, **kw))
-            self.features.add(layer)
-        self.features.add(GlobalAvgPool2D(layout=layout))
-        self.output = Dense(classes, in_units=channels[-1],
-                            prefix=names("dense"))
-        initialize(self, Xavier(), generator)
-        self.to(device)
+        kw = {"stride_in_1x1": stride_in_1x1} if block is BottleneckV1 else {}
+        with self.name_scope():
+            self.features = HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv(channels[0], 3, 1, 1, in_channels,
+                                        layout))
+            else:
+                self.features.add(
+                    _conv(channels[0], 7, 2, 3, in_channels, layout),
+                    _bn(channels[0], layout), Activation("relu"),
+                    MaxPool2D(3, 2, 1, layout=layout))
+            for i, num_layer in enumerate(layers):
+                layer = HybridSequential(prefix=f"stage{i + 1}_")
+                with layer.name_scope():
+                    layer.add(block(channels[i + 1], 1 if i == 0 else 2,
+                                    channels[i + 1] != channels[i],
+                                    in_channels=channels[i], layout=layout,
+                                    prefix="", **kw))
+                    for _ in range(num_layer - 1):
+                        layer.add(block(channels[i + 1], 1, False,
+                                        in_channels=channels[i + 1],
+                                        layout=layout, prefix="", **kw))
+                self.features.add(layer)
+            self.features.add(GlobalAvgPool2D(layout=layout))
+            self.output = Dense(classes, in_units=channels[-1])
+        if init_weights:
+            device = resolve_device(device)
+            initialize(self, Xavier(), generator)
+            self.to(device)
+            self._mark_initialized()
 
     def forward(self, x):
         return self.output(self.features(x))

@@ -15,9 +15,11 @@ attention dropout inactive (rate 0, or not training) it calls
 dense masked attention, which stays plain torch, as the JAX package leaves
 it to XLA, and so does cross-attention.
 
-Parameter names follow Gluon's through ``convert.from_mxnet_tpu_params``.
-Gluon's ``Dense(flatten=False)`` is ``torch.nn.Linear`` here (weight
-(out, in) in both).  The feed-forward activation is ``"gelu"`` (exact
+The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
+scopes with their prefixes, so ``collect_params()`` gives the JAX net's
+names, which ``convert.from_mxnet_tpu_params`` maps.  Gluon's ``Dense(flatten=False)`` is ``gluon.nn.Dense`` with its
+input width given (``torch.nn.functional.linear``; weight (out, in) in
+both).  The feed-forward activation is ``"gelu"`` (exact
 erf, the JAX ``LeakyReLU(act_type="gelu")``) or one of the ``Activation``
 op's (``"relu"``, ``"sigmoid"``, ``"tanh"``, ``"softrelu"``,
 ``"softsign"``); the defaults are the JAX classes' (gelu in the encoder,
@@ -44,8 +46,9 @@ from torch.nn import functional as F
 
 from ..base import MXNetError
 from ..context import resolve_device
+from ..gluon.block import HybridBlock
 from ..gluon.loss import log_softmax
-from ..gluon.nn import LayerNorm
+from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.kernels import flash_attention
 from ..ops.nn import activation as _activation_op
 
@@ -103,27 +106,33 @@ def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
     return torch.bmm(attn, v)
 
 
-class MultiHeadAttention(nn.Module):
+def _linear(units: int, in_units: int, prefix: str) -> Dense:
+    return Dense(units, flatten=False, in_units=in_units, prefix=prefix)
+
+
+class MultiHeadAttention(HybridBlock):
     """Self attention with a fused qkv projection, weight (3*units, in)."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
-                 causal: bool = False):
-        super().__init__()
+                 causal: bool = False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads != 0:
             raise MXNetError(f"units {units} not divisible by heads "
                              f"{num_heads}")
         self.num_heads = num_heads
         self.head_dim = units // num_heads
         self.causal = causal
-        self.qkv = nn.Linear(units, 3 * units)
-        self.proj = nn.Linear(units, units)
-        self.attn_drop = nn.Dropout(dropout)
+        with self.name_scope():
+            self.qkv = _linear(3 * units, units, "qkv_")
+            self.proj = _linear(units, units, "proj_")
+            self.attn_drop = Dropout(dropout)
 
     def forward(self, x, mask=None):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         H, hd = self.num_heads, self.head_dim
         q, k, v = (_split_heads(t, H, hd) for t in (q, k, v))
-        if mask is None and (self.attn_drop.p == 0.0 or not self.training):
+        if mask is None and (self.attn_drop.rate == 0.0
+                             or not self.training):
             # the fused path of the JAX class
             # (mxnet_tpu/models/transformer.py:91): taken only when
             # attention-prob dropout is inactive, so it computes what the
@@ -141,35 +150,39 @@ _ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="none"),
                              "softsign")}}
 
 
-class PositionwiseFFN(nn.Module):
+class PositionwiseFFN(HybridBlock):
     def __init__(self, units: int, hidden_size: int, dropout: float = 0.0,
-                 activation: str = "gelu"):
-        super().__init__()
+                 activation: str = "gelu", prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if activation not in _ACTIVATIONS:
             raise MXNetError(f"activation must be one of "
                              f"{sorted(_ACTIVATIONS)}, got {activation!r}")
         self.act = _ACTIVATIONS[activation]
-        self.ffn_1 = nn.Linear(units, hidden_size)
-        self.ffn_2 = nn.Linear(hidden_size, units)
-        self.drop = nn.Dropout(dropout)
+        with self.name_scope():
+            self.ffn_1 = _linear(hidden_size, units, "ffn1_")
+            self.ffn_2 = _linear(units, hidden_size, "ffn2_")
+            self.drop = Dropout(dropout)
 
     def forward(self, x):
         return self.drop(self.ffn_2(self.act(self.ffn_1(x))))
 
 
-class TransformerEncoderCell(nn.Module):
+class TransformerEncoderCell(HybridBlock):
     """Post-LN (or, with ``pre_norm``, pre-LN) encoder layer."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
                  dropout: float = 0.0, activation: str = "gelu",
-                 pre_norm: bool = False):
-        super().__init__()
+                 pre_norm: bool = False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self.pre_norm = pre_norm
-        self.attn = MultiHeadAttention(units, num_heads, dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation)
-        self.ln1 = LayerNorm(units)
-        self.ln2 = LayerNorm(units)
-        self.drop = nn.Dropout(dropout)
+        with self.name_scope():
+            self.attn = MultiHeadAttention(units, num_heads, dropout,
+                                           prefix="attn_")
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       activation, prefix="ffn_")
+            self.ln1 = LayerNorm(units, prefix="ln1_")
+            self.ln2 = LayerNorm(units, prefix="ln2_")
+            self.drop = Dropout(dropout)
 
     def forward(self, x, mask=None):
         if self.pre_norm:
@@ -179,27 +192,32 @@ class TransformerEncoderCell(nn.Module):
         return self.ln2(x + self.ffn(x))
 
 
-class PositionalEmbedding(nn.Module):
+class PositionalEmbedding(HybridBlock):
     """Learned positional embedding: adds rows [0, T) of ``weight``."""
 
-    def __init__(self, max_length: int, units: int):
-        super().__init__()
+    def __init__(self, max_length: int, units: int, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
         self.max_length = max_length
         self.weight = nn.Parameter(torch.empty(max_length, units))
+        self._gluon_param("weight", shape=(max_length, units))
 
     def forward(self, x):
         return x + self.weight[:x.shape[1]][None]
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(HybridBlock):
     def __init__(self, num_layers: int, units: int, hidden_size: int,
                  num_heads: int, dropout: float = 0.0,
-                 activation: str = "gelu", pre_norm: bool = False):
-        super().__init__()
-        self.layers = nn.ModuleList(
-            TransformerEncoderCell(units, hidden_size, num_heads, dropout,
-                                   activation, pre_norm)
-            for _ in range(num_layers))
+                 activation: str = "gelu", pre_norm: bool = False,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.layers = nn.ModuleList(
+                TransformerEncoderCell(units, hidden_size, num_heads,
+                                       dropout, activation, pre_norm,
+                                       prefix=f"layer{i}_")
+                for i in range(num_layers))
 
     def forward(self, x, mask=None):
         for cell in self.layers:
@@ -207,21 +225,23 @@ class TransformerEncoder(nn.Module):
         return x
 
 
-class MultiHeadCrossAttention(nn.Module):
+class MultiHeadCrossAttention(HybridBlock):
     """Decoder->encoder attention: q from x, k/v from the encoder memory;
     weights q (units, in), kv (2*units, in)."""
 
-    def __init__(self, units: int, num_heads: int, dropout: float = 0.0):
-        super().__init__()
+    def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         if units % num_heads != 0:
             raise MXNetError(f"units {units} not divisible by heads "
                              f"{num_heads}")
         self.num_heads = num_heads
         self.head_dim = units // num_heads
-        self.q_proj = nn.Linear(units, units)
-        self.kv = nn.Linear(units, 2 * units)
-        self.proj = nn.Linear(units, units)
-        self.attn_drop = nn.Dropout(dropout)
+        with self.name_scope():
+            self.q_proj = _linear(units, units, "q_")
+            self.kv = _linear(2 * units, units, "kv_")
+            self.proj = _linear(units, units, "proj_")
+            self.attn_drop = Dropout(dropout)
 
     def forward(self, x, mem, mask=None):
         # x: (B, Tq, C); mem: (B, Tk, C); mask: (B, Tq, Tk), nonzero = keep
@@ -236,23 +256,27 @@ class MultiHeadCrossAttention(nn.Module):
         return self.proj(_merge_heads(out, H))
 
 
-class TransformerDecoderCell(nn.Module):
+class TransformerDecoderCell(HybridBlock):
     """Causal self-attention + cross-attention + FFN, post-LN (the WMT
     recipe; ``pre_norm=True`` for the deep-net variant)."""
 
     def __init__(self, units: int, hidden_size: int, num_heads: int,
                  dropout: float = 0.0, activation: str = "relu",
-                 pre_norm: bool = False):
-        super().__init__()
+                 pre_norm: bool = False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self.pre_norm = pre_norm
-        self.self_attn = MultiHeadAttention(units, num_heads, dropout,
-                                            causal=True)
-        self.cross_attn = MultiHeadCrossAttention(units, num_heads, dropout)
-        self.ffn = PositionwiseFFN(units, hidden_size, dropout, activation)
-        self.ln1 = LayerNorm(units)
-        self.ln2 = LayerNorm(units)
-        self.ln3 = LayerNorm(units)
-        self.drop = nn.Dropout(dropout)
+        with self.name_scope():
+            self.self_attn = MultiHeadAttention(units, num_heads, dropout,
+                                                causal=True, prefix="self_")
+            self.cross_attn = MultiHeadCrossAttention(units, num_heads,
+                                                      dropout,
+                                                      prefix="cross_")
+            self.ffn = PositionwiseFFN(units, hidden_size, dropout,
+                                       activation, prefix="ffn_")
+            self.ln1 = LayerNorm(units, prefix="ln1_")
+            self.ln2 = LayerNorm(units, prefix="ln2_")
+            self.ln3 = LayerNorm(units, prefix="ln3_")
+            self.drop = Dropout(dropout)
 
     def forward(self, x, mem, self_mask=None, cross_mask=None):
         if self.pre_norm:
@@ -281,15 +305,18 @@ class TransformerDecoderCell(nn.Module):
         return self.ln3(x + self.ffn(x))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(HybridBlock):
     def __init__(self, num_layers: int, units: int, hidden_size: int,
                  num_heads: int, dropout: float = 0.0,
-                 activation: str = "relu", pre_norm: bool = False):
-        super().__init__()
-        self.layers = nn.ModuleList(
-            TransformerDecoderCell(units, hidden_size, num_heads, dropout,
-                                   activation, pre_norm)
-            for _ in range(num_layers))
+                 activation: str = "relu", pre_norm: bool = False,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.layers = nn.ModuleList(
+                TransformerDecoderCell(units, hidden_size, num_heads,
+                                       dropout, activation, pre_norm,
+                                       prefix=f"layer{i}_")
+                for i in range(num_layers))
 
     def forward(self, x, mem, self_mask=None, cross_mask=None):
         for cell in self.layers:
@@ -307,7 +334,7 @@ def _attend_cached(q_t, K, V, keep, num_heads: int, head_dim: int):
     return _merge_heads(out, num_heads)
 
 
-class Transformer(nn.Module):
+class Transformer(HybridBlock):
     """Encoder-decoder Transformer with a shared source/target embedding
     and, by default, a tied output projection (the WMT14 recipe;
     ``tie_embeddings=False`` gives it an ``out_proj`` of its own).
@@ -319,12 +346,10 @@ class Transformer(nn.Module):
     a fresh unseeded one when None) on the CPU — Xavier-uniform for every
     matrix and embedding table, zero biases, unit LayerNorm scales, as
     the JAX package's ``mx.init.Xavier()`` — then moved to ``device``
-    (default: :func:`context.default_device`)."""
+    (default: :func:`context.default_device`).  With ``init_weights=False``
+    nothing is drawn or moved: the Gluon Parameters wait for
+    ``initialize(init, ctx)``, as the JAX net's do."""
 
-    # module path segment -> Gluon prefix (convert.from_mxnet_tpu_params)
-    gluon_segments = {"encoder": "enc", "decoder": "dec", "self_attn": "self",
-                      "cross_attn": "cross", "q_proj": "q", "ffn_1": "ffn1",
-                      "ffn_2": "ffn2", "out_proj": "out"}
 
     def __init__(self, vocab_size: int, units: int = 512,
                  hidden_size: int = 2048, num_heads: int = 8,
@@ -332,23 +357,29 @@ class Transformer(nn.Module):
                  dropout: float = 0.1, pad_id: int = 0,
                  tie_embeddings: bool = True, activation: str = "relu",
                  device=None,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        device = resolve_device(device)
+                 generator: Optional[torch.Generator] = None,
+                 init_weights: bool = True, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
         self.units = units
         self.pad_id = pad_id
         self.tie_embeddings = tie_embeddings
-        self.embed = nn.Embedding(vocab_size, units)
-        self.pos = PositionalEmbedding(max_length, units)
-        self.enc_drop = nn.Dropout(dropout)
-        self.encoder = TransformerEncoder(num_layers, units, hidden_size,
-                                          num_heads, dropout, activation)
-        self.decoder = TransformerDecoder(num_layers, units, hidden_size,
-                                          num_heads, dropout, activation)
-        if not tie_embeddings:
-            self.out_proj = nn.Linear(units, vocab_size)
-        self.reset_parameters(generator)
-        self.to(device)
+        with self.name_scope():
+            self.embed = Embedding(vocab_size, units, prefix="embed_")
+            self.pos = PositionalEmbedding(max_length, units, prefix="pos_")
+            self.enc_drop = Dropout(dropout)
+            self.encoder = TransformerEncoder(num_layers, units, hidden_size,
+                                              num_heads, dropout, activation,
+                                              prefix="enc_")
+            self.decoder = TransformerDecoder(num_layers, units, hidden_size,
+                                              num_heads, dropout, activation,
+                                              prefix="dec_")
+            if not tie_embeddings:
+                self.out_proj = _linear(vocab_size, units, "out_")
+        if init_weights:
+            device = resolve_device(device)
+            self.reset_parameters(generator)
+            self.to(device)
+            self._mark_initialized()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -356,11 +387,11 @@ class Transformer(nn.Module):
             if isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, nn.Linear):
+            elif isinstance(m, Dense):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.Embedding, PositionalEmbedding)):
+            elif isinstance(m, (Embedding, PositionalEmbedding)):
                 nn.init.xavier_uniform_(m.weight, generator=generator)
 
     def _encode_h(self, src):

@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/ndarray/__init__.py``: ``array``, ``zeros``,
 ``ones``, and one function per registered op, generated from the op
 registry at import time with the same positional-argument rules
 (:func:`_make_stub`).  ``nd.contrib`` holds the ``_contrib_*`` ops under
-their short names.  Arrays are created on the card (``cuda:0``) unless
+their short names; ``save`` / ``load`` are the file format of
+``ndarray/utils.py``.  Arrays are created on the card (``cuda:0``) unless
 ``ctx`` says otherwise, and creation raises without a card.
 """
 from __future__ import annotations
@@ -18,9 +19,11 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..ops import registry as _reg
 from .ndarray import NDArray, array, dtype_torch
+from .utils import load, save, save_legacy
 from . import contrib  # noqa: F401  (nd.contrib namespace)
 
-__all__ = ["NDArray", "array", "zeros", "ones"]
+__all__ = ["NDArray", "array", "zeros", "ones", "save", "load",
+           "save_legacy"]
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs) -> NDArray:

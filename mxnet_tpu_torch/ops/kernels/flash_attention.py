@@ -313,13 +313,16 @@ def flash_attention(q, k, v, causal: bool = False, sm_scale=None,
     """Fused attention softmax(q k^T * sm_scale [causal]) v, differentiable
     in q, k and v.  q: (N, Lq, D) or (B, H, Lq, D); k, v likewise with Lk.
     ``sm_scale`` defaults to 1 / sqrt(D).  A D the kernels do not take
-    runs zero-padded (:func:`pad_head_dim`).  ``return_lse``
+    runs zero-padded (:func:`pad_head_dim`); strided inputs (the heads
+    of a batch of one, split from a fused projection) are copied
+    contiguous first, as the kernels read them.  ``return_lse``
     also returns the row logsumexp (N, Lq) or (B, H, Lq) in f32 (not
     differentiable)."""
     q4 = q.dim() == 4
     if q4:
         b, h = q.shape[:2]
         q, k, v = (t.reshape(b * h, *t.shape[2:]) for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
     D = q.shape[-1]
     sm_scale = _scale(q, sm_scale)
     out, lse = FlashAttentionFunction.apply(*pad_head_dim(q, k, v),

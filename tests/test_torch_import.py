@@ -45,7 +45,16 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.ops.optimizer_ops",
           "mxnet_tpu_torch.gluon.utils",
           "mxnet_tpu_torch.parallel.data_parallel",
-          "mxnet_tpu_torch.models.transformer")
+          "mxnet_tpu_torch.models.transformer",
+          "mxnet_tpu_torch.gluon.parameter",
+          "mxnet_tpu_torch.gluon.block",
+          "mxnet_tpu_torch.gluon.trainer",
+          "mxnet_tpu_torch.gluon.loss",
+          "mxnet_tpu_torch.kvstore",
+          "mxnet_tpu_torch.metric",
+          "mxnet_tpu_torch.random",
+          "mxnet_tpu_torch.initializer",
+          "mxnet_tpu_torch.ndarray.utils")
 
 
 def _no_cuda():
