@@ -45,6 +45,9 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           often as the path calls it (K1 18 times per decode
                           step and 12 per prefill, K2 6 times per step,
                           K3-K5 never: every attention there is masked).
+                          TTFT p50 and p90 and queue-wait p50 from the
+                          requests' stamps, and the engine's
+                          ``statusz_snapshot()``.
   serve_parity            one request's encoder memory and first 4 decode
                           logits on the card vs the same weights on the CPU
                           through the plain versions, max abs diff <= 2e-3.
@@ -56,6 +59,34 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           takes it, and card vs CPU memory and first 4
                           logits, both with bf16 pools, within the larger of
                           2e-3 and how far bf16 pools move the CPU's logits.
+  serve_sampling          serve's traffic through ``sampling=True``: at
+                          temperature 0 serve's tokens; requests 0-7 at
+                          temperature 0.8, top_k 50, top_p 0.9 (seeds
+                          100-107) and 8-15 greedy in engines of 8 and 5
+                          slots: equal sampled streams, serve's greedy ones;
+                          the greedy engine beside it (tokens/s, step ms);
+                          20,000 sampler draws a row of one (8, 32000)
+                          logits tensor within a TV distance of
+                          sqrt(support / draws) of the filtered softmax.
+  serve_spec              bench.py:1355's traffic at full width (8 requests,
+                          8-token sources, 24 new tokens): plain, then
+                          ``spec_k`` 4 and 1 with ``NGramDraft``, 3 trials
+                          each; tokens equal plain's; proposed, accepted,
+                          acceptance rate, tokens/s and verify-dispatch ms;
+                          K1 18 (K+1) a verify + 18 a plain step + 12 a
+                          prefill, K2 6 (K+1) a verify + 6 a plain step.
+  serve_prefix            bench.py:1291's traffic at full width: 12
+                          requests of 8 tokens forcing the first 24 tokens
+                          of one source's greedy stream, 3 trials, the
+                          prefix cache on and off: every stream is that
+                          stream's tokens 24-31; hit rate, wall ratio
+                          off/on, TTFT of hits and misses; pages back once
+                          the entries drop; K1 18 x 8 an ingest dispatch.
+  serve_beam              ``translate`` over serve's first 8 sources, beam
+                          4, max_len 33 (K1 12 + 18 a beam step, K2 6 a
+                          step); ``serve_beam`` equal to it, and
+                          ``translate(beam_size=1)`` to the greedy engine;
+                          ms a beam step, tokens/s.
   kernel_flash_attention  kernels K3 (FA2 forward), K4 (dq) and K5 (dk, dv)
                           vs the plain version (the forward, and
                           torch.autograd.grad through it for the backward)
@@ -398,7 +429,7 @@ def phase_layer_norm(torch, ctx):
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
     shapes, worst = [], 0.0
-    for n, c in LN_SHAPES:
+    for n, c in LN_SHAPES + _beam_ln_shapes():
         x = torch.randn(n, c, device=dev, generator=g) * 2 + 0.5
         gamma = torch.randn(c, device=dev, generator=g)
         beta = torch.randn(c, device=dev, generator=g)
@@ -434,6 +465,13 @@ LN_SHAPES = ((8, 1024), (64, 1024), (8192, 1024), (16384, 768),
 # staged in shared memory) and 5001 (odd: a block per row with scalar
 # loads)
 LN_SHAPES_16 = LN_SHAPES
+
+
+def _beam_ln_shapes():
+    """serve_beam's rows: the decoder's 8 x 4 beam rows, and the encoder's
+    8 sources padded to the longest of serve's first 8 (f32 only)."""
+    width = max(r.tokens.size for r in _requests(16, 32000, SEED)[0][:8])
+    return ((32, 1024), (8 * width, 1024))
 LN_WIDTHS = ((37, 30), (16, 8192), (16, 5001))
 
 
@@ -518,15 +556,21 @@ def phase_paged_attention(torch, ctx):
     F = torch.nn.functional
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(SEED)
-    S, H, hd, ps = 8, 16, 64, 16
-    cases = {"path": (9, [0, 1, 16, 132, 37, 64, 100, 5]),
-             "long_context": (64, [1000 + 3 * s for s in range(S)])}
+    H, hd, ps = 16, 64, 16
+    # (slots, table width, lengths, pool pages): the serving path's 8
+    # slots over a pool of 8 * 8 + 1 pages (also the verify and ingest
+    # dispatches' shape), a long context, and serve_beam's 8 x 4 beam
+    # rows over translate's 3-page runs in a pool of 32 * 3 + 1 pages at
+    # every length a 33-token beam search attends
+    cases = {"path": (8, 9, [0, 1, 16, 132, 37, 64, 100, 5], 65),
+             "long_context": (8, 64, [1000 + 3 * s for s in range(8)], None),
+             "beam": (32, 3, [1 + (32 * s) // 31 for s in range(32)], 97)}
     out = []
-    for name, (P, lengths) in cases.items():
+    for name, (S, P, lengths, pool) in cases.items():
         q, kp, vp, table, lens = _paged_case(torch, g, S, H, hd, ps, P,
                                              lengths)
-        if name == "path":  # the serving path's pools: S * 8 + 1 pages
-            pad = 65 - kp.shape[0]
+        if pool is not None:
+            pad = pool - kp.shape[0]
             kp = torch.cat([kp, torch.randn(pad, ps, H, hd, device=dev,
                                             generator=g)])
             vp = torch.cat([vp, torch.randn(pad, ps, H, hd, device=dev,
@@ -571,8 +615,9 @@ def phase_paged_attention(torch, ctx):
                                     (64, "float16", "float16"),
                                     (80, "float32", "bfloat16"),
                                     (256, "float32", "bfloat16"))
-            for name, (P, lengths) in cases.items()]
-    more.append(_paged_row(torch, g, S, H, hd, ps, *cases["path"], "path",
+            for name, (S, P, lengths, _) in cases.items() if name != "beam"]
+    S, P, lengths, _ = cases["path"]
+    more.append(_paged_row(torch, g, S, H, hd, ps, P, lengths, "path",
                            "float32", "float32", sm_scale=0.3))
     return {"atol": 1e-5, "cases": out, "dtypes_and_widths": more,
             "tol_16bit": "atol 1e-5 where out is f32 (an f32 q), else "
@@ -932,12 +977,6 @@ def _requests(n, vocab, seed):
 
 def phase_serve(torch, ctx):
     from mxnet_tpu_torch.models.transformer import transformer_big
-    from mxnet_tpu_torch.ops.kernels import (add_layer_norm,
-                                             flash_attention_dkv,
-                                             flash_attention_dq,
-                                             flash_attention_fwd, layer_norm,
-                                             paged_decode_attention,
-                                             softmax_cross_entropy)
     from mxnet_tpu_torch.serving import ServingEngine, TransformerAdapter
 
     vocab = 32000
@@ -955,57 +994,29 @@ def phase_serve(torch, ctx):
 
     eng = ServingEngine(adapter, **kw)
     reqs, arrivals = _requests(16, vocab, SEED)
-    counted = (layer_norm, paged_decode_attention, flash_attention_fwd,
-               flash_attention_dq, flash_attention_dkv, add_layer_norm,
-               softmax_cross_entropy)
-    for fn in counted:
-        fn.launches = 0
-    t0 = time.perf_counter()
-    out = eng.serve(reqs, arrival_steps=arrivals)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
-    ctx.setdefault("launches", {})["serve"] = launches
-    ln, pa = layer_norm.launches, paged_decode_attention.launches
-    flash = sum(launches[n] for n in FLASH)
-    fused = launches["add_layer_norm"] + launches["softmax_cross_entropy"]
-
-    steps = eng.step_count
-    prefills = len(reqs) + sum(r.preemptions for r in reqs)
-    n_tok = sum(len(v) for v in out.values())
-    finished = all(r.stream.finished for r in reqs)
-    lengths_ok = all(1 <= len(out[r.id]) <= r.max_new_tokens
-                     and (len(out[r.id]) == r.max_new_tokens
-                          or out[r.id][-1] == r.eos_id) for r in reqs)
-    in_vocab = all(((v >= 0) & (v < vocab)).all() for v in out.values())
-    pages_back = eng.pages_free == eng.num_pages - 1
-    step_ms = [1e3 * s / n for n, s in eng.burst_times]
+    toks, line = _serve_run(torch, eng, reqs, arrivals)
+    ctx.setdefault("launches", {})["serve"] = line["launches"]
+    lengths_ok = all(1 <= len(t) <= r.max_new_tokens
+                     and (len(t) == r.max_new_tokens or t[-1] == r.eos_id)
+                     for r, t in zip(reqs, toks))
+    in_vocab = all(0 <= v < vocab for t in toks for v in t)
 
     src = torch.from_numpy(adapter.prefill_src(reqs[0])).cuda()
     prefill_ms = time_ms(torch, lambda: adapter.prefill(src), samples=20,
                          reps=1)
+    # the greedy stream of each request, for serve_sampling's lanes
+    ctx["serve_tokens"] = toks
     return {
         "model": "transformer_big", "vocab": vocab, "params": n_params,
         "init_s": init_s, "requests": len(reqs), "arrivals": arrivals,
         "engine": kw, "src_max_len": 64, "pool_pages": eng.num_pages,
-        "decode_steps": steps, "prefills": prefills,
-        "preemptions": sum(r.preemptions for r in reqs),
-        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-        "decode_step_ms_median": statistics.median(step_ms),
-        "prefill_ms_median": prefill_ms,
-        "launches": launches,
-        "launches_expected": {"layer_norm": 18 * steps + 12 * prefills,
-                              "paged_decode_attention": 6 * steps,
-                              **{n: 0 for n in FLASH},
-                              "add_layer_norm": 0,
-                              "softmax_cross_entropy": 0},
-        "card": ctx["smi"],
-        "ok": bool(finished and lengths_ok and in_vocab and pages_back
-                   and ln > 0 and pa > 0
-                   and ln == 18 * steps + 12 * prefills
-                   and pa == 6 * steps and flash == 0 and fused == 0),
-        "checks": {"finished": finished, "lengths": lengths_ok,
-                   "in_vocab": bool(in_vocab), "pages_back": pages_back}}
+        "preemptions": sum(r.preemptions for r in reqs), **line,
+        "prefill_ms_median": prefill_ms, "card": ctx["smi"],
+        "ok": bool(line["finished"] and lengths_ok and in_vocab
+                   and line["pages_back"] and line["launches_ok"]),
+        "checks": {"finished": line["finished"], "lengths": lengths_ok,
+                   "in_vocab": bool(in_vocab),
+                   "pages_back": line["pages_back"]}}
 
 
 def _first_logits(torch, model, src_np, steps, device, feed=None,
@@ -1115,30 +1126,8 @@ def phase_serve_bf16(torch, ctx):
     for dtype in ("bfloat16", "float32"):
         eng = ServingEngine(adapter, dtype=dtype, **kw)
         reqs, arrivals = _requests(16, vocab, SEED)
-        counters = _counters()
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eng.serve(reqs, arrival_steps=arrivals)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in counters.items()}
-        steps = eng.step_count
-        prefills = len(reqs) + sum(r.preemptions for r in reqs)
-        expected = {n: 0 for n in ALL_KERNELS}
-        expected.update(layer_norm=18 * steps + 12 * prefills,
-                        paged_decode_attention=6 * steps)
-        n_tok = sum(len(v) for v in out.values())
-        runs[dtype] = {
-            "decode_steps": steps, "prefills": prefills, "tokens": n_tok,
-            "wall_s": wall, "tokens_per_s": n_tok / wall,
-            "decode_step_ms_median": statistics.median(
-                1e3 * t / n for n, t in eng.burst_times),
-            "pool_bytes": eng.pool_bytes, "launches": launches,
-            "launches_ok": launches == expected and steps > 0,
-            "finished": all(r.stream.finished for r in reqs),
-            "pages_back": eng.pages_free == eng.num_pages - 1}
+        _, runs[dtype] = _serve_run(torch, eng, reqs, arrivals)
+        runs[dtype]["pool_bytes"] = eng.pool_bytes
     ctx.setdefault("launches", {})["serve_bf16"] = runs["bfloat16"]["launches"]
     profile = phase_serve_profile(torch, ctx, dtype="bfloat16")
 
@@ -1175,6 +1164,458 @@ def phase_serve_bf16(torch, ctx):
             "ok": bool(all(r["launches_ok"] and r["finished"]
                            and r["pages_back"] for r in runs.values())
                        and finite and d_lg <= tol and d_mem <= tol_mem)}
+
+
+# ---------------------------------------------------------------------------
+# the serving front door: sampling, speculation, the prefix cache, beams
+# ---------------------------------------------------------------------------
+# the sampler's settings in serve_sampling (a chat-style request mix)
+SAMPLE = {"temperature": 0.8, "top_k": 50, "top_p": 0.9}
+# the distribution check: TV_DRAWS draws per row of one fixed (8, 32000)
+# logits tensor; the total-variation distance of each row's histogram to
+# its filtered softmax must stay under sqrt(k / TV_DRAWS) for a support of
+# k tokens, ~2.5x the expected distance of an exact sampler's histogram
+# (0.5 sqrt(2 k / (pi n)) at most); with k <= top_k = 50, at most 0.05
+TV_DRAWS, TV_CHUNK = 20000, 500
+# bench.py:1366-1369 (bench_spec_decode) and :1302-1304
+# (bench_prefix_cache), at Transformer-big's widths
+SPEC_REQUESTS, SPEC_TOKENS, SPEC_TRIALS = 8, 24, 3
+PREFIX_REQUESTS, PREFIX_TOKENS, PREFIX_NEW, PREFIX_TRIALS = 12, 24, 8, 3
+
+
+def _slo(reqs):
+    """TTFT and queue-wait percentiles (ms) from the requests' stamps."""
+    ttft = [r.ttft_ms for r in reqs]
+    wait = [r.queue_wait_ms for r in reqs]
+    return {"ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p90": float(np.percentile(ttft, 90)),
+            "queue_wait_ms_p50": float(np.percentile(wait, 50))}
+
+
+def _counted(torch, fn):
+    """Run ``fn`` with every kernel counter zeroed just before and read
+    just after, the device synchronized on both sides: (fn's result,
+    launches by kernel, wall s)."""
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, {n: c.launches for n, c in counters.items()}, wall
+
+
+def _expected(k1, k2):
+    """The launches of a serving path: K1 and K2 as given, the rest 0."""
+    exp = {n: 0 for n in ALL_KERNELS}
+    exp.update(layer_norm=k1, paged_decode_attention=k2)
+    return exp
+
+
+def _tally(obj, name, calls):
+    """Count the calls of ``obj.name`` in ``calls[name]`` through an
+    instance attribute wrapping the bound method (the class is
+    untouched; ``del obj.name`` undoes it)."""
+    fn = getattr(obj, name)
+    calls[name] = 0
+
+    def wrapped(*args, **kwargs):
+        calls[name] += 1
+        return fn(*args, **kwargs)
+
+    setattr(obj, name, wrapped)
+
+
+def _serve_run(torch, eng, reqs, arrivals=None):
+    """Serve ``reqs`` counted; the run's tokens and its line."""
+    out, launches, wall = _counted(
+        torch, lambda: eng.serve(reqs, arrival_steps=arrivals))
+    toks = [list(out[r.id]) for r in reqs]
+    steps = eng.step_count
+    prefills = len(reqs) + sum(r.preemptions for r in reqs)
+    expected = _expected(18 * steps + 12 * prefills, 6 * steps)
+    n_tok = sum(len(t) for t in toks)
+    return toks, {
+        "slots": eng.statusz_snapshot()["slots"], "decode_steps": steps,
+        "prefills": prefills, "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "decode_step_ms_median": statistics.median(
+            1e3 * t / n for n, t in eng.burst_times),
+        **_slo(reqs), "launches": launches, "launches_expected": expected,
+        "launches_ok": launches == expected and steps > 0,
+        "finished": all(r.stream.finished for r in reqs),
+        "pages_back": eng.pages_free == eng.num_pages - 1,
+        "statusz": eng.statusz_snapshot()}
+
+
+def phase_serve_sampling(torch, ctx):
+    """``serve``'s 16 requests and arrivals through ``sampling=True``: at
+    temperature 0 every token must be ``serve``'s; then requests 0-7 at
+    SAMPLE with seeds 100-107 and 8-15 greedy, in two fresh engines of 8
+    and 5 slots: the sampled streams equal across the two, the greedy
+    ones ``serve``'s.  The greedy engine runs the same traffic in this
+    phase, in turns with the temperature-0 one (greedy, sampling,
+    sampling, greedy), for tokens/s and decode-step ms beside it (means
+    of each pair).  Then the sampler
+    (``_filter_logits``, ``_gumbel_rows``, argmax: ``_select_token``'s
+    math) draws TV_DRAWS tokens per row of one fixed (8, 32000) logits
+    tensor at SAMPLE, held to the TV limit above."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine, sampling
+
+    adapter, kw, vocab = ctx["adapter"], ctx["engine_kw"], 32000
+    want = ctx["serve_tokens"]
+    ServingEngine(adapter, sampling=True, **kw).serve(
+        _requests(2, vocab, SEED + 1)[0])  # warm-up of the sampling ops
+
+    def traffic(sampled=()):
+        reqs, arrivals = _requests(16, vocab, SEED)
+        for i in sampled:
+            r = reqs[i]
+            reqs[i] = Request(r.tokens, r.max_new_tokens, r.bos_id,
+                              r.eos_id, seed=100 + i, **SAMPLE)
+        return reqs, arrivals
+
+    # greedy and temperature 0 in turns (A B B A): the host clock of a
+    # shared machine drifts between runs
+    runs, toks = {}, {}
+    for name, samp, slots, sampled in (
+            ("greedy", False, 8, ()), ("sampling_temp0", True, 8, ()),
+            ("sampling_temp0_b", True, 8, ()), ("greedy_b", False, 8, ()),
+            ("mixed_8_slots", True, 8, range(8)),
+            ("mixed_5_slots", True, 5, range(8))):
+        eng = ServingEngine(adapter, sampling=samp,
+                            **dict(kw, slots=slots))
+        toks[name], runs[name] = _serve_run(torch, eng, *traffic(sampled))
+    temp0_equal = toks["sampling_temp0"] == toks["sampling_temp0_b"] == want
+    greedy_equal = toks["greedy"] == toks["greedy_b"] == want
+    sampled_repro = toks["mixed_8_slots"][:8] == toks["mixed_5_slots"][:8]
+    greedy_lanes = toks["mixed_8_slots"][8:] == want[8:]
+    differ = sum(toks["mixed_8_slots"][i] != want[i] for i in range(8))
+
+    dev = next(adapter.model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    logits = torch.randn((8, vocab), generator=g, device=dev) * 3
+    S = logits.shape[0]
+    filt = sampling._filter_logits(
+        logits, torch.full((S,), SAMPLE["temperature"], device=dev),
+        torch.full((S,), SAMPLE["top_k"], dtype=torch.int32, device=dev),
+        torch.full((S,), SAMPLE["top_p"], device=dev))
+    key = torch.tensor([sampling.seed_key(100 + s) for s in range(S)],
+                       device=dev)
+    counts = torch.zeros((S, vocab), dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for c0 in range(0, TV_DRAWS, TV_CHUNK):
+            ctr = 2 * torch.arange(c0, c0 + TV_CHUNK, device=dev)
+            gum = sampling._gumbel_rows(key[:, None].expand(S, TV_CHUNK),
+                                        ctr[None].expand(S, TV_CHUNK), vocab)
+            tok = torch.argmax(filt[:, None, :] + gum, dim=-1)
+            counts.scatter_add_(1, tok, torch.ones_like(tok,
+                                                        dtype=counts.dtype))
+            del gum
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+    masked = torch.isneginf(filt)
+    support = (~masked).sum(dim=1)
+    tv = 0.5 * (counts / TV_DRAWS - torch.softmax(filt.double(), dim=-1)) \
+        .abs().sum(dim=1)
+    limit = torch.sqrt(support.double() / TV_DRAWS)
+    outside = float(counts[masked].sum())
+    tv_ok = bool((tv < limit).all()) and outside == 0
+    ctx.setdefault("launches", {})["serve_sampling"] = {
+        n: sum(r["launches"][n] for r in runs.values())
+        for n in ALL_KERNELS}
+    def mean(key, *names):
+        return statistics.mean(runs[n][key] for n in names)
+
+    greedy_tps = mean("tokens_per_s", "greedy", "greedy_b")
+    return {"model": "transformer_big", "engine": kw, "sample": SAMPLE,
+            "runs": runs,
+            "tokens_per_s_sampling_temp0_over_greedy": mean(
+                "tokens_per_s", "sampling_temp0", "sampling_temp0_b")
+            / greedy_tps,
+            "tokens_per_s_mixed_over_greedy":
+                runs["mixed_8_slots"]["tokens_per_s"] / greedy_tps,
+            "decode_step_ms_greedy": mean("decode_step_ms_median", "greedy",
+                                          "greedy_b"),
+            "decode_step_ms_sampling": mean("decode_step_ms_median",
+                                            "sampling_temp0",
+                                            "sampling_temp0_b"),
+            "sampled_streams_differing_from_greedy": differ,
+            "distribution": {"draws_per_row": TV_DRAWS,
+                             "support": support.tolist(),
+                             "tv": tv.tolist(), "tv_limit": limit.tolist(),
+                             "draws_outside_support": outside,
+                             "draw_s": draw_s},
+            "checks": {"temp0_equals_serve": temp0_equal,
+                       "greedy_equals_serve": greedy_equal,
+                       "sampled_equal_8_vs_5_slots": sampled_repro,
+                       "greedy_lanes_equal_serve": greedy_lanes,
+                       "tv_under_limit": tv_ok},
+            "card": ctx["smi"],
+            "ok": bool(temp0_equal and greedy_equal and sampled_repro
+                       and greedy_lanes and differ > 0 and tv_ok
+                       and all(r["launches_ok"] and r["finished"]
+                               and r["pages_back"]
+                               for r in runs.values()))}
+
+
+def phase_serve_spec(torch, ctx):
+    """``bench_spec_decode``'s traffic (bench.py:1355) at full width: 8
+    requests with 8-token sources from RandomState(0), 24 new tokens,
+    bos 2, eos 1, through the plain engine and then ``spec_k`` 4 and 1
+    with ``NGramDraft()``, the serve engine's settings; a warm-up request,
+    then 3 trials each, the launches counted in each.  Verify and plain
+    dispatches are counted by wrapping the engine's dispatch methods; K1
+    must read 18 (K+1) per verify + 18 per plain step + 12 per prefill,
+    K2 6 (K+1) per verify + 6 per plain step.  Tokens equal the plain
+    engine's."""
+    from mxnet_tpu_torch.serving import NGramDraft, Request, ServingEngine
+
+    adapter, kw, vocab = ctx["adapter"], ctx["engine_kw"], 32000
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(3, vocab, 8).astype(np.int32)
+               for _ in range(SPEC_REQUESTS)]
+    res, streams = {}, {}
+    total = {n: 0 for n in ALL_KERNELS}
+    for k in (0, 4, 1):
+        eng = ServingEngine(adapter, spec_k=k,
+                            draft=NGramDraft() if k else None, **kw)
+        eng.serve([Request(prompts[0], 4, bos_id=2, eos_id=1)])  # warm-up
+        calls, verify_ms = {}, []
+        _tally(eng, "_dispatch_step", calls)
+        if k:
+            _tally(eng, "_dispatch_spec", calls)
+            dispatch, consume = eng._dispatch_spec, eng._consume_spec
+
+            def timed_dispatch(dispatch=dispatch):
+                timed_dispatch.t0 = time.perf_counter()
+                return dispatch()
+
+            def timed_consume(*args, consume=consume):
+                out = consume(*args)
+                verify_ms.append(1e3 * (time.perf_counter()
+                                        - timed_dispatch.t0))
+                return out
+
+            eng._dispatch_spec, eng._consume_spec = (timed_dispatch,
+                                                     timed_consume)
+        trials = []
+        for _ in range(SPEC_TRIALS):
+            reqs = [Request(p, SPEC_TOKENS, bos_id=2, eos_id=1)
+                    for p in prompts]
+            for c in calls:
+                calls[c] = 0
+            prop0, acc0 = eng._spec_proposed, eng._spec_accepted
+            out, launches, wall = _counted(torch, lambda: eng.serve(reqs))
+            streams[k] = [list(out[r.id]) for r in reqs]
+            verifies = calls.get("_dispatch_spec", 0)
+            plain = calls["_dispatch_step"]
+            prefills = len(reqs) + sum(r.preemptions for r in reqs)
+            expected = _expected(
+                18 * (k + 1) * verifies + 18 * plain + 12 * prefills,
+                6 * (k + 1) * verifies + 6 * plain)
+            n_tok = sum(len(s) for s in streams[k])
+            trials.append({
+                "wall_s": wall, "tokens": n_tok,
+                "tokens_per_s": n_tok / wall, "verifies": verifies,
+                "plain_steps": plain, "prefills": prefills,
+                "proposed": eng._spec_proposed - prop0,
+                "accepted": eng._spec_accepted - acc0,
+                "launches": launches, "launches_expected": expected,
+                "launches_ok": launches == expected})
+            for n in ALL_KERNELS:
+                total[n] += launches[n]
+        prop = sum(t["proposed"] for t in trials)
+        acc = sum(t["accepted"] for t in trials)
+        res[f"spec_k{k}"] = {
+            "trials": trials,
+            "tokens_per_s_best": max(t["tokens_per_s"] for t in trials),
+            "acceptance_rate": acc / prop if prop else None,
+            "verify_dispatch_ms_median": (statistics.median(verify_ms)
+                                          if verify_ms else None),
+            "statusz": eng.statusz_snapshot(),
+            "pages_back": eng.pages_free == eng.num_pages - 1}
+    ctx.setdefault("launches", {})["serve_spec"] = total
+    plain_tps = res["spec_k0"]["tokens_per_s_best"]
+    equal = {k: streams[k] == streams[0] for k in (4, 1)}
+    return {"model": "transformer_big", "engine": kw,
+            "requests": SPEC_REQUESTS, "max_new_tokens": SPEC_TOKENS,
+            "runs": res,
+            "tokens_per_s_over_plain": {
+                k: res[f"spec_k{k}"]["tokens_per_s_best"] / plain_tps
+                for k in (4, 1)},
+            "tokens_equal_plain": equal, "card": ctx["smi"],
+            "ok": bool(all(equal.values())
+                       and all(t["launches_ok"] for r in res.values()
+                               for t in r["trials"])
+                       and all(r["pages_back"] for r in res.values())
+                       and res["spec_k4"]["trials"][0]["verifies"] > 0
+                       and res["spec_k4"]["trials"][0]["proposed"] > 0)}
+
+
+def phase_serve_prefix(torch, ctx):
+    """``bench_prefix_cache``'s traffic (bench.py:1291) at full width: one
+    8-token source from RandomState(0), bos 2; its plain greedy stream of
+    32 tokens; the forced prefix is its first 24 tokens.  12 requests of 8
+    new tokens with that prefix, 3 trials, the cache on and then off (a
+    warm-up request with the first 5 prefix tokens first, as the bench
+    does), on the serve engine's settings.  eos is -1 so that every
+    stream has its 8 tokens.  Every stream must be the plain stream's
+    tokens 24-31, cache on and off; the hit rate is the bench's
+    (hits / lookups over the engine's life); the pages all return once
+    the entries are dropped.  Ingest dispatches, prefills (encoder runs)
+    and decode steps are counted by wrapping the methods; K1 must read
+    18 x 8 per ingest + 18 per step + 12 per prefill, K2 6 x 8 per ingest
+    + 6 per step."""
+    from mxnet_tpu_torch.serving import (Request, ServingEngine,
+                                         TransformerAdapter)
+
+    model, kw = ctx["model"], ctx["engine_kw"]
+    vocab = 32000
+    rng = np.random.RandomState(0)
+    src = rng.randint(3, vocab, 8).astype(np.int32)
+    plain = list(ServingEngine(ctx["adapter"], **kw).serve(
+        [Request(src, PREFIX_TOKENS + PREFIX_NEW, bos_id=2, eos_id=-1,
+                 request_id="p")])["p"])
+    prefix = np.asarray(plain[:PREFIX_TOKENS], np.int32)
+    want = plain[PREFIX_TOKENS:PREFIX_TOKENS + PREFIX_NEW]
+    res = {}
+    total = {n: 0 for n in ALL_KERNELS}
+    for on in (True, False):
+        adapter = TransformerAdapter(model, src_max_len=64)
+        eng = ServingEngine(adapter, prefix_cache=on, **kw)
+        eng.serve([Request(src, 2, bos_id=2, eos_id=-1,
+                           prefix=prefix[:5])])  # warm-up
+        calls = {}
+        _tally(adapter, "prefill", calls)
+        _tally(eng, "_ingest_body", calls)
+        _tally(eng, "_dispatch_step", calls)
+        trials, reqs_all = [], []
+        for _ in range(PREFIX_TRIALS):
+            reqs = [Request(src, PREFIX_NEW, bos_id=2, eos_id=-1,
+                            prefix=prefix) for _ in range(PREFIX_REQUESTS)]
+            for c in calls:
+                calls[c] = 0
+            out, launches, wall = _counted(torch, lambda: eng.serve(reqs))
+            n_ing, steps = calls["_ingest_body"], calls["_dispatch_step"]
+            expected = _expected(
+                18 * 8 * n_ing + 18 * steps + 12 * calls["prefill"],
+                6 * 8 * n_ing + 6 * steps)
+            trials.append({
+                "wall_s": wall, "ingests": n_ing, "decode_steps": steps,
+                "prefills": calls["prefill"], **_slo(reqs),
+                "streams_equal_plain": all(list(out[r.id]) == want
+                                           for r in reqs),
+                "launches": launches, "launches_expected": expected,
+                "launches_ok": launches == expected})
+            reqs_all += reqs
+            for n in ALL_KERNELS:
+                total[n] += launches[n]
+        del adapter.prefill
+        line = {"trials": trials,
+                "wall_s_min": min(t["wall_s"] for t in trials),
+                "statusz": eng.statusz_snapshot()}
+        if on:
+            looked = eng._prefix.hits + eng._prefix.misses
+            hit = [r.ttft_ms for r in reqs_all if r.prefix_hit]
+            miss = [r.ttft_ms for r in reqs_all if r.prefix_hit is False]
+            line.update(
+                hit_rate=eng._prefix.hits / looked if looked else 0.0,
+                ttft_ms_mean_hits=statistics.mean(hit) if hit else None,
+                ttft_ms_mean_misses=statistics.mean(miss) if miss else None,
+                hits=len(hit), misses=len(miss),
+                pages_held_by_entries=eng.num_pages - 1 - eng.pages_free)
+            while eng._drop_one_prefix_entry():
+                pass
+        line["pages_back"] = eng.pages_free == eng.num_pages - 1
+        res["cache_on" if on else "cache_off"] = line
+    ctx.setdefault("launches", {})["serve_prefix"] = total
+    on, off = res["cache_on"], res["cache_off"]
+    return {"model": "transformer_big", "engine": kw,
+            "prefix_tokens": PREFIX_TOKENS, "requests": PREFIX_REQUESTS,
+            "new_tokens": PREFIX_NEW, "runs": res,
+            "wall_ratio_off_over_on": off["wall_s_min"] / on["wall_s_min"],
+            "card": ctx["smi"],
+            "ok": bool(all(t["streams_equal_plain"] and t["launches_ok"]
+                           for r in res.values() for t in r["trials"])
+                       and on["pages_back"] and off["pages_back"]
+                       and on["hits"] > 0
+                       and on["trials"][-1]["ingests"] == 0)}
+
+
+def phase_serve_beam(torch, ctx):
+    """``Transformer.translate`` on the card over ``serve``'s first 8
+    sources (padded to the longest), beam 4, ``max_len`` 33, pages of 16,
+    after a short warm-up; beam steps counted by wrapping the model's
+    ``_decode_step``: K1 12 per translate + 18 per step, K2 6 per step.
+    Then ``serve_beam(beam_size=4)`` with ``max_new_tokens`` 32 on the
+    same requests must give each translate row, trimmed as the engine
+    trims, and ``translate(beam_size=1)`` the greedy engine's tokens for
+    the same sources."""
+    from mxnet_tpu_torch.serving import Request, ServingEngine
+
+    model, adapter, kw = ctx["model"], ctx["adapter"], ctx["engine_kw"]
+    vocab, bos, eos, beam, new = 32000, 1, 2, 4, 32
+    srcs = [r.tokens for r in _requests(16, vocab, SEED)[0][:8]]
+    src = np.zeros((len(srcs), max(s.size for s in srcs)), np.int32)
+    for i, s in enumerate(srcs):
+        src[i, :s.size] = s
+    src_t = torch.from_numpy(src).to(next(model.parameters()).device)
+
+    def trim(row):
+        toks = [int(t) for t in row[1:]]
+        if eos in toks:
+            toks = toks[:toks.index(eos) + 1]
+        return toks[:new]
+
+    def translate(k):
+        return model.translate(src_t, bos_id=bos, eos_id=eos,
+                               max_len=new + 1, beam_size=k, page_size=16)
+
+    model.translate(src_t[:1], bos_id=bos, eos_id=eos, max_len=4,
+                    beam_size=beam, page_size=16)  # warm-up
+    calls = {}
+    _tally(model, "_decode_step", calls)
+    try:
+        hyp, launches, wall = _counted(torch, lambda: translate(beam))
+        steps = calls["_decode_step"]
+    finally:
+        del model._decode_step
+    expected = _expected(12 + 18 * steps, 6 * steps)
+    eng = ServingEngine(adapter, **kw)
+    breqs = [Request(s, new, bos_id=bos, eos_id=eos) for s in srcs]
+    bout, b_launches, b_wall = _counted(
+        torch, lambda: eng.serve_beam(breqs, beam_size=beam))
+    beam_equal = all(list(bout[r.id]) == trim(hyp[i])
+                     for i, r in enumerate(breqs))
+    hyp1 = translate(1)
+    geng = ServingEngine(adapter, **kw)
+    greqs = [Request(s, new, bos_id=bos, eos_id=eos) for s in srcs]
+    gout = geng.serve(greqs)
+    greedy_equal = all(list(gout[r.id]) == trim(hyp1[i])
+                       for i, r in enumerate(greqs))
+    n_tok = sum(len(trim(h)) for h in hyp)
+    in_vocab = bool(((hyp >= 0) & (hyp < vocab)).all())
+    ctx.setdefault("launches", {})["serve_beam"] = {
+        n: launches[n] + b_launches[n] for n in ALL_KERNELS}
+    return {"model": "transformer_big", "batch": len(srcs), "beam": beam,
+            "max_len": new + 1, "src_width": src.shape[1],
+            "beam_steps": steps, "wall_s": wall,
+            "ms_per_beam_step": 1e3 * wall / steps, "tokens": n_tok,
+            "tokens_per_s": n_tok / wall, "serve_beam_wall_s": b_wall,
+            "launches": launches, "launches_expected": expected,
+            "serve_beam_launches": b_launches,
+            "statusz": eng.statusz_snapshot(),
+            "checks": {"serve_beam_equals_translate": beam_equal,
+                       "beam1_equals_greedy_engine": greedy_equal,
+                       "in_vocab": in_vocab},
+            "card": ctx["smi"],
+            "ok": bool(launches == expected and steps > 0
+                       and b_launches == expected and beam_equal
+                       and greedy_equal and in_vocab)}
 
 
 BERT_VOCAB = 30522
@@ -2637,10 +3078,12 @@ def phase_optimizer(torch, ctx):
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
-     ("serve", "train_transformer", "train_transformer_bf16",
-      "gluon_bert")),
+     ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
+      "train_transformer", "train_transformer_bf16", "gluon_bert")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
-     "mxnet_tpu/ops/pallas/paged_attention.py:38", "serve"),
+     "mxnet_tpu/ops/pallas/paged_attention.py:38",
+     ("serve", "serve_sampling", "serve_spec", "serve_prefix",
+      "serve_beam")),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:72", ("train", "gluon_bert")),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -3026,6 +3469,10 @@ def main() -> int:
               ("serve_parity", phase_serve_parity),
               ("serve_profile", phase_serve_profile),
               ("serve_bf16", phase_serve_bf16),
+              ("serve_sampling", phase_serve_sampling),
+              ("serve_spec", phase_serve_spec),
+              ("serve_prefix", phase_serve_prefix),
+              ("serve_beam", phase_serve_beam),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),

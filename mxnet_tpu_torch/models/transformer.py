@@ -9,6 +9,9 @@ output projection.  Every LayerNorm runs kernel K1
 (``gluon.nn.LayerNorm``); the decoder's incremental ``step`` attends
 through a step-cache object, which for the serving engine is
 ``serving.paged_cache.PagedStepCache`` (kernel K2).
+``Transformer.translate`` is the JAX method's beam search over the paged
+KV cache (kernels K1 and K2 in every decode body), and
+:class:`DenseStepCache` the dense per-layer cache it is checked against.
 ``MultiHeadAttention`` routes as the JAX class does: with no mask and
 attention dropout inactive (rate 0, or not training) it calls
 ``ops.kernels.flash_attention`` (kernels K3-K5); otherwise it takes the
@@ -40,6 +43,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -55,8 +59,8 @@ from ..ops.nn import activation as _activation_op
 __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
            "PositionalEmbedding", "TransformerDecoderCell",
-           "TransformerDecoder", "Transformer", "transformer_base",
-           "transformer_big", "label_smoothed_ce"]
+           "TransformerDecoder", "DenseStepCache", "Transformer",
+           "transformer_base", "transformer_big", "label_smoothed_ce"]
 
 
 def _split_heads(t, num_heads: int, head_dim: int):
@@ -334,6 +338,25 @@ def _attend_cached(q_t, K, V, keep, num_heads: int, head_dim: int):
     return _merge_heads(out, num_heads)
 
 
+class DenseStepCache:
+    """Per-layer dense (B, Lmax, C) K/V decode cache: this position's k/v
+    are written in place at the host-known row ``t``, and validity is the
+    ``keep`` mask (B, Lmax), 1 = attend.  The reference the paged cache
+    is checked against (paged decode == dense decode for the same
+    tokens)."""
+
+    def __init__(self, K, V, keep, t):
+        self.K, self.V, self.keep = K, V, keep
+        self.t = int(t)
+
+    def update_and_attend(self, attn, q_t, k_t, v_t):
+        t = self.t
+        self.K[:, t:t + 1] = k_t
+        self.V[:, t:t + 1] = v_t
+        return _attend_cached(q_t, self.K, self.V, self.keep,
+                              attn.num_heads, attn.head_dim)
+
+
 class Transformer(HybridBlock):
     """Encoder-decoder Transformer with a shared source/target embedding
     and, by default, a tied output projection (the WMT14 recipe;
@@ -437,6 +460,118 @@ class Transformer(HybridBlock):
         for cell, cache in zip(self.decoder.layers, caches):
             x = cell.step(x, mem, cross_mask_t, cache)
         return self._logits(x.reshape(x.shape[0], -1))
+
+    @torch.no_grad()
+    def translate(self, src, bos_id: int, eos_id: int, max_len: int = 32,
+                  beam_size: int = 4, alpha: float = 0.6,
+                  incremental: bool = True, sync_every: int = 8,
+                  page_size: Optional[int] = None):
+        """Beam-search decode (GNMT length penalty), the JAX method's.
+
+        src: (B, Ts) int tensor on the model's device.  Returns (B,
+        max_len) numpy int32 of the best hypotheses, bos in column 0 (the
+        caller trims at eos).  The encoder runs once and its memory is
+        repeated for the ``beam_size`` beams.  With ``incremental`` (the
+        default) each step is one decode body over the paged KV cache:
+        beam row s owns the contiguous pages [1 + s P, 1 + (s + 1) P)
+        (page 0 is the trash page), and a beam reorder gathers whole
+        pages over each pool with ``index_select``; ``incremental=False``
+        re-decodes the whole padded prefix every step (O(L^2), the
+        cross-check path).
+
+        Beam state stays on the device: candidates are chosen by a
+        stable descending sort of the flattened (B, K V) scores (ties go
+        to the lower index, as ``lax.top_k`` breaks them; finished beams
+        extend with pad at cost 0, so ties are ordinary), and the host
+        reads one finished count every ``sync_every`` steps (0: never)
+        for the early exit, then the final state once."""
+        B = src.shape[0]
+        K, V = int(beam_size), self.embed.weight.shape[0]
+        BK = B * K
+        dev = src.device
+        pad = self.pad_id
+        if max_len > self.pos.max_length:
+            raise MXNetError(
+                f"max_len {max_len} > positional table "
+                f"{self.pos.max_length}; build the model with a larger "
+                "max_length")
+        mem, src_keep = self._encode_h(src)
+        mem = mem.repeat_interleave(K, dim=0)               # (BK, Ts, C)
+        src_keep = src_keep.repeat_interleave(K, dim=0)     # (BK, Ts)
+
+        tgt = torch.full((BK, max_len), pad, dtype=torch.int32, device=dev)
+        tgt[:, 0] = bos_id
+        last_tok = torch.full((BK, 1), bos_id, dtype=torch.int32,
+                              device=dev)
+        scores = torch.full((B, K), float("-inf"), device=dev)
+        scores[:, 0] = 0.0  # only beam 0 is live at t = 0
+        finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+        # finished beams extend only with pad, at zero cost
+        lp_fin = torch.full((V,), float("-inf"), device=dev)
+        lp_fin[pad] = 0.0
+        b_off = (torch.arange(B, device=dev) * K)[:, None]
+        positions = torch.arange(max_len, dtype=torch.int32, device=dev)
+        if incremental:
+            from ..serving.paged_cache import (PagedKVCache, PagedStepCache,
+                                               page_coords, pages_for)
+
+            sa = self.decoder.layers[0].self_attn
+            ps = int(page_size or min(16, max_len))
+            P = pages_for(max_len, ps)
+            cache = PagedKVCache(len(self.decoder.layers), BK * P + 1, ps,
+                                 sa.num_heads, sa.head_dim, device=dev,
+                                 dtype=mem.dtype)
+            table = (1 + torch.arange(BK * P, dtype=torch.int32,
+                                      device=dev)).reshape(BK, P)
+            pools = cache.pools
+            page_off = torch.arange(P, device=dev)[None, :] + 1
+            zero_page = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+        for t in range(1, max_len):
+            pos = positions[t - 1:t]
+            if incremental:
+                pages, rows = page_coords(table, pos, ps)
+                lengths = pos.expand(BK) + 1
+                caches = [PagedStepCache(kp, vp, table, pages, rows,
+                                         lengths) for kp, vp in pools]
+                step_logits = self._decode_step(last_tok, pos, mem,
+                                                src_keep, caches)
+            else:
+                step_logits = self._decode_h(tgt, mem, src_keep)[:, t - 1]
+            lp = torch.log_softmax(step_logits, dim=-1).reshape(B, K, V)
+            lp = torch.where(finished[..., None], lp_fin, lp)
+            cand = (scores[..., None] + lp).reshape(B, K * V)
+            ordered, order = torch.sort(cand, dim=1, descending=True,
+                                        stable=True)
+            scores, top = ordered[:, :K], order[:, :K]
+            beam_idx = top // V
+            tok = (top % V).to(torch.int32)
+            if K > 1:
+                parent = (b_off + beam_idx).reshape(-1)     # (BK,)
+                tgt = tgt.index_select(0, parent)
+                finished = finished.reshape(-1).index_select(
+                    0, parent).reshape(B, K)
+                if incremental:
+                    # KV pages follow their beams: gather page contents
+                    # over the whole pool (page 0 maps to itself)
+                    idx = torch.cat([zero_page, (parent[:, None] * P
+                                                 + page_off).reshape(-1)])
+                    pools = [(kp.index_select(0, idx),
+                              vp.index_select(0, idx)) for kp, vp in pools]
+            tgt[:, t] = tok.reshape(-1)
+            finished = finished | (tok == eos_id) | (tok == pad)
+            last_tok = tok.reshape(BK, 1)
+            # early exit: one scalar readback every sync_every steps
+            if (sync_every and t % sync_every == 0 and t < max_len - 1
+                    and int(finished.sum()) >= BK):
+                break
+        tgt_np = tgt.cpu().numpy().reshape(B, K, max_len)
+        scores_np = scores.float().cpu().numpy()
+        # GNMT length penalty: score / ((5 + len) / 6) ** alpha
+        lengths_np = (tgt_np != pad).sum(-1)
+        penal = ((5.0 + lengths_np) / 6.0) ** alpha
+        best = np.argmax(scores_np / penal, axis=1)
+        return tgt_np[np.arange(B), best]
 
 
 def label_smoothed_ce(logits, labels, smoothing: float = 0.1,

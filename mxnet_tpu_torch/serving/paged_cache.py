@@ -172,10 +172,21 @@ class PagedKVCache:
         self._free: List[int] = list(range(1, self.num_pages))
         self._owned: dict = {}
         self._refs: dict = {}  # page -> owner count (shared pages)
+        self._notes: dict = {}  # owner -> observability metadata
 
     @property
     def pages_free(self) -> int:
         return len(self._free)
+
+    def annotate(self, owner, **attrs) -> None:
+        """Attach metadata to ``owner`` (the engine stamps the request id
+        at admission); cleared when the owner releases its pages."""
+        if attrs:
+            self._notes.setdefault(owner, {}).update(attrs)
+
+    def annotation(self, owner) -> dict:
+        """The metadata :meth:`annotate` attached (empty if none)."""
+        return dict(self._notes.get(owner, ()))
 
     def owned(self, owner) -> List[int]:
         return list(self._owned.get(owner, ()))
@@ -220,6 +231,7 @@ class PagedKVCache:
         zero return to the pool; shared pages survive until their last
         owner lets go.  Returns how many pages came back."""
         pages = self._owned.pop(owner, [])
+        self._notes.pop(owner, None)
         freed = 0
         for p in pages:
             left = self._refs.get(p, 1) - 1

@@ -161,7 +161,10 @@ def test_ffn_activation(activation, fn):
     ``"relu"`` ReLU; the encoder defaults to gelu as the JAX classes do, and
     the seq2seq Transformer passes relu."""
     ffn = transformer_mod.PositionwiseFFN(8, 16, activation=activation)
-    x = torch.randn(3, 8, generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(0)
+    for lin in (ffn.ffn_1, ffn.ffn_2):  # drawn, not left uninitialized
+        torch.nn.init.normal_(lin.weight, generator=g)
+    x = torch.randn(3, 8, generator=g)
     want = ffn.ffn_2(fn(ffn.ffn_1(x)))
     torch.testing.assert_close(ffn(x), want)
     cell = transformer_mod.TransformerEncoderCell(8, 16, 2)

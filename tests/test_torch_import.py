@@ -54,7 +54,10 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.metric",
           "mxnet_tpu_torch.random",
           "mxnet_tpu_torch.initializer",
-          "mxnet_tpu_torch.ndarray.utils")
+          "mxnet_tpu_torch.ndarray.utils",
+          "mxnet_tpu_torch.serving.sampling",
+          "mxnet_tpu_torch.serving.speculative",
+          "mxnet_tpu_torch.serving.scheduler")
 
 
 def _no_cuda():
