@@ -87,6 +87,36 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           step); ``serve_beam`` equal to it, and
                           ``translate(beam_size=1)`` to the greedy engine;
                           ms a beam step, tokens/s.
+  serve_fleet             the fleet on the card: two ``ReplicaServer``s
+                          (ranks 0 and 1) over serve's engine and weights,
+                          each its own model, behind a ``Router`` that
+                          finds them through portfiles under
+                          ``build/serve_fleet``, with ``MX_TELEMETRY_DIR``
+                          and ``MX_METRICS_PORT=0`` there; 8 client threads
+                          post serve's 16 requests to ``/generate`` (4
+                          sessions of 3, 4 without): serve's tokens, each
+                          session on one replica.  Again with replica 1
+                          drained after 4 answers and undrained after 12:
+                          no request sent meanwhile lands on it.  Again
+                          with replica 1 stopped after 4 answers: a session
+                          pinned to it fails over to replica 0 and stays.
+                          Transformer-big of seed + 1 written by
+                          ``AsyncCheckpointer`` in format 1 and 2:
+                          ``swap_weights`` of format 1 on replica 0 under
+                          160 requests flips on its run loop, later
+                          requests equal an engine restored from the
+                          checkpoint, format 2 flips at once (generation
+                          2); checkpoints of vocab 32008 and of bf16 are
+                          rejected and replica 0 keeps its weights;
+                          ``/metrics`` reads generation 2; the staging
+                          census empties at the flip; K1 18 a step + 12 a
+                          prefill and K2 6 a step summed over both engines;
+                          ``tools/serve_report.py`` (one request per
+                          answer), ``trace_report.py``, ``mem_report.py``
+                          and ``ckpt_report.py`` exit 0.  Lines of fleet
+                          tokens/s, TTFT, the router's added latency, swap
+                          ms and bytes, and memwatch's census beside
+                          ``max_memory_allocated``.
   kernel_flash_attention  kernels K3 (FA2 forward), K4 (dq) and K5 (dk, dv)
                           vs the plain version (the forward, and
                           torch.autograd.grad through it for the backward)
@@ -1618,6 +1648,469 @@ def phase_serve_beam(torch, ctx):
                        and greedy_equal and in_vocab)}
 
 
+# the fleet: two replicas behind a Router, 8 client threads; 4 sessions
+# of 3 requests (serve's requests 0-11) and 4 without (12-15)
+FLEET_CLIENTS, FLEET_SESSIONS = 8, 4
+# the traffic a swap is staged under: ~5 s of one replica's decoding,
+# longer than loading, verifying and staging a checkpoint
+FLEET_SWAP_REQUESTS = 160
+
+
+def _http_json(url, body, timeout=600.0):
+    """POST ``body`` and decode the JSON answer."""
+    import urllib.request
+
+    data = json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.load(r)
+
+
+def _fleet_round(url, jobs, on_done=None):
+    """POST ``jobs`` ([(key, body)]) to ``url``/generate from
+    FLEET_CLIENTS client threads; ``on_done(n)`` runs in the client that
+    got the n-th answer.  Returns ({key: {out, t_send, t_recv}}, errors,
+    wall s from the first send to the last answer)."""
+    import queue
+    import threading
+
+    q = queue.Queue()
+    for job in jobs:
+        q.put(job)
+    results, errors, lock = {}, [], threading.Lock()
+
+    def client():
+        while True:
+            try:
+                key, body = q.get_nowait()
+            except queue.Empty:
+                return
+            t_send = time.perf_counter()
+            try:
+                out = _http_json(url + "/generate", body)
+            except Exception as e:  # a failed request is the phase's verdict
+                with lock:
+                    errors.append(f"{key}: {type(e).__name__}: {e}"[:300])
+                continue
+            with lock:
+                results[key] = {"out": out, "t_send": t_send,
+                                "t_recv": time.perf_counter()}
+                n = len(results)
+            if on_done is not None:
+                on_done(n)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(FLEET_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results, errors, time.perf_counter() - t0
+
+
+def _fleet_jobs(tag, reqs, sessions=True):
+    """/generate bodies of ``reqs``: requests 0-11 in FLEET_SESSIONS
+    sessions of 3, the rest without one."""
+    jobs = []
+    for i, r in enumerate(reqs):
+        body = {"prompt": [int(t) for t in r.tokens],
+                "max_new_tokens": r.max_new_tokens,
+                "request_id": f"{tag}{i}"}
+        if sessions and i < 3 * FLEET_SESSIONS:
+            body["session"] = f"{tag}s{i % FLEET_SESSIONS}"
+        jobs.append((i, body))
+    return jobs
+
+
+def _handle_ms(teldir):
+    """trace id -> the replica's ``serve_handle`` span ms, from the
+    telemetry stream (paired spans: the begin names the trace, the end
+    carries the duration)."""
+    from mxnet_tpu_torch import telemetry
+
+    telemetry.flush()
+    begins, out = {}, {}
+    with open(telemetry.event_path(teldir, 0)) as f:
+        for line in f:
+            e = json.loads(line)
+            if e.get("name") != "serve_handle":
+                continue
+            if e["kind"] == "span_begin":
+                begins[e["span"]] = e.get("trace_id")
+            elif e["kind"] == "span_end" and e["span"] in begins:
+                out[begins[e["span"]]] = e["dur_ms"]
+    return out
+
+
+def _report_tool(tool, *args):
+    """Run ``tools/<tool>`` with ``--json``: (exit code, its report)."""
+    out = subprocess.run([sys.executable, os.path.join("tools", tool),
+                          *args, "--json"], capture_output=True, text=True,
+                         timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        rep = json.loads(out.stdout)
+    except ValueError:
+        rep = {"stdout": out.stdout[-500:], "stderr": out.stderr[-500:]}
+    return out.returncode, rep
+
+
+def phase_serve_fleet(torch, ctx):
+    """The fleet on one card: two ReplicaServers (ranks 0 and 1, each its
+    own Transformer-big engine of serve's weights) behind a Router that
+    finds them through portfiles, with the telemetry recorder and the
+    metrics endpoint on.  Round 1: serve's 16 requests from 8 clients (4
+    sessions of 3, 4 without), each answer serve's tokens and each
+    session on one replica.  Round 2: the same with replica 1 drained
+    after 4 answers and undrained after 12.  Round 3: a session pinned
+    to replica 1, then the 16 again with replica 1 stopped after 4
+    answers; the session fails over to replica 0 and stays there.
+    Round 4: a Transformer-big of seed + 1 checkpointed in format 1 and
+    2 swaps into replica 0 (format 1 under FLEET_SWAP_REQUESTS requests,
+    format 2 idle); requests after the flip equal an engine restored
+    from the checkpoint; checkpoints of vocab 32008 and of bf16 are
+    rejected.  K1 and K2 launches exact over both engines; the report
+    tools exit 0 on the streams and checkpoints."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from mxnet_tpu_torch import checkpoint, memwatch, metrics_server
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.models.transformer import transformer_big
+    from mxnet_tpu_torch.serving import (ReplicaServer, Request, Router,
+                                         ServingEngine, TransformerAdapter)
+
+    vocab, kw, smi = 32000, ctx["engine_kw"], ctx["smi"]
+    want = ctx["serve_tokens"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "serve_fleet")
+    shutil.rmtree(root, ignore_errors=True)
+    teldir = os.path.join(root, "telemetry")
+    os.makedirs(teldir)
+    env_before = {k: os.environ.get(k) for k in ("MX_TELEMETRY_DIR",
+                                                 "MX_METRICS_PORT")}
+    os.environ.update(MX_TELEMETRY_DIR=teldir, MX_METRICS_PORT="0")
+    telemetry.reset()
+    memwatch.reset()
+    telemetry.enable(teldir)
+    metrics_server.start()
+
+    def big(v=vocab, seed=SEED):
+        return transformer_big(v, dropout=0.0, max_length=1024,
+                               generator=torch.Generator().manual_seed(seed))
+
+    # the checkpoints: seed + 1 in format 1 and 2, and two of another
+    # structure (vocab 32008; the same net in bf16)
+    ck = {k: os.path.join(root, k) for k in ("f1", "f2", "bf16", "vocab")}
+    t0 = time.perf_counter()
+    other = big(seed=SEED + 1)
+    for key, sharded in (("f1", False), ("f2", True)):
+        w = checkpoint.AsyncCheckpointer(ck[key], save_every=1,
+                                         sharded=sharded)
+        w.step(other)
+        w.close()
+    other.cast("bfloat16")
+    w = checkpoint.AsyncCheckpointer(ck["bf16"], save_every=1)
+    w.step(other)
+    w.close()
+    del other
+    other = big(v=vocab + 8, seed=SEED + 2)
+    w = checkpoint.AsyncCheckpointer(ck["vocab"], save_every=1)
+    w.step(other)
+    w.close()
+    del other
+    torch.cuda.empty_cache()
+    ckpt_s = time.perf_counter() - t0
+
+    models = [big(), big()]
+    adapters = [TransformerAdapter(m, src_max_len=64) for m in models]
+    engines = [ServingEngine(a, **kw) for a in adapters]
+    prefills = [{}, {}]
+    for a, calls in zip(adapters, prefills):
+        _tally(a, "prefill", calls)
+    reps = [ReplicaServer(e, bos_id=1, eos_id=2, port=0, rank=r,
+                          directory=root).start()
+            for r, e in enumerate(engines)]
+    # no health polls: the router learns of a dead replica by its refusal
+    router = Router(root, port=0, health_sec=3600.0).start()
+    url = f"http://127.0.0.1:{router.port}"
+    checks, errors = {}, []
+    try:
+        reqs = _requests(16, vocab, SEED)[0]
+        counters = _counters()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+        # round 1: affinity and least-outstanding
+        r1, err, wall1 = _fleet_round(url, _fleet_jobs("a", reqs))
+        errors += err
+        homes = {}
+        for i, res in r1.items():
+            if i < 3 * FLEET_SESSIONS:
+                homes.setdefault(i % FLEET_SESSIONS, set()).add(
+                    res["out"]["routed_to"])
+        checks["r1_tokens"] = all(r1[i]["out"]["tokens"] == want[i]
+                                  for i in r1) and len(r1) == 16
+        checks["r1_sessions_pinned"] = all(len(h) == 1
+                                           for h in homes.values())
+        checks["r1_both_replicas"] = {res["out"]["routed_to"]
+                                      for res in r1.values()} == {0, 1}
+        # the same traffic without sessions under the profiler: where the
+        # fleet's time goes (device activity only)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rp, err, wallp = _fleet_round(url, _fleet_jobs("p", reqs, False))
+            torch.cuda.synchronize()
+        errors += err
+        checks["profiled_tokens"] = all(rp[i]["out"]["tokens"] == want[i]
+                                        for i in rp) and len(rp) == 16
+        prof_rows = _profile_rows(prof)
+        busy_ms = sum(ms for ms, _, _ in prof_rows)
+
+        # round 2: replica 1 drained mid traffic, then undrained
+        window = {}
+
+        def drain(n):
+            if n == 4 and "on" not in window:
+                window["on"] = None
+                _http_json(url + "/admin/drain?rank=1", {})
+                window["on"] = time.perf_counter()
+            elif n == 12 and "off" not in window:
+                window["off"] = time.perf_counter()
+                _http_json(url + "/admin/undrain?rank=1", {})
+
+        r2, err, _ = _fleet_round(url, _fleet_jobs("b", reqs), drain)
+        errors += err
+        during = [res for res in r2.values()
+                  if window.get("on") and res["t_send"] > window["on"]
+                  and res["t_send"] < window.get("off", float("inf"))]
+        checks["r2_tokens"] = all(r2[i]["out"]["tokens"] == want[i]
+                                  for i in r2) and len(r2) == 16
+        checks["r2_none_on_drained"] = bool(during) and all(
+            res["out"]["routed_to"] == 0 for res in during)
+        checks["r2_undrained"] = all(
+            not r["draining"] for r in router.replicas())
+
+        # round 3: replica 1 stopped with requests in flight
+        _http_json(url + "/admin/drain?rank=0", {})
+        pin = _http_json(url + "/generate", {
+            "prompt": [int(t) for t in reqs[0].tokens],
+            "max_new_tokens": reqs[0].max_new_tokens, "session": "fo"})
+        _http_json(url + "/admin/undrain?rank=0", {})
+        fo = []
+
+        def stop_one(n):
+            if n == 4 and not fo:
+                fo.append(None)
+                reps[1].stop()
+                for _ in range(2):
+                    fo.append(_http_json(url + "/generate", {
+                        "prompt": [int(t) for t in reqs[0].tokens],
+                        "max_new_tokens": reqs[0].max_new_tokens,
+                        "session": "fo"}))
+
+        r3, err, _ = _fleet_round(url, _fleet_jobs("c", reqs, False),
+                                  stop_one)
+        errors += err
+        dead = [r for r in router.replicas() if r["rank"] == 1]
+        checks["r3_tokens"] = all(r3[i]["out"]["tokens"] == want[i]
+                                  for i in r3) and len(r3) == 16
+        checks["r3_pinned_to_1_first"] = pin["routed_to"] == 1
+        checks["r3_failover"] = (
+            router.failovers >= 1 and len(fo) == 3
+            and all(o["routed_to"] == 0 and o["tokens"] == want[0]
+                    for o in fo[1:])
+            and bool(dead) and not dead[0]["healthy"])
+
+        # round 4: hot swap on replica 0 under traffic, then rejections
+        eng = engines[0]
+        swap, flips = {}, []
+        apply = eng._apply_pending_swap
+
+        def recorded_apply():
+            # which thread flips, and the census just before it
+            if eng._swap_pending is not None:
+                flips.append({"thread": threading.current_thread().name,
+                              "census": memwatch.census()})
+            apply()
+
+        eng._apply_pending_swap = recorded_apply
+
+        def stage(n):
+            if n == 2 and not swap:
+                swap["t0"] = time.perf_counter()
+                swap["step"] = eng.swap_weights(ck["f1"])
+                swap["t1"] = time.perf_counter()
+
+        many = (reqs * (FLEET_SWAP_REQUESTS // len(reqs) + 1))
+        r4, err, _ = _fleet_round(
+            url, _fleet_jobs("d", many[:FLEET_SWAP_REQUESTS], False), stage)
+        errors += err
+        census_after = memwatch.census()
+        gen1 = eng.weight_generation
+        after, err, _ = _fleet_round(url, _fleet_jobs("e", reqs[:8], False))
+        errors += err
+        rejected = {}
+        for key in ("vocab", "bf16"):
+            try:
+                eng.swap_weights(ck[key])
+                rejected[key] = False
+            except MXNetError as e:
+                rejected[key] = "rejected" in str(e)
+        kept, err, _ = _fleet_round(url, _fleet_jobs("f", reqs[:2], False))
+        errors += err
+        while eng._running or eng._run_lock.locked():
+            time.sleep(0.01)  # the run loop's tail after the last answer
+        eng.swap_weights(ck["f2"])
+        gen2 = eng.weight_generation
+        kept2, err, _ = _fleet_round(url, _fleet_jobs("g", reqs[:2], False))
+        errors += err
+        torch.cuda.synchronize()
+        launches = {n: c.launches for n, c in counters.items()}
+        steps = sum(e.step_count for e in engines)
+        n_prefill = sum(c["prefill"] for c in prefills)
+        expected = _expected(18 * steps + 12 * n_prefill, 6 * steps)
+        peak = torch.cuda.max_memory_allocated()
+
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{metrics_server.port()}/metrics",
+                timeout=60) as r:
+            metrics = r.read().decode()
+        # rounds 1-3, the pinning request and the two failed over, round
+        # 4's traffic and the requests after the flip and the rejections
+        answered = (len(r1) + len(rp) + len(r2) + len(r3) + 1 + len(fo) - 1
+                    + len(r4) + len(after) + len(kept) + len(kept2))
+    finally:
+        router.stop()
+        for rep in reps:
+            rep.stop()
+        metrics_server.stop()
+
+    # the references, outside the counted window and the recorder: an
+    # engine restored from the format-1 checkpoint (the stopped replica's
+    # model)
+    telemetry.disable()
+    assert checkpoint.restore(ck["f1"], models[1]) == 1
+    ref_reqs = [Request(r.tokens, r.max_new_tokens, bos_id=1, eos_id=2)
+                for r in reqs[:8]]
+    ref = ServingEngine(adapters[1], **kw).serve(ref_reqs)
+    ref = [list(ref[r.id]) for r in ref_reqs]
+    # the format-1 swap flipped on replica 0's run loop (staged under
+    # traffic), the format-2 one at once on this idle engine's caller
+    checks["r4_flip_threads"] = [f["thread"] for f in flips] == [
+        "mx-serve-engine-0", threading.current_thread().name]
+    checks["r4_generation"] = (swap.get("step") == 1 and gen1 == 1
+                               and gen2 == 2)
+    checks["r4_after_flip_equals_restored"] = all(
+        after[i]["out"]["tokens"] == ref[i]
+        and after[i]["out"]["generation"] == 1 for i in after) \
+        and len(after) == 8
+    checks["r4_swap_changed_tokens"] = any(ref[i] != want[i]
+                                           for i in range(8))
+    checks["r4_rejected"] = rejected == {"vocab": True, "bf16": True}
+    checks["r4_old_weights_kept"] = all(
+        kept[i]["out"]["tokens"] == ref[i] for i in kept) and all(
+        kept2[i]["out"]["tokens"] == ref[i]
+        and kept2[i]["out"]["generation"] == 2 for i in kept2)
+    staged_cat = flips[0]["census"]["categories"] if flips else {}
+    checks["r4_staging_drained"] = (
+        staged_cat.get("staging", {}).get("nbytes", 0) > 0
+        and "staging" not in census_after["categories"])
+    checks["r4_all_finished"] = len(r4) == FLEET_SWAP_REQUESTS
+    checks["metrics_generation_2"] = (
+        'mx_serve_weight_generation{rank="0"} 2' in metrics)
+    checks["no_request_failed"] = not errors
+    checks["launches_exact"] = launches == expected and steps > 0
+
+    # the report tools on what the fleet wrote
+    reports = {}
+    for tool, arg in (("serve_report.py", teldir),
+                      ("trace_report.py", teldir),
+                      ("mem_report.py", teldir),
+                      ("ckpt_report.py", ck["f1"]),
+                      ("ckpt_report.py", ck["f2"])):
+        rc, rep = _report_tool(tool, arg)
+        reports[f"{tool}:{os.path.basename(arg)}"] = {
+            "rc": rc, **{k: rep.get(k) for k in ("requests", "unfinished",
+                                                 "anomalies", "causes",
+                                                 "num_ranks")
+                         if k in rep}}
+    checks["reports_exit_0"] = all(r["rc"] == 0 for r in reports.values())
+    checks["serve_report_counts_answers"] = (
+        reports[f"serve_report.py:telemetry"].get("requests") == answered)
+
+    # the printed lines
+    r1_tokens = sum(len(res["out"]["tokens"]) for res in r1.values())
+    ttft = [res["out"]["ttft_ms"] for rnd in (r1, rp, r2, r3, r4, after)
+            for res in rnd.values()]
+    handle = _handle_ms(teldir)
+    added = [1e3 * (res["t_recv"] - res["t_send"])
+             - handle[res["out"]["trace_id"]]
+             for rnd in (r1, rp, r2, r3, after) for res in rnd.values()
+             if res["out"].get("trace_id") in handle]
+    swaps = []
+    with open(telemetry.event_path(teldir, 0)) as f:
+        for line in f:
+            e = json.loads(line)
+            if e["kind"] == "weight_swap" and not e.get("rejected"):
+                swaps.append({k: e.get(k) for k in (
+                    "generation", "staged_bytes", "verify_ms", "flip_ms")})
+    census = {cat: row["nbytes"] for cat, row in
+              staged_cat.items()}
+    lines = [
+        {"fleet_tokens_per_s": r1_tokens / wall1, "tokens": r1_tokens,
+         "wall_s": wall1, "replicas": 2, "clients": FLEET_CLIENTS,
+         "decode_step_ms_median_by_replica": [
+             statistics.median(1e3 * t / n for n, t in e.burst_times)
+             for e in engines]},
+        {"fleet_profiled_wall_s": wallp,
+         "device_busy_ms": busy_ms if prof_rows else None,
+         "device_busy_share": busy_ms / (1e3 * wallp) if prof_rows
+         else None,
+         "device_ops": sum(c for _, c, _ in prof_rows),
+         "top": [{"name": k[:80], "ms": ms, "count": c}
+                 for ms, c, k in prof_rows[:6]]},
+        {"fleet_ttft_ms_p50": float(np.percentile(ttft, 50)),
+         "fleet_ttft_ms_p90": float(np.percentile(ttft, 90)),
+         "requests": len(ttft)},
+        {"router_added_ms_median": statistics.median(added),
+         "router_added_ms_p90": float(np.percentile(added, 90)),
+         "requests": len(added),
+         "is": "client /generate wall minus the replica's serve_handle "
+               "span (host clocks)"},
+        {"swap_weights": swaps, "staged_bytes": swaps[0]["staged_bytes"]
+         if swaps else None, "swap_call_s": swap.get("t1", 0)
+         - swap.get("t0", 0)},
+        {"memwatch_census_bytes_while_staged": census,
+         "memwatch_census_bytes_after_flip": {
+             cat: row["nbytes"]
+             for cat, row in census_after["categories"].items()},
+         "max_memory_allocated": peak}]
+    for ln in lines:
+        emit({"serve_fleet": ln, "card": smi})
+    telemetry.reset()
+    memwatch.reset()
+    for k, v in env_before.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    ctx.setdefault("launches", {})["serve_fleet"] = launches
+    return {"requests_answered": answered, "decode_steps": steps,
+            "prefills": n_prefill, "launches": launches,
+            "launches_expected": expected, "failovers": router.failovers,
+            "checkpoint_prep_s": ckpt_s, "reports": reports,
+            "swap": swap, "flip_threads": [f["thread"] for f in flips],
+            "errors": errors[:10], "checks": checks, "card": smi,
+            "ok": all(checks.values())}
+
+
 BERT_VOCAB = 30522
 TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS = 32, 512, 5
 FLASH = ("flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv")
@@ -3079,11 +3572,12 @@ KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
-      "train_transformer", "train_transformer_bf16", "gluon_bert")),
+      "serve_fleet", "train_transformer", "train_transformer_bf16",
+      "gluon_bert")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
-      "serve_beam")),
+      "serve_beam", "serve_fleet")),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:72", ("train", "gluon_bert")),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
@@ -3473,6 +3967,7 @@ def main() -> int:
               ("serve_spec", phase_serve_spec),
               ("serve_prefix", phase_serve_prefix),
               ("serve_beam", phase_serve_beam),
+              ("serve_fleet", phase_serve_fleet),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),

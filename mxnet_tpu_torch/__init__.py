@@ -2,7 +2,9 @@
 
 Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
 ``autograd``, ``passes``, ``gluon``, ``init``, ``metric``, ``random``,
-``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``) in plain
+``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``, and the
+runtime services ``telemetry``, ``memwatch``, ``metrics_server``,
+``checkpoint``, ``fault``) in plain
 PyTorch idiom: Gluon blocks (and so the models) are ``torch.nn.Module``s,
 state is tensors on an explicit ``torch.device``,
 randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
@@ -12,6 +14,9 @@ on first use by ``ops.kernels._build``.
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``;
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
 The package imports ``torch``, numpy and the standard library only.
+With ``MX_TELEMETRY_DIR`` set the telemetry recorder writes there from
+import on; with ``MX_METRICS_PORT`` set the metrics endpoint starts at
+import, as in the JAX package.
 """
 from .base import MXNetError
 from .context import cpu, default_device, gpu
@@ -25,7 +30,15 @@ from . import metric
 from . import kvstore
 from . import kvstore as kv
 from . import gluon
+from . import telemetry
+from . import memwatch
+from . import metrics_server
+from . import checkpoint
+from . import fault
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd",
            "optimizer", "random", "initializer", "init", "metric", "kvstore",
-           "kv", "gluon"]
+           "kv", "gluon", "telemetry", "memwatch", "metrics_server",
+           "checkpoint", "fault"]
+
+metrics_server.maybe_start()

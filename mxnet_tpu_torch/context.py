@@ -11,7 +11,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_device", "resolve_device"]
+__all__ = ["cpu", "gpu", "default_device", "resolve_device",
+           "normalize_memory_stats"]
 
 
 def cpu() -> torch.device:
@@ -35,3 +36,27 @@ def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``, or :func:`default_device` when
     it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+def normalize_memory_stats(raw) -> dict:
+    """The port's copy of ``mxnet_tpu.context.normalize_memory_stats``:
+    an allocator-stats dict as ``{"bytes_in_use", "peak_bytes_in_use",
+    "bytes_limit", "available"}``.  Anything without ``bytes_in_use``
+    (the CPU has no allocator stats) is ``available=False`` with zeroed
+    counters."""
+    if not isinstance(raw, dict) or "bytes_in_use" not in raw:
+        return {"bytes_in_use": 0, "peak_bytes_in_use": 0,
+                "bytes_limit": 0, "available": False}
+
+    def _int(key, default=0):
+        try:
+            return int(raw.get(key, default))
+        except (TypeError, ValueError):
+            return default
+
+    in_use = _int("bytes_in_use")
+    return {"bytes_in_use": in_use,
+            "peak_bytes_in_use": _int("peak_bytes_in_use", in_use),
+            "bytes_limit": _int("bytes_limit"),
+            "available": True}
+

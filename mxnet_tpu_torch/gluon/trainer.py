@@ -19,16 +19,21 @@ still deferred (a net stepped before its first forward) raises, as in the
 JAX package (``trainer.py:264-267``).  ``lr_mult`` / ``wd_mult`` come from
 the Parameters (the optimizer's ``param_dict``).
 
-Not ported: the in-flight ring and telemetry (ROADMAP A.6, A.10) and more
-than one device (A.9); ``ignore_stale_grad`` is accepted and, as in the
-JAX package, not checked.
+Each ``step`` ends with the JAX Trainer's service hooks: a ``step`` event
+(``telemetry.record_step``, the host wall of the call; the first step is
+marked ``traced``), a heartbeat, and ``memwatch.on_step``.  Not ported:
+the in-flight ring (ROADMAP A.6) and more than one device (A.9);
+``ignore_stale_grad`` is accepted and, as in the JAX package, not
+checked.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List
 
 from ..base import MXNetError
 from .. import kvstore as kvs_mod
+from .. import memwatch, telemetry
 from .. import optimizer as opt_mod
 from .parameter import Parameter, ParameterDict
 
@@ -65,6 +70,7 @@ class Trainer:
         self._kvstore = None
         self._update_on_kvstore = None
         self._updaters = None
+        self._step_count = 0
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -122,11 +128,24 @@ class Trainer:
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Rescale the gradients by 1 / ``batch_size``, reduce them and
         update the weights."""
+        t0 = time.perf_counter()
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
+        self._step_count += 1
+        if telemetry.enabled():
+            # the first step pays the kvstore and updater set-up: keep it
+            # out of the steady-state aggregates
+            telemetry.record_step("Trainer", step=self._step_count,
+                                  wall_s=time.perf_counter() - t0,
+                                  samples=int(batch_size),
+                                  traced=self._step_count == 1,
+                                  inflight_depth=0, block_wait_ms=0.0)
+            telemetry.heartbeat(self._step_count)
+        # memory watchdog step boundary, after the dispatches
+        memwatch.on_step(self._step_count)
 
     def allreduce_grads(self) -> None:
         if not self._kv_initialized:

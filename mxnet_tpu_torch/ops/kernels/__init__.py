@@ -6,7 +6,9 @@ on a CUDA device, or raises; it never falls back.  Each counts its kernel
 launches in a plain integer attribute (``layer_norm.launches``,
 ``add_layer_norm.launches``, ``paged_decode_attention.launches``,
 ``flash_attention_fwd.launches``, ``flash_attention_dq.launches``,
-``flash_attention_dkv.launches``, ``softmax_cross_entropy.launches``).
+``flash_attention_dkv.launches``, ``softmax_cross_entropy.launches``),
+added to under a lock (``_build.count_launch``), so launches from several
+threads (two serving replicas) all count.
 
 ``registry`` maps op-classes of ``ops.registry`` to these kernels for the
 ``fused_kernels`` pass; it is imported by the pass, not here.

@@ -34,8 +34,8 @@ import torch
 
 from ...base import MXNetError
 
-__all__ = ["load", "build_all", "check", "dtype_code", "SOURCES", "CSRC",
-           "BUILD_DIR", "BUILD_LOG", "DTYPE_CODES"]
+__all__ = ["load", "build_all", "check", "dtype_code", "count_launch",
+           "SOURCES", "CSRC", "BUILD_DIR", "BUILD_LOG", "DTYPE_CODES"]
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -51,6 +51,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -101,9 +102,11 @@ def _finish(name: str, out: Path, pending) -> None:
 
 
 def build_all(names: Iterable[str] = SOURCES) -> None:
-    """Build every source in parallel (one nvcc each) and load them."""
-    names = [n for n in names if n not in _libs]
+    """Build every source in parallel (one nvcc each) and load them.
+    Thread-safe: the sources still to build are read under the lock, so
+    two first uses never both run nvcc for one source."""
     with _lock:
+        names = [n for n in names if n not in _libs]
         started = [(n, *_start(n)) for n in names]
         errors = []
         for n, out, pending in started:
@@ -115,6 +118,14 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
             raise MXNetError("\n".join(errors))
         for n, out, _ in started:
             _libs[n] = ctypes.CDLL(str(out))
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)
+    under a lock: serving replicas launch from several driver threads,
+    and a bare ``+= 1`` can lose counts between them."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -180,7 +180,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, sm_scale=None):
             lse.data_ptr(), dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    _build.count_launch(flash_attention_fwd)
     return out, lse
 
 
@@ -211,7 +211,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
             k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dq")
-    flash_attention_dq.launches += 1
+    _build.count_launch(flash_attention_dq)
     return dq
 
 
@@ -235,7 +235,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
             dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dkv")
-    flash_attention_dkv.launches += 1
+    _build.count_launch(flash_attention_dkv)
     return dk, dv
 
 

@@ -111,7 +111,7 @@ def layer_norm(x, gamma, beta, eps: float = 1e-5):
             out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N, C,
             float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "layer_norm")
-    layer_norm.launches += 1
+    _build.count_launch(layer_norm)
     return out, mu, rstd
 
 
@@ -182,7 +182,7 @@ def add_layer_norm(x, res, gamma, beta, eps: float = 1e-5):
             b32.data_ptr(), out.data_ptr(), mu.data_ptr(), rstd.data_ptr(), N,
             C, float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "add_layer_norm")
-    add_layer_norm.launches += 1
+    _build.count_launch(add_layer_norm)
     return out, mu, rstd
 
 

@@ -153,7 +153,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, lengths,
             hd, ps, P, span, tile, _scale(hd, sm_scale),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, what)
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 

@@ -107,7 +107,7 @@ def softmax_cross_entropy(logits, labels, ignore_label=None):
             0 if ignore_label is None else int(ignore_label),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "softmax_cross_entropy")
-    softmax_cross_entropy.launches += 1
+    _build.count_launch(softmax_cross_entropy)
     return loss
 
 

@@ -32,6 +32,16 @@ The front door, each part off by default as in the JAX engine:
     rows.  ``serve_beam`` runs ``Transformer.translate`` per request
     group.
 
+Runtime services, as in the JAX engine: ``swap_weights`` stages a
+checkpoint's parameters off the decode path, verifies them and flips them
+in place at a stream boundary (``weight_generation`` counts the flips);
+the engine reports to the port's telemetry recorder (``serve_request``,
+``serve_state``, ``serve_prefix``, ``spec_verify``, ``serve_preempt``,
+``weight_swap`` and the ``serve_*`` spans, with the JAX engine's fields)
+and registers its pools and slot state (``serving``) and staged weights
+(``staging``) with ``memwatch``.  Spans around a dispatch measure host
+enqueue time; only a stream boundary's readback synchronises.
+
 Any model servable here implements :class:`ServingAdapter`;
 :class:`TransformerAdapter` serves ``models.transformer.Transformer`` on
 the paged KV cache, whose self-attention is kernel K2 and whose
@@ -41,6 +51,7 @@ included, runs 3 K1 and 1 K2 launches per decoder layer.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -48,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import memwatch, telemetry
 from ..base import MXNetError
 from ..context import resolve_device
 from . import sampling as _sampling
@@ -234,7 +246,17 @@ class ServingEngine:
         # the label of the decode program in statusz (the JAX engine's
         # quantized adapters name theirs)
         self._precision = "fp32"
-        # the prefix cache's entry stamp; weights never change here
+        # zero-downtime weight hot-swap: verified new weights wait in
+        # _staging (device tensors in the module's layouts) until the run
+        # loop flips them in at a stream boundary; the generation stamps
+        # prefix-cache entries
+        self._staging: Dict[str, torch.Tensor] = {}
+        self._swap_pending: Optional[dict] = None
+        self._swap_lock = threading.Lock()
+        # held by run() for its whole loop: an idle flip on the caller's
+        # thread never overlaps a run loop's dispatches
+        self._run_lock = threading.Lock()
+        self._running = False
         self._weight_generation = 0
         self._S = int(slots)
         self._ps = int(page_size)
@@ -295,6 +317,14 @@ class ServingEngine:
         self._extra_names = list(extra)
         state.update(extra)
         self._state = state
+        # census categories: the pools and slot state are the engine's
+        # resident footprint; the staged swap weights (the transient 2x
+        # window) read empty again after the flip
+        memwatch.register("serving", self, lambda eng: (
+            list(eng._state.values())
+            + [t for pair in eng._cache.pools for t in pair]))
+        memwatch.register("staging", self,
+                          lambda eng: list(eng._staging.values()))
 
     # ------------------------------------------------------------------
     # public API
@@ -333,43 +363,240 @@ class ServingEngine:
         self.run()
         return {r.id: r.stream.asarray() for r in requests}
 
+    def swap_weights(self, ckpt_dir: str,
+                     step: Optional[int] = None) -> int:
+        """Zero-downtime weight hot-swap: load a checkpoint's parameters
+        (by structural name, ``checkpoint.load_checkpoint_state``) into a
+        STAGING copy on the engine's device, verify them, and flip them
+        into the served parameters at the next stream boundary: requests
+        in flight finish against one consistent weight set, and the KV
+        pools and page tables are untouched.
+
+        Verified before anything is published: the checkpoint's SHA-256
+        digests (torn or corrupt steps are invisible), full parameter
+        coverage, and the structure fingerprint (names, shapes, dtypes,
+        adapter) over the staged tensors, which must equal the served
+        one.  A mismatch is a LOUD rejection (``MXNetError``) and the
+        engine keeps serving the old weights.
+
+        The flip writes in place (``copy_`` under ``no_grad``), so no
+        parameter's address changes.  It happens only on the run-loop
+        thread at a stream boundary (between bursts, or as the loop
+        starts or ends), or here at once when the engine is idle; either
+        way before any request admitted after this call returns.
+        Returns the checkpoint step swapped in; telemetry records a
+        ``weight_swap`` event (staged bytes, verify and flip ms,
+        generation)."""
+        from .. import checkpoint as ckpt_mod
+
+        t0 = time.perf_counter()
+        state = ckpt_mod.load_checkpoint_state(ckpt_dir, step=step)
+        if state is None:
+            raise MXNetError(
+                f"swap_weights: no valid checkpoint in {ckpt_dir!r} — "
+                "keeping the current weights")
+        snap = state["params"]
+        staging: Dict[str, torch.Tensor] = {}
+        try:
+            served = self._served_params()
+            for sname, p in served.items():
+                if sname not in snap:
+                    raise MXNetError(
+                        f"swap_weights: checkpoint step {state['step']} "
+                        f"is missing parameter {sname!r} — rejected, "
+                        "keeping the current weights")
+                staging[sname] = p._from_gluon(
+                    ckpt_mod._tensor_of(snap[sname]))
+            cur = memwatch.fingerprint(self._structure_parts(
+                {n: p._tensor() for n, p in served.items()}))
+            new = memwatch.fingerprint(self._structure_parts(staging))
+            if new != cur:
+                raise MXNetError(
+                    f"swap_weights: checkpoint step {state['step']} has "
+                    "a different structure fingerprint (parameter "
+                    "shapes/dtypes or adapter changed) — rejected, "
+                    "keeping the current weights")
+            staging = {n: t.to(served[n]._tensor().device)
+                       for n, t in staging.items()}
+        except MXNetError as e:
+            staging.clear()
+            telemetry.record("weight_swap", executor="ServingEngine",
+                             rejected=True, reason=str(e),
+                             generation=self._weight_generation)
+            raise
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        with self._swap_lock:
+            self._staging = staging
+            self._swap_pending = {
+                "step": int(state["step"]),
+                "staged_bytes": int(sum(t.numel() * t.element_size()
+                                        for t in staging.values())),
+                "verify_ms": verify_ms,
+            }
+        if not self._running and self._run_lock.acquire(blocking=False):
+            # idle engine: no stream boundary will come around — flip now
+            # (a run loop starting or ending meanwhile flips it itself)
+            try:
+                self._apply_pending_swap()
+            finally:
+                self._run_lock.release()
+        return int(state["step"])
+
+    def _served_params(self) -> Dict[str, object]:
+        """Structural name -> Parameter of the adapter's model."""
+        model = getattr(self._adapter, "model", None)
+        if model is None or not hasattr(model,
+                                        "_collect_params_with_prefix"):
+            raise MXNetError("swap_weights needs an adapter exposing .model "
+                             "as a Gluon block")
+        return model._collect_params_with_prefix()
+
+    def _structure_parts(self, tensors: Dict[str, torch.Tensor]):
+        """Restart-stable structural identity of a weight set: names,
+        shapes, dtypes, the adapter and model classes — no object ids."""
+        model = getattr(self._adapter, "model", None)
+        return (("ServingEngine", type(self._adapter).__name__,
+                 type(model).__name__ if model is not None else "")
+                + tuple((n, tuple(t.shape), str(t.dtype))
+                        for n, t in sorted(tensors.items())))
+
+    def _apply_pending_swap(self) -> None:
+        """Flip staged weights into the served parameters (a stream
+        boundary of the run loop, or ``swap_weights`` on an idle
+        engine): an in-place copy into every parameter's tensor."""
+        with self._swap_lock:
+            pending, staging = self._swap_pending, self._staging
+            self._swap_pending = None
+            if pending is None:
+                return
+        t0 = time.perf_counter()
+        served = self._served_params()
+        # grad mode is per thread: an idle flip runs on the caller's
+        with torch.no_grad():
+            for name, t in staging.items():
+                served[name]._tensor().copy_(t)
+        self._weight_generation += 1
+        # every cached prefix was stamped with the generation it was
+        # computed under; older entries drop (and release their pages)
+        # before the next admission can fork them
+        if self._prefix is not None:
+            dropped = self._prefix.invalidate_stale(self._weight_generation)
+            for e in dropped:
+                self._release_prefix_entry(e)
+            if dropped:
+                telemetry.record(
+                    "serve_prefix_invalidate", executor="ServingEngine",
+                    dropped=len(dropped),
+                    generation=self._weight_generation)
+        # the staging census category reads empty after the flip
+        self._staging = {}
+        telemetry.record_weight_swap(
+            generation=self._weight_generation,
+            staged_bytes=pending["staged_bytes"],
+            verify_ms=pending["verify_ms"],
+            flip_ms=(time.perf_counter() - t0) * 1e3,
+            step=pending["step"])
+
+    @property
+    def weight_generation(self) -> int:
+        """How many hot-swaps have been applied (0 = boot weights)."""
+        return self._weight_generation
+
     @torch.no_grad()
     def run(self, max_steps: int = 1_000_000) -> None:
         """Drive the engine until queue, arrivals and slots are empty."""
+        with self._run_lock:
+            self._running = True
+            try:
+                # a swap staged while no loop was live flips before any
+                # admission
+                self._apply_pending_swap()
+                self._run_loop(max_steps)
+            finally:
+                self._running = False
+                # ... and one staged as the loop ended
+                self._apply_pending_swap()
+
+    def _run_loop(self, max_steps: int) -> None:
         guard = 0
+        spins = 0
         while True:
             self._pump_arrivals()
             self._admit_ready()
-            if not any(m is not None for m in self._slots):
+            active = sum(1 for m in self._slots if m is not None)
+            if not active:
                 if self._arrivals:
-                    # idle: fast-forward the step clock to the next join
-                    self._step_n = max(self._step_n, self._arrivals[0][0])
+                    # idle: fast-forward the step clock to the next
+                    # join
+                    self._step_n = max(self._step_n,
+                                       self._arrivals[0][0])
                     continue
                 if self._sched.depth:
-                    raise MXNetError(
-                        "serving queue non-empty but no request "
-                        "admissible (pool/config too small?)")
+                    # all slots free, none admitted: tolerate ONE
+                    # spin — a concurrent submit (the replica
+                    # server's handler threads) can land between
+                    # _admit_ready and the depth check; a request
+                    # that truly cannot fit fails again next pass
+                    spins += 1
+                    if spins > 1:
+                        raise MXNetError(
+                            "serving queue non-empty but no request "
+                            "admissible (pool/config too small?)")
+                    continue
                 break
+            spins = 0
             spec = self._spec_k > 0
             want = self._spec_k + 1 if spec else self._stream_every
             burst = self._ensure_pages(want)
+            # request ids decoding THIS burst, captured before the
+            # consume evicts finished ones
+            burst_ids = [(m.req.id, m.req.trace_id, m.req.sampled)
+                         for m in self._slots
+                         if m is not None and not m.done]
             t0 = time.perf_counter()
             if spec and burst == self._spec_k + 1:
                 # one verify dispatch per boundary; per-slot accepted
                 # counts are device values
                 tout, counts = self._dispatch_spec()
+                t_stream0 = time.perf_counter()
                 self._consume_spec(tout, counts)
-                self.burst_times.append((1, time.perf_counter() - t0))
+                dispatches = 1
             else:
-                # plain path (also the fallback when pool pressure or a
-                # near-budget request shrinks the burst below K + 1)
+                # plain path (also the fallback when pool pressure or
+                # a near-budget request shrinks the burst below K + 1)
                 handles = [self._dispatch_step() for _ in range(burst)]
+                t_stream0 = time.perf_counter()
                 self._consume(handles)
-                self.burst_times.append((burst, time.perf_counter() - t0))
+                dispatches = burst
+            t_stream1 = time.perf_counter()
+            self.burst_times.append((dispatches, t_stream1 - t0))
+            # one serve_decode span per in-flight request (dispatch
+            # through readback) and one serve_stream span for the
+            # readback boundary, at burst cadence
+            if telemetry.spans_enabled():
+                for rid, tid, samp in burst_ids:
+                    if tid is not None and not samp:
+                        continue  # head-based sampling dropped it
+                    telemetry.record_span(
+                        "serve_decode", t0, t_stream1,
+                        request_id=rid, steps=burst,
+                        **({"trace_id": tid} if tid else {}))
+                telemetry.record_span("serve_stream", t_stream0,
+                                      t_stream1,
+                                      active_slots=len(burst_ids),
+                                      queue_depth=self._sched.depth)
+            telemetry.record_serve_state(queue_depth=self._sched.depth,
+                                         active_slots=active,
+                                         precision=self._precision)
+            if self._swap_pending is not None:
+                # the stream boundary IS the swap point: this burst's
+                # tokens are consumed, nothing is in flight
+                self._apply_pending_swap()
             guard += burst
             if guard > max_steps:
-                raise MXNetError(f"serving run exceeded {max_steps} decode "
-                                 "steps (runaway request set?)")
+                raise MXNetError(
+                    f"serving run exceeded {max_steps} decode "
+                    "steps (runaway request set?)")
 
     @property
     def step_count(self) -> int:
@@ -603,9 +830,16 @@ class ServingEngine:
                     break
         self._spec_proposed += proposed
         self._spec_accepted += accepted
+        # the verify boundary is per burst: name the sampled traces that
+        # shared it
+        tids = [m.req.trace_id for m in self._slots
+                if m is not None and m.req.trace_id and m.req.sampled]
+        telemetry.record_spec_verify(
+            proposed=proposed, accepted=accepted,
+            **({"trace_ids": tids} if tids else {}))
         for slot, meta in enumerate(self._slots):
             if meta is not None and meta.done:
-                self._evict(slot)
+                self._finish(slot, meta)
 
     # ------------------------------------------------------------------
     # host-side scheduling (stream boundaries only)
@@ -638,6 +872,15 @@ class ServingEngine:
         st = self._state
         if req.generation_at_admit is None:
             req.generation_at_admit = self._weight_generation
+        # the queue leg of the request's span tree, from the scheduler's
+        # stamps (t_queue_start: a requeue's leg starts at the requeue)
+        if req.t_queue_start is not None and req.t_admit is not None \
+                and telemetry.spans_enabled() \
+                and (req.trace_id is None or req.sampled):
+            telemetry.record_span(
+                "serve_queue", req.t_queue_start, req.t_admit,
+                request_id=req.id,
+                **({"trace_id": req.trace_id} if req.trace_id else {}))
         self._cache.annotate(
             slot, request_id=req.id,
             **({"trace_id": req.trace_id} if req.trace_id else {}))
@@ -671,11 +914,19 @@ class ServingEngine:
                 req.prefill_ms = 0.0
                 if req.prefix_hit is None:
                     req.prefix_hit = True
+                telemetry.record_serve_prefix(
+                    kind="prefill", hit=True, tokens=int(req.tokens.size),
+                    request_id=req.id, **self._trace_kw(req))
                 return
         t0 = time.perf_counter()
         rows = self._adapter.prefill(torch.from_numpy(src).to(self._device))
+        t1 = time.perf_counter()
         # dispatch wall, as the JAX engine stamps it
-        req.prefill_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        req.prefill_ms = round((t1 - t0) * 1e3, 3)
+        if telemetry.spans_enabled() \
+                and (req.trace_id is None or req.sampled):
+            telemetry.record_span("serve_prefill", t0, t1,
+                                  request_id=req.id, **self._trace_kw(req))
         rows = {name: row[0] for name, row in rows.items()}
         for name, row in rows.items():
             st[name][slot] = row
@@ -685,6 +936,13 @@ class ServingEngine:
                                       {"rows": rows, "owner": None}):
                 self._release_prefix_entry(d)
             req.prefix_hit = False
+            telemetry.record_serve_prefix(
+                kind="prefill", hit=False, tokens=int(req.tokens.size),
+                request_id=req.id, **self._trace_kw(req))
+
+    @staticmethod
+    def _trace_kw(req: Request) -> dict:
+        return {"trace_id": req.trace_id} if req.trace_id else {}
 
     def _install_sampling(self, slot: int, req: Request) -> None:
         """Per-slot sampling state at admission.  The stream key is a
@@ -719,6 +977,9 @@ class ServingEngine:
                 meta.pos = T
                 if req.prefix_hit is None:
                     req.prefix_hit = True
+                telemetry.record_serve_prefix(
+                    kind="pages", hit=True, tokens=T, request_id=req.id,
+                    **self._trace_kw(req))
                 return True
         need = pages_for(T, self._ps) - len(self._cache.owned(slot))
         if not self._alloc_prefix_pages(slot, need):
@@ -729,6 +990,9 @@ class ServingEngine:
         if key is not None:
             self._register_prefix(slot, key, T)
             req.prefix_hit = False
+            telemetry.record_serve_prefix(
+                kind="pages", hit=False, tokens=T, request_id=req.id,
+                **self._trace_kw(req))
         return True
 
     def _set_table(self, slot) -> None:
@@ -798,6 +1062,7 @@ class ServingEngine:
         sits at pos = T with tok = p_T, the state T forced greedy steps
         would have left, so the continuation is the slow way's."""
         T = int(req.prefix.size)
+        t0 = time.perf_counter()
         feed_seq = np.concatenate(
             [[req.bos_id], req.prefix[:-1]]).astype(np.int32)
         Kc = self._prefix_chunk
@@ -811,6 +1076,11 @@ class ServingEngine:
             self._ingest_body(self._to_device(feed), self._to_device(nvec))
             done += n
         self._state["tok"][slot, 0] = int(req.prefix[-1])
+        if telemetry.spans_enabled() \
+                and (req.trace_id is None or req.sampled):
+            telemetry.record_span(
+                "serve_ingest", t0, time.perf_counter(),
+                request_id=req.id, tokens=T, **self._trace_kw(req))
 
     def _alloc_prefix_pages(self, slot: int, n: int) -> bool:
         """Allocate ``n`` pages for a prefix, dropping LRU cache entries
@@ -830,6 +1100,8 @@ class ServingEngine:
         if e is None:
             return False
         self._release_prefix_entry(e)
+        telemetry.record("serve_prefix_evict", executor="ServingEngine",
+                         key=e["key"][:12], tokens=e["payload"]["len"])
         return True
 
     def _release_prefix_entry(self, e: dict) -> None:
@@ -924,6 +1196,8 @@ class ServingEngine:
         req.t_first_token = None
         req.prefill_ms = 0.0
         req.preemptions += 1
+        telemetry.record("serve_preempt", request_id=req.id,
+                         decoded=meta.pos, **self._trace_kw(req))
         self._sched.requeue(req)
 
     def _consume(self, handles):
@@ -954,7 +1228,39 @@ class ServingEngine:
                     req.stream.finish("length")
         for slot, meta in enumerate(self._slots):
             if meta is not None and meta.done:
-                self._evict(slot)
+                self._finish(slot, meta)
+
+    def _finish(self, slot: int, meta: _Active) -> None:
+        """Evict a completed request and record its ``serve_request``
+        event, with the tail cause attributed from its breadcrumbs in the
+        JAX engine's order: a preemption, then a weight-swap crossing,
+        then a prefix-cache miss."""
+        self._evict(slot)
+        req = meta.req
+        now = time.perf_counter()
+        decode_ms = max(0.0, (now - req.t_admit) * 1e3
+                        - req.prefill_ms) if req.t_admit else 0.0
+        total_ms = ((now - req.t_submit) * 1e3
+                    if req.t_submit is not None else None)
+        if req.preemptions:
+            cause = "preempt"
+        elif (req.generation_at_admit is not None
+              and req.generation_at_admit != self._weight_generation):
+            cause = "swap"
+        elif req.prefix_hit is False:
+            cause = "cache_miss"
+        else:
+            cause = "none"
+        telemetry.record_serve_request(
+            queue_wait_ms=req.queue_wait_ms, prefill_ms=req.prefill_ms,
+            decode_ms=round(decode_ms, 3), tokens=len(req.stream),
+            ttft_ms=round(req.ttft_ms, 3),
+            total_ms=round(total_ms, 3) if total_ms is not None else None,
+            request_id=req.id, reason=req.stream.finish_reason,
+            precision=self._precision, cause=cause,
+            preemptions=req.preemptions,
+            **({"trace_id": req.trace_id, "sampled": req.sampled}
+               if req.trace_id else {}))
 
     # ------------------------------------------------------------------
     # introspection + batched beam serving
@@ -1008,6 +1314,7 @@ class ServingEngine:
             groups.setdefault((req.bos_id, req.eos_id), []).append(req)
         out: Dict[str, np.ndarray] = {}
         for (bos, eos), grp in groups.items():
+            t0 = time.perf_counter()
             src_w = max(int(r.tokens.size) for r in grp)
             src = np.zeros((len(grp), src_w), np.int32)
             for i, r in enumerate(grp):
@@ -1017,6 +1324,7 @@ class ServingEngine:
                 torch.from_numpy(src).to(self._device), bos_id=bos,
                 eos_id=eos, max_len=max_new + 1, beam_size=beam_size,
                 alpha=alpha, sync_every=sync_every, page_size=self._ps)
+            ms = round((time.perf_counter() - t0) * 1e3, 3)
             for i, r in enumerate(grp):
                 toks = list(hyp[i, 1:])  # column 0 is bos
                 if eos in toks:
@@ -1027,4 +1335,9 @@ class ServingEngine:
                 r.stream.finish("eos" if (toks and toks[-1] == eos)
                                 else "length")
                 out[r.id] = r.stream.asarray()
+                telemetry.record_serve_request(
+                    queue_wait_ms=0.0, prefill_ms=0.0, decode_ms=ms,
+                    tokens=len(toks), ttft_ms=ms, total_ms=ms,
+                    request_id=r.id, reason=r.stream.finish_reason,
+                    precision=self._precision, beam=beam_size)
         return out

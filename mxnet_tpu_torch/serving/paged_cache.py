@@ -204,6 +204,13 @@ class PagedKVCache:
         if n_pages <= 0:
             return []
         if n_pages > len(self._free):
+            # pool pressure, attributed: the denial names the starved
+            # request through the owner's annotation
+            from .. import telemetry
+
+            telemetry.record("serve_pool_pressure", want=n_pages,
+                             free=len(self._free),
+                             **self._notes.get(owner, {}))
             return None
         got = [self._free.pop() for _ in range(n_pages)]
         self._owned.setdefault(owner, []).extend(got)

@@ -24,9 +24,18 @@ __all__ = ["DraftProposer", "NGramDraft", "traced_propose"]
 
 def traced_propose(draft: "DraftProposer", request,
                    generated: Sequence[int], k: int) -> List[int]:
-    """The engine's one call site of ``draft.propose`` (the JAX
-    package's seam for a trace event; the port records none)."""
-    return draft.propose(request, generated, k)
+    """The engine's one call site of ``draft.propose``: for a sampled
+    traced request it records a ``spec_draft`` event naming the trace,
+    as the JAX engine does, so drafts stay telemetry-free."""
+    out = draft.propose(request, generated, k)
+    tid = getattr(request, "trace_id", None)
+    if tid and getattr(request, "sampled", True):
+        from .. import telemetry
+
+        if telemetry.spans_enabled():
+            telemetry.record("spec_draft", trace_id=tid,
+                             request_id=request.id, proposed=len(out))
+    return out
 
 
 class DraftProposer:

@@ -57,7 +57,13 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.ndarray.utils",
           "mxnet_tpu_torch.serving.sampling",
           "mxnet_tpu_torch.serving.speculative",
-          "mxnet_tpu_torch.serving.scheduler")
+          "mxnet_tpu_torch.serving.scheduler",
+          "mxnet_tpu_torch.serving.router",
+          "mxnet_tpu_torch.telemetry",
+          "mxnet_tpu_torch.fault",
+          "mxnet_tpu_torch.memwatch",
+          "mxnet_tpu_torch.checkpoint",
+          "mxnet_tpu_torch.metrics_server")
 
 
 def _no_cuda():
