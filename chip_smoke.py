@@ -2251,6 +2251,7 @@ def phase_train(torch, ctx):
     losses = [first] + losses
     finite = all(math.isfinite(x) for x in losses)
     ctx["train_f32"] = {
+        "losses": losses,
         "tokens_per_s": TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall,
         "step_ms_median": statistics.median(step_ms),
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2772,6 +2773,9 @@ def phase_train_bf16(torch, ctx):
     losses = [first] + losses
     f32 = ctx.get("train_f32", {})
     tps = TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall
+    ctx["train_bf16"] = {"tokens_per_s": tps,
+                         "step_ms_median": statistics.median(step_ms),
+                         "max_memory_allocated_gb": peak_gb}
     del step, model
     torch.cuda.empty_cache()
     return {
@@ -2949,6 +2953,8 @@ def _bf16_step_spread(torch, step, x, y):
 
 def phase_train_resnet_bf16(torch, ctx):
     res = _resnet_cell(torch, ctx, "NHWC", "bfloat16")
+    ctx["train_resnet_bf16"] = {k: res[k] for k in (
+        "images_per_s", "step_ms_median", "max_memory_allocated_gb")}
     step, x, y = ctx["resnet_bfloat16"]
     prof = _step_profile(torch, lambda: step.step(x, y), top=20)
     hits = [r["name"] for r in prof["top"]
@@ -3566,24 +3572,433 @@ def phase_optimizer(torch, ctx):
             "ok": bool(ok and clip_ok)}
 
 
+# ---------------------------------------------------------------------------
+# the precision subsystem: AMP training with dynamic loss scaling, the
+# contrib.amp Gluon loop (BASELINE config 2), int8 and int4 serving
+# ---------------------------------------------------------------------------
+# an AMP step's loss at each of its 6 steps against the f32 train phase's
+# on the same batch from the same weights, relative
+AMP_LOSS_REL = 2e-2
+# first decode logits of a quantized adapter, card vs the same adapter on
+# the CPU: max |diff| <= tol * max(1, max |logit|).  int8: an activation's
+# int8 code may move by one where the card's and the CPU's f32 inputs to
+# a layer round differently; int4 computes in f32 from equal dequantized
+# weights, so it is held to serve_parity's 2e-3
+QUANT_LOGIT_TOL = {"int8": 0.05, "int4": 2e-3}
+# naive calibration: greedy translate of serve's first 8 sources
+QUANT_CALIB_SOURCES, QUANT_CALIB_LEN = 8, 32
+
+
+def _probe_dtypes(torch, step, batch):
+    """One more step with the LayerNorm and flash-attention call sites
+    wrapped: the dtypes K1 and K3 (and so K4 and K5) are given."""
+    from mxnet_tpu_torch.gluon.nn import basic_layers
+    from mxnet_tpu_torch.models import transformer
+
+    seen = {"layer_norm": set(), "flash_attention": set()}
+    ln_cls, fa = basic_layers.LayerNormFunction, transformer.flash_attention
+
+    class LayerNormProbe:
+        @staticmethod
+        def apply(x, *args):
+            seen["layer_norm"].add(str(x.dtype))
+            return ln_cls.apply(x, *args)
+
+    def flash_probe(q, k, v, **kw):
+        seen["flash_attention"].update(str(t.dtype) for t in (q, k, v))
+        return fa(q, k, v, **kw)
+
+    basic_layers.LayerNormFunction = LayerNormProbe
+    transformer.flash_attention = flash_probe
+    try:
+        step.step(*batch)
+        torch.cuda.synchronize()
+    finally:
+        basic_layers.LayerNormFunction = ln_cls
+        transformer.flash_attention = fa
+    return {k: sorted(v) for k, v in seen.items()}
+
+
+def _skip_step(torch, step, poison, batch):
+    """One step whose loss, and so every gradient, is made infinite: the
+    parameters, Adam's moments and ``t`` must hold bit for bit, the
+    scale halve, ``growth`` reset and ``skipped`` count one more."""
+    before = [t.clone() for t in step._held_state()]
+    t0 = step._t.clone()
+    sc0 = {k: v.clone() for k, v in step.scaler_state.items()}
+    poison.fill_(float("inf"))
+    try:
+        loss = float(step.step(*batch))
+    finally:
+        poison.fill_(1.0)
+    held = all(torch.equal(a, b) for a, b in zip(step._held_state(), before))
+    sc1 = step.scaler_state
+    res = {"loss": loss, "state_held_bitwise": held,
+           "t_held": bool(torch.equal(step._t, t0)), "t": int(step._t),
+           "scale_before": float(sc0["scale"]),
+           "scale_after": float(sc1["scale"]),
+           "growth_after": int(sc1["growth"]),
+           "skipped_after": int(sc1["skipped"])}
+    res["ok"] = bool(held and res["t_held"]
+                     and res["scale_after"] == res["scale_before"] / 2
+                     and res["growth_after"] == 0
+                     and res["skipped_after"] == int(sc0["skipped"]) + 1)
+    return res
+
+
+def _sync_free(torch, step, batch, steps=2):
+    """``steps`` scaled steps under ``set_sync_debug_mode("error")``: any
+    host sync inside them raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handles = [step.step(*batch) for _ in range(steps)]
+        err = None
+    except RuntimeError as e:
+        handles, err = [], f"{type(e).__name__}: {e}"[:600]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return {"steps": steps, "losses": [float(h) for h in handles],
+            "error": err, "ok": err is None}
+
+
+def _amp_cell(torch, ctx, dtype):
+    """BERT-base at 32 x 512, Adam lr 1e-4, through DataParallelStep with
+    the AMP policy in ``dtype`` (f32 masters; fp16 with the dynamic loss
+    scaler), on the train phase's batch from the same seeded weights."""
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+    from mxnet_tpu_torch.precision import (AmpPolicy, LossScaleConfig,
+                                           PrecisionConfig)
+
+    torch.cuda.empty_cache()
+    scaled = dtype == "float16"
+    model = bert_base(BERT_VOCAB, dropout=0.0,
+                      generator=torch.Generator().manual_seed(SEED))
+    prec = PrecisionConfig(amp=AmpPolicy(dtype=dtype),
+                           loss_scale=LossScaleConfig() if scaled else None)
+    mlm = _mlm_loss(torch)
+    # fp16: a factor on the loss (1.0, exact) that _skip_step makes inf
+    tokens, labels = ctx["train_batch"]
+    poison = torch.ones((), device=tokens.device)
+    loss_fn = (lambda lo, la: mlm(lo, la) * poison) if scaled else mlm
+    step = DataParallelStep(model, loss_fn, optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4},
+                            precision=prec)
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step.step(tokens, labels))  # warm-up
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
+                                         TRAIN_STEPS)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    name = "train_amp" if dtype == "bfloat16" else "train_amp_fp16"
+    ctx["launches"][name] = launches
+    expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [first] + losses
+    f32 = ctx["train_f32"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, f32["losses"]))
+    tps = TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall
+    line = {
+        "model": "bert_base", "policy": dtype, "batch": TRAIN_BATCH,
+        "seq_len": TRAIN_LEN, "optimizer": "adam", "learning_rate": 1e-4,
+        "steps": TRAIN_STEPS, "wall_s": wall, "tokens_per_s": tps,
+        "step_ms_median": statistics.median(step_ms), "step_ms": step_ms,
+        "max_memory_allocated_gb": peak_gb, "losses": losses,
+        "f32_losses": f32["losses"], "loss_rel_vs_f32_max": rel,
+        "loss_rel_tol": AMP_LOSS_REL,
+        "train": {k: v for k, v in f32.items() if k != "losses"},
+        "train_bf16": ctx.get("train_bf16"),
+        "tokens_per_s_over_train": tps / f32["tokens_per_s"],
+        "launches": launches, "launches_expected": expected}
+    if scaled:
+        line["scaler_after_steps"] = {
+            k: float(v) for k, v in step.scaler_state.items()}
+        line["sync_debug_error_steps"] = _sync_free(torch, step,
+                                                    (tokens, labels))
+        line["skip_step"] = _skip_step(torch, step, poison,
+                                       (tokens, labels))
+    dtypes = _probe_dtypes(torch, step, (tokens, labels))
+    masters = sorted({str(p.dtype) for p in model.parameters()})
+    line.update(kernel_input_dtypes=dtypes, parameter_dtypes=masters,
+                card=ctx["smi"])
+    del step, model
+    torch.cuda.empty_cache()
+    line["ok"] = bool(
+        all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+        and launches == expected and rel <= AMP_LOSS_REL
+        and dtypes == {"layer_norm": ["torch.float32"],
+                       "flash_attention": [f"torch.{dtype}"]}
+        and masters == ["torch.float32"]
+        and (not scaled or (line["skip_step"]["ok"]
+                            and line["sync_debug_error_steps"]["ok"])))
+    return line
+
+
+def phase_train_amp(torch, ctx):
+    return _amp_cell(torch, ctx, "bfloat16")
+
+
+def phase_train_amp_fp16(torch, ctx):
+    return _amp_cell(torch, ctx, "float16")
+
+
+def phase_gluon_resnet_amp(torch, ctx):
+    """BASELINE config 2 as MXNet scripts run it: resnet50_v1b (NHWC),
+    ``hybridize()``, ``amp.init("bfloat16")``, ``convert_hybrid_block``,
+    ``gluon.Trainer`` SGD (bench.py's momentum 0.9, lr 0.1, wd 1e-4) with
+    ``init_trainer``'s f32 masters, ``scale_loss``; batch 256 at 224^2, 2
+    warm-up and 5 timed steps.  No kernel of ours is on this path."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.contrib import amp
+    from mxnet_tpu_torch.models.resnet import resnet50_v1b
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    amp.init(target_dtype="bfloat16")
+    net = resnet50_v1b(layout="NHWC",
+                       generator=torch.Generator().manual_seed(SEED))
+    net.hybridize()
+    amp.convert_hybrid_block(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_SGD))
+    amp.init_trainer(trainer)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    B, R = RESNET_BATCH, RESNET_RES
+    rng = np.random.RandomState(SEED)
+    x = NDArray(torch.from_numpy(rng.rand(B, R, R, 3).astype(
+        np.float32)).cuda().bfloat16(), ctx=dev)
+    y = NDArray(torch.from_numpy(rng.randint(0, 1000, B).astype(
+        np.float32)).cuda(), ctx=dev)
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        with amp.scale_loss(loss, trainer) as scaled:
+            scaled.backward()
+        trainer.step(B)
+        return loss.mean()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step().asscalar()) for _ in range(RESNET_WARMUP)]
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(RESNET_STEPS)]
+    handles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        handles.append(step())
+        end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    losses += [float(h.asscalar()) for h in handles]
+    ips = B * RESNET_STEPS / wall
+    ref = ctx.get("train_resnet_bf16", {})
+    weights = sorted({str(p.dtype) for p in net.parameters()})
+    masters = sorted({str(st[0]._data.dtype)
+                      for st in trainer._updaters[0].states.values()})
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del net, trainer, x, y
+    torch.cuda.empty_cache()
+    return {
+        "model": "resnet50_v1b", "layout": "NHWC", "amp": "bfloat16",
+        "hybridized": True, "batch": B, "resolution": R, "optimizer": "sgd",
+        **RESNET_SGD, "warmup_steps": RESNET_WARMUP, "steps": RESNET_STEPS,
+        "wall_s": wall, "images_per_s": ips,
+        "step_ms_median": statistics.median(
+            a.elapsed_time(b) for a, b in marks),
+        "max_memory_allocated_gb": peak, "losses": losses,
+        "train_resnet_bf16": ref,
+        "images_per_s_over_train_resnet_bf16":
+            ips / ref["images_per_s"] if ref else None,
+        "weight_dtypes": weights, "master_dtypes": masters,
+        "launches": launches, "cudnn": _cudnn_settings(torch),
+        "card": ctx["smi"],
+        "ok": bool(all(math.isfinite(v) for v in losses)
+                   and losses[-1] < losses[0]
+                   and weights == ["torch.bfloat16"]
+                   and masters == ["torch.float32"]
+                   and all(v == 0 for v in launches.values()))}
+
+
+def _quant_cpu_model(torch, ctx):
+    """A CPU copy of serve's Transformer-big, made once for both
+    quantized phases."""
+    from mxnet_tpu_torch.models.transformer import transformer_big
+
+    cpu = ctx.get("quant_cpu_model")
+    if cpu is None:
+        cpu = transformer_big(32000, dropout=0.0, max_length=1024,
+                              device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             ctx["model"].state_dict().items()})
+        ctx["quant_cpu_model"] = cpu
+    return cpu
+
+
+def _quant_logits(torch, ctx, qad, cpu_qad):
+    """The first 4 decode logits of one source through ``qad`` on the
+    card and ``cpu_qad`` on the CPU (teacher-forced with the card's
+    tokens): max |diff| and max |logit|."""
+    rng = np.random.RandomState(SEED + 2)
+    src = np.zeros((1, 64), np.int32)
+    src[0, :40] = rng.randint(3, 32000, 40)
+    model = ctx["model"]
+    with qad._pass.scope():
+        _, lg_g, toks = _first_logits(torch, model, src, 4,
+                                      next(model.parameters()).device)
+    with cpu_qad._pass.scope():
+        _, lg_c, _ = _first_logits(torch, cpu_qad.model, src, 4,
+                                   torch.device("cpu"), feed=toks)
+    return {"max_abs_diff_logits": float((lg_g - lg_c).abs().max()),
+            "logit_abs_max": float(lg_c.abs().max()),
+            "finite": bool(torch.isfinite(lg_g).all())}
+
+
+def _agreement(toks, ref):
+    """Top-1 agreement of two engines' token streams, position by
+    position, over the longer stream of each request."""
+    agree = total = 0
+    for a, b in zip(toks, ref):
+        agree += sum(1 for x, y in zip(a, b) if x == y)
+        total += max(len(a), len(b))
+    return agree / total
+
+
+def _quant_serve(torch, ctx, name, qad, cpu_qad, build_s):
+    """``serve``'s engine and traffic through the quantized adapter:
+    counted (K1 and K2 by serve's formulas), then f32 and quantized in
+    turns (A B B A) for tokens/s, the logits gate, bytes and census."""
+    from mxnet_tpu_torch import memwatch
+    from mxnet_tpu_torch.serving import ServingEngine
+
+    vocab, kw = 32000, ctx["engine_kw"]
+    ServingEngine(qad, **kw).serve(_requests(2, vocab, SEED + 1)[0])
+    eng = ServingEngine(qad, **kw)
+    reqs, arrivals = _requests(16, vocab, SEED)
+    toks, line = _serve_run(torch, eng, reqs, arrivals)
+    ctx["launches"][name] = line["launches"]
+    f32_eng = ServingEngine(ctx["adapter"], **kw)
+    turns = []
+    for tag, e in (("fp32", f32_eng), (name, eng), (name, eng),
+                   ("fp32", f32_eng)):
+        rq, arr = _requests(16, vocab, SEED)
+        out, _launches, wall = _counted(
+            torch, lambda: e.serve(rq, arrival_steps=arr))
+        turns.append({"engine": tag, "tokens_per_s": sum(
+            len(out[r.id]) for r in rq) / wall})
+    mean = {t: statistics.mean(x["tokens_per_s"] for x in turns
+                               if x["engine"] == t) for t in ("fp32", name)}
+    census = memwatch.census()["categories"].get("quantized")
+    parity = _quant_logits(torch, ctx, qad, cpu_qad)
+    tol = QUANT_LOGIT_TOL[qad.precision]
+    parity.update(tol=tol, ok=bool(
+        parity["finite"] and parity["max_abs_diff_logits"]
+        <= tol * max(1.0, parity["logit_abs_max"])))
+    statusz = line["statusz"]["precision"]
+    lengths_ok = all(1 <= len(t) <= r.max_new_tokens
+                     for r, t in zip(reqs, toks))
+    return {
+        "model": "transformer_big", "vocab": vocab, "engine": kw,
+        "adapter_build_s": build_s, "requests": len(reqs), **line,
+        "turns": turns, "tokens_per_s_mean": mean,
+        "tokens_per_s_over_fp32": mean[name] / mean["fp32"],
+        "top1_agreement_with_fp32_serve": _agreement(
+            toks, ctx["serve_tokens"]),
+        "quantized_layers": len(qad._entries),
+        "quantized_param_bytes": qad.quantized_param_bytes(),
+        "fp32_param_bytes": qad.fp32_param_bytes(),
+        "param_bytes_ratio": qad.quantized_param_bytes()
+        / qad.fp32_param_bytes(),
+        "quantized_weight_bytes": qad.quantized_weight_bytes(),
+        "fp32_weight_bytes": qad.fp32_weight_bytes(),
+        "weight_bytes_ratio": qad.quantized_weight_bytes()
+        / qad.fp32_weight_bytes(),
+        "census_quantized": census, "logits_card_vs_cpu": parity,
+        "card": ctx["smi"],
+        "ok": bool(line["finished"] and line["pages_back"]
+                   and line["launches_ok"] and lengths_ok
+                   and statusz == qad.precision and parity["ok"]
+                   and census is not None)}
+
+
+def phase_serve_int8(torch, ctx):
+    """Transformer-big served int8: ``quantize_adapter`` with naive
+    calibration over greedy ``translate`` of serve's first 8 sources."""
+    from mxnet_tpu_torch.precision import QuantizedAdapter, quantize_adapter
+    from mxnet_tpu_torch.serving import TransformerAdapter
+
+    model = ctx["model"]
+    reqs, _ = _requests(16, 32000, SEED)
+    batches = [r.tokens[None].astype(np.int32)
+               for r in reqs[:QUANT_CALIB_SOURCES]]
+
+    def calib_fn(batch):
+        model.translate(torch.from_numpy(batch).cuda(), bos_id=1, eos_id=2,
+                        max_len=QUANT_CALIB_LEN, beam_size=1)
+
+    t0 = time.perf_counter()
+    qad = quantize_adapter(ctx["adapter"], batches, calib_fn,
+                           calib_mode="naive")
+    build_s = time.perf_counter() - t0
+    cpu_qad = QuantizedAdapter(
+        TransformerAdapter(_quant_cpu_model(torch, ctx), src_max_len=64),
+        {p: t.act_thresh for p, t in qad._by_path.items()})
+    res = _quant_serve(torch, ctx, "serve_int8", qad, cpu_qad, build_s)
+    res["calibration"] = {"mode": "naive", "sources": QUANT_CALIB_SOURCES,
+                          "translate_max_len": QUANT_CALIB_LEN}
+    return res
+
+
+def phase_serve_int4(torch, ctx):
+    """Transformer-big served with weight-only int4 (groups of 32)."""
+    from mxnet_tpu_torch.precision import int4_adapter
+    from mxnet_tpu_torch.serving import TransformerAdapter
+
+    t0 = time.perf_counter()
+    qad = int4_adapter(ctx["adapter"], group_size=32)
+    build_s = time.perf_counter() - t0
+    cpu_qad = int4_adapter(TransformerAdapter(_quant_cpu_model(torch, ctx),
+                                              src_max_len=64),
+                           group_size=32)
+    ctx.pop("quant_cpu_model")
+    res = _quant_serve(torch, ctx, "serve_int4", qad, cpu_qad, build_s)
+    res["group_size"] = 32
+    return res
+
+
 # name, source, the TPU kernel it replaces, the paths whose launches the
 # kernels line reports (summed)
+AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
-      "serve_fleet", "train_transformer", "train_transformer_bf16",
-      "gluon_bert")),
+      "serve_fleet", "serve_int8", "serve_int4", "train_transformer",
+      "train_transformer_bf16", "gluon_bert", "train_amp",
+      "train_amp_fp16")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
-      "serve_beam", "serve_fleet")),
+      "serve_beam", "serve_fleet", "serve_int8", "serve_int4")),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:72", ("train", "gluon_bert")),
+     "mxnet_tpu/ops/pallas/flash_attention.py:72", AMP_FLASH_PATHS),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:131", ("train", "gluon_bert")),
+     "mxnet_tpu/ops/pallas/flash_attention.py:131", AMP_FLASH_PATHS),
     ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:158", ("train", "gluon_bert")),
+     "mxnet_tpu/ops/pallas/flash_attention.py:158", AMP_FLASH_PATHS),
     ("add_layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:166", "imperative"),
     ("softmax_cross_entropy", "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
@@ -3968,16 +4383,21 @@ def main() -> int:
               ("serve_prefix", phase_serve_prefix),
               ("serve_beam", phase_serve_beam),
               ("serve_fleet", phase_serve_fleet),
+              ("serve_int8", phase_serve_int8),
+              ("serve_int4", phase_serve_int4),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),
               ("train_bf16", phase_train_bf16),
+              ("train_amp", phase_train_amp),
+              ("train_amp_fp16", phase_train_amp_fp16),
               ("imperative", phase_imperative),
               ("imperative_bf16", phase_imperative_bf16),
               ("train_resnet", phase_train_resnet),
               ("train_resnet_bf16", phase_train_resnet_bf16),
               ("train_resnet_parity", phase_train_resnet_parity),
               ("train_resnet_profile", phase_train_resnet_profile),
+              ("gluon_resnet_amp", phase_gluon_resnet_amp),
               ("train_transformer", phase_train_transformer),
               ("train_transformer_bf16", phase_train_transformer_bf16),
               ("train_transformer_parity", phase_train_transformer_parity),

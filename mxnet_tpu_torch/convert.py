@@ -21,6 +21,14 @@ NHWC convolution's ``(O, kh, kw, I)`` weight into torch's OIHW).
 the port's layout; they, and ``gluon_name``, find the owning module in
 one place, ``_owner``.  A numpy bfloat16 array loads bit for bit
 (``base.tensor_from_numpy``).
+
+For quantized serving, ``quant_thresholds_from_mxnet_tpu`` turns the JAX
+package's calibrated activation thresholds, keyed by the layers' Gluon
+names, into the port's ``{layer path: threshold}`` (what
+``precision.QuantizedAdapter`` takes), and ``quant_buffers_from_mxnet_tpu``
+loads a JAX adapter's quantized weight buffers (int8 weights, or int4
+packed nibbles and f16 scales) into a port adapter's twins, so both int8
+engines can be held to one calibration and one set of buffers.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ import torch
 from .base import MXNetError, tensor_from_numpy
 
 __all__ = ["gluon_name", "gluon_shape", "from_gluon_layout",
-           "from_mxnet_tpu_params"]
+           "from_mxnet_tpu_params", "quant_thresholds_from_mxnet_tpu",
+           "quant_buffers_from_mxnet_tpu"]
 
 
 def _owner(model: torch.nn.Module, key: str):
@@ -97,3 +106,64 @@ def from_mxnet_tpu_params(model: torch.nn.Module,
                              f"{tuple(state[key].shape)} of {key}")
         new[key] = value.to(state[key].dtype)
     model.load_state_dict(new)
+
+
+def _layers_by_name(model):
+    """{Gluon name without ``model``'s prefix: (path, layer)} of the
+    layers the serving rewrite quantizes."""
+    from .precision.quantize import collect_quantizable
+
+    prefix = getattr(model, "prefix", "")
+    out = {}
+    for path, layer in collect_quantizable(model):
+        name = layer.name
+        out[name[len(prefix):] if name.startswith(prefix) else name] = \
+            (path, layer)
+    return out
+
+
+def _strip_prefix(names, prefix: str):
+    out = {}
+    for name, value in names.items():
+        if not name.startswith(prefix):
+            raise MXNetError(f"layer {name!r} lacks the net prefix "
+                             f"{prefix!r}")
+        out[name[len(prefix):]] = value
+    return out
+
+
+def quant_thresholds_from_mxnet_tpu(model: torch.nn.Module,
+                                    thresholds: Dict[str, float],
+                                    prefix: str) -> Dict[str, float]:
+    """``{layer Gluon name: threshold}`` of the JAX package ->
+    ``{layer path: threshold}`` of ``model``; ``prefix`` is the JAX net's.
+    Refuses missing or extra layers."""
+    by_name = _layers_by_name(model)
+    got = _strip_prefix(thresholds, prefix)
+    if set(got) != set(by_name):
+        raise MXNetError(
+            f"quantized layers disagree: missing "
+            f"{sorted(set(by_name) - set(got))}, extra "
+            f"{sorted(set(got) - set(by_name))}")
+    return {by_name[n][0]: float(t) for n, t in got.items()}
+
+
+def quant_buffers_from_mxnet_tpu(adapter, buffers: Dict[str, Dict],
+                                 prefix: str) -> None:
+    """Load ``{layer Gluon name: {buffer: numpy array}}`` -- the JAX
+    twins' ``_qweight`` (int8), or ``_packed`` (uint8) and ``_scales``
+    (f16) -- into the twins of the port adapter ``adapter`` in place,
+    refusing a missing layer or a shape or dtype that differs."""
+    by_name = _layers_by_name(adapter.model)
+    for name, bufs in _strip_prefix(buffers, prefix).items():
+        if name not in by_name:
+            raise MXNetError(f"no quantized layer {prefix}{name}")
+        impl = adapter._entries[id(by_name[name][1])]._impl
+        for key, value in bufs.items():
+            old = getattr(impl, key)
+            new = torch.from_numpy(np.ascontiguousarray(value))
+            if tuple(new.shape) != tuple(old.shape) or new.dtype != old.dtype:
+                raise MXNetError(
+                    f"{prefix}{name}.{key}: {tuple(new.shape)} {new.dtype} "
+                    f"does not fit {tuple(old.shape)} {old.dtype}")
+            old.copy_(new)

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from ..precision import runtime as _amp
 from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
@@ -33,7 +34,9 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
 
 
 def log_softmax(x, axis: int = -1):
-    """``jax.nn.log_softmax`` with its roundings in ``x``'s dtype."""
+    """``jax.nn.log_softmax`` with its roundings in ``x``'s dtype (the
+    ``log_softmax`` op of the AMP policy: f32 under it)."""
+    x, = _amp.cast_inputs("log_softmax", x)
     if x.dtype not in (torch.bfloat16, torch.float16):
         return torch.log_softmax(x, dim=axis)
     shifted = x - x.amax(dim=axis, keepdim=True)

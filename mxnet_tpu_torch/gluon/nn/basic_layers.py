@@ -42,6 +42,7 @@ from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from ...base import MXNetError
 from ...ops import nn as _ops
+from ...precision import runtime as _prec
 from ...ops.kernels import LayerNormFunction
 from ..block import Block, HybridBlock
 from ..block import F as _F
@@ -142,8 +143,15 @@ class Dense(HybridBlock):
 
     def forward(self, x):
         self._finish_deferred(x)
+        twin = _prec.quant_entry(self)
+        if twin is not None:
+            # a quantized serving adapter's scope: the layer's int8 or
+            # int4 twin replaces it
+            return twin(x, self.bias)
         if not self.flatten:
-            out = F.linear(x, self.weight, self.bias)
+            x, w, b = _prec.cast_inputs("FullyConnected", x, self.weight,
+                                        self.bias)
+            out = F.linear(x, w, b)
         else:
             args = (x, self.weight) + (() if self.bias is None
                                        else (self.bias,))
@@ -294,9 +302,10 @@ class LayerNorm(HybridBlock):
 
     def forward(self, x):
         self._finish_deferred(x)
+        x, w, b = _prec.cast_inputs("LayerNorm", x, self.weight, self.bias)
         C = x.shape[-1]
-        out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(),
-                                      self.weight, self.bias, self.eps)
+        out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(), w, b,
+                                      self.eps)
         return out.reshape(x.shape)
 
 

@@ -19,6 +19,9 @@ still deferred (a net stepped before its first forward) raises, as in the
 JAX package (``trainer.py:264-267``).  ``lr_mult`` / ``wd_mult`` come from
 the Parameters (the optimizer's ``param_dict``).
 
+Under ``contrib.amp``, ``init_trainer`` sets ``_amp_loss_scaler`` and
+``scale_loss`` sets ``_scale`` to the inverse loss scale, which the
+rescale above divides back out.
 Each ``step`` ends with the JAX Trainer's service hooks: a ``step`` event
 (``telemetry.record_step``, the host wall of the call; the first step is
 marked ``traced``), a heartbeat, and ``memwatch.on_step``.  Not ported:
@@ -63,6 +66,9 @@ class Trainer:
         self._compression_params = compression_params
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        # contrib.amp: init_trainer sets the loss scaler, scale_loss sets
+        # _scale to its inverse for the next step's rescale
+        self._amp_loss_scaler = None
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_params = {"kvstore": kvstore,
                                 "update_on_kvstore": update_on_kvstore}

@@ -55,6 +55,7 @@ from ..gluon.loss import log_softmax
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.kernels import flash_attention
 from ..ops.nn import activation as _activation_op
+from ..precision import runtime as _prec
 
 __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
@@ -94,7 +95,10 @@ def _mask_scores(scores, mask, num_heads: int):
 
 def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
                causal: bool = False, drop=None):
-    """softmax(q k^T / sqrt(hd) [+ causal] [masked]) v over (B*H, T, hd)."""
+    """softmax(q k^T / sqrt(hd) [+ causal] [masked]) v over (B*H, T, hd);
+    the two products are ``batch_dot`` and the softmax ``softmax`` of the
+    AMP policy."""
+    q, k = _prec.cast_inputs("batch_dot", q, k)
     scores = torch.bmm(q, k.transpose(1, 2)) / math.sqrt(head_dim)
     if causal:
         T = scores.shape[-1]
@@ -104,9 +108,11 @@ def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
         scores = scores + addend[None]
     if mask is not None:
         scores = _mask_scores(scores, mask, num_heads)
+    scores, = _prec.cast_inputs("softmax", scores)
     attn = torch.softmax(scores, dim=-1)
     if drop is not None:
         attn = drop(attn)
+    attn, v = _prec.cast_inputs("batch_dot", attn, v)
     return torch.bmm(attn, v)
 
 
@@ -141,6 +147,7 @@ class MultiHeadAttention(HybridBlock):
             # (mxnet_tpu/models/transformer.py:91): taken only when
             # attention-prob dropout is inactive, so it computes what the
             # dense path does
+            q, k, v = _prec.cast_inputs("_contrib_flash_attention", q, k, v)
             out = flash_attention(q, k, v, causal=self.causal)
         else:
             out = _attention(q, k, v, hd, H, mask, self.causal,
@@ -431,7 +438,9 @@ class Transformer(HybridBlock):
         if not self.tie_embeddings:
             return self.out_proj(h)
         # tied softmax: logits = h E^T with the shared embedding matrix
-        return h @ self.embed.weight.t()
+        # (the JAX class's FullyConnected)
+        h, w = _prec.cast_inputs("FullyConnected", h, self.embed.weight)
+        return h @ w.t()
 
     def _decode_h(self, tgt, mem, src_keep):
         B, Tt = tgt.shape

@@ -29,6 +29,7 @@ import torch
 from torch.nn import functional as F
 
 from ..base import MXNetError
+from ..precision import runtime as _amp
 from .registry import register
 
 
@@ -73,6 +74,8 @@ def _onehot(label, n: int, dtype):
 def fully_connected(data, weight, *bias, num_hidden=None, no_bias=False,
                     flatten=True):
     """y = x W^T + b; weight (num_hidden, input_dim), as MXNet."""
+    data, weight, *bias = _amp.cast_inputs("FullyConnected", data, weight,
+                                           *bias)
     x = data
     if flatten and x.dim() > 2:
         x = x.reshape(x.shape[0], -1)
@@ -99,6 +102,8 @@ def convolution(data, weight, *bias, kernel=(), stride=(), dilate=(), pad=(),
     if len(kernel) != 2 or data.dim() != 4:
         raise MXNetError(f"Convolution: only 2-D is ported, got a "
                          f"{len(kernel)}-d kernel on {data.dim()}-d data")
+    data, weight, *bias = _amp.cast_inputs("Convolution", data, weight,
+                                           *bias)
     last = _nhwc(layout, "Convolution")
     x = _to_channels_first(data, last)
     w = _to_channels_first(weight, last)
@@ -294,6 +299,8 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     the JAX expression itself, ``(x - mean) * rsqrt(var + eps) * gamma +
     beta`` with every term cast to the data's dtype, differentiable in
     every input."""
+    data, gamma, beta, moving_mean, moving_var = _amp.cast_inputs(
+        "BatchNorm", data, gamma, beta, moving_mean, moving_var)
     axis = axis % data.dim()
     if training and not use_global_stats:
         x = data.movedim(axis, 1) if axis != 1 else data

@@ -50,8 +50,27 @@ as ``jax.grad`` gives it.  Parameters with ``requires_grad=False`` are
 frozen, as Gluon's ``grad_req='null'``.  Inputs keep their dtype (a bf16
 image batch stays bf16; a numpy bfloat16 array comes in bit for bit).
 
-Not ported: meshes and sharding, loss scaling, the superstep, AOT
-executables, ``state_dict`` / checkpoints and telemetry.
+``precision=`` takes a :class:`~mxnet_tpu_torch.precision.config.
+PrecisionConfig` (``MX_AMP`` / ``MX_AMP_POLICY`` / ``MX_LOSS_SCALE`` give
+the default when it is None, read once here).  Its AMP policy becomes the
+``amp`` pass of the step's pipeline (``passes.pipeline_for_training``),
+whose ``wrap_apply`` runs the block's forward under the cast policy with
+f32 outputs; the parameters stay f32 masters.  Its loss-scale config
+makes the step a scaled one (``precision/loss_scale.py``): the loss is
+multiplied by the device scale before the backward, the un-scale folds
+into the rescale (``rescale / scale``, before the global-norm clip), one
+reduction decides whether every trainable gradient is finite, and a
+non-finite step selects the old parameters, optimizer state and float
+buffers (BatchNorm's running stats), while the scaler moves
+(``scaler_state``: ``scale``, ``growth``, ``skipped``, 0-d device
+tensors).  Adam's step count ``t`` and bias correction are then device
+tensors too, so a skipped step holds ``t``.  Nothing in the scaled step
+reads a value back to the host.  With no precision config the step is
+the one above, bit for bit.
+
+Not ported: meshes and sharding, the superstep, AOT executables,
+``state_dict`` / checkpoints (with them the scaler's ``amp.*`` entries)
+and telemetry.
 """
 from __future__ import annotations
 
@@ -65,6 +84,9 @@ from torch.utils.checkpoint import checkpoint
 from ..base import MXNetError, tensor_from_numpy
 from ..context import resolve_device
 from ..optimizer.foreach import adam_, grad_terms_, sgd_
+from ..passes.builtin import pipeline_for_training
+from ..precision import loss_scale as _ls
+from ..precision.config import PrecisionConfig
 from .async_loss import AsyncLoss
 
 __all__ = ["DataParallelStep"]
@@ -75,7 +97,8 @@ class DataParallelStep:
                  optimizer: str = "sgd",
                  optimizer_params: Optional[Dict] = None, device=None,
                  remat: bool = False, accum_steps: int = 1,
-                 clip_global_norm: Optional[float] = None):
+                 clip_global_norm: Optional[float] = None,
+                 precision: Optional[PrecisionConfig] = None):
         if optimizer not in ("sgd", "adam"):
             raise MXNetError(f"fused step supports sgd/adam, got {optimizer}")
         if int(accum_steps) < 1:
@@ -85,6 +108,14 @@ class DataParallelStep:
         self.block = block.to(self.device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        if precision is None:
+            # the env default, read once: the config is part of the step
+            precision = PrecisionConfig.from_env()
+        self.precision = precision
+        self._loss_scale_cfg = (precision.loss_scale
+                                if precision is not None else None)
+        self._pipeline = pipeline_for_training(precision)
+        self._apply = self._pipeline.wrap_apply(self._block_apply)
         self.remat = bool(remat)
         self.accum_steps = int(accum_steps)
         self.clip_global_norm = clip_global_norm
@@ -111,6 +142,12 @@ class DataParallelStep:
         self.opt_state = (zeros(),) if optimizer == "sgd" else (zeros(),
                                                                 zeros())
         self.num_update = 0
+        self.scaler_state = None
+        if self._loss_scale_cfg is not None:
+            self.scaler_state = _ls.init_scaler(self._loss_scale_cfg,
+                                                self.device)
+            # Adam's step count on the device: a skipped step holds it
+            self._t = torch.zeros((), dtype=torch.int32, device=self.device)
 
     # -- the learning rate ------------------------------------------------
     def _current_lr(self, num_update: int) -> float:
@@ -147,12 +184,28 @@ class DataParallelStep:
         shard of the batch)."""
         return a[i::k] if k > 1 else a
 
+    def _block_apply(self, params, key, *datas):
+        """The block's forward as the pass pipeline wraps it (the JAX
+        step's ``apply(params, key, *inputs) -> (out, aux)``; the block
+        holds its own parameters and buffers)."""
+        return self.block(*datas), ()
+
     def _loss(self, datas, label):
+        # under remat the recomputation runs through the same wrapped
+        # apply, so it sees the same cast policy
         if self.remat:
-            out = checkpoint(self.block, *datas, use_reentrant=False)
+            out, _ = checkpoint(self._apply, None, None, *datas,
+                                use_reentrant=False)
         else:
-            out = self.block(*datas)
+            out, _ = self._apply(None, None, *datas)
         return self.loss_fn(out, label).float().mean()
+
+    def _held_state(self):
+        """What a skipped step holds: the parameters, the optimizer state
+        and the block's float buffers."""
+        bufs = [b for b in self.block.buffers() if b.is_floating_point()]
+        return list(self.params) + [t for s in self.opt_state
+                                    for t in s] + bufs
 
     def step(self, data, label) -> AsyncLoss:
         """One training step; ``data`` is a tensor (or numpy array) or a
@@ -169,6 +222,11 @@ class DataParallelStep:
         self.block.train()
         for p in self.params:
             p.grad = None
+        scaled = self.scaler_state is not None
+        if scaled:
+            scale = self.scaler_state["scale"]
+            held = self._held_state()
+            before = [t.detach().clone() for t in held]
         bufs = ([b for b in self.block.buffers() if b.is_floating_point()]
                 if k > 1 or self.remat else [])
         start = [b.clone() for b in bufs] if k > 1 else []
@@ -181,7 +239,7 @@ class DataParallelStep:
                 tuple(self._microbatch(d, i, k) for d in datas),
                 self._microbatch(label, i, k))
             made = [b.clone() for b in bufs]
-            loss_i.backward()
+            (loss_i * scale if scaled else loss_i).backward()
             if bufs:  # what the forward made of them, not the recomputation
                 sums = made if sums is None else torch._foreach_add(sums,
                                                                     made)
@@ -194,33 +252,50 @@ class DataParallelStep:
         if k > 1:
             grads = torch._foreach_div(grads, k)
         with torch.no_grad():
-            self._update(grads)
+            if not scaled:
+                self._update(grads)
+            else:
+                finite = _ls.grads_finite([g.float() for g in grads])
+                self._update(grads, scale)
+                # the skip step: every held tensor selects its old value
+                for t, old in zip(held, before):
+                    t.copy_(torch.where(finite, t, old))
+                self._t = self._t + finite.to(torch.int32)
+                self.scaler_state = _ls.scaler_update(
+                    self.scaler_state, finite, self._loss_scale_cfg)
         for p in self.params:
             p.grad = None
         self.num_update += 1
         return AsyncLoss(loss)
 
-    def _grad_terms(self, grads, w):
+    def _grad_terms(self, grads, w, rescale=None):
         """g = clip(grad * rescale [* global-norm factor]) + wd * wd_mult
-        * w, in place on the f32 ``grads``; ``w`` the parameters in f32."""
-        scale = self._rescale
+        * w, in place on the f32 ``grads``; ``w`` the parameters in f32.
+        ``rescale`` defaults to ``rescale_grad``; under a loss scale it is
+        ``rescale_grad / scale``, a device tensor."""
+        rescale = self._rescale if rescale is None else rescale
+        scale = rescale
         if self.clip_global_norm is not None and grads:
             norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))) * abs(self._rescale)
+                torch.stack(torch._foreach_norm(grads))) * abs(rescale)
             scale = torch.clamp(self.clip_global_norm / (norm + 1e-12),
-                                max=1.0) * self._rescale
+                                max=1.0) * rescale
         return grad_terms_(grads, w, scale, self._clip,
                            [self._wd * m for m in self._wd_mults])
 
-    def _update(self, grads) -> None:
+    def _update(self, grads, loss_scale=None) -> None:
         # f32 views: the tensors themselves where they are f32, copies of
         # 16-bit ones, which are rounded back once at the end
         w = [p.float() for p in self.params]
-        g = self._grad_terms([x.float() for x in grads], w)
+        g = [x.float() for x in grads]
+        g = (self._grad_terms(g, w) if loss_scale is None
+             else self._grad_terms(g, w, self._rescale / loss_scale))
         lr = self._current_lr(self.num_update + 1)
         if self.optimizer == "sgd":
             sgd_(w, g, self.opt_state[0], self._momentum,
                  [lr * m for m in self._lr_mults])
+        elif loss_scale is not None:
+            self._adam_device_t(w, g, lr)
         else:
             t = self.num_update + 1
             corr = math.sqrt(1 - self._beta2 ** t) / (1 - self._beta1 ** t)
@@ -229,3 +304,27 @@ class DataParallelStep:
         low = [(p, x) for p, x in zip(self.params, w) if x is not p]
         if low:
             torch._foreach_copy_([p for p, _ in low], [x for _, x in low])
+
+    def _adam_device_t(self, w, g, lr: float) -> None:
+        """Adam with ``t`` and the bias correction on the device (the
+        scaled step): ``w -= ((lr * lr_mult) * corr) * m / (sqrt(v) +
+        eps)`` in the JAX update's order, one multi-tensor call a group of
+        equal ``lr_mult``."""
+        means, vars_ = self.opt_state
+        b1, b2 = self._beta1, self._beta2
+        torch._foreach_mul_(means, b1)
+        torch._foreach_add_(means, g, alpha=1 - b1)
+        torch._foreach_mul_(vars_, b2)
+        torch._foreach_addcmul_(vars_, g, g, value=1 - b2)
+        denom = torch._foreach_sqrt(vars_)
+        torch._foreach_add_(denom, self._eps)
+        t = (self._t + 1).float()
+        corr = torch.sqrt(1 - torch.pow(b2, t)) / (1 - torch.pow(b1, t))
+        groups = {}
+        for i, m in enumerate(self._lr_mults):
+            groups.setdefault(m, []).append(i)
+        for m, idx in groups.items():
+            step = torch._foreach_mul([means[i] for i in idx],
+                                      corr * (lr * m))
+            torch._foreach_div_(step, [denom[i] for i in idx])
+            torch._foreach_sub_([w[i] for i in idx], step)

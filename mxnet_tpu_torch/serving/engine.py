@@ -62,6 +62,7 @@ import torch
 from .. import memwatch, telemetry
 from ..base import MXNetError
 from ..context import resolve_device
+from ..passes.builtin import pipeline_for_serving
 from . import sampling as _sampling
 from .paged_cache import (PagedKVCache, PagedStepCache, page_coords,
                           pages_for, torch_dtype)
@@ -243,9 +244,13 @@ class ServingEngine:
         self._prefix = (PrefixCache(prefix_entries) if prefix_cache
                         else None)
         self._prefix_chunk = 8
-        # the label of the decode program in statusz (the JAX engine's
-        # quantized adapters name theirs)
-        self._precision = "fp32"
+        # the label of the decode program in statusz and the serving
+        # telemetry: fp32, or the quantized adapter's int8 / int4
+        self._precision = str(getattr(adapter, "precision", "fp32"))
+        # the serving pass pipeline: the adapter's quant pass (which the
+        # adapter enters around its own bodies) and fused-kernel
+        # substitution; its signature joins the structural identity
+        self._pipeline = pipeline_for_serving(adapter)
         # zero-downtime weight hot-swap: verified new weights wait in
         # _staging (device tensors in the module's layouts) until the run
         # loop flips them in at a stream boundary; the generation stamps
@@ -453,10 +458,13 @@ class ServingEngine:
 
     def _structure_parts(self, tensors: Dict[str, torch.Tensor]):
         """Restart-stable structural identity of a weight set: names,
-        shapes, dtypes, the adapter and model classes — no object ids."""
+        shapes, dtypes, the adapter and model classes and the serving
+        pipeline's signature (a quantized adapter's pass first) — no
+        object ids."""
         model = getattr(self._adapter, "model", None)
         return (("ServingEngine", type(self._adapter).__name__,
-                 type(model).__name__ if model is not None else "")
+                 type(model).__name__ if model is not None else "",
+                 self._pipeline.signature())
                 + tuple((n, tuple(t.shape), str(t.dtype))
                         for n, t in sorted(tensors.items())))
 

@@ -63,7 +63,16 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.fault",
           "mxnet_tpu_torch.memwatch",
           "mxnet_tpu_torch.checkpoint",
-          "mxnet_tpu_torch.metrics_server")
+          "mxnet_tpu_torch.metrics_server",
+          "mxnet_tpu_torch.precision.config",
+          "mxnet_tpu_torch.precision.runtime",
+          "mxnet_tpu_torch.precision.amp_pass",
+          "mxnet_tpu_torch.precision.loss_scale",
+          "mxnet_tpu_torch.precision.quantize",
+          "mxnet_tpu_torch.contrib.amp",
+          "mxnet_tpu_torch.contrib.amp.amp",
+          "mxnet_tpu_torch.contrib.quantization",
+          "mxnet_tpu_torch.ops.quantization")
 
 
 def _no_cuda():

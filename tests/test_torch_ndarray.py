@@ -112,7 +112,10 @@ def test_namespace_has_the_ported_ops():
         assert callable(getattr(tnd, name)), name
         assert callable(getattr(jnd, name)), name
     assert tnd.contrib.add_layer_norm.__name__ == "_contrib_add_layer_norm"
-    assert sorted(tnd.contrib.__all__) == ["add_layer_norm", "flash_attention"]
+    assert sorted(tnd.contrib.__all__) == [
+        "add_layer_norm", "dequantize", "dequantize_int4", "flash_attention",
+        "quantize_v2", "quantized_conv", "quantized_fully_connected",
+        "requantize"]
     with pytest.raises(MXNetError, match="too many positional"):
         tnd.softmax(tnd.ones((2, 2), ctx=CPU), -1, 1.0, None, False, 7)
 

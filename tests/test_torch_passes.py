@@ -94,9 +94,10 @@ def test_fingerprints_split_and_disabled_pass_is_absent():
 
 
 def test_registered_passes_and_unknown_names_raise():
-    assert tp.available_passes() == ["fused_kernels"]
+    assert tp.available_passes() == jp.available_passes() == [
+        "amp", "fused_kernels", "quant_int4", "quant_int8"]
     with pytest.raises(MXNetError, match="registered passes are"):
-        tp.resolve_pass_type("amp")
+        tp.resolve_pass_type("bf16")
     with pytest.raises(MXNetError, match="unknown graph pass"):
         tp.PassPipeline.from_json([{"pass": "nope", "config": {}}])
     with pytest.raises(MXNetError, match="unknown graph pass"):
@@ -142,11 +143,16 @@ def test_pipeline_factories():
     assert (tp.pipeline_for_serving(None, env).fingerprint()
             == jp.pipeline_for_serving(None, env).fingerprint())
 
-    class Prec:
-        amp = object()
+    # a precision config's AMP policy is the amp pass, first, with the
+    # JAX pipeline's fingerprint
+    from mxnet_tpu.precision import AmpPolicy as JaxAmpPolicy
+    from mxnet_tpu.precision import PrecisionConfig as JaxPrecisionConfig
+    from mxnet_tpu_torch.precision import AmpPolicy, PrecisionConfig
 
-    with pytest.raises(MXNetError, match="amp pass is not ported"):
-        tp.pipeline_for_training(Prec(), env)
+    amp = tp.pipeline_for_training(PrecisionConfig(amp=AmpPolicy()), env)
+    assert amp.names() == ["amp", "fused_kernels"]
+    assert amp.fingerprint() == jp.pipeline_for_training(
+        JaxPrecisionConfig(amp=JaxAmpPolicy()), env).fingerprint()
 
 
 def test_op_hook_nesting_restores():

@@ -15,8 +15,10 @@ import json
 import numpy as np
 import pytest
 
+from mxnet_tpu import memwatch as jmem
 from mxnet_tpu import telemetry as jtel
 from mxnet_tpu.serving import Request as JaxRequest
+from mxnet_tpu_torch import memwatch as tmem
 from mxnet_tpu_torch import telemetry as ttel
 from mxnet_tpu_torch.serving import Request
 
@@ -28,16 +30,23 @@ SERVING = {"serve_request", "serve_prefix", "spec_verify", "spec_draft",
 DROP = {"t", "mono", "pid", "tid", "span", "parent", "rank"}
 
 
+def _reset_all():
+    # the recorders and the process-wide memwatch rollups they feed: the
+    # JAX engines book their compiles into the JAX package's memwatch
+    # while the recorder is on, and a later test of this process that
+    # renders Prometheus (tests/test_torch_telemetry.py) reads them
+    for mod in (jtel, ttel, jmem, tmem):
+        mod.reset()
+
+
 @pytest.fixture
 def recorders(tmp_path):
-    jtel.reset()
-    ttel.reset()
+    _reset_all()
     jd, td = str(tmp_path / "jax"), str(tmp_path / "torch")
     jtel.enable(jd)
     ttel.enable(td)
     yield jd, td
-    jtel.reset()
-    ttel.reset()
+    _reset_all()
 
 
 def _serving_events(tel, directory):

@@ -14,7 +14,9 @@ import sys
 
 import pytest
 
+from mxnet_tpu import memwatch as jmem
 from mxnet_tpu import telemetry as jtel
+from mxnet_tpu_torch import memwatch as tmem
 from mxnet_tpu_torch import telemetry as ttel
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,13 +27,19 @@ TIME_KEYS = {"t", "mono", "wall", "pid", "tid", "span", "parent", "dur_ms",
 PATH_KEYS = {"dir", "streams"}
 
 
+def _reset_all():
+    # the recorders and the memwatch rollups render_prometheus() appends
+    # (mx_mem_*): both are process-wide, and another test file in this
+    # process may have left samples or compile bookings in either
+    for mod in (jtel, ttel, jmem, tmem):
+        mod.reset()
+
+
 @pytest.fixture
 def both():
-    jtel.reset()
-    ttel.reset()
+    _reset_all()
     yield jtel, ttel
-    jtel.reset()
-    ttel.reset()
+    _reset_all()
 
 
 def _drive(tel, directory):
