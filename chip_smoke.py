@@ -317,6 +317,49 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           against float64's and the f32 CPU's, relative L2
                           over the model and in the worst tensor
                           (GB_PARITY_TOL).
+  train_ssd               BASELINE config 5, SSD half, as
+                          ``examples/train_detection.py --rec`` runs it:
+                          a seeded 256-image 512^2 JPEG RecordIO (1-8
+                          boxes each over 80 classes) written under
+                          ``build/`` by the port's ``recordio``,
+                          ``ImageDetIter`` with ``CreateDetAugmenter((3,
+                          512, 512), rand_mirror=True, rand_crop=0.5,
+                          mean=True, std=True)`` onto ``cuda:0``,
+                          ``ssd_300(num_classes=80)`` (21,764 anchors),
+                          ``SSDTrainLoss`` and Adam lr 1e-3 through
+                          ``gluon.Trainer`` at batch 32: 2 warm-up and
+                          10 timed steps through the pipeline (images/s),
+                          the iterator alone (ms a batch), 10 steps on a
+                          staged batch (CUDA-event median), one profiled
+                          step, peak memory; losses finite and falling,
+                          no kernel launched.  One step at batch 2 on the
+                          card, the CPU and the CPU in float64 from the
+                          same weights (DET_PARITY_TOL): loss, head
+                          outputs, gradients, MultiBoxTarget's targets.
+  detect_ssd              ``SSD.detect`` (threshold 0.01, NMS 0.45,
+                          top-k 400) on train_ssd's last batch of 32: ms a
+                          batch (2 warm-up, 5 timed), one profiled call;
+                          ``MultiBoxDetection`` card vs CPU on drawn
+                          scores no two of which are within 1e-4: kept
+                          rows, class ids and scores exact, boxes within
+                          DET_BOX_ATOL.
+  train_faster_rcnn       BASELINE config 5, Faster-RCNN half:
+                          ``faster_rcnn_small(num_classes=80)`` with
+                          ``FasterRCNNTrainLoss`` and Adam through
+                          ``gluon.Trainer`` at batch 8 and 512^2 with
+                          seeded pixel gt boxes and ``im_info``: 2
+                          warm-up and 10 timed steps, one profiled step
+                          with its host gaps, peak memory; ``detect``
+                          once; one step at batch 2 on the card, the CPU
+                          and the CPU in float64, the CPU steps taking
+                          the card's proposals and roi sample.
+  cv_ops                  every registered detection op (and
+                          ``smooth_l1``) on the card vs the CPU port at
+                          the paths' shapes, with tied scores, padded gt
+                          rows and two gt boxes sharing their best
+                          anchor: integer and mask outputs, orders and
+                          selected values exact, floats within CV_TOL;
+                          card ms of each.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -4353,6 +4396,816 @@ def phase_gluon_bert_parity(torch, ctx):
             **res, "ok": bool(ok)}
 
 
+# ---------------------------------------------------------------------------
+# BASELINE config 5: SSD-512 and Faster-RCNN on a RecordIO pipeline
+# ---------------------------------------------------------------------------
+DET_RES, DET_CLASSES = 512, 80
+SSD_BATCH, FRCNN_BATCH = 32, 8
+DET_WARMUP, DET_STEPS, DET_LR = 2, 10, 1e-3
+DET_REC_IMAGES, DET_MAX_BOXES = 256, 8
+DET_ITER_BATCHES, DET_DETECT_CALLS = 3, 5
+DET_PARITY_BATCH = 2
+# card vs CPU, one training step from the same weights on the same batch:
+# the head outputs of their max abs and the loss relative, card vs the
+# f32 CPU; the gradients, relative L2 over the model and in the worst
+# tensor, card vs the CPU in float64 (the yardstick), within the larger
+# of these and DET_PARITY_SPREAD times the f32 CPU's own distance from
+# float64; the targets (MultiBoxTarget's cls_target and loc_mask)
+# exactly equal.  The gradient bounds are set by the card's f32
+# BatchNorm backward: a gamma's gradient sums 2 x 512^2 terms that nearly
+# cancel, in f32 on the card, and the error reaches every layer below.
+# On an H100 80GB HBM3 at 700 W, Faster-RCNN's body gradients sat
+# 4.5e-3 to 6.5e-3 from float64 (the CPU's 2.5e-4 to 4e-4), 1.30e-3 over
+# the model, the same with cuDNN off
+DET_PARITY_TOL = {"out_of_max_abs": 1e-4, "loss_rel": 1e-4,
+                  "grad_rel_model": 5e-3, "grad_rel_tensor": 2e-2}
+DET_PARITY_SPREAD = 2.0
+# MultiBoxDetection card vs CPU: kept rows and class ids exact, scores
+# exact (they are selected, not computed), boxes within 1e-5 (decoded)
+DET_BOX_ATOL = 1e-5
+
+
+def _det_build_dir():
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _det_objects(rng, pixels=False):
+    """1..DET_MAX_BOXES seeded boxes over DET_CLASSES: rows [cls, x0, y0,
+    x1, y1], normalized, or in pixels of a DET_RES image."""
+    objs = []
+    for _ in range(rng.randint(1, DET_MAX_BOXES + 1)):
+        x0, y0 = rng.uniform(0.0, 0.75, 2)
+        bw, bh = rng.uniform(0.08, 0.4, 2)
+        objs.append([rng.randint(DET_CLASSES), x0, y0, min(x0 + bw, 1.0),
+                     min(y0 + bh, 1.0)])
+    objs = np.asarray(objs, np.float32)
+    if pixels:
+        objs[:, 1:] *= DET_RES - 1
+    return objs
+
+
+def _write_det_rec(folder, n, seed):
+    """A detection .rec/.idx pair of ``n`` JPEG images at DET_RES^2 (a
+    smooth seeded background, each box a filled rectangle) with packed
+    labels (``pack_det_label``), written by the port's ``recordio``."""
+    import cv2
+
+    from mxnet_tpu_torch import recordio
+    from mxnet_tpu_torch.image.detection import pack_det_label
+
+    rng = np.random.RandomState(seed)
+    rec, idx = os.path.join(folder, "det.rec"), os.path.join(folder, "det.idx")
+    writer = recordio.MXIndexedRecordIO(idx, rec, "w")
+    n_boxes = 0
+    for i in range(n):
+        img = cv2.resize(rng.randint(0, 255, (16, 16, 3), np.uint8),
+                         (DET_RES, DET_RES), interpolation=cv2.INTER_LINEAR)
+        objs = _det_objects(rng)
+        for _, x0, y0, x1, y1 in objs:
+            img[int(y0 * DET_RES):int(y1 * DET_RES),
+                int(x0 * DET_RES):int(x1 * DET_RES)] = rng.randint(0, 255, 3)
+        n_boxes += len(objs)
+        header = recordio.IRHeader(0, pack_det_label(objs), i, 0)
+        writer.write_idx(i, recordio.pack_img(header, img, quality=90))
+    writer.close()
+    return rec, n_boxes, os.path.getsize(rec)
+
+
+def _det_zero_counters():
+    counted = _counters()
+    for fn in counted.values():
+        fn.launches = 0
+    return counted
+
+
+def _timed_steps(torch, step, args, steps):
+    """CUDA-event spans around ``steps`` calls of ``step(*args)`` and the
+    wall time of all of them, ending in a sync."""
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(steps)]
+    handles = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for start, end in marks:
+        start.record()
+        handles.append(step(*args))
+        end.record()
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b in marks],
+            time.perf_counter() - t0, handles)
+
+
+def _grads_by_name(net):
+    return {k: p.grad().data.detach().cpu().double().clone()
+            for k, p in net._collect_params_with_prefix().items()
+            if p.grad_req != "null"}
+
+
+def _carried_nets(torch, build_net, fname, warm):
+    """{"card", "cpu", "float64"} nets with the same weights: made and
+    initialized on the CPU (``Xavier``; ``warm`` resolves the deferred
+    shapes), carried by ``save_parameters`` / ``load_parameters`` to the
+    card and to a CPU net cast to float64."""
+    import mxnet_tpu_torch as mx
+
+    mx.random.seed(SEED + 11)
+    cpu_net = build_net()
+    cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    warm(cpu_net)
+    cpu_net.save_parameters(fname)
+    card_net = build_net()
+    card_net.load_parameters(fname, ctx=mx.gpu(0))
+    f64_net = build_net()
+    f64_net.load_parameters(fname, ctx=mx.cpu())
+    f64_net.cast("float64")
+    os.remove(fname)
+    return {"card": card_net, "cpu": cpu_net, "float64": f64_net}
+
+
+def _worst_tensors(got, want, top=4):
+    """The ``top`` tensors farthest from ``want`` (relative L2)."""
+    rel = [(float((got[k] - w).norm() / w.norm()), k)
+           for k, w in want.items() if float(w.norm()) > 0]
+    return [{"tensor": k, "rel": r} for r, k in sorted(rel)[::-1][:top]]
+
+
+def _det_parity_row(torch, res):
+    """The DET_PARITY_TOL comparison of the card's (loss, grads, out)
+    with the f32 CPU's and the float64 yardstick's."""
+    (l_g, g_g, o_g), (l_c, g_c, o_c), (_, g_y, _) = (
+        res["card"], res["cpu"], res["float64"])
+    card_model, card_worst = _rel_l2(g_g, g_y)
+    cpu_model, cpu_worst = _rel_l2(g_c, g_y)
+    tol = DET_PARITY_TOL
+    bound_model = max(tol["grad_rel_model"], DET_PARITY_SPREAD * cpu_model)
+    bound_tensor = max(tol["grad_rel_tensor"],
+                       DET_PARITY_SPREAD * cpu_worst[0])
+    row = {"loss_card": l_g, "loss_cpu": l_c, "loss_float64": res[
+               "float64"][0],
+           "loss_rel": abs(l_g - l_c) / abs(l_c),
+           "out_of_max_abs": float((o_g - o_c).abs().max()
+                                   / o_c.abs().max()),
+           "grad_rel_model_vs_float64": {"card": card_model,
+                                         "cpu": cpu_model,
+                                         "bound": bound_model},
+           "grad_rel_worst_tensor_vs_float64": {
+               "card": card_worst[0], "card_tensor": card_worst[1],
+               "cpu": cpu_worst[0], "cpu_tensor": cpu_worst[1],
+               "bound": bound_tensor},
+           "grad_rel_model_card_vs_cpu": _rel_l2(g_g, g_c)[0],
+           "worst_tensors_vs_float64": {
+               name: _worst_tensors(res[name][1], g_y)
+               for name in ("card", "cpu")}}
+    row["ok"] = bool(row["out_of_max_abs"] <= tol["out_of_max_abs"]
+                     and row["loss_rel"] <= tol["loss_rel"]
+                     and card_model <= bound_model
+                     and card_worst[0] <= bound_tensor)
+    return row
+
+
+def _ssd_parity(torch, data_np, lab_np):
+    """One SSD training forward and backward at batch DET_PARITY_BATCH on
+    the card and on the CPU from the same weights: loss, gradients,
+    MultiBoxTarget's targets."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.models import SSDTrainLoss, ssd_300
+    from mxnet_tpu_torch.ops import cv_ops
+
+    def warm(net):
+        net(nd.array(data_np[:1], ctx=mx.cpu()))
+
+    fname = os.path.join(_det_build_dir(), f"ssd-{os.getpid()}.params")
+    nets = _carried_nets(torch, lambda: ssd_300(num_classes=DET_CLASSES),
+                         fname, warm)
+    res, targets = {}, {}
+    for name, net in nets.items():
+        dev = mx.gpu(0) if name == "card" else mx.cpu()
+        dt = np.float64 if name == "float64" else np.float32
+        x = nd.array(data_np.astype(dt), ctx=dev, dtype=dt)
+        y = nd.array(lab_np.astype(dt), ctx=dev, dtype=dt)
+        with autograd.record():
+            anchors, cls_preds, box_preds = net(x)
+            loss = SSDTrainLoss()(anchors, cls_preds, box_preds, y)
+        loss.backward()
+        _, mask, cls_t = cv_ops.multibox_target(
+            anchors.data, y.data, cls_preds.data.detach().transpose(1, 2),
+            negative_mining_ratio=3.0)
+        res[name] = (float(loss.asscalar()), _grads_by_name(net),
+                     cls_preds.data.detach().cpu().double())
+        targets[name] = (cls_t.cpu().float(), mask.cpu().float())
+    row = _det_parity_row(torch, res)
+    (t_g, m_g), (t_c, m_c) = targets["card"], targets["cpu"]
+    row["cls_target_mismatches"] = int((t_g != t_c).sum())
+    row["loc_mask_mismatches"] = int((m_g != m_c).sum())
+    row["cls_target_mismatches_vs_float64"] = int(
+        (t_g != targets["float64"][0]).sum())
+    row["ok"] = bool(row["ok"] and not row["cls_target_mismatches"]
+                     and not row["loc_mask_mismatches"])
+    return row
+
+
+def phase_train_ssd(torch, ctx):
+    """BASELINE config 5, SSD half, as ``examples/train_detection.py``
+    runs it with ``--rec``, at full width: a seeded detection RecordIO,
+    ``ImageDetIter`` with ``CreateDetAugmenter((3, 512, 512),
+    rand_mirror=True, rand_crop=0.5, mean=True, std=True)`` on
+    ``cuda:0``, ``ssd_300(num_classes=80)`` with ``Xavier``,
+    ``SSDTrainLoss``, Adam lr 1e-3 through ``gluon.Trainer``; record ->
+    backward -> ``trainer.step(32)``."""
+    import random
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.image import CreateDetAugmenter, ImageDetIter
+    from mxnet_tpu_torch.models import SSDTrainLoss, ssd_300
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    B, R = SSD_BATCH, DET_RES
+    folder = tempfile.mkdtemp(prefix="det_rec-", dir=_det_build_dir())
+    try:
+        t0 = time.perf_counter()
+        rec, n_boxes, rec_bytes = _write_det_rec(folder, DET_REC_IMAGES,
+                                                 SEED)
+        write_s = time.perf_counter() - t0
+        random.seed(SEED)
+        np.random.seed(SEED)
+        mx.random.seed(SEED)
+        augs = CreateDetAugmenter((3, R, R), rand_mirror=True, rand_crop=0.5,
+                                  mean=True, std=True)
+        it = ImageDetIter(batch_size=B, data_shape=(3, R, R),
+                          path_imgrec=rec, shuffle=True, aug_list=augs,
+                          ctx=dev)
+        net = ssd_300(num_classes=DET_CLASSES)
+        net.initialize(mx.init.Xavier(), ctx=dev)
+        loss_block = SSDTrainLoss()
+        trainer = gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": DET_LR})
+
+        def next_batch():
+            try:
+                return next(it)
+            except StopIteration:
+                it.reset()
+                return next(it)
+
+        def step(data, label):
+            with autograd.record():
+                anchors, cls_preds, box_preds = net(data)
+                loss = loss_block(anchors, cls_preds, box_preds, label)
+            loss.backward()
+            trainer.step(B)
+            return loss
+
+        def pipeline_step():
+            batch = next_batch()
+            ctx["ssd_batch"] = batch
+            return step(batch.data[0], batch.label[0])
+
+        torch.cuda.reset_peak_memory_stats()
+        losses = [pipeline_step() for _ in range(DET_WARMUP)]
+        counted = _det_zero_counters()
+        span_ms, wall, handles = _timed_steps(torch, pipeline_step, (),
+                                              DET_STEPS)
+        launches = {n: fn.launches for n, fn in counted.items()}
+        ctx.setdefault("launches", {})["train_ssd"] = launches
+        losses = [float(h.asscalar()) for h in losses + handles]
+        batch = ctx["ssd_batch"]
+        data, label = batch.data[0], batch.label[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DET_ITER_BATCHES):
+            next_batch()
+        torch.cuda.synchronize()
+        iter_ms = (time.perf_counter() - t0) * 1e3 / DET_ITER_BATCHES
+        step_ms, _, _ = _timed_steps(torch, step, (data, label), DET_STEPS)
+        prof = _step_profile(torch, lambda: step(data, label), steps=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        data_np, label_np = (data.asnumpy()[:DET_PARITY_BATCH],
+                             label.asnumpy()[:DET_PARITY_BATCH])
+        ctx["ssd"] = {"net": net, "data": data}
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    parity = _ssd_parity(torch, data_np, label_np)
+    ok = bool(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0]
+              and data.context == dev and label.context == dev
+              and tuple(data.shape) == (B, 3, R, R)
+              and not any(launches.values()) and parity["ok"])
+    return {"model": "ssd_300", "num_classes": DET_CLASSES,
+            "input": "RecordIO via ImageDetIter (cv2 decode)",
+            "rec_images": DET_REC_IMAGES, "rec_boxes": n_boxes,
+            "rec_bytes": rec_bytes, "rec_write_s": write_s,
+            "batch": B, "res": R, "steps": DET_STEPS,
+            "pipeline_wall_s": wall,
+            "pipeline_images_per_s": DET_STEPS * B / wall,
+            "pipeline_step_ms_median": statistics.median(span_ms),
+            "iter_ms_per_batch": iter_ms,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms": step_ms, "staged_images_per_s":
+                B * 1e3 / statistics.median(step_ms),
+            "max_memory_allocated_gb": peak, "losses": losses,
+            "batch_device": str(data.context),
+            "label_shape": list(label.shape), "launches": launches,
+            "profile_1_step": prof, "parity_tol": DET_PARITY_TOL,
+            "parity_spread": DET_PARITY_SPREAD, "parity": parity,
+            "card": ctx["smi"], "ok": ok}
+
+
+def _det_scores(rng, b, n, valid):
+    """MultiBoxDetection inputs with no two competing scores within 1e-4:
+    per image ``valid`` anchors get one foreground class at a distinct
+    score 0.02 + k * 1.5e-4; every other score lies below 0.004, under
+    the 0.01 threshold."""
+    prob = rng.uniform(0.0, 0.004, (b, DET_CLASSES + 1, n)).astype(np.float32)
+    for i in range(b):
+        rows = rng.choice(n, valid, replace=False)
+        prob[i, rng.randint(1, DET_CLASSES + 1, valid), rows] = (
+            0.02 + rng.permutation(valid) * 1.5e-4)
+    return prob
+
+
+def _detection_card_vs_cpu(torch, anchors, b=4, valid=5000):
+    """MultiBoxDetection (threshold 0.01, NMS 0.45, top-k 400) on the
+    card vs the CPU on drawn scores and offsets over ``anchors``."""
+    from mxnet_tpu_torch.ops import cv_ops
+
+    rng = np.random.RandomState(SEED + 12)
+    n = anchors.shape[1]
+    valid = min(valid, n // 2)
+    prob = torch.from_numpy(_det_scores(rng, b, n, valid))
+    loc = torch.from_numpy(rng.normal(0, 0.5, (b, n * 4)).astype(np.float32))
+    kw = dict(threshold=0.01, nms_threshold=0.45, nms_topk=400)
+    card = cv_ops.multibox_detection(prob.cuda(), loc.cuda(),
+                                     anchors.cuda(), **kw).cpu()
+    cpu = cv_ops.multibox_detection(prob, loc, anchors.cpu(), **kw)
+    kept_g, kept_c = card[..., 0] >= 0, cpu[..., 0] >= 0
+    return {"batch": b, "valid_rows": valid,
+            "kept_rows": int(kept_c.sum()),
+            "kept_equal": bool(torch.equal(kept_g, kept_c)),
+            "class_ids_equal": bool(torch.equal(card[..., 0], cpu[..., 0])),
+            "scores_equal": bool(torch.equal(card[..., 1], cpu[..., 1])),
+            "box_max_abs": float((card[..., 2:] - cpu[..., 2:]).abs().max()),
+            "box_atol": DET_BOX_ATOL}
+
+
+def phase_detect_ssd(torch, ctx):
+    """``SSD.detect`` (threshold 0.01, NMS 0.45, top-k 400) on the train
+    phase's last batch of 32 augmented 512^2 images with its trained net:
+    2 warm-up and DET_DETECT_CALLS timed calls, each ending in a sync;
+    then MultiBoxDetection card vs CPU on drawn inputs over the net's
+    21,764 anchors."""
+    net, data = ctx["ssd"]["net"], ctx["ssd"]["data"]
+    counted = _det_zero_counters()
+    for _ in range(2):
+        det = net.detect(data, threshold=0.01, nms_threshold=0.45, topk=400)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(DET_DETECT_CALLS):
+        t0 = time.perf_counter()
+        det = net.detect(data, threshold=0.01, nms_threshold=0.45, topk=400)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["detect_ssd"] = launches
+    out = det.asnumpy()
+    kept = (out[..., 0] >= 0).sum(axis=1)
+    with torch.no_grad():
+        anchors = net(data.data[:1])[0]
+    prof = _step_profile(torch, lambda: net.detect(data), steps=1)
+    gate = _detection_card_vs_cpu(torch, anchors)
+    ok = bool(out.shape == (SSD_BATCH, anchors.shape[1], 6)
+              and np.isfinite(out).all() and kept.max() <= 400
+              and not any(launches.values())
+              and gate["kept_equal"] and gate["class_ids_equal"]
+              and gate["scores_equal"]
+              and gate["box_max_abs"] <= DET_BOX_ATOL)
+    return {"batch": SSD_BATCH, "res": DET_RES, "anchors": anchors.shape[1],
+            "ms_per_batch_median": statistics.median(ms), "ms": ms,
+            "images_per_s": SSD_BATCH * 1e3 / statistics.median(ms),
+            "kept_rows_per_image": {"min": int(kept.min()),
+                                    "max": int(kept.max()),
+                                    "mean": float(kept.mean())},
+            "launches": launches, "profile_1_call": prof,
+            "multibox_detection_card_vs_cpu": gate, "card": ctx["smi"],
+            "ok": ok}
+
+
+def _frcnn_batch(b, seed):
+    """(images, pixel gt boxes padded with -1 rows, im_info) at DET_RES."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(b, 3, DET_RES, DET_RES).astype(np.float32)
+    gt = np.full((b, DET_MAX_BOXES, 5), -1.0, np.float32)
+    for i in range(b):
+        objs = _det_objects(rng, pixels=True)
+        gt[i, :len(objs)] = objs
+    info = np.tile(np.array([[DET_RES, DET_RES, 1.0]], np.float32), (b, 1))
+    return x, gt, info
+
+
+def _frcnn_parity(torch):
+    """One FasterRCNNTrainLoss forward and backward at batch
+    DET_PARITY_BATCH on the card and on the CPU from the same weights.
+    The CPU steps take the card's proposals and its ProposalTarget
+    sample: which of the RPN's 24,576 near-equal scores make the pre-NMS
+    top 256, and which rois of near-equal IoU make the 32 an image, turn
+    on rounding (the cv_ops phase holds both ops card vs CPU, exactly, on
+    the same inputs); whether the CPU's own choices equal the card's is
+    reported."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.models import (FasterRCNN, FasterRCNNTrainLoss,
+                                        faster_rcnn_small)
+    from mxnet_tpu_torch.ops import cv_ops
+
+    x, gt, info = _frcnn_batch(DET_PARITY_BATCH, SEED + 13)
+
+    def warm(net):
+        cpu = mx.cpu()
+        FasterRCNNTrainLoss(net)(nd.array(x, ctx=cpu), nd.array(gt, ctx=cpu),
+                                 nd.array(info, ctx=cpu))
+
+    fname = os.path.join(_det_build_dir(), f"frcnn-{os.getpid()}.params")
+    nets = _carried_nets(
+        torch, lambda: faster_rcnn_small(num_classes=DET_CLASSES), fname,
+        warm)
+    seen = {}
+
+    def pinned(name, net):
+        def proposals(F, rpn_cls, rpn_bbox, im_info):
+            seen[name] = FasterRCNN.proposals(net, F, rpn_cls, rpn_bbox,
+                                              im_info)
+            seen["rpn_" + name] = rpn_cls.detach()
+            if name == "card":
+                return seen[name]
+            return seen["card"].to(rpn_cls.device, rpn_cls.dtype)
+        return proposals
+
+    sample = cv_ops.proposal_target
+
+    def pinned_sample(name):
+        def proposal_target(rois, gt_boxes, **kw):
+            seen["sample_" + name] = sample(rois, gt_boxes, **kw)
+            if name == "card":
+                return seen["sample_card"]
+            return tuple(t.to(rois.device, rois.dtype)
+                         for t in seen["sample_card"])
+        return proposal_target
+
+    def run(name, net):
+        net.proposals = pinned(name, net)
+        cv_ops.proposal_target = pinned_sample(name)
+        dev = mx.gpu(0) if name == "card" else mx.cpu()
+        dt = np.float64 if name == "float64" else np.float32
+        args = [nd.array(a.astype(dt), ctx=dev, dtype=dt)
+                for a in (x, gt, info)]
+        with autograd.record():
+            loss = FasterRCNNTrainLoss(net)(*args)
+        loss.backward()
+        return (float(loss.asscalar()), _grads_by_name(net),
+                seen["rpn_" + name].cpu().double())
+
+    res = {}
+    try:
+        for name, net in nets.items():
+            res[name] = run(name, net)
+        own = {"own_proposals_equal": bool(torch.equal(seen["card"].cpu(),
+                                                       seen["cpu"])),
+               "own_sample_equal": all(
+                   torch.equal(a.cpu(), b) for a, b in zip(
+                       seen["sample_card"], seen["sample_cpu"]))}
+        # the card again with cuDNN off (torch's own convolutions): the
+        # gap to float64 is not cuDNN's algorithms
+        cudnn = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = False
+        try:
+            no_cudnn = run("card", nets["card"])[1]
+        finally:
+            torch.backends.cudnn.enabled = cudnn
+    finally:
+        cv_ops.proposal_target = sample
+    row = _det_parity_row(torch, res)
+    row["grad_rel_model_vs_float64_card_cudnn_off"] = _rel_l2(
+        no_cudnn, res["float64"][1])[0]
+    return {**row, **own}
+
+
+def phase_train_faster_rcnn(torch, ctx):
+    """BASELINE config 5, Faster-RCNN half, at full width:
+    ``faster_rcnn_small(num_classes=80)`` (body 16/32/64, 6 anchors a
+    cell, RPN 128, pre/post NMS 256/64, 32 rois an image, hidden 256)
+    with ``Xavier``, ``FasterRCNNTrainLoss`` and Adam lr 1e-3 through
+    ``gluon.Trainer``, batch 8 at 512^2 with seeded pixel gt boxes and
+    ``im_info``; then ``FasterRCNN.detect`` once."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models import FasterRCNNTrainLoss, faster_rcnn_small
+
+    ctx.pop("ssd", None)
+    ctx.pop("ssd_batch", None)
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    B = FRCNN_BATCH
+    mx.random.seed(SEED)
+    x_np, gt_np, info_np = _frcnn_batch(B, SEED)
+    x, gt, info = (nd.array(a, ctx=dev) for a in (x_np, gt_np, info_np))
+    net = faster_rcnn_small(num_classes=DET_CLASSES)
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    loss_block = FasterRCNNTrainLoss(net)
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": DET_LR})
+
+    def step():
+        with autograd.record():
+            loss = loss_block(x, gt, info)
+        loss.backward()
+        trainer.step(B)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(DET_WARMUP)]
+    counted = _det_zero_counters()
+    step_ms, wall, handles = _timed_steps(torch, step, (), DET_STEPS)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["train_faster_rcnn"] = launches
+    losses = [float(h.asscalar()) for h in losses + handles]
+    prof = _step_profile(torch, step, steps=1, gaps=True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    counted = _det_zero_counters()
+    # threshold 0: every roi's best class takes part in the NMS (at the
+    # default 0.05 a net this young keeps no row of 81 classes)
+    net.detect(x, threshold=0.0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    det = net.detect(x, threshold=0.0)
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    det_launches = {n: fn.launches for n, fn in counted.items()}
+    ctx["launches"]["detect_faster_rcnn"] = det_launches
+    out = det.asnumpy()
+    kept = (out[..., 0] >= 0).sum(axis=1)
+    del net, loss_block, trainer
+    torch.cuda.empty_cache()
+    parity = _frcnn_parity(torch)
+    ok = bool(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0]
+              and out.shape == (B, 64, 6) and np.isfinite(out).all()
+              and not any(launches.values())
+              and not any(det_launches.values()) and parity["ok"])
+    return {"model": "faster_rcnn_small", "num_classes": DET_CLASSES,
+            "batch": B, "res": DET_RES,
+            "gt_boxes": int((gt_np[..., 0] >= 0).sum()),
+            "steps": DET_STEPS, "wall_s": wall,
+            "images_per_s": DET_STEPS * B / wall,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms": step_ms, "max_memory_allocated_gb": peak,
+            "losses": losses, "launches": launches,
+            "profile_1_step": prof, "detect_threshold": 0.0,
+            "detect_ms": detect_ms,
+            "detect_kept_rows_per_image": kept.tolist(),
+            "detect_launches": det_launches, "parity_tol": DET_PARITY_TOL,
+            "parity_spread": DET_PARITY_SPREAD, "parity": parity,
+            "card": ctx["smi"], "ok": ok}
+
+
+# cv_ops card vs CPU: float outputs within these (absolute, on outputs of
+# order one; ROIAlign's output and feature gradient relative to their max
+# abs, the gradient accumulating with atomic adds on the card); integer
+# and mask outputs, selected values and orders exact
+CV_TOL = {"iou": 1e-6, "prior": 1e-6, "loc_target": 1e-4, "decode": 1e-5,
+          "roi_align": 1e-5, "roi_align_grad": 1e-5, "proposal_box": 1e-3,
+          "encode": 1e-4, "mask_target": 1e-5, "smooth_l1": 1e-6}
+
+
+def _cv_card_vs_cpu(torch, fn, args, kw=None):
+    """``fn(*args, **kw)`` on the card (one warm-up call, one timed call
+    ending in a sync) and on the CPU: (card outputs on the CPU, CPU
+    outputs, card ms)."""
+    kw = kw or {}
+    card_args = [a.cuda() if isinstance(a, torch.Tensor) else a
+                 for a in args]
+    fn(*card_args, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = fn(*card_args, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = fn(*args, **kw)
+    card = card if isinstance(card, (tuple, list)) else (card,)
+    cpu = cpu if isinstance(cpu, (tuple, list)) else (cpu,)
+    return [c.cpu() for c in card], list(cpu), ms
+
+
+def _max_abs(a, b):
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase_cv_ops(torch, ctx):
+    """Every registered detection op on the card vs the CPU port at the
+    detection paths' shapes (SSD-512: 21,764 anchors, batch 32, 81
+    classes; Faster-RCNN: a 64 x 64 map of 6 anchors, batch 8, 256 rois),
+    on seeded inputs with tied scores, padded gt rows and two gt boxes
+    sharing their best anchor."""
+    from mxnet_tpu_torch.ops import cv_ops, registry
+    from mxnet_tpu_torch.ops.elemwise import smooth_l1
+
+    rng = np.random.RandomState(SEED + 14)
+    T = torch.from_numpy
+    rows, ok = {}, True
+
+    def record(name, exact, close, ms, **extra):
+        nonlocal ok
+        row_ok = all(exact.values()) and all(v <= CV_TOL[k.split(":")[0]]
+                                             for k, v in close.items())
+        rows[name] = {"ms": ms, "exact": exact, "max_abs": close, **extra,
+                      "ok": bool(row_ok)}
+        ok = ok and row_ok
+
+    # SSD's anchors at 512^2 and a batch of gt boxes, padded with -1 rows;
+    # image 0's rows 0 and 1 are one box under two classes, so both force
+    # the same best anchor
+    feats = [T(np.zeros((1, 1, s, s), np.float32)) for s in (64, 32, 16, 8, 1)]
+    sizes = [[0.2, 0.272], [0.37, 0.447], [0.54, 0.619], [0.71, 0.79],
+             [0.88, 0.961]]
+    priors = []
+    for f, sz in zip(feats, sizes):
+        g, c, ms = _cv_card_vs_cpu(torch, cv_ops.multibox_prior, (f,),
+                                   {"sizes": sz, "ratios": [1, 2, 0.5]})
+        priors.append(c[0])
+        record(f"MultiBoxPrior_{f.shape[-1]}", {}, {"prior": _max_abs(
+            g[0], c[0])}, ms)
+    anchors = torch.cat(priors, dim=1)
+    n = anchors.shape[1]
+    labels = np.full((SSD_BATCH, DET_MAX_BOXES, 5), -1.0, np.float32)
+    for i in range(SSD_BATCH):
+        objs = _det_objects(rng)
+        labels[i, :len(objs)] = objs
+    labels[0, 1] = labels[0, 0]
+    labels[0, 1, 0] = (labels[0, 0, 0] + 1) % DET_CLASSES
+    labels = T(labels)
+    # logits on a grid of 1/8: many exact ties among the mining scores
+    cls_pred = T(np.round(rng.normal(0, 1, (SSD_BATCH, DET_CLASSES + 1, n))
+                          * 8).astype(np.float32) / 8)
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.box_iou,
+                               (anchors[0], labels[:, :, 1:5]))
+    record("box_iou", {}, {"iou": _max_abs(g[0], c[0])}, ms)
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.multibox_target,
+                               (anchors, labels, cls_pred),
+                               {"negative_mining_ratio": 3.0})
+    # the shared best anchor goes to the higher gt index, on both
+    shared = int(torch.argmax(cv_ops.box_iou(anchors[0], labels[0, :1,
+                                                                1:5])))
+    want = float(labels[0, 1, 0]) + 1.0
+    record("MultiBoxTarget",
+           {"cls_target": torch.equal(g[2], c[2]),
+            "loc_mask": torch.equal(g[1], c[1]),
+            "shared_anchor_to_higher_gt": float(g[2][0, shared]) == want
+            and float(c[2][0, shared]) == want},
+           {"loc_target": _max_abs(g[0], c[0])}, ms,
+           positives=int((c[2] > 0).sum()), kept=int((c[2] >= 0).sum()))
+    gate = _detection_card_vs_cpu(torch, anchors, b=2, valid=3000)
+    record("MultiBoxDetection",
+           {k: gate[k] for k in ("kept_equal", "class_ids_equal",
+                                 "scores_equal")},
+           {"decode": gate["box_max_abs"]}, None, kept=gate["kept_rows"])
+    # box_nms with top-k off on Faster-RCNN's detect rows, scores tied on
+    # a grid of 1/16
+    det = np.zeros((FRCNN_BATCH, 64, 6), np.float32)
+    det[..., 0] = rng.randint(0, 4, (FRCNN_BATCH, 64))
+    det[..., 1] = np.round(rng.uniform(0, 1, (FRCNN_BATCH, 64)) * 16) / 16
+    xy = rng.uniform(0, 400, (FRCNN_BATCH, 64, 2))
+    det[..., 2:4] = xy
+    det[..., 4:6] = xy + rng.uniform(20, 120, (FRCNN_BATCH, 64, 2))
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.box_nms, (T(det),),
+                               {"overlap_thresh": 0.3, "valid_thresh": 0.05,
+                                "topk": -1, "id_index": 0})
+    record("box_nms", {"rows": torch.equal(g[0], c[0])}, {}, ms,
+           kept=int((c[0][..., 0] >= 0).sum()))
+    scores = T(np.round(rng.uniform(0, 1, (FRCNN_BATCH, 64, DET_MAX_BOXES))
+                        * 8).astype(np.float32) / 8)
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.bipartite_matching, (scores,),
+                               {"threshold": 0.25})
+    record("bipartite_matching", {"rows": torch.equal(g[0], c[0]),
+                                  "cols": torch.equal(g[1], c[1])}, {}, ms)
+    # Faster-RCNN: RPN outputs on a 64 x 64 map, scores tied on 1/64
+    a, hw = 6, DET_RES // 8
+    fg = np.round(rng.uniform(0, 1, (FRCNN_BATCH, a, hw, hw)) * 64) / 64
+    rpn_prob = T(np.concatenate([1 - fg, fg], 1).astype(np.float32))
+    rpn_bbox = T(rng.normal(0, 0.1, (FRCNN_BATCH, 4 * a, hw, hw))
+                 .astype(np.float32))
+    info = T(np.tile(np.array([[DET_RES, DET_RES, 1.0]], np.float32),
+                     (FRCNN_BATCH, 1)))
+    pkw = dict(rpn_pre_nms_top_n=256, rpn_post_nms_top_n=64,
+               rpn_min_size=4, scales=(2.0, 4.0), ratios=(0.5, 1.0, 2.0),
+               feature_stride=8, output_score=True)
+    for name, fn in (("Proposal", cv_ops.proposal),
+                     ("MultiProposal", cv_ops.multi_proposal)):
+        g, c, ms = _cv_card_vs_cpu(torch, fn, (rpn_prob, rpn_bbox, info), pkw)
+        record(name, {"scores_in_order": torch.equal(g[1], c[1])},
+               {"proposal_box": _max_abs(g[0], c[0])}, ms)
+    rois = g[0]
+    gt = np.full((FRCNN_BATCH, DET_MAX_BOXES, 5), -1.0, np.float32)
+    for i in range(FRCNN_BATCH):
+        objs = _det_objects(rng, pixels=True)
+        gt[i, :len(objs)] = objs
+    gt = T(gt)
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.rpn_anchor_target,
+                               (rpn_prob, gt),
+                               {"scales": (2.0, 4.0),
+                                "ratios": (0.5, 1.0, 2.0),
+                                "feature_stride": 8})
+    record("RPNAnchorTarget", {"labels": torch.equal(g[0], c[0]),
+                               "weights": torch.equal(g[2], c[2])},
+           {"encode": _max_abs(g[1], c[1])}, ms,
+           fg=int((c[0] == 1).sum()))
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.proposal_target, (rois, gt),
+                               {"num_classes": DET_CLASSES + 1,
+                                "batch_images": FRCNN_BATCH,
+                                "batch_rois": FRCNN_BATCH * 32,
+                                "fg_fraction": 0.5})
+    record("ProposalTarget", {"rois": torch.equal(g[0], c[0]),
+                              "labels": torch.equal(g[1], c[1]),
+                              "weights": torch.equal(g[3], c[3])},
+           {"encode": _max_abs(g[2], c[2])}, ms,
+           fg=int((c[1] > 0).sum()))
+    feat = T(rng.normal(0, 1, (FRCNN_BATCH, 64, hw, hw)).astype(np.float32))
+    sel = c[0]
+
+    def align_with_grad(f, r):
+        f = f.clone().requires_grad_(True)
+        out = cv_ops.roi_align(f, r, pooled_size=(7, 7),
+                               spatial_scale=1.0 / 8)
+        (out * out).sum().backward()
+        return out.detach(), f.grad
+
+    g, c, ms = _cv_card_vs_cpu(torch, align_with_grad, (feat, sel))
+    record("ROIAlign", {}, {"roi_align": _max_abs(g[0], c[0])
+                            / float(c[0].abs().max()),
+                            "roi_align_grad": _max_abs(g[1], c[1])
+                            / float(c[1].abs().max())}, ms)
+    small = T(rng.normal(0, 1, (2, 16, 32, 32)).astype(np.float32))
+    prois = np.zeros((16, 5), np.float32)
+    prois[:, 0] = rng.randint(0, 2, 16)
+    prois[:, 1:3] = rng.uniform(0, 150, (16, 2))
+    prois[:, 3:5] = prois[:, 1:3] + rng.uniform(4, 100, (16, 2))
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.roi_pooling, (small, T(prois)),
+                               {"pooled_size": (7, 7),
+                                "spatial_scale": 1.0 / 8})
+    record("ROIPooling", {"out": torch.equal(g[0], c[0])}, {}, ms)
+    samples = T(rng.choice([-1.0, 0.0, 1.0], (FRCNN_BATCH, n))
+                .astype(np.float32))
+    matches = T(rng.randint(0, DET_MAX_BOXES, (FRCNN_BATCH, n))
+                .astype(np.float32))
+    refs = labels[:FRCNN_BATCH, :, 1:5].abs()
+    refs = torch.cat([torch.minimum(refs[..., :2], refs[..., 2:]),
+                      torch.maximum(refs[..., :2], refs[..., 2:]) + 0.01], -1)
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.box_encode,
+                               (samples, matches,
+                                anchors.expand(FRCNN_BATCH, -1, -1), refs))
+    record("box_encode", {"masks": torch.equal(g[1], c[1])},
+           {"encode": _max_abs(g[0], c[0])}, ms)
+    deltas = T(rng.normal(0, 1, (FRCNN_BATCH, n, 4)).astype(np.float32))
+    g, c, ms = _cv_card_vs_cpu(torch, cv_ops.box_decode, (deltas, anchors),
+                               {"clip": 1.0})
+    record("box_decode", {}, {"decode": _max_abs(g[0], c[0])}, ms)
+    mrois = T(np.concatenate([rng.uniform(0, 30, (2, 16, 2)),
+                              rng.uniform(34, 63, (2, 16, 2))], -1)
+              .astype(np.float32))
+    masks = T((rng.uniform(0, 1, (2, 4, 64, 64)) > 0.5).astype(np.float32))
+    g, c, ms = _cv_card_vs_cpu(
+        torch, cv_ops.mrcnn_mask_target,
+        (mrois, masks, T(rng.randint(0, 4, (2, 16)).astype(np.float32)),
+         T(rng.randint(0, 3, (2, 16)).astype(np.float32))),
+        {"num_classes": 3, "mask_size": (14, 14)})
+    record("mrcnn_mask_target", {"weights": torch.equal(g[1], c[1])},
+           {"mask_target": _max_abs(g[0], c[0])}, ms)
+    g, c, ms = _cv_card_vs_cpu(torch, smooth_l1, (deltas,), {"scalar": 3.0})
+    record("smooth_l1", {}, {"smooth_l1": _max_abs(g[0], c[0])}, ms)
+    names = {f"_contrib_{k}" if k not in ("ROIPooling", "smooth_l1") else k
+             for k in rows}
+    names = {k.rsplit("_", 1)[0] if k.startswith("_contrib_MultiBoxPrior")
+             else k for k in names}
+    missing = sorted(set(DET_OPS) - names)
+    registered = sorted(o for o in DET_OPS if o in registry.list_ops())
+    return {"tol": CV_TOL, "ops": rows, "not_run": missing,
+            "registered": len(registered),
+            "ok": bool(ok and not missing and len(registered) == len(DET_OPS))}
+
+
+DET_OPS = ("_contrib_box_iou", "_contrib_box_nms",
+           "_contrib_bipartite_matching", "_contrib_MultiBoxPrior",
+           "_contrib_MultiBoxTarget", "_contrib_MultiBoxDetection",
+           "ROIPooling", "_contrib_ROIAlign", "_contrib_Proposal",
+           "_contrib_MultiProposal", "_contrib_box_encode",
+           "_contrib_box_decode", "_contrib_mrcnn_mask_target",
+           "_contrib_RPNAnchorTarget", "_contrib_ProposalTarget",
+           "smooth_l1")
+
+
 def main() -> int:
     import torch
 
@@ -4404,7 +5257,11 @@ def main() -> int:
               ("optimizer", phase_optimizer),
               ("gluon_mnist", phase_gluon_mnist),
               ("gluon_bert", phase_gluon_bert),
-              ("gluon_bert_parity", phase_gluon_bert_parity))
+              ("gluon_bert_parity", phase_gluon_bert_parity),
+              ("train_ssd", phase_train_ssd),
+              ("detect_ssd", phase_detect_ssd),
+              ("train_faster_rcnn", phase_train_faster_rcnn),
+              ("cv_ops", phase_cv_ops))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

@@ -2,7 +2,8 @@
 
 Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
 ``autograd``, ``passes``, ``gluon``, ``init``, ``metric``, ``random``,
-``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``, and the
+``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``,
+``recordio``, ``image``, ``io``, and the
 runtime services ``telemetry``, ``memwatch``, ``metrics_server``,
 ``checkpoint``, ``fault``) in plain
 PyTorch idiom: Gluon blocks (and so the models) are ``torch.nn.Module``s,
@@ -35,10 +36,14 @@ from . import memwatch
 from . import metrics_server
 from . import checkpoint
 from . import fault
+from . import recordio
+from . import image
+from . import io
+from . import models
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd",
            "optimizer", "random", "initializer", "init", "metric", "kvstore",
            "kv", "gluon", "telemetry", "memwatch", "metrics_server",
-           "checkpoint", "fault"]
+           "checkpoint", "fault", "recordio", "image", "io", "models"]
 
 metrics_server.maybe_start()

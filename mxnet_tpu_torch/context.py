@@ -11,7 +11,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_device", "resolve_device",
+__all__ = ["cpu", "gpu", "default_device", "resolve_device", "to_device",
            "normalize_memory_stats"]
 
 
@@ -36,6 +36,17 @@ def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``, or :func:`default_device` when
     it is None."""
     return default_device() if device is None else torch.device(device)
+
+
+def to_device(arr, device: torch.device) -> torch.Tensor:
+    """One copy of host (numpy) array ``arr`` onto ``device``: through
+    pinned memory and without blocking on a CUDA device."""
+    import numpy as np
+
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def normalize_memory_stats(raw) -> dict:

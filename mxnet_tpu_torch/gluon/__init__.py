@@ -1,6 +1,6 @@
 """Gluon: ``Parameter`` / ``ParameterDict``, ``Block`` / ``HybridBlock``,
-the layers (``nn``), the losses, ``Trainer`` and ``utils``, as in
-``mxnet_tpu/gluon/``; blocks are ``torch.nn`` modules."""
+the layers (``nn``), the losses, ``Trainer``, ``utils`` and ``data``, as
+in ``mxnet_tpu/gluon/``; blocks are ``torch.nn`` modules."""
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .block import Block, CachedOp, HybridBlock
@@ -9,7 +9,9 @@ from . import loss
 from . import utils
 from .utils import split_and_load
 from .trainer import Trainer
+from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
-           "CachedOp", "nn", "loss", "utils", "split_and_load", "Trainer"]
+           "CachedOp", "nn", "loss", "utils", "split_and_load", "Trainer",
+           "data"]

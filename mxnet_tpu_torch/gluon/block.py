@@ -329,7 +329,10 @@ class Block(nn.Module):
     def _call_nd(self, args, kwargs):
         """The MXNet call convention (see the module's docstring)."""
         train = autograd.is_training()
-        if self.training != train:
+        # every module, not only this one: a child shared with another
+        # block (a detector inside its loss block) may have been left in
+        # the other mode by a call through that block
+        if any(m.training != train for m in self.modules()):
             self.train(train)
         recording = autograd.is_recording()
         if recording:

@@ -4,9 +4,10 @@ from ..block import Block, HybridBlock
 from .basic_layers import (Activation, BatchNorm, Dense, Dropout, Embedding,
                            Flatten, HybridLambda, HybridSequential, Lambda,
                            LayerNorm, Sequential)
-from .conv_layers import AvgPool2D, Conv2D, GlobalAvgPool2D, MaxPool2D
+from .conv_layers import (AvgPool2D, Conv2D, GlobalAvgPool2D,
+                          GlobalMaxPool2D, MaxPool2D)
 
 __all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
            "Dense", "Dropout", "BatchNorm", "Embedding", "LayerNorm",
            "Flatten", "Lambda", "HybridLambda", "Activation", "Conv2D",
-           "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
+           "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D", "GlobalMaxPool2D"]

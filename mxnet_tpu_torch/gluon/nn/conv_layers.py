@@ -30,7 +30,8 @@ from ...precision import runtime as _prec
 from ..block import HybridBlock
 from .basic_layers import weight_tensor
 
-__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D"]
+__all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalAvgPool2D",
+           "GlobalMaxPool2D"]
 
 IntPair = Union[int, Sequence[int]]
 
@@ -167,4 +168,10 @@ class AvgPool2D(_Pooling):
 class GlobalAvgPool2D(_Pooling):
     def __init__(self, layout: str = "NCHW", prefix=None, params=None):
         super().__init__(1, 1, 0, False, True, "avg", layout, prefix=prefix,
+                         params=params)
+
+
+class GlobalMaxPool2D(_Pooling):
+    def __init__(self, layout: str = "NCHW", prefix=None, params=None):
+        super().__init__(1, 1, 0, False, True, "max", layout, prefix=prefix,
                          params=params)

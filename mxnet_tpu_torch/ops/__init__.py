@@ -11,6 +11,7 @@ from . import nn  # noqa: F401
 from . import contrib_ops  # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import quantization  # noqa: F401
+from . import cv_ops  # noqa: F401
 
 __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
            "list_ops"]

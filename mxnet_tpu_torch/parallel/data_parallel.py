@@ -173,9 +173,31 @@ class DataParallelStep:
 
     # -- the step ---------------------------------------------------------
     def _put(self, x):
+        from ..ndarray.ndarray import NDArray
+
+        if isinstance(x, NDArray):
+            x = x.data
         if isinstance(x, np.ndarray):
             x = tensor_from_numpy(x)
         return x.to(self.device, non_blocking=True)
+
+    def stage(self, data, label):
+        """One batch on this step's device ahead of its ``step`` ->
+        (data tuple, label) of NDArrays (``io.DevicePrefetchIter`` calls
+        it from its background thread); ``step`` then copies nothing.
+        The values are the same either way."""
+        from ..ndarray.ndarray import NDArray
+
+        datas = tuple(data) if isinstance(data, (tuple, list)) else (data,)
+        staged = tuple(NDArray(self._put(d), ctx=self.device) for d in datas)
+        return staged, (None if label is None else
+                        NDArray(self._put(label), ctx=self.device))
+
+    def drain(self) -> None:
+        """Wait for every enqueued step (epoch end; the JAX step forces
+        its in-flight window here)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @staticmethod
     def _microbatch(a, i: int, k: int):

@@ -72,7 +72,23 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.contrib.amp",
           "mxnet_tpu_torch.contrib.amp.amp",
           "mxnet_tpu_torch.contrib.quantization",
-          "mxnet_tpu_torch.ops.quantization")
+          "mxnet_tpu_torch.ops.quantization",
+          "mxnet_tpu_torch.recordio",
+          "mxnet_tpu_torch.image",
+          "mxnet_tpu_torch.image.image",
+          "mxnet_tpu_torch.image.detection",
+          "mxnet_tpu_torch.io",
+          "mxnet_tpu_torch.io.io",
+          "mxnet_tpu_torch.gluon.data",
+          "mxnet_tpu_torch.gluon.data.dataset",
+          "mxnet_tpu_torch.gluon.data.sampler",
+          "mxnet_tpu_torch.gluon.data.dataloader",
+          "mxnet_tpu_torch.gluon.data.vision",
+          "mxnet_tpu_torch.gluon.data.vision.datasets",
+          "mxnet_tpu_torch.gluon.data.vision.transforms",
+          "mxnet_tpu_torch.ops.cv_ops",
+          "mxnet_tpu_torch.models.ssd",
+          "mxnet_tpu_torch.models.faster_rcnn")
 
 
 def _no_cuda():
@@ -123,6 +139,32 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
                       page_size=4, max_len=8)
     ServingEngine(TransformerAdapter(net, src_max_len=4), slots=1,
                   page_size=4, max_len=8, device="cpu")
+
+
+def test_detection_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
+    """The detection pipeline's entry points (iterators, the loader, the
+    detectors' initialization) default to the card and raise without
+    one; with ``ctx=cpu()`` they run here."""
+    _no_cuda()
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.io import NDArrayIter
+    from mxnet_tpu_torch.models import faster_rcnn_small, ssd_300
+
+    data = np.zeros((4, 2), np.float32)
+    for make in (lambda **k: NDArrayIter(data, batch_size=2, **k),
+                 lambda **k: DataLoader(ArrayDataset(data), batch_size=2,
+                                        **k)):
+        with pytest.raises(MXNetError, match='device="cpu"'):
+            make()
+        make(ctx=mx.cpu())
+    for net in (ssd_300(2), faster_rcnn_small(2)):
+        with pytest.raises(MXNetError, match='device="cpu"'):
+            net.initialize(mx.init.Xavier())
+        net.initialize(mx.init.Xavier(), ctx=mx.cpu(), force_reinit=True)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

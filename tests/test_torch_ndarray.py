@@ -113,7 +113,11 @@ def test_namespace_has_the_ported_ops():
         assert callable(getattr(jnd, name)), name
     assert tnd.contrib.add_layer_norm.__name__ == "_contrib_add_layer_norm"
     assert sorted(tnd.contrib.__all__) == [
-        "add_layer_norm", "dequantize", "dequantize_int4", "flash_attention",
+        "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
+        "MultiProposal", "Proposal", "ProposalTarget", "ROIAlign",
+        "RPNAnchorTarget", "add_layer_norm", "bipartite_matching",
+        "box_decode", "box_encode", "box_iou", "box_nms", "dequantize",
+        "dequantize_int4", "flash_attention", "mrcnn_mask_target",
         "quantize_v2", "quantized_conv", "quantized_fully_connected",
         "requantize"]
     with pytest.raises(MXNetError, match="too many positional"):
