@@ -51,6 +51,9 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   serve_parity            one request's encoder memory and first 4 decode
                           logits on the card vs the same weights on the CPU
                           through the plain versions, max abs diff <= 2e-3.
+  serve_profile           8 full slots decoding 32 steps each under
+                          torch.profiler: device time by kernel, K1 and K2's
+                          share, the device's busy share of the wall time.
   serve_bf16              the serve cell with ``dtype="bfloat16"`` (bf16 KV
                           pools and encoder memory, f32 weights), then the
                           f32 engine again, both counted as in ``serve``;
@@ -117,6 +120,16 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           tokens/s, TTFT, the router's added latency, swap
                           ms and bytes, and memwatch's census beside
                           ``max_memory_allocated``.
+  serve_int8              Transformer-big served int8 through
+                          ``quantize_adapter`` (naive calibration over
+                          greedy ``translate`` of serve's first 8 sources):
+                          serve's traffic counted as in ``serve``, then the
+                          f32 and int8 engines in turns (A B B A) for
+                          tokens/s; the first 4 logits card vs CPU within
+                          QUANT_LOGIT_TOL of the larger of 1 and the max
+                          |logit|; weight bytes against f32's, the
+                          ``quantized`` memwatch census.
+  serve_int4              the same with weight-only int4 in groups of 32.
   kernel_flash_attention  kernels K3 (FA2 forward), K4 (dq) and K5 (dk, dv)
                           vs the plain version (the forward, and
                           torch.autograd.grad through it for the backward)
@@ -215,6 +228,14 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           falling; tokens/s, step ms and peak memory beside
                           the f32 train phase's; one profiled step with
                           K3-K5's share of the busy time.
+  train_amp               the train cell through ``DataParallelStep`` with
+                          the AMP policy in bf16 (f32 masters): losses
+                          finite, falling and within 2e-2 relative of the
+                          f32 cell's, K1 and K3-K5 as many launches as
+                          there, LayerNorm fed f32 and attention bf16.
+  train_amp_fp16          the same in fp16 with the dynamic loss scaler:
+                          a step forced to overflow is skipped, and the
+                          scaled step makes no host synchronization.
   train_resnet            resnet50_v1b (BASELINE config 2), f32, NCHW,
                           batch 256 at 224^2, seeded weights and images,
                           SGD lr 0.1, momentum 0.9, wd 1e-4 (bench.py:781),
@@ -236,6 +257,15 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   train_resnet_profile    one profiled step of each ResNet cell: busy share,
                           top kernels, the largest gaps between device
                           activities.
+  gluon_resnet_amp        BASELINE config 2 as MXNet scripts run it:
+                          resnet50_v1b NHWC, ``hybridize()``,
+                          ``amp.init("bfloat16")``, ``convert_hybrid_block``,
+                          ``gluon.Trainer`` SGD as train_resnet with
+                          ``init_trainer``'s f32 masters, ``scale_loss``: 2
+                          warm-up and 5 timed steps, then untimed ones to
+                          30 in all; images/s against train_resnet_bf16's;
+                          losses finite, the 30th below the first; bf16
+                          weights, f32 masters, every kernel counter 0.
   train_transformer       Transformer-big (BASELINE config 4) trained as
                           bench_transformer trains it (bench.py:706-751):
                           vocab 32000, dropout 0.3, f32, 210,173,952
@@ -360,6 +390,51 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           anchor: integer and mask outputs, orders and
                           selected values exact, floats within CV_TOL;
                           card ms of each.
+  train_lstm_lm           the medium LSTM language model of Zaremba et al.
+                          as MXNet's word_language_model example runs it
+                          (``models.lstm_lm_medium``: vocabulary 10,000,
+                          embedding 650, 2 x 650 LSTM on cuDNN through
+                          ``_fused_rnn``, dropout 0.5, untied, 19,780,400
+                          parameters, ``Uniform(0.05)``), batch 20 x 35
+                          steps of a seeded Zipf stream that repeats every
+                          4 batches, the state carried and detached, SGD
+                          lr 1.0 through ``gluon.Trainer`` after
+                          ``clip_global_norm`` (5 a token), f32, TF32 off:
+                          3 warm-up and 20 timed steps (tokens/s, step ms,
+                          peak memory) with the counters zeroed just before
+                          (K1-K7: 0), one profiled step, then 6 more; the
+                          29 recorded losses finite, the last 5 below the
+                          first 5.  One step at batch 2, dropout 0, on the
+                          card and the CPU from the same weights and
+                          carried state: logits, loss, every gradient, the
+                          parameters after the step and the new state
+                          within LM_PARITY_TOL.
+  rnn_variants            GRU (2 layers, TNC), bidirectional LSTM (NTC),
+                          an Elman RNN (tanh, NTC), ``LSTMCell`` /
+                          ``GRUCell`` / ``BidirectionalCell`` /
+                          ``SequentialRNNCell`` (with a ``ResidualCell``)
+                          ``unroll`` with ``valid_length``, and the packed
+                          ``RNN`` op (bidirectional 2-layer LSTM over
+                          MXNet's flat parameter vector), T 20, N 8, input
+                          64, hidden 128: outputs, states, input and
+                          parameter gradients on the card within
+                          RNN_VAR_TOL of the CPU's in f32 and in float64;
+                          K1-K7: 0.
+  op_catalog              every op of the registry (the detection ops are
+                          ``cv_ops``') on the card vs the CPU port at the
+                          paths' sizes (``_op_catalog``: (1024, 1024)
+                          elementwise, 1M-element reductions, batched 64 x
+                          64 linear algebra, BERT-width ``batch_dot`` and
+                          interleaved attention, a (30522, 768) embedding
+                          table, ResNet-sized maps, the LSTM language
+                          model's recurrence), forward and, where
+                          differentiable, the gradient of a seeded
+                          cotangent: integer, index, mask and order
+                          outputs exact, floats within OP_TOL of the CPU
+                          tensor's max abs by family; the random ops and
+                          ``Dropout`` by shape, support, mean and variance
+                          within 5 standard errors, and the same draws
+                          from the same seed; card ms by family.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -2842,6 +2917,14 @@ def phase_train_bf16(torch, ctx):
 RESNET_BATCH, RESNET_RES = 256, 224  # bench.py:768-769
 RESNET_WARMUP, RESNET_STEPS = 2, 5
 RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# gluon_resnet_amp's falling-loss gate reads the loss after this many
+# steps on its one repeated batch.  bf16 at lr 0.1 overshoots at step 3
+# (7.69 -> 6.88 -> 7.9..8.5 on the H100) and the timing-chosen cuDNN
+# algorithms make each run's recovery differ: the loss after step 7
+# ranged 6.31..6.84 over seven runs of the whole script, and an eighth
+# failed the gate read there.  tools/resnet_amp_gate_probe.py repeats
+# the cell in fresh processes (PERF.md §6).
+RESNET_AMP_FALL_STEPS = 30
 # dense peaks of an H100 SXM at 700 W (data sheet): f32 on the CUDA
 # cores, bf16 on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -3795,7 +3878,9 @@ def phase_gluon_resnet_amp(torch, ctx):
     ``hybridize()``, ``amp.init("bfloat16")``, ``convert_hybrid_block``,
     ``gluon.Trainer`` SGD (bench.py's momentum 0.9, lr 0.1, wd 1e-4) with
     ``init_trainer``'s f32 masters, ``scale_loss``; batch 256 at 224^2, 2
-    warm-up and 5 timed steps.  No kernel of ours is on this path."""
+    warm-up and 5 timed steps, then untimed steps up to
+    RESNET_AMP_FALL_STEPS for the falling-loss gate.  No kernel of ours
+    is on this path."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd, gluon
     from mxnet_tpu_torch.contrib import amp
@@ -3845,6 +3930,8 @@ def phase_gluon_resnet_amp(torch, ctx):
         end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    handles += [step() for _ in range(RESNET_AMP_FALL_STEPS - RESNET_WARMUP
+                                      - RESNET_STEPS)]
     launches = {n: fn.launches for n, fn in counters.items()}
     losses += [float(h.asscalar()) for h in handles]
     ips = B * RESNET_STEPS / wall
@@ -3859,6 +3946,7 @@ def phase_gluon_resnet_amp(torch, ctx):
         "model": "resnet50_v1b", "layout": "NHWC", "amp": "bfloat16",
         "hybridized": True, "batch": B, "resolution": R, "optimizer": "sgd",
         **RESNET_SGD, "warmup_steps": RESNET_WARMUP, "steps": RESNET_STEPS,
+        "fall_steps": RESNET_AMP_FALL_STEPS,
         "wall_s": wall, "images_per_s": ips,
         "step_ms_median": statistics.median(
             a.elapsed_time(b) for a, b in marks),
@@ -5206,6 +5294,1018 @@ DET_OPS = ("_contrib_box_iou", "_contrib_box_nms",
            "smooth_l1")
 
 
+# the LSTM language model: Zaremba et al.'s "medium" configuration as
+# MXNet's example/gluon/word_language_model runs it (--emsize 650 --nhid
+# 650 --dropout 0.5, untied), on a seeded synthetic stream
+LM_VOCAB, LM_WIDTH, LM_LAYERS, LM_DROPOUT = 10000, 650, 2, 0.5
+LM_BATCH, LM_BPTT, LM_LR, LM_CLIP = 20, 35, 1.0, 5.0
+LM_WARMUP, LM_STEPS, LM_TRAIN_STEPS = 3, 20, 30
+LM_PERIOD = 4  # the stream repeats every 4 batches
+LM_PARITY_BATCH = 2
+# card vs CPU, one step at batch 2 from the same weights and carried
+# state, dropout 0, f32 on both (TF32 off): logits and every gradient
+# relative to their tensor's max abs, the parameters after the step
+# relative to theirs, the loss relative, the new state absolute (|h|, |c|
+# < 1 here)
+LM_PARITY_TOL = {"logits_of_max_abs": 1e-4, "loss_rel": 1e-5,
+                 "grad_of_max_abs": 1e-4, "params_of_max_abs": 1e-6,
+                 "state_abs": 1e-5}
+
+
+def _lm_batches(batch, seed):
+    """LM_PERIOD (data, target) pairs of (LM_BPTT, batch) token ids from
+    a Zipf-distributed (p ~ 1/rank) seeded stream, laid out in ``batch``
+    columns as MXNet's ``batchify`` lays out a corpus."""
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, LM_VOCAB + 1)
+    rows = LM_PERIOD * LM_BPTT + 1
+    stream = rng.choice(LM_VOCAB, size=rows * batch, p=p / p.sum())
+    cols = stream.reshape(batch, rows).T.astype(np.float32)
+    return [(cols[i * LM_BPTT:(i + 1) * LM_BPTT],
+             cols[i * LM_BPTT + 1:(i + 1) * LM_BPTT + 1])
+            for i in range(LM_PERIOD)]
+
+
+def _lm_trainer(torch, net, dev, batches):
+    """``step()``: one training step on the next of ``batches`` (NDArrays
+    on ``dev``) with the carried state detached, ``clip_global_norm`` at
+    LM_CLIP per token and ``Trainer.step(bptt * batch)``; returns the
+    mean per-token loss."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": LM_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    batch = batches[0][0].shape[1]
+    state = {"k": 0, "hidden": net.begin_state(batch, ctx=dev)}
+
+    def step():
+        x, y = batches[state["k"] % len(batches)]
+        state["k"] += 1
+        hidden = [h.detach() for h in state["hidden"]]
+        with autograd.record():
+            logits, hidden = net(x, hidden)
+            loss = loss_fn(logits, y.reshape((-1,)))
+        loss.backward()
+        state["hidden"] = hidden
+        gluon.utils.clip_global_norm([p.grad() for p in params.values()],
+                                     LM_CLIP * LM_BPTT * batch)
+        trainer.step(LM_BPTT * batch)
+        return loss.mean()
+
+    return step
+
+
+def _lm_parity(torch):
+    """One training step at batch 2, dropout 0, on the card and on the
+    CPU from the same weights and the same (seeded, nonzero) carried
+    state."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models import lstm_lm_medium
+
+    mx.random.seed(SEED + 21)
+    cpu_net = lstm_lm_medium(dropout=0.0, prefix="lmp_")
+    cpu_net.initialize(mx.init.Uniform(0.05), ctx=mx.cpu())
+    card_net = lstm_lm_medium(dropout=0.0, prefix="lmp_")
+    card_net.initialize(ctx=mx.gpu(0))
+    for k, p in card_net.collect_params().items():
+        p.set_data(cpu_net.collect_params()[k].data()._data)
+    x, y = _lm_batches(LM_PARITY_BATCH, SEED + 22)[0]
+    rng = np.random.RandomState(SEED + 23)
+    h0 = [(rng.standard_normal((LM_LAYERS, LM_PARITY_BATCH, LM_WIDTH))
+           * 0.1).astype(np.float32) for _ in range(2)]
+    res = {}
+    for name, net, dev in (("card", card_net, mx.gpu(0)),
+                           ("cpu", cpu_net, mx.cpu())):
+        params = net.collect_params()
+        trainer = gluon.Trainer(params, "sgd", {"learning_rate": LM_LR})
+        with autograd.record():
+            logits, hidden = net(nd.array(x, ctx=dev),
+                                 [nd.array(h, ctx=dev) for h in h0])
+            loss = gluon.loss.SoftmaxCrossEntropyLoss()(
+                logits, nd.array(y.reshape(-1), ctx=dev))
+        loss.backward()
+        grads = {k: p.grad().asnumpy().copy() for k, p in params.items()}
+        gluon.utils.clip_global_norm([p.grad() for p in params.values()],
+                                     LM_CLIP * LM_BPTT * LM_PARITY_BATCH)
+        trainer.step(LM_BPTT * LM_PARITY_BATCH)
+        res[name] = {"logits": logits.asnumpy(),
+                     "loss": float(loss.mean().asscalar()), "grads": grads,
+                     "params": {k: p.data().asnumpy()
+                                for k, p in params.items()},
+                     "state": [h.asnumpy() for h in hidden]}
+
+    def of_max(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    card, cpu = res["card"], res["cpu"]
+    errs = {"logits_of_max_abs": of_max(card["logits"], cpu["logits"]),
+            "loss_rel": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+            "grad_of_max_abs": {k: of_max(card["grads"][k], v)
+                                for k, v in cpu["grads"].items()},
+            "params_of_max_abs": {k: of_max(card["params"][k], v)
+                                  for k, v in cpu["params"].items()},
+            "state_abs": max(float(np.abs(a - b).max()) for a, b in zip(
+                card["state"], cpu["state"]))}
+    ok = all((max(v.values()) if isinstance(v, dict) else v)
+             <= LM_PARITY_TOL[k] for k, v in errs.items())
+    return {"batch": LM_PARITY_BATCH, "loss_card": card["loss"],
+            "loss_cpu": cpu["loss"], "errors": errs, "tol": LM_PARITY_TOL,
+            "ok": bool(ok)}
+
+
+def phase_train_lstm_lm(torch, ctx):
+    """The medium LSTM language model (vocabulary 10,000, embedding 650,
+    2 x 650 LSTM, dropout 0.5, 19.8 M parameters, ``Uniform(0.05)``)
+    trained on ``cuda:0`` as MXNet's word_language_model example trains
+    it: batch 20, 35 unrolled steps, the state carried and detached, SGD
+    lr 1.0 through ``gluon.Trainer``, ``clip_global_norm`` 5 per token,
+    ``SoftmaxCrossEntropyLoss``; f32, TF32 off."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.models import lstm_lm_medium
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    mx.random.seed(SEED + 20)
+    net = lstm_lm_medium(prefix="lm_")
+    net.initialize(mx.init.Uniform(0.05), ctx=dev)
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    batches = [(nd.array(x, ctx=dev), nd.array(y, ctx=dev))
+               for x, y in _lm_batches(LM_BATCH, SEED + 20)]
+    step = _lm_trainer(torch, net, dev, batches)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(LM_WARMUP)]
+    counted = _det_zero_counters()
+    step_ms, wall, handles = _timed_steps(torch, step, (), LM_STEPS)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["train_lstm_lm"] = launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = _step_profile(torch, step, steps=1)
+    losses = losses + handles
+    losses += [step() for _ in range(LM_TRAIN_STEPS - len(losses) - 1)]
+    losses = [float(h.asscalar()) for h in losses]
+    tokens = LM_STEPS * LM_BPTT * LM_BATCH
+    del net, batches, step
+    torch.cuda.empty_cache()
+    parity = _lm_parity(torch)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    ok = bool(all(math.isfinite(v) for v in losses) and last < first
+              and not any(launches.values()) and parity["ok"])
+    return {"model": "lstm_lm_medium", "vocab": LM_VOCAB,
+            "embed": LM_WIDTH, "hidden": LM_WIDTH, "layers": LM_LAYERS,
+            "dropout": LM_DROPOUT, "params": n_params, "batch": LM_BATCH,
+            "bptt": LM_BPTT, "lr": LM_LR, "clip": LM_CLIP,
+            "stream_period_batches": LM_PERIOD,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32},
+            "steps": LM_STEPS, "wall_s": wall, "tokens_per_s": tokens / wall,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms": step_ms, "max_memory_allocated_gb": peak,
+            "losses": losses, "loss_first5_mean": float(first),
+            "loss_last5_mean": float(last), "launches": launches,
+            "profile_1_step": prof, "parity": parity, "card": ctx["smi"],
+            "ok": ok}
+
+
+# rnn_variants: small widths, the card within RNN_VAR_TOL of each tensor's
+# max abs of the CPU in f32 and of the CPU in float64, from the same
+# weights (a wrong gate order, weight or direction moves it by O(1))
+RNN_VAR = {"T": 20, "B": 8, "I": 64, "H": 128}
+RNN_VAR_TOL = 1e-4
+
+
+def _rnn_variant_blocks():
+    """name -> (make(gluon), call(block, nd, x, states), input layout,
+    number of begin states)."""
+    H = RNN_VAR["H"]
+
+    def layer(b, nd, x, states):
+        return b(x, states)
+
+    def unroll(layout, valid=None, merge=True):
+        def call(b, nd, x, states):
+            v = None if valid is None else nd.array(
+                np.asarray(valid, np.float32), ctx=x.context)
+            return b.unroll(RNN_VAR["T"], x, states, layout=layout,
+                            merge_outputs=merge, valid_length=v)
+
+        return call
+
+    def seq(g):
+        net = g.rnn.SequentialRNNCell(prefix="vseq_")
+        with net.name_scope():
+            net.add(g.rnn.LSTMCell(H))
+            net.add(g.rnn.ResidualCell(g.rnn.GRUCell(H)))
+        return net
+
+    lens = [20, 3, 17, 1, 20, 9, 12, 5]
+    return {
+        "gru_2layer_tnc": (lambda g: g.rnn.GRU(H, 2, prefix="vg_"), layer,
+                           "TNC", 1),
+        "lstm_bidirectional_ntc": (
+            lambda g: g.rnn.LSTM(H, 2, layout="NTC", bidirectional=True,
+                                 prefix="vl_"), layer, "NTC", 2),
+        "rnn_tanh_ntc": (lambda g: g.rnn.RNN(H, 1, activation="tanh",
+                                             layout="NTC", prefix="vr_"),
+                         layer, "NTC", 1),
+        "lstm_cell_valid_length": (
+            lambda g: g.rnn.LSTMCell(H, prefix="vc_"),
+            unroll("NTC", lens), "NTC", 2),
+        "gru_cell_valid_length_tnc": (
+            lambda g: g.rnn.GRUCell(H, prefix="vgc_"),
+            unroll("TNC", lens), "TNC", 1),
+        "bidirectional_cell": (
+            lambda g: g.rnn.BidirectionalCell(
+                g.rnn.LSTMCell(H, prefix="vbl_"),
+                g.rnn.GRUCell(H, prefix="vbr_")),
+            unroll("NTC", lens), "NTC", 3),
+        "sequential_residual_cell": (seq, unroll("TNC", merge=False),
+                                     "TNC", 3),
+    }
+
+
+def _rnn_variant_run(torch, block, call, x_np, states_np, dev, w_seed,
+                     dtype="float32"):
+    """Outputs, input gradients and parameter gradients of sum(out * w)
+    over every output, recorded on ``dev``."""
+    from mxnet_tpu_torch import autograd, nd
+
+    x = nd.array(x_np, ctx=dev, dtype=dtype)
+    states = [nd.array(s, ctx=dev, dtype=dtype) for s in states_np]
+    for a in [x] + states:
+        a.attach_grad()
+    with autograd.record():
+        out = call(block, nd, x, states)
+        flat, stack = [], [out]
+        while stack:
+            o = stack.pop()
+            if isinstance(o, (list, tuple)):
+                stack.extend(o)
+            else:
+                flat.append(o)
+        rng = np.random.RandomState(w_seed)
+        total = None
+        for o in sorted(flat, key=lambda a: a.shape):
+            w = nd.array(rng.standard_normal(o.shape).astype(np.float32),
+                         ctx=dev, dtype=dtype)
+            term = (o * w).sum()
+            total = term if total is None else total + term
+    total.backward()
+    got = {f"out{i}": o.asnumpy() for i, o in enumerate(
+        sorted(flat, key=lambda a: a.shape))}
+    got.update({f"grad_in{i}": a.grad.asnumpy()
+                for i, a in enumerate([x] + states)})
+    got.update({k: p.grad().asnumpy() for k, p in
+                block.collect_params().items()})
+    return got
+
+
+def phase_rnn_variants(torch, ctx):
+    """GRU, bidirectional LSTM, the NTC layout, the cells' ``unroll``
+    with ``valid_length`` and the packed ``RNN`` op on the card vs the
+    CPU at small widths (T 20, N 8, input 64, hidden 128), from the same
+    weights: outputs, states, input and parameter gradients within
+    RNN_VAR_TOL of each tensor's max abs of the CPU in f32 and in
+    float64, with the f32 CPU's own distance from float64 beside."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.ops import rnn_ops
+    from mxnet_tpu_torch.ops.nn import rnn_op
+
+    counted = _det_zero_counters()
+    T, B, I, H = (RNN_VAR[k] for k in ("T", "B", "I", "H"))
+    rows, ok = {}, True
+    for name, (make, call, layout, n_states) in _rnn_variant_blocks().items():
+        mx.random.seed(SEED + 30)
+        rng = np.random.RandomState(SEED + 31)
+        width = H if name.startswith("sequential") else I
+        x = rng.uniform(-1, 1, (T, B, width) if layout == "TNC"
+                        else (B, T, width)).astype(np.float32)
+        cpu_b, card_b, f64_b = make(gluon), make(gluon), make(gluon)
+        cpu_b.initialize(mx.init.Uniform(0.1), ctx=mx.cpu())
+        card_b.initialize(ctx=mx.gpu(0))
+        f64_b.initialize(ctx=mx.cpu())
+        info = cpu_b.state_info(B)
+        states = [rng.uniform(-0.5, 0.5, i["shape"]).astype(np.float32)
+                  for i in info][:n_states]
+        # the first call finishes the deferred shapes; then the weights
+        # are carried by name
+        for blk, dev in ((cpu_b, mx.cpu()), (card_b, mx.gpu(0)),
+                         (f64_b, mx.cpu())):
+            _rnn_variant_run(torch, blk, call, x, states, dev, 0)
+        f64_b.cast("float64")
+        for blk in (card_b, f64_b):
+            for k, p in blk.collect_params().items():
+                p.set_data(cpu_b.collect_params()[k].data()._data)
+        cpu = _rnn_variant_run(torch, cpu_b, call, x, states, mx.cpu(), 1)
+        f64 = _rnn_variant_run(torch, f64_b, call, x, states, mx.cpu(), 1,
+                               "float64")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = _rnn_variant_run(torch, card_b, call, x, states, mx.gpu(0), 1)
+        ms = (time.perf_counter() - t0) * 1e3
+        def of_max(got, want):
+            return max(float(np.abs(got[k] - v).max()
+                             / max(np.abs(v).max(), 1e-30))
+                       for k, v in want.items())
+
+        errs = {k: of_max({k: card[k]}, {k: v}) for k, v in cpu.items()}
+        card64, cpu64 = of_max(card, f64), of_max(cpu, f64)
+        row_ok = (sorted(card) == sorted(cpu)
+                  and max(errs.values()) <= RNN_VAR_TOL
+                  and card64 <= RNN_VAR_TOL)
+        rows[name] = {"ms_fwd_bwd": ms, "worst": max(errs, key=errs.get),
+                      "worst_of_max_abs": max(errs.values()),
+                      "card_vs_float64": card64, "cpu_vs_float64": cpu64,
+                      "ok": bool(row_ok)}
+        ok = ok and row_ok
+    # the packed RNN op: bidirectional 2-layer LSTM over MXNet's flat
+    # parameter vector
+    rng = np.random.RandomState(SEED + 32)
+    _, total = rnn_ops.rnn_packed_layout("lstm", I, H, 2, True)
+    args = [rng.uniform(-0.1, 0.1, s).astype(np.float32)
+            for s in ((T, B, I), (total,), (4, B, H), (4, B, H))]
+    kw = dict(state_size=H, num_layers=2, bidirectional=True, mode="lstm",
+              state_outputs=True)
+
+    def packed(dev):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in args]
+        outs = rnn_op(*ts, **kw)
+        loss = sum((o * (i + 1)).sum() for i, o in enumerate(outs))
+        grads = torch.autograd.grad(loss, ts)
+        return [t.detach().cpu().numpy() for t in list(outs) + list(grads)]
+
+    cpu, card = packed(mx.cpu()), packed(mx.gpu(0))
+    args = [a.astype(np.float64) for a in args]
+    f64 = packed(mx.cpu())
+
+    def worst(got, want):
+        return max(float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+                   for a, b in zip(got, want))
+
+    perr, card64, cpu64 = worst(card, cpu), worst(card, f64), worst(cpu, f64)
+    p_ok = perr <= RNN_VAR_TOL and card64 <= RNN_VAR_TOL
+    rows["packed_RNN_op_lstm_bi"] = {"worst_of_max_abs": perr,
+                                     "card_vs_float64": card64,
+                                     "cpu_vs_float64": cpu64,
+                                     "ok": bool(p_ok)}
+    ok = ok and p_ok
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["rnn_variants"] = launches
+    return {"widths": RNN_VAR, "tol_of_max_abs": RNN_VAR_TOL,
+            "variants": rows, "launches": launches, "card": ctx["smi"],
+            "ok": bool(ok and not any(launches.values()))}
+
+
+# op_catalog: every registered op card vs CPU.  Floats within OP_TOL of
+# the CPU tensor's max abs, by family (0: exact); integer, index, mask
+# and order outputs, and every output of the exact families, bit for bit
+OP_TOL = {"elemwise": 1e-5, "compare": 0.0, "creation": 1e-7,
+          "shape": 1e-6, "reduce": 1e-5, "order": 0.0, "product": 1e-5,
+          "linalg": 1e-4, "indexing": 1e-5, "nn": 1e-4, "output": 1e-5,
+          "loss": 1e-4, "warp": 1e-4, "contrib": 1e-4, "rnn": 1e-4,
+          "optimizer": 1e-6, "quantization": 0.0, "kernel": 1e-4}
+OP_RANDOM_N = 1 << 20
+# the detection ops, held card vs CPU by the cv_ops phase
+OP_ELSEWHERE = ("cv_ops",)
+
+
+def _cat(op, family, inputs, grad=None, exact=False, post=None, **attrs):
+    return {"op": op, "family": family, "inputs": inputs, "grad": grad,
+            "exact": exact, "post": post, "attrs": attrs}
+
+
+def _lq_signs(outs):
+    """(Q, L) with L's diagonal made positive (Q's rows and L's columns
+    flipped together): an LQ factorization fixes no sign, and the card's
+    solver may take others than LAPACK's."""
+    q, l_ = outs
+    d = l_.diagonal(dim1=-2, dim2=-1)
+    sign = d.sign() + (d == 0).to(d.dtype)
+    return [q * sign[..., :, None], l_ * sign[..., None, :]]
+
+
+def _op_catalog(rng):
+    """The catalog's cases at sizes the paths use: (1024, 1024)
+    elementwise, 1M-element reductions, (1024, 1024) products, batched
+    64 x 64 linear algebra, BERT-width per-head ``batch_dot`` (48 x 512 x
+    64) and interleaved attention (512 tokens x 8 x 12 heads of 64), a
+    (30522, 768) embedding table, ResNet-sized feature maps."""
+    def U(shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def Z(shape, lo=0, hi=3):
+        return rng.randint(lo, hi, shape).astype(np.float32)
+
+    M = (1024, 1024)
+    c = []
+    unary = {
+        "relu": (-1, 1), "sigmoid": (-3, 3), "hard_sigmoid": (-4, 4),
+        "softsign": (-2, 2), "tanh": (-2, 2), "exp": (-2, 2),
+        "expm1": (-1, 1), "log": (0.2, 3), "log2": (0.2, 3),
+        "log10": (0.2, 3), "log1p": (-0.5, 2), "sqrt": (0.1, 3),
+        "rsqrt": (0.2, 3), "cbrt": (0.2, 3), "rcbrt": (0.2, 3),
+        "square": (-2, 2), "abs": (-2, 2), "sign": (-2, 2),
+        "floor": (-3, 3), "ceil": (-3, 3), "round": (-3, 3),
+        "rint": (-3, 3), "trunc": (-3, 3), "fix": (-3, 3),
+        "negative": (-2, 2), "reciprocal": (0.3, 3), "erf": (-2, 2),
+        "erfinv": (-0.9, 0.9), "gamma": (0.5, 3), "gammaln": (0.5, 3),
+        "digamma": (0.5, 3), "sin": (-3, 3), "cos": (-3, 3),
+        "tan": (-1.2, 1.2), "arcsin": (-0.9, 0.9), "arccos": (-0.9, 0.9),
+        "arctan": (-3, 3), "sinh": (-2, 2), "cosh": (-2, 2),
+        "arcsinh": (-3, 3), "arccosh": (1.2, 3), "arctanh": (-0.9, 0.9),
+        "degrees": (-3, 3), "radians": (-90, 90), "identity": (-1, 1),
+        "_copy": (-1, 1), "stop_gradient": (-1, 1), "BlockGrad": (-1, 1),
+        "make_loss": (-1, 1), "smooth_l1": (-2, 2)}
+    c += [_cat(op, "elemwise", [U(M, *dom)]) for op, dom in unary.items()]
+    c.append(_cat("logical_not", "compare", [Z(M, -1, 2)]))
+    for name in ("add", "sub", "mul", "div", "mod", "power", "maximum",
+                 "minimum", "hypot", "plus", "minus"):
+        lo = 0.3 if name in ("power", "mod", "div") else -2
+        c.append(_cat("broadcast_" + name, "elemwise",
+                      [U(M, 0.3 if name == "power" else -2, 2),
+                       U((M[0], 1), lo, 2)]))
+    for name in ("add", "sub", "mul", "div"):
+        c.append(_cat("elemwise_" + name, "elemwise", [U(M), U(M, 0.5, 2)]))
+    c += [_cat(n, "elemwise", [U(M), U((1, M[1]))])
+          for n in ("maximum", "minimum")]
+    for name in ("equal", "not_equal", "greater", "greater_equal",
+                 "lesser", "lesser_equal", "logical_and", "logical_or",
+                 "logical_xor"):
+        c.append(_cat("broadcast_" + name, "compare",
+                      [Z(M), Z((M[0], 1))]))
+        c.append(_cat(f"_{name}_scalar", "compare", [Z(M)], scalar=1.0))
+    for op, (lo, hi, sc) in {
+            "_plus_scalar": (-1, 1, 0.7), "_minus_scalar": (-1, 1, 0.7),
+            "_rminus_scalar": (-1, 1, 0.7), "_mul_scalar": (-1, 1, -1.3),
+            "_div_scalar": (-1, 1, 0.7), "_rdiv_scalar": (0.3, 2, 1.7),
+            "_mod_scalar": (-3, 3, 0.7), "_rmod_scalar": (0.3, 2, 3.3),
+            "_power_scalar": (0.3, 2, 2.5), "_rpower_scalar": (-1, 1, 1.7),
+            "_maximum_scalar": (-1, 1, 0.2),
+            "_minimum_scalar": (-1, 1, 0.2)}.items():
+        c.append(_cat(op, "elemwise", [U(M, lo, hi)], scalar=sc))
+    c += [
+        _cat("clip", "elemwise", [U(M, -2, 2)], a_min=-0.3, a_max=0.4),
+        _cat("add_n", "elemwise", [U(M), U(M), U(M)], num_args=3),
+        _cat("ElementWiseSum", "elemwise", [U(M), U(M)], num_args=2),
+        _cat("Cast", "compare", [U(M, -3, 3)], dtype="int32"),
+        _cat("Cast", "compare", [U(M, -3, 3)], dtype="float16"),
+        _cat("all_finite", "compare", [U(M)]),
+        _cat("multi_all_finite", "compare", [U(M), U((7,))], num_arrays=2),
+        _cat("digamma", "elemwise", [U(M, 0.5, 3)]),
+    ]
+    # creation
+    c += [_cat("_zeros", "creation", [], shape=M),
+          _cat("_ones", "creation", [], shape=M, dtype="int32"),
+          _cat("_full", "creation", [], shape=M, value=2.5),
+          _cat("_arange", "creation", [], start=0.0, stop=1e6, step=1.0,
+               repeat=2),
+          _cat("_eye", "creation", [], N=1024, M=2048, k=3),
+          _cat("_linspace", "creation", [], start=-1.0, stop=1.0,
+               num=1 << 20),
+          _cat("zeros_like", "creation", [U(M)]),
+          _cat("ones_like", "creation", [U(M)])]
+    # reductions and orders
+    R = (64, 128, 128)
+    for op in ("sum", "mean", "max", "min", "nansum"):
+        c.append(_cat(op, "reduce", [U(R)], axis=(0, 2)))
+        c.append(_cat(op, "reduce", [U(R)], axis=1, keepdims=True))
+    c += [_cat(op, "reduce", [U(R, 0.995, 1.005)], axis=2)
+          for op in ("prod", "nanprod")]
+    c += [_cat(op, "reduce", [U(R)], axis=2)
+          for op in ("sum_axis", "max_axis", "min_axis")]
+    c += [_cat("norm", "reduce", [U(R)], axis=(1, 2)),
+          _cat("norm", "reduce", [U(R)], ord=1, axis=2),
+          _cat("L2Normalization", "reduce", [U((64, 256, 8, 8))],
+               mode="channel"),
+          _cat("logsumexp", "reduce", [U(R)], axis=2)]
+    T_ = Z(M, 0, 50)  # ties
+    c += [_cat("argmax", "order", [T_], axis=1),
+          _cat("argmin", "order", [T_], axis=0),
+          _cat("argmax_channel", "order", [T_]),
+          _cat("topk", "order", [T_], k=10, ret_typ="both"),
+          _cat("sort", "order", [T_], is_ascend=False),
+          _cat("argsort", "order", [T_], is_ascend=False)]
+    # shape moves
+    X = U(R)
+    c += [_cat("reshape", "shape", [X], shape=(-3, 0)),
+          _cat("Reshape", "shape", [X], shape=(0, -4, 2, -1, -2)),
+          _cat("Flatten", "shape", [X]),
+          _cat("transpose", "shape", [X], axes=(2, 0, 1)),
+          _cat("expand_dims", "shape", [X], axis=1),
+          _cat("squeeze", "shape", [U((64, 1, 128, 1))]),
+          _cat("swapaxes", "shape", [X], dim1=0, dim2=2),
+          _cat("SwapAxis", "shape", [X], dim1=1, dim2=2),
+          _cat("flip", "shape", [X], axis=1),
+          _cat("reverse", "shape", [X], axis=(0, 2)),
+          _cat("tile", "shape", [U((64, 128))], reps=(4, 2)),
+          _cat("repeat", "shape", [U((64, 128))], repeats=3, axis=0),
+          _cat("broadcast_to", "shape", [U((1, 128, 1))], shape=(64, 0, 128)),
+          _cat("broadcast_like", "shape", [U((1, 128, 1)), X], grad=(0,)),
+          _cat("broadcast_axis", "shape", [U((1, 128, 1))], axis=(0, 2),
+               size=(64, 128)),
+          _cat("Concat", "shape", [X, X, X], dim=1, num_args=3),
+          _cat("stack", "shape", [X, X], axis=1, num_args=2),
+          _cat("split", "shape", [X], num_outputs=4, axis=1),
+          _cat("SliceChannel", "shape", [X], num_outputs=2, axis=0),
+          _cat("split_v2", "shape", [X], indices_or_sections=(10, 70),
+               axis=2),
+          _cat("slice", "shape", [X], begin=(None, 100), end=(None, 5),
+               step=(None, -3)),
+          _cat("slice_axis", "shape", [X], axis=2, begin=5, end=100),
+          _cat("slice_like", "shape", [X, U((32, 64))], grad=(0,)),
+          _cat("pad", "shape", [U((32, 64, 28, 28))], mode="reflect",
+               pad_width=(0, 0, 0, 0, 2, 2, 1, 3)),
+          _cat("Pad", "shape", [U((32, 64, 28, 28))], mode="edge",
+               pad_width=(0, 0, 0, 0, 2, 2, 1, 3)),
+          _cat("Crop", "shape", [U((32, 64, 28, 28))], h_w=(20, 20),
+               center_crop=True),
+          _cat("depth_to_space", "shape", [U((32, 64, 28, 28))],
+               block_size=2),
+          _cat("space_to_depth", "shape", [U((32, 16, 56, 56))],
+               block_size=2),
+          _cat("diag", "shape", [U((64, 512, 512))], k=1),
+          _cat("shape_array", "shape", [X]),
+          _cat("size_array", "shape", [X]),
+          _cat("zeros_like_legacy", "shape", [X]),
+          _cat("reshape_like", "shape", [X, U((8192, 128))], grad=(0,)),
+          _cat("where", "shape", [Z(M, 0, 2), U(M), U(M)], grad=(1, 2)),
+          _cat("cumsum", "reduce", [U(M)], axis=1)]
+    # products and linear algebra (TF32 off)
+    c += [_cat("dot", "product", [U(M), U(M)]),
+          _cat("dot", "product", [U(M), U(M)], transpose_a=True,
+               transpose_b=True),
+          _cat("batch_dot", "product", [U((48, 512, 64)),
+                                        U((48, 512, 64))],
+               transpose_b=True),
+          _cat("khatri_rao", "product", [U((64, 256)), U((32, 256))]),
+          _cat("linalg_gemm2", "product", [U((256, 64, 64)),
+                                           U((256, 64, 64))], alpha=0.5),
+          _cat("linalg_gemm", "product", [U((256, 64, 64)),
+                                          U((256, 64, 64)),
+                                          U((256, 64, 64))], beta=2.0),
+          _cat("linalg_syrk", "product", [U((256, 64, 64))])]
+    eye = np.eye(64, dtype=np.float32)
+    A = U((256, 64, 64), -0.05, 0.05) + eye
+    L = np.tril(A)
+    S = A @ A.transpose(0, 2, 1)
+    c += [_cat("linalg_potrf", "linalg", [S]),
+          _cat("linalg_potri", "linalg", [L[0]]),
+          _cat("linalg_trsm", "linalg", [L, U((256, 64, 32))]),
+          _cat("linalg_trmm", "linalg", [A, U((256, 64, 32))],
+               lower=False),
+          _cat("linalg_sumlogdiag", "linalg", [S]),
+          _cat("linalg_extractdiag", "linalg", [A]),
+          _cat("linalg_makediag", "linalg", [U((256, 64))]),
+          _cat("linalg_inverse", "linalg", [A]),
+          _cat("linalg_det", "linalg", [A]),
+          _cat("linalg_slogdet", "linalg", [A]),
+          _cat("linalg_gelqf", "linalg", [U((256, 32, 64))],
+               post=_lq_signs)]
+    # indexing (BERT's embedding table and token batch)
+    ids = Z((32, 512), 0, 30522)
+    c += [_cat("Embedding", "indexing", [ids, U((30522, 768))], grad=(1,),
+               input_dim=30522, output_dim=768),
+          _cat("take", "indexing", [U((30522, 768)), ids], grad=(0,)),
+          _cat("take", "indexing", [U((768, 30522)), ids], grad=(0,),
+               axis=1, mode="wrap"),
+          _cat("pick", "indexing", [U((4096, 1000)), Z((4096,), 0, 1000)],
+               grad=(0,)),
+          _cat("batch_take", "indexing", [U((4096, 1000)),
+                                          Z((4096,), 0, 1000)], grad=(0,)),
+          _cat("choose_element_0index", "indexing",
+               [U((4096, 1000)), Z((4096,), 0, 1000)]),
+          _cat("fill_element_0index", "indexing",
+               [U((4096, 1000)), U((4096,)), Z((4096,), 0, 1000)]),
+          _cat("onehot_encode", "indexing", [Z((4096,), 0, 1000),
+                                             U((4096, 1000))]),
+          _cat("one_hot", "indexing", [Z((4096,), -1, 1001)], depth=1000)]
+    flat = rng.permutation(64 * 128 * 128)[:65536]
+    nd_idx = np.stack(np.unravel_index(flat, R)).astype(np.float32)
+    c += [_cat("gather_nd", "indexing", [X, nd_idx], grad=(0,)),
+          _cat("scatter_nd", "indexing", [U((65536,)), nd_idx], grad=(0,),
+               shape=R),
+          _cat("_scatter_set_nd", "indexing", [X, nd_idx, U((65536,))],
+               grad=(0, 2), shape=R),
+          _cat("_ravel_multi_index", "indexing", [nd_idx], shape=R),
+          _cat("ravel_multi_index", "indexing", [nd_idx], shape=R),
+          _cat("_unravel_index", "indexing", [flat.astype(np.float32)],
+               shape=R),
+          _cat("unravel_index", "indexing", [flat.astype(np.float32)],
+               shape=R),
+          _cat("boolean_mask", "indexing", [U((4096, 256)),
+                                            Z((4096,), 0, 2)])]
+    seq = U((128, 64, 512))
+    lens = Z((64,), 1, 129)
+    for op in ("SequenceMask", "SequenceLast", "SequenceReverse"):
+        c.append(_cat(op, "indexing", [seq, lens], grad=(0,),
+                      use_sequence_length=True))
+    # layers
+    img = U((32, 64, 28, 28))
+    c += [_cat("Deconvolution", "nn", [img, U((64, 32, 4, 4), -0.1, 0.1),
+                                       U((32,))],
+               kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=32,
+               no_bias=False),
+          _cat("softmin", "nn", [U((4096, 1000))], axis=-1),
+          _cat("SoftmaxActivation", "nn", [img], mode="channel"),
+          _cat("InstanceNorm", "nn", [img, U((64,)), U((64,))]),
+          _cat("GroupNorm", "nn", [img, U((64,)), U((64,))], num_groups=8),
+          _cat("LRN", "nn", [img], nsize=5),
+          _cat("UpSampling", "nn", [img], scale=2),
+          _cat("UpSampling", "nn", [img], scale=2, sample_type="bilinear"),
+          _cat("BilinearResize2D", "nn", [img], height=19, width=45),
+          _cat("moments", "nn", [img], axes=(0, 2, 3)),
+          _cat("im2col", "nn", [img], kernel=(3, 3), pad=(1, 1)),
+          _cat("col2im", "nn", [U((32, 64 * 9, 784))], output_size=(28, 28),
+               kernel=(3, 3), pad=(1, 1)),
+          _cat("FullyConnected", "product", [U((4096, 768)),
+                                             U((3072, 768)), U((3072,))],
+               num_hidden=3072),
+          _cat("Convolution", "nn", [img, U((64, 64, 3, 3), -0.1, 0.1)],
+               kernel=(3, 3), pad=(1, 1), num_filter=64, no_bias=True),
+          _cat("Pooling", "nn", [img], kernel=(3, 3), stride=(2, 2),
+               pad=(1, 1), pool_type="max"),
+          _cat("Activation", "elemwise", [U(M)], act_type="softrelu"),
+          _cat("LeakyReLU", "elemwise", [U(M)], act_type="gelu"),
+          _cat("softmax", "nn", [U((4096, 1000))]),
+          _cat("log_softmax", "nn", [U((4096, 1000))]),
+          _cat("BatchNorm", "nn", [img, U((64,)), U((64,)), U((64,)),
+                                   U((64,), 0.5, 1.5)], fix_gamma=False,
+               training=True, grad=(0, 1, 2)),
+          _cat("LayerNorm", "kernel", [U((4096, 768)), U((768,)),
+                                       U((768,))]),
+          _cat("_contrib_add_layer_norm", "nn", [U((4096, 768)),
+                                                 U((4096, 768)), U((768,)),
+                                                 U((768,))]),
+          _cat("_contrib_flash_attention", "kernel",
+               [U((48, 512, 64)), U((48, 512, 64)), U((48, 512, 64))],
+               causal=True)]
+    logits = U((4096, 1000), -2, 2)
+    lab = Z((4096,), 0, 1000)
+    c += [_cat("SoftmaxOutput", "output", [logits, lab], grad=(0,),
+               use_ignore=True, ignore_label=3.0, normalization="valid"),
+          _cat("softmax_cross_entropy", "output", [logits, lab],
+               grad=(0,)),
+          _cat("SVMOutput", "output", [logits, lab], grad=(0,)),
+          _cat("MakeLoss", "output", [U(M)], normalization="batch")]
+    c += [_cat(op, "output", [U(M), U(M)], grad=(0,))
+          for op in ("LinearRegressionOutput", "MAERegressionOutput",
+                     "LogisticRegressionOutput")]
+    # CTC at a speech-recognition shape: 100 frames, batch 32, 30 symbols,
+    # label lengths 5-30 (blank last, -1 pads)
+    lab_len = rng.randint(5, 31, 32)
+    ctc_lab = np.full((32, 30), -1, np.float32)
+    for b, n in enumerate(lab_len):
+        ctc_lab[b, :n] = rng.randint(0, 29, n)
+    c.append(_cat("ctc_loss", "loss", [U((100, 32, 30), -2, 2), ctc_lab],
+                  grad=(0,), blank_label="last"))
+    # warping
+    c += [_cat("BilinearSampler", "warp", [U((32, 64, 32, 32)),
+                                           U((32, 2, 32, 32), -1.1, 1.1)]),
+          _cat("GridGenerator", "warp", [U((32, 6))], target_shape=(64, 64)),
+          _cat("GridGenerator", "warp", [U((32, 2, 64, 64), -3, 3)],
+               transform_type="warp"),
+          _cat("SpatialTransformer", "warp",
+               [U((32, 64, 32, 32)),
+                np.float32([1, 0, 0, 0, 1, 0]) + U((32, 6), -0.2, 0.2)],
+               target_shape=(24, 24)),
+          _cat("Correlation", "warp", [U((4, 64, 48, 64)),
+                                       U((4, 64, 48, 64))],
+               max_displacement=8, stride2=2, pad_size=8)]
+    # contrib
+    qkv = U((512, 8, 3 * 12 * 64), -0.5, 0.5)
+    c += [_cat("_contrib_interleaved_matmul_selfatt_qk", "contrib", [qkv],
+               heads=12),
+          _cat("_contrib_interleaved_matmul_selfatt_valatt", "contrib",
+               [qkv, U((96, 512, 512), 0, 0.01)], heads=12),
+          _cat("_contrib_AdaptiveAvgPooling2D", "contrib",
+               [U((32, 512, 7, 7))], output_size=(3, 3)),
+          _cat("_contrib_DeformableConvolution", "contrib",
+               [U((2, 64, 32, 32)), U((2, 18, 32, 32)),
+                U((64, 64, 3, 3), -0.1, 0.1)], kernel=(3, 3), pad=(1, 1),
+               num_filter=64, no_bias=True),
+          _cat("histogram", "reduce", [U((1 << 20,))], bin_cnt=100,
+               range=(-1.0, 1.0))]
+    # recurrences at the language model's width
+    H, I_ = 650, 650
+    lw = []
+    for layer in range(2):
+        lw += [U((4 * H, I_ if layer == 0 else H), -0.05, 0.05),
+               U((4 * H, H), -0.05, 0.05), U((4 * H,), -0.05, 0.05),
+               U((4 * H,), -0.05, 0.05)]
+    c += [_cat("_fused_rnn", "rnn", [U((35, 20, I_)), U((2, 20, H)),
+                                     U((2, 20, H))] + lw,
+               state_size=H, num_layers=2),
+          _cat("_begin_state_zeros", "rnn", [U((20, 650))], num_hidden=650),
+          _cat("_begin_state_zeros_layers", "rnn", [U((35, 20, 650))],
+               num_hidden=650, num_layers=2)]
+    from mxnet_tpu_torch.ops.rnn_ops import rnn_packed_layout
+
+    _, total = rnn_packed_layout("gru", 256, 256, 2, True)
+    c.append(_cat("RNN", "rnn", [U((35, 20, 256)), U((total,), -0.06, 0.06),
+                                 U((4, 20, 256))],
+                  state_size=256, num_layers=2, bidirectional=True,
+                  mode="gru", state_outputs=True))
+    # optimizer updates on a (1024, 1024) parameter
+    W, G = U(M), U(M, -0.1, 0.1)
+
+    def P():
+        return U(M, 0.0, 1.0)
+
+    W16, G16 = W.astype(np.float16), G.astype(np.float16)
+    c += [_cat("sgd_update", "optimizer", [W, G], lr=0.1, wd=1e-4),
+          _cat("sgd_mom_update", "optimizer", [W, G, P()], momentum=0.9),
+          _cat("mp_sgd_update", "optimizer", [W16, G16, W]),
+          _cat("mp_sgd_mom_update", "optimizer", [W16, G16, P(), W],
+               momentum=0.9),
+          _cat("nag_mom_update", "optimizer", [W, G, P()], momentum=0.9),
+          _cat("adam_update", "optimizer", [W, G, P(), P()], wd=1e-4),
+          _cat("mp_adam_update", "optimizer", [W16, G16, P(), P(), W]),
+          _cat("ftrl_update", "optimizer", [W, G, P(), P()]),
+          _cat("signsgd_update", "optimizer", [W, G]),
+          _cat("signum_update", "optimizer", [W, G, P()], momentum=0.9),
+          _cat("rmsprop_update", "optimizer", [W, G, P()]),
+          _cat("rmspropalex_update", "optimizer",
+               [W, G, P() + 1.0, U(M, -0.1, 0.1), P()]),
+          _cat("adagrad_update", "optimizer", [W, G, P()]),
+          _cat("adadelta_update", "optimizer", [W, G, P(), P()]),
+          _cat("lamb_update_phase1", "optimizer", [W, G, P(), P()], t=3),
+          _cat("lamb_update_phase2", "optimizer",
+               [W, G, U((1,), 0.5, 1), U((1,), 0.5, 1)]),
+          _cat("multi_sgd_update", "optimizer", [W, G, W, G],
+               lrs=(0.1, 0.2), wds=(0.0, 1e-4), num_weights=2),
+          _cat("multi_sgd_mom_update", "optimizer", [W, G, P(), W, G, P()],
+               lrs=(0.1, 0.2), wds=(0.0, 1e-4), momentum=0.9,
+               num_weights=2),
+          _cat("multi_mp_sgd_update", "optimizer", [W16, G16, W] * 2,
+               lrs=(0.1, 0.2), wds=(0.0, 1e-4), num_weights=2),
+          _cat("multi_mp_sgd_mom_update", "optimizer",
+               [W16, G16, P(), W] * 2, lrs=(0.1, 0.2), wds=(0.0, 1e-4),
+               momentum=0.9, num_weights=2),
+          _cat("preloaded_multi_sgd_update", "optimizer",
+               [W, G, W, G, np.float32([0.1, 0.2]), np.float32([0, 1e-4])],
+               num_weights=2),
+          _cat("preloaded_multi_sgd_mom_update", "optimizer",
+               [W, G, P(), W, G, P(), np.float32([0.1, 0.2]),
+                np.float32([0, 1e-4])], momentum=0.9, num_weights=2)]
+    # int8 / int4 serving ops
+    q8 = rng.randint(-127, 128, (256, 1024)).astype(np.int8)
+    w8 = rng.randint(-127, 128, (1024, 1024)).astype(np.int8)
+    rmin, rmax = np.float32([-2.0]), np.float32([2.0])
+    c += [_cat("_contrib_quantize_v2", "quantization", [U((4096, 1024))]),
+          _cat("_contrib_quantize_v2", "quantization", [U((4096, 1024))],
+               min_calib_range=-0.8, max_calib_range=0.9),
+          _cat("_contrib_dequantize", "quantization", [q8, rmin, rmax]),
+          _cat("_contrib_requantize", "quantization",
+               [rng.randint(-2 ** 30, 2 ** 30, (4096, 1024)).astype(
+                   np.int32), rmin, rmax]),
+          _cat("_contrib_dequantize_int4", "quantization",
+               [rng.randint(0, 256, (1024, 512)).astype(np.uint8),
+                U((1024, 32), 0.01, 0.1)], group_size=32, cols=1024),
+          _cat("_contrib_quantized_fully_connected", "quantization",
+               [q8, w8, U((1024,)), rmin, rmax, rmin, rmax],
+               num_hidden=1024),
+          _cat("_contrib_quantized_conv", "quantization",
+               [rng.randint(-127, 128, (8, 64, 28, 28)).astype(np.int8),
+                rng.randint(-127, 128, (64, 64, 3, 3)).astype(np.int8),
+                U((64,)), rmin, rmax, rmin, rmax], kernel=(3, 3),
+               pad=(1, 1), num_filter=64)]
+    return c
+
+
+def _catalog_run(torch, op, case, device, seed):
+    """(outputs, gradients) of one case on ``device``: where the op is
+    differentiable, the gradient of a seeded random cotangent with respect
+    to the case's float inputs."""
+    fn = op.fn
+    ts = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in case["inputs"]]
+    gi = case["grad"]
+    if gi is None:
+        gi = [i for i, t in enumerate(ts) if t.is_floating_point()]
+    if not op.differentiable:
+        gi = []
+    for i in gi:
+        ts[i].requires_grad_(True)
+    with torch.device(device), torch.set_grad_enabled(bool(gi)):
+        out = fn(*ts, **case["attrs"])
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if case["post"] is not None:
+        outs = case["post"](outs)
+    diff = [o for o in outs if o.requires_grad]
+    grads = []
+    if gi and diff:
+        g = torch.Generator().manual_seed(seed)
+        cts = [torch.randn(o.shape, generator=g, dtype=torch.float32).to(
+            device=device, dtype=o.dtype) for o in diff]
+        grads = [torch.zeros_like(ts[i]) if d is None else d for i, d in zip(
+            gi, torch.autograd.grad(diff, [ts[i] for i in gi], cts,
+                                    allow_unused=True))]
+    return ([o.detach() for o in outs], [d.detach() for d in grads])
+
+
+def _catalog_error(card, cpu, exact):
+    """Exactness, or the largest |card - cpu| over the CPU tensor's max
+    abs."""
+    card = card.cpu()
+    if exact or not cpu.is_floating_point():
+        return None, bool(card.dtype == cpu.dtype and card.shape == cpu.shape
+                          and card.equal(cpu))
+    scale = float(cpu.double().abs().max()) if cpu.numel() else 0.0
+    err = float((card.double() - cpu.double()).abs().max()) \
+        if cpu.numel() else 0.0
+    return err / max(scale, 1e-30), card.dtype == cpu.dtype
+
+
+# the random ops: attributes, the distribution's mean and variance, its
+# support
+OP_RANDOM = {
+    "_random_uniform": (dict(low=-1.0, high=3.0), 1.0, 16 / 12,
+                        lambda x: (x >= -1).all() and (x < 3).all()),
+    "_random_normal": (dict(loc=1.0, scale=2.0), 1.0, 4.0, None),
+    "_random_gamma": (dict(alpha=2.5, beta=0.5), 1.25, 0.625,
+                      lambda x: (x > 0).all()),
+    "_random_exponential": (dict(lam=2.0), 0.5, 0.25,
+                            lambda x: (x >= 0).all()),
+    "_random_poisson": (dict(lam=3.0), 3.0, 3.0,
+                        lambda x: (x >= 0).all() and (x == x.round()).all()),
+    "_random_randint": (dict(low=-2, high=5, dtype="int32"), 1.0, 4.0,
+                        lambda x: (x >= -2).all() and (x < 5).all()),
+    "_random_negative_binomial": (
+        dict(k=3, p=0.4), 4.5, 11.25,
+        lambda x: (x >= 0).all() and (x == x.round()).all()),
+    "_random_generalized_negative_binomial": (
+        dict(mu=2.0, alpha=0.5), 2.0, 4.0,
+        lambda x: (x >= 0).all() and (x == x.round()).all()),
+}
+
+
+def _moments(x, mean, var):
+    """|mean - mean0| and |var - var0| in standard errors estimated from
+    the sample."""
+    x = x.double().reshape(-1)
+    n = x.numel()
+    m, v = float(x.mean()), float(x.var(unbiased=False))
+    m4 = float(((x - m) ** 4).mean())
+    return (abs(m - mean) / math.sqrt(v / n),
+            abs(v - var) / math.sqrt(max(m4 - v * v, 1e-12) / n))
+
+
+def _catalog_random(torch, registry, dev):
+    """Each random op on the card ``dev``: its shape and dtype, support,
+    mean and variance within 5 standard errors of the distribution's, the
+    same draws from the same seed and others from another."""
+    n = OP_RANDOM_N
+    rows, ok = {}, True
+
+    def draw(op, seed, *inputs, **attrs):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.device(dev):
+            return registry.get_op(op).fn(*inputs, generator=g, **attrs)
+
+    for op, (attrs, mean, var, support) in OP_RANDOM.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = draw(op, 1, shape=(n,), **attrs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        sm, sv = _moments(x.cpu(), mean, var)
+        row_ok = (tuple(x.shape) == (n,) and x.device == dev
+                  and (support is None or bool(support(x)))
+                  and sm < 5 and sv < 5
+                  and torch.equal(x, draw(op, 1, shape=(n,), **attrs))
+                  and not torch.equal(x, draw(op, 2, shape=(n,), **attrs)))
+        rows[op] = {"ms": ms, "dtype": str(x.dtype), "mean_se": sm,
+                    "var_se": sv, "ok": bool(row_ok)}
+        ok = ok and row_ok
+    low = torch.tensor([0.0, -2.0, 5.0], device=dev)
+    high = torch.tensor([1.0, 2.0, 5.5], device=dev)
+    u = draw("sample_uniform", 3, low, high, shape=(n,))
+    z = draw("sample_normal", 3, low, high, shape=(n,))
+    se = [max(_moments(u[i].cpu(), float((low[i] + high[i]) / 2),
+                       float((high[i] - low[i]) ** 2 / 12)))
+          for i in range(3)]
+    se_z = [max(_moments(z[i].cpu(), float(low[i]), float(high[i] ** 2)))
+            for i in range(3)]
+    r_ok = (u.shape == (3, n) and bool((u >= low[:, None]).all())
+            and max(se) < 5 and max(se_z) < 5
+            and torch.equal(z, draw("sample_normal", 3, low, high,
+                                    shape=(n,))))
+    rows["sample_uniform"] = {"se": max(se), "ok": bool(r_ok)}
+    rows["sample_normal"] = {"se": max(se_z), "ok": bool(r_ok)}
+    p = torch.softmax(torch.randn(16, 1000, generator=torch.Generator()
+                                  .manual_seed(4)), -1).to(dev)
+    idx, logp = draw("_sample_multinomial", 5, p[0], shape=(1 << 16,),
+                     get_prob=True)
+    freq = torch.bincount(idx.long(), minlength=1000).double().cpu() \
+        / (1 << 16)
+    p0 = p[0].double().cpu()
+    z_freq = float(((freq - p0).abs() / (p0 * (1 - p0) / (1 << 16)).sqrt()
+                    ).max())
+    rows_idx = draw("_sample_multinomial", 5, p, shape=(64,))
+    m_ok = (z_freq < 6 and rows_idx.shape == (16, 64)
+            and torch.allclose(logp, p[0].log()[idx.long()], rtol=1e-5)
+            and torch.equal(rows_idx, draw("_sample_multinomial", 5, p,
+                                           shape=(64,))))
+    rows["_sample_multinomial"] = {"max_freq_se": z_freq, "ok": bool(m_ok)}
+    data = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+    sh = draw("_shuffle", 6, data)
+    s_ok = (torch.equal(sh.sort().values, data)
+            and not torch.equal(sh, data)
+            and torch.equal(sh, draw("_shuffle", 6, data)))
+    rows["_shuffle"] = {"ok": bool(s_ok)}
+    ones = torch.ones((1024, 1024), device=dev)
+    d = draw("Dropout", 7, ones, p=0.5, training=True)
+    kept = float((d != 0).float().mean())
+    d_ok = (abs(kept - 0.5) < 5 * math.sqrt(0.25 / d.numel())
+            and bool(((d == 0) | (d == 2)).all())
+            and torch.equal(d, draw("Dropout", 7, ones, p=0.5,
+                                    training=True)))
+    rows["Dropout"] = {"kept": kept, "ok": bool(d_ok)}
+    ok = ok and r_ok and m_ok and s_ok and d_ok
+    return rows, ok
+
+
+def phase_op_catalog(torch, ctx):
+    """Every op of the port's registry on the card vs the CPU port at
+    realistic sizes (``_op_catalog``), forward and, where the op is
+    differentiable, the gradient of a seeded cotangent; random ops by
+    shape, support, moments and repeatability; card ms by family."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    dev = mx.gpu(0)
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 40)
+    cases = _op_catalog(rng)
+    spent = {"make_inputs_s": time.perf_counter() - t_phase, "cpu_s": 0.0,
+             "card_first_call_s": 0.0, "card_timed_s": 0.0}
+    rows, fams, ok = {}, {}, True
+    for i, case in enumerate(cases):
+        op = registry.get_op(case["op"])
+        fam = case["family"]
+        tol = OP_TOL[fam]
+        exact = case["exact"] or tol == 0.0
+        t0 = time.perf_counter()
+        cpu_out, cpu_grads = _catalog_run(torch, op, case, mx.cpu(), i)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _catalog_run(torch, op, case, dev, i)  # warm-up
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        card_out, card_grads = _catalog_run(torch, op, case, dev, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        spent["cpu_s"] += cpu_ms / 1e3
+        spent["card_first_call_s"] += first_ms / 1e3
+        spent["card_timed_s"] += ms / 1e3
+        errs, unequal = [], []
+        for j, (a, b) in enumerate(zip(card_out + card_grads,
+                                       cpu_out + cpu_grads)):
+            err, match = _catalog_error(a, b, exact)
+            if not (match and a.shape == b.shape):
+                unequal.append(j)
+            if err is not None:
+                errs.append(err)
+        same = not unequal
+        worst = max(errs) if errs else 0.0
+        row_ok = (same and len(card_out) == len(cpu_out)
+                  and len(card_grads) == len(cpu_grads)
+                  and all(o.device == dev for o in card_out)
+                  and worst <= tol)
+        key = case["op"] if case["op"] not in rows else f"{case['op']}#{i}"
+        rows[key] = {"family": fam, "ms": ms, "cpu_ms": cpu_ms,
+                     "first_call_ms": first_ms,
+                     "of_max_abs": worst, "grads": len(card_grads),
+                     "ok": bool(row_ok)}
+        if unequal:
+            rows[key]["unequal_outputs"] = unequal
+        f = fams.setdefault(fam, {"ops": 0, "card_ms": 0.0, "worst": 0.0,
+                                  "failed": []})
+        f["ops"] += 1
+        f["card_ms"] += ms
+        f["worst"] = max(f["worst"], worst)
+        if not row_ok:
+            f["failed"].append(key)
+        ok = ok and row_ok
+    t0 = time.perf_counter()
+    random_rows, random_ok = _catalog_random(torch, registry, dev)
+    spent["random_s"] = time.perf_counter() - t0
+    covered = ({c["op"] for c in cases} | set(OP_RANDOM)
+               | {"sample_uniform", "sample_normal", "_sample_multinomial",
+                  "_shuffle", "Dropout"} | set(DET_OPS))
+    missing = sorted(set(registry.list_ops()) - covered)
+    return {"tol_of_max_abs": OP_TOL, "families": fams,
+            "cases": len(cases), "registry_ops": len(registry.list_ops()),
+            "not_run": missing, "detection_ops_in": "cv_ops",
+            "time_spent": spent,
+            "random": random_rows, "ops": rows, "card": ctx["smi"],
+            "ok": bool(ok and random_ok and not missing)}
+
+
 def main() -> int:
     import torch
 
@@ -5261,7 +6361,10 @@ def main() -> int:
               ("train_ssd", phase_train_ssd),
               ("detect_ssd", phase_detect_ssd),
               ("train_faster_rcnn", phase_train_faster_rcnn),
-              ("cv_ops", phase_cv_ops))
+              ("cv_ops", phase_cv_ops),
+              ("train_lstm_lm", phase_train_lstm_lm),
+              ("rnn_variants", phase_rnn_variants),
+              ("op_catalog", phase_op_catalog))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

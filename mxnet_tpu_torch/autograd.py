@@ -24,7 +24,12 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause`` scopes,
 
 ``is_training()`` is this module's flag, set by ``record``/``train_mode``
 and the ``train_mode`` arguments, not ``nn.Module.training``.
-``autograd.grad`` and ``Function`` are not ported.
+
+:func:`grad` returns the gradients instead of writing buffers
+(``torch.autograd.grad``); with ``create_graph`` they carry a graph of
+their own, so a gradient penalty built from them differentiates again.
+:class:`Function` is MXNet's user-defined op, ``forward`` and
+``backward`` over NDArrays, run inside a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -38,7 +43,7 @@ from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "mark_variables",
-           "backward", "register_leaves"]
+           "backward", "register_leaves", "grad", "Function"]
 
 
 class _State(threading.local):
@@ -174,3 +179,105 @@ def backward(heads, head_grads=None, retain_graph=False,
         buf = nd._grad
         g = g.to(buf._data.dtype)
         buf._set_data(buf._data + g if nd._grad_req == "add" else g)
+
+
+def _heads_and_seeds(heads, head_grads):
+    from .ndarray.ndarray import NDArray
+
+    if isinstance(heads, NDArray):
+        heads = [heads]
+    if head_grads is None:
+        head_grads = [None] * len(heads)
+    elif isinstance(head_grads, NDArray):
+        head_grads = [head_grads]
+    seeds = [torch.ones_like(h._data) if hg is None
+             else hg._data.to(h._data.dtype)
+             for h, hg in zip(heads, head_grads)]
+    return [h._data for h in heads], seeds
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of ``heads`` with respect to ``variables`` (arrays
+    the recorded ops used), as new arrays; no buffer is written.  With
+    ``create_graph`` the gradients are themselves recorded, for a
+    second ``backward`` / ``grad``; ``retain_graph`` defaults to
+    ``create_graph``."""
+    from .ndarray.ndarray import NDArray
+
+    single = isinstance(variables, NDArray)
+    if single:
+        variables = [variables]
+    outs, seeds = _heads_and_seeds(heads, head_grads)
+    try:
+        grads = torch.autograd.grad(
+            outs, [v._data for v in variables], seeds,
+            retain_graph=retain_graph, create_graph=create_graph)
+    except RuntimeError as e:
+        raise MXNetError("one of the variables is not part of the recorded "
+                         f"graph ({e})") from None
+    res = [NDArray(g, ctx=v.context) for g, v in zip(grads, variables)]
+    return res[0] if single else res
+
+
+class _FunctionNode(torch.autograd.Function):
+    """The torch node of a :class:`Function` call: the user's forward
+    and backward run over NDArrays, unrecorded."""
+
+    @staticmethod
+    def forward(ctx, func, *tensors):
+        from .ndarray.ndarray import NDArray
+
+        with pause(train_mode=is_training()):
+            outs = func.forward(*[NDArray(t) for t in tensors])
+        func._single = isinstance(outs, NDArray)
+        ctx.func = func
+        return tuple(o._data for o in ([outs] if func._single else outs))
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        from .ndarray.ndarray import NDArray
+
+        with pause(train_mode=is_training()):
+            in_grads = ctx.func.backward(*[NDArray(c) for c in cotangents])
+        if isinstance(in_grads, NDArray):
+            in_grads = [in_grads]
+        return (None,) + tuple(None if g is None else g._data
+                               for g in in_grads)
+
+
+class Function:
+    """A user-defined differentiable function: subclass with
+    ``forward(self, *inputs)`` and ``backward(self, *output_grads)`` over
+    NDArrays (``save_for_backward`` / ``saved_tensors`` keep arrays
+    between them) and call the instance."""
+
+    def __init__(self):
+        self._saved = ()
+        self._single = True
+
+    def save_for_backward(self, *arrays):
+        self._saved = arrays
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray
+
+        if not is_recording():
+            with pause(train_mode=is_training()):
+                return self.forward(*inputs)
+        with torch.enable_grad():
+            outs = _FunctionNode.apply(self, *[x._data for x in inputs])
+        register_leaves(inputs)
+        ctx = inputs[0].context if inputs else None
+        res = [NDArray(o, ctx=ctx) for o in outs]
+        return res[0] if self._single else res

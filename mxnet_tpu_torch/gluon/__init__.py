@@ -1,10 +1,12 @@
 """Gluon: ``Parameter`` / ``ParameterDict``, ``Block`` / ``HybridBlock``,
-the layers (``nn``), the losses, ``Trainer``, ``utils`` and ``data``, as
-in ``mxnet_tpu/gluon/``; blocks are ``torch.nn`` modules."""
+the layers (``nn``), the recurrent layers and cells (``rnn``), the
+losses, ``Trainer``, ``utils`` and ``data``, as in ``mxnet_tpu/gluon/``;
+blocks are ``torch.nn`` modules."""
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .block import Block, CachedOp, HybridBlock
 from . import nn
+from . import rnn
 from . import loss
 from . import utils
 from .utils import split_and_load
@@ -13,5 +15,5 @@ from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
-           "CachedOp", "nn", "loss", "utils", "split_and_load", "Trainer",
+           "CachedOp", "nn", "rnn", "loss", "utils", "split_and_load", "Trainer",
            "data"]

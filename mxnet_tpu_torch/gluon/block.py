@@ -147,6 +147,16 @@ def _wrap(x):
     return x
 
 
+def _arrays_in(x):
+    """The NDArrays in ``x``, through lists and tuples (a recurrent
+    layer's state list)."""
+    if isinstance(x, NDArray):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [a for v in x for a in _arrays_in(v)]
+    return []
+
+
 def _has_nd(args, kwargs) -> bool:
     return (any(isinstance(a, NDArray) for a in args)
             or any(isinstance(v, NDArray) for v in kwargs.values()))
@@ -326,8 +336,10 @@ class Block(nn.Module):
             return self._call_nd(args, kwargs)
         return super().__call__(*args, **kwargs)
 
-    def _call_nd(self, args, kwargs):
-        """The MXNet call convention (see the module's docstring)."""
+    def _call_nd(self, args, kwargs, run=None):
+        """The MXNet call convention (see the module's docstring);
+        ``run(*tensors, **tensors)`` replaces the forward (a recurrent
+        cell's ``unroll``)."""
         train = autograd.is_training()
         # every module, not only this one: a child shared with another
         # block (a detector inside its loss block) may have been left in
@@ -340,13 +352,13 @@ class Block(nn.Module):
                 p._view for p in self._leaf_params()
                 if p.grad_req != "null"
                 and (p._inited or p._deferred is not None))
-            autograd.register_leaves(
-                [a for a in args if isinstance(a, NDArray)]
-                + [v for v in kwargs.values() if isinstance(v, NDArray)])
+            autograd.register_leaves(_arrays_in(list(args)
+                                                + list(kwargs.values())))
         targs = [_unwrap(a) for a in args]
         tkwargs = {k: _unwrap(v) for k, v in kwargs.items()}
         with torch.set_grad_enabled(recording):
-            out = self._run(targs, tkwargs)
+            out = (self._run(targs, tkwargs) if run is None
+                   else run(*targs, **tkwargs))
         return _wrap(out)
 
     def _leaf_params(self) -> List[Parameter]:

@@ -16,13 +16,15 @@ x - max, exp, the sum (accumulated in f32), log and the difference each
 round to the logits' dtype (:func:`log_softmax`); torch's fused
 ``log_softmax`` would round once.  Labels may be float (the JAX package's
 habit of passing class ids as f32); a sparse label is cast to integers.
-``CTCLoss`` is not ported (ROADMAP).
+``CTCLoss`` is the ``ctc_loss`` op (``ops/nn.py``) with the last class
+as the blank, as the JAX class passes ``blank_label="last"``.
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
+from ..ops import nn as _ops
 from ..precision import runtime as _amp
 from .block import HybridBlock
 
@@ -30,7 +32,7 @@ __all__ = ["Loss", "L2Loss", "L1Loss", "SoftmaxCrossEntropyLoss",
            "SoftmaxCELoss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "KLDivLoss", "HuberLoss", "HingeLoss",
            "SquaredHingeLoss", "LogisticLoss", "TripletLoss",
-           "CosineEmbeddingLoss", "log_softmax"]
+           "CosineEmbeddingLoss", "CTCLoss", "log_softmax"]
 
 
 def log_softmax(x, axis: int = -1):
@@ -241,4 +243,35 @@ class CosineEmbeddingLoss(Loss):
         label = label.reshape(cos.shape)
         loss = torch.where(label == 1, 1.0 - cos,
                            torch.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist Temporal Classification loss: ``pred`` (N, T, C) for
+    layout ``NTC`` (default) or (T, N, C) for ``TNC``, the last class
+    C - 1 the blank; ``label`` (N, Lmax) (or (Lmax, N) for
+    ``label_layout="TN"``) of class ids, values < 0 padding; optional
+    ``pred_lengths`` and ``label_lengths``.  One loss per sample."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError(f"unsupported layout {layout!r}")
+        if label_layout not in ("NT", "TN"):
+            raise ValueError(f"unsupported label_layout {label_layout!r}")
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, 0 if label_layout == "NT" else 1, **kwargs)
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._label_layout == "TN":
+            label = label.transpose(0, 1)
+        lengths = [t for t in (pred_lengths, label_lengths) if t is not None]
+        loss = _ops.ctc_loss(pred, label, *lengths,
+                             use_data_lengths=pred_lengths is not None,
+                             use_label_lengths=label_lengths is not None,
+                             blank_label="last")
         return _apply_weighting(loss, self._weight, sample_weight)

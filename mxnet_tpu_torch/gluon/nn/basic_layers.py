@@ -1,8 +1,10 @@
 """Gluon's basic layers (``mxnet_tpu/gluon/nn/basic_layers.py``) as
 ``HybridBlock``s, which are ``torch.nn`` modules: ``Sequential``,
 ``HybridSequential``, ``Dense``, ``Dropout``, ``BatchNorm``,
-``Embedding``, ``LayerNorm``, ``Flatten``, ``Lambda``, ``HybridLambda``
-and ``Activation``.
+``Embedding``, ``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
+``Flatten``, ``Lambda``, ``HybridLambda``, ``Activation`` and the
+activation layers ``LeakyReLU``, ``PReLU``, ``ELU``, ``SELU``, ``Swish``
+and ``GELU``.
 
 Each layer holds its weights as torch tensors under torch's names
 (``weight``, ``bias``; BatchNorm's ``running_mean`` / ``running_var`` are
@@ -21,8 +23,13 @@ plain version for CPU ones, with the gradient of the JAX package's
 ``torch.nn.functional.linear`` (the weight is (out, in) in both); with
 ``flatten`` it calls the ``FullyConnected`` op, and the other layers call
 the registered ops of ``ops/nn.py``, as Gluon's layers call ``F.<op>``.
-``Dropout`` is ``torch.nn.functional.dropout``, which draws from the
-generator of its input's device (``random``).
+``Dropout`` and ``Embedding`` call the ``Dropout`` and ``Embedding`` ops
+(``ops/nn.py``, ``ops/indexing.py``), so the layers and ``nd.Dropout`` /
+``nd.Embedding`` are one implementation; the mask is drawn from the
+generator of the input's device (``random``).  ``GroupNorm`` and
+``InstanceNorm`` take the JAX layers' arguments (``num_groups`` /
+``axis`` first) and, as they do, keep ``center`` / ``scale`` for the
+signature only.
 
 Departures: the first positional argument of ``LayerNorm`` and
 ``BatchNorm`` is ``in_channels`` (the port's callers pass it so; Gluon's
@@ -41,6 +48,8 @@ from torch.nn import functional as F
 from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from ...base import MXNetError
+from ... import initializer as _init
+from ...ops import indexing as _indexing
 from ...ops import nn as _ops
 from ...precision import runtime as _prec
 from ...ops.kernels import LayerNormFunction
@@ -48,8 +57,9 @@ from ..block import Block, HybridBlock
 from ..block import F as _F
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Embedding", "LayerNorm", "Flatten", "Lambda",
-           "HybridLambda", "Activation"]
+           "BatchNorm", "Embedding", "LayerNorm", "GroupNorm",
+           "InstanceNorm", "Flatten", "Lambda", "HybridLambda", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU"]
 
 
 def weight_tensor(shape, fill: Optional[float] = None) -> nn.Parameter:
@@ -172,15 +182,8 @@ class Dropout(HybridBlock):
         self.axes = tuple(axes)
 
     def forward(self, x):
-        if not self.training or self.rate == 0.0:
-            return x
-        if not self.axes:
-            return F.dropout(x, self.rate, True)
-        shape = [1 if i in self.axes or i - x.dim() in self.axes else s
-                 for i, s in enumerate(x.shape)]
-        mask = F.dropout(torch.ones(shape, dtype=x.dtype, device=x.device),
-                         self.rate, True)
-        return x * mask
+        return _ops.dropout(x, p=self.rate, axes=self.axes,
+                            training=self.training)
 
 
 class BatchNorm(HybridBlock):
@@ -268,9 +271,7 @@ class Embedding(HybridBlock):
                           dtype=dtype, init=weight_initializer)
 
     def forward(self, x):
-        if x.is_floating_point():
-            x = x.long()
-        return F.embedding(x, self.weight)
+        return _indexing.embedding(x, self.weight)
 
 
 class LayerNorm(HybridBlock):
@@ -307,6 +308,61 @@ class LayerNorm(HybridBlock):
         out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(), w, b,
                                       self.eps)
         return out.reshape(x.shape)
+
+
+class _GroupedNorm(HybridBlock):
+    """gamma / beta over the channel axis 1, deferred until the first
+    call; the subclass names the op."""
+
+    def __init__(self, in_channels, beta_initializer, gamma_initializer,
+                 prefix, params):
+        super().__init__(prefix=prefix, params=params)
+        c = (in_channels,)
+        self.weight = weight_tensor(c, 1.0)
+        self.bias = weight_tensor(c, 0.0)
+        self._gluon_param("gamma", "weight", shape=c, init=gamma_initializer,
+                          allow_deferred_init=True)
+        self._gluon_param("beta", "bias", shape=c, init=beta_initializer,
+                          allow_deferred_init=True)
+
+    def infer_shape(self, x, *args):
+        for p in self._reg_params.values():
+            p._set_shape_if_deferred((int(x.shape[1]),))
+
+
+class GroupNorm(_GroupedNorm):
+    """Normalization over groups of ``num_groups`` channels and the
+    spatial axes, then a per-channel scale and shift."""
+
+    def __init__(self, num_groups: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, prefix=None, params=None):
+        self._num_groups = num_groups
+        self.eps = float(epsilon)
+        super().__init__(in_channels, beta_initializer, gamma_initializer,
+                         prefix, params)
+
+    def forward(self, x):
+        self._finish_deferred(x)
+        return _ops.group_norm(x, self.weight, self.bias,
+                               num_groups=self._num_groups, eps=self.eps)
+
+
+class InstanceNorm(_GroupedNorm):
+    """Normalization of each sample's channel over its spatial axes."""
+
+    def __init__(self, axis: int = 1, epsilon: float = 1e-5,
+                 center: bool = True, scale: bool = False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels: int = 0, prefix=None, params=None):
+        self.eps = float(epsilon)
+        super().__init__(in_channels, beta_initializer, gamma_initializer,
+                         prefix, params)
+
+    def forward(self, x):
+        self._finish_deferred(x)
+        return _ops.instance_norm(x, self.weight, self.bias, eps=self.eps)
 
 
 class Flatten(HybridBlock):
@@ -356,3 +412,62 @@ class Activation(HybridBlock):
 
     def forward(self, x):
         return _ops.activation(x, self.act)
+
+
+class LeakyReLU(HybridBlock):
+    """x where x >= 0, else alpha x."""
+
+    def __init__(self, alpha: float, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _ops.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope per channel (``alpha``, axis 1)."""
+
+    def __init__(self, alpha_initializer=None, in_channels: int = 1,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if alpha_initializer is None:
+            alpha_initializer = _init.Constant(0.25)
+        self.alpha = nn.Parameter(torch.full((in_channels,), 0.25))
+        self._gluon_param("alpha", shape=(in_channels,),
+                          init=alpha_initializer)
+
+    def forward(self, x):
+        return _ops.leaky_relu(x, self.alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """x where x >= 0, else alpha (e^x - 1)."""
+
+    def __init__(self, alpha: float = 1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def forward(self, x):
+        return _ops.leaky_relu(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def forward(self, x):
+        return _ops.leaky_relu(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """x sigmoid(beta x)."""
+
+    def __init__(self, beta: float = 1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def forward(self, x):
+        return x * torch.sigmoid(self._beta * x)
+
+
+class GELU(HybridBlock):
+    def forward(self, x):
+        return _ops.leaky_relu(x, act_type="gelu")

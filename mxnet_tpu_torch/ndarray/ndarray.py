@@ -110,13 +110,15 @@ class NDArray:
     # host transfer / sync
     # ------------------------------------------------------------------
     def asnumpy(self) -> np.ndarray:
-        """Blocking copy to host.  numpy has no bfloat16 (the JAX package
+        """Blocking copy to host (a copy on the CPU too: the array's later
+        updates do not show in it).  numpy has no bfloat16 (the JAX package
         returns ``ml_dtypes.bfloat16``, which the port does not import), so
         a bfloat16 array comes back as float32, every value exact."""
-        t = self._data.detach().cpu()
+        t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
-        return t.numpy()
+        return t.numpy().copy() if t.device.type == "cpu" else \
+            t.cpu().numpy()
 
     def asscalar(self):
         if self.size != 1:
@@ -181,7 +183,10 @@ class NDArray:
                           retain_graph=retain_graph, train_mode=train_mode)
 
     # ------------------------------------------------------------------
-    # arithmetic through the ops
+    # arithmetic through the ops: an array operand goes to the
+    # broadcast_* op, a Python scalar to the *_scalar op as an attribute
+    # (the JAX package's NDArray keeps ``+`` and ``*`` on broadcast_*
+    # with the scalar as a 0-d array; both round the same)
     # ------------------------------------------------------------------
     def _binary(self, other, opname):
         if isinstance(other, NDArray):
@@ -190,6 +195,15 @@ class NDArray:
             scalar = NDArray(torch.tensor(other, dtype=self._data.dtype,
                                           device=self._ctx), ctx=self._ctx)
             return _reg.invoke_by_name(opname, [self, scalar])
+        return NotImplemented
+
+    def _scalar_op(self, other, opname, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return _reg.invoke_by_name(opname, [a, b])
+        if isinstance(other, (int, float, bool, np.generic)):
+            return _reg.invoke_by_name(scalar_op, [self],
+                                       scalar=float(other))
         return NotImplemented
 
     def __add__(self, other):
@@ -201,6 +215,84 @@ class NDArray:
         return self._binary(other, "broadcast_mul")
 
     __rmul__ = __mul__
+
+    def __sub__(self, other):
+        return self._scalar_op(other, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._scalar_op(other, "broadcast_sub", "_rminus_scalar",
+                               reverse=True)
+
+    def __truediv__(self, other):
+        return self._scalar_op(other, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._scalar_op(other, "broadcast_div", "_rdiv_scalar",
+                               reverse=True)
+
+    def __mod__(self, other):
+        return self._scalar_op(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._scalar_op(other, "broadcast_mod", "_rmod_scalar",
+                               reverse=True)
+
+    def __pow__(self, other):
+        return self._scalar_op(other, "broadcast_power", "_power_scalar")
+
+    def __rpow__(self, other):
+        return self._scalar_op(other, "broadcast_power", "_rpower_scalar",
+                               reverse=True)
+
+    def __neg__(self):
+        return _reg.invoke_by_name("negative", [self])
+
+    def __abs__(self):
+        return _reg.invoke_by_name("abs", [self])
+
+    def __gt__(self, other):
+        return self._scalar_op(other, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, other):
+        return self._scalar_op(other, "broadcast_greater_equal",
+                               "_greater_equal_scalar")
+
+    def __lt__(self, other):
+        return self._scalar_op(other, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, other):
+        return self._scalar_op(other, "broadcast_lesser_equal",
+                               "_lesser_equal_scalar")
+
+    # ------------------------------------------------------------------
+    # indexing: a key of ints, slices, None, Ellipsis, lists or arrays
+    # ------------------------------------------------------------------
+    def _key(self, key):
+        if isinstance(key, NDArray):
+            return key._data.long()
+        if isinstance(key, (list, np.ndarray)):
+            return torch.as_tensor(np.asarray(key), device=self._ctx).long()
+        if isinstance(key, tuple):
+            return tuple(self._key(k) for k in key)
+        return key
+
+    def __getitem__(self, key) -> "NDArray":
+        k = self._key(key)
+        return _reg.invoke_fn(lambda x: x[k], [self])
+
+    def __setitem__(self, key, value) -> None:
+        k = self._key(key)
+        v = value._data if isinstance(value, NDArray) else value
+        new = self._data.detach().clone()
+        new[k] = torch.as_tensor(v, dtype=new.dtype, device=new.device)
+        self._set_data(new)
+
+    def astype(self, dtype, copy: bool = True) -> "NDArray":
+        return _reg.invoke_by_name("Cast", [self], dtype=str(
+            dtype_torch(dtype)).replace("torch.", ""))
+
+    def copy(self) -> "NDArray":
+        return self.copyto(self._ctx)
 
     def __hash__(self):
         return id(self)

@@ -29,7 +29,7 @@ from ..base import MXNetError
 from ..passes import hooks as _pass_hooks
 
 __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
-           "list_ops"]
+           "invoke_fn", "list_ops"]
 
 _OPS: Dict[str, "Operator"] = {}
 
@@ -127,3 +127,24 @@ def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
 
 def invoke_by_name(name: str, inputs, out=None, **attrs):
     return invoke(get_op(name), inputs, out=out, **attrs)
+
+
+def invoke_fn(fn, inputs, out=None):
+    """Run an ad-hoc torch function ``fn(*tensors)`` on NDArray inputs as
+    an op runs (recorded under ``autograd.record()``), for closures whose
+    arguments are no op's attributes: NDArray indexing, ``moveaxis``."""
+    from .. import autograd
+    from ..ndarray.ndarray import NDArray
+
+    ctx = inputs[0].context
+    recording = autograd.is_recording()
+    with torch.set_grad_enabled(recording):
+        outs = fn(*[x._data for x in inputs])
+    if recording:
+        autograd.register_leaves(inputs)
+    multi = isinstance(outs, (tuple, list))
+    results = [NDArray(o, ctx=ctx) for o in (outs if multi else [outs])]
+    if out is not None:
+        out._set_data(results[0]._data)
+        return out
+    return results if multi else results[0]

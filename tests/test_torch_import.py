@@ -88,7 +88,17 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.gluon.data.vision.transforms",
           "mxnet_tpu_torch.ops.cv_ops",
           "mxnet_tpu_torch.models.ssd",
-          "mxnet_tpu_torch.models.faster_rcnn")
+          "mxnet_tpu_torch.models.faster_rcnn",
+          "mxnet_tpu_torch.ops.creation",
+          "mxnet_tpu_torch.ops.indexing",
+          "mxnet_tpu_torch.ops.random_ops",
+          "mxnet_tpu_torch.ops.rnn_ops",
+          "mxnet_tpu_torch.ops.warp_ops",
+          "mxnet_tpu_torch.ndarray.random",
+          "mxnet_tpu_torch.ndarray.linalg",
+          "mxnet_tpu_torch.gluon.rnn.rnn_layer",
+          "mxnet_tpu_torch.gluon.rnn.rnn_cell",
+          "mxnet_tpu_torch.models.word_lm")
 
 
 def _no_cuda():

@@ -113,13 +113,15 @@ def test_namespace_has_the_ported_ops():
         assert callable(getattr(jnd, name)), name
     assert tnd.contrib.add_layer_norm.__name__ == "_contrib_add_layer_norm"
     assert sorted(tnd.contrib.__all__) == [
+        "AdaptiveAvgPooling2D", "DeformableConvolution",
         "MultiBoxDetection", "MultiBoxPrior", "MultiBoxTarget",
         "MultiProposal", "Proposal", "ProposalTarget", "ROIAlign",
         "RPNAnchorTarget", "add_layer_norm", "bipartite_matching",
-        "box_decode", "box_encode", "box_iou", "box_nms", "dequantize",
-        "dequantize_int4", "flash_attention", "mrcnn_mask_target",
-        "quantize_v2", "quantized_conv", "quantized_fully_connected",
-        "requantize"]
+        "box_decode", "box_encode", "box_iou", "box_nms", "cond",
+        "dequantize", "dequantize_int4", "flash_attention", "foreach",
+        "interleaved_matmul_selfatt_qk", "interleaved_matmul_selfatt_valatt",
+        "mrcnn_mask_target", "quantize_v2", "quantized_conv",
+        "quantized_fully_connected", "requantize", "while_loop"]
     with pytest.raises(MXNetError, match="too many positional"):
         tnd.softmax(tnd.ones((2, 2), ctx=CPU), -1, 1.0, None, False, 7)
 
