@@ -435,6 +435,51 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           ``Dropout`` by shape, support, mean and variance
                           within 5 standard errors, and the same draws
                           from the same seed; card ms by family.
+  module_bert             BERT-base (vocab 30522, dropout 0, seeded) exported
+                          by the port's ``HybridBlock.export``, loaded by
+                          ``sym.load`` / ``model.load_params`` under an MLM
+                          head (``SoftmaxOutput`` over the (B*T, V) reshape,
+                          ``normalization="batch"``) and trained through
+                          ``mx.mod.Module`` at 32 x 512, Adam lr 1e-4, f32,
+                          TF32 off: the graph holds 26 ``LayerNorm`` and
+                          12 ``_contrib_flash_attention`` nodes; the first
+                          step's loss and gradients against the Gluon
+                          route's (``_gluon_mlm``, the same weights and
+                          batch, its summed gradient over the tokens)
+                          within SYM_PARITY_TOL; 2 warm-up and 5 timed
+                          ``forward_backward`` + ``update`` steps with the
+                          counters zeroed just before: K1 26 and K3-K5 12
+                          launches a step (TRAIN_PER_STEP); losses finite
+                          and falling; tokens/s, step ms (CUDA events),
+                          peak memory, one profiled step (busy share).
+  module_lstm_bucketing   MXNet 1.x's example/rnn/bucketing/lstm_bucketing.py
+                          at its defaults (LB): 2 x ``LSTMCell(200)``,
+                          Embedding 200, FullyConnected to 10,000 words,
+                          SoftmaxOutput; buckets 10-60, batch 32, invalid
+                          label 0; SGD lr 0.01, momentum 0, wd 1e-5,
+                          rescale_grad 1/32 (MXNet's Module sets it);
+                          ``Xavier(factor_type="in", magnitude=2.34)``;
+                          ``Perplexity(0)``; ``Speedometer(32, 50)``; one
+                          epoch of ``BucketingModule.fit`` over a seeded
+                          Zipf stream of 2,400 sentences of 5-60 tokens
+                          (every bucket, >= 60 batches), then the same with
+                          ``FusedRNNCell(200, num_layers=2)`` from the
+                          unfused net's initial weights packed: the mean
+                          perplexity of the last 10 batches below the first
+                          10's, K1-K7 0 launches; card vs CPU on one batch
+                          of each of two buckets (forward_backward, update,
+                          from the same weights) within LB_PARITY_TOL of
+                          each tensor's max abs; batches/s and tokens/s per
+                          bucket, 4 profiled batches (busy share).
+  symbol_api              card vs CPU within SYM_API_TOL of each tensor's
+                          max abs: the Executor's forward and backward of a
+                          transformer layer's kernel ops (LayerNorm, qkv,
+                          causal flash attention, proj; 4 x 64 x 64) with
+                          grad_req write and add; ``SymbolBlock.imports``
+                          of a port-exported ``bert_small`` (outputs and
+                          gradients); a ``Module.save_checkpoint`` on the
+                          card loaded by ``Module.load`` on the card and on
+                          the CPU.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -4112,14 +4157,15 @@ def phase_serve_int4(torch, ctx):
 
 # name, source, the TPU kernel it replaces, the paths whose launches the
 # kernels line reports (summed)
-AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16")
+AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16",
+                   "module_bert")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
       "serve_fleet", "serve_int8", "serve_int4", "train_transformer",
       "train_transformer_bf16", "gluon_bert", "train_amp",
-      "train_amp_fp16")),
+      "train_amp_fp16", "module_bert")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -4357,6 +4403,9 @@ def phase_gluon_bert(torch, ctx):
     prof = _step_profile(torch, step, steps=1)
     expected = {n: k * GB_STEPS for n, k in TRAIN_PER_STEP.items()}
     tokens_per_s = n_tok * GB_STEPS / wall
+    ctx["gluon_bert_f32"] = {"tokens_per_s": tokens_per_s,
+                             "step_ms_median": statistics.median(step_ms),
+                             "max_memory_allocated_gb": peak}
     train_entries = [e for e in entries if e["train"] and
                      f"({TRAIN_BATCH}, {TRAIN_LEN})" in e["signature"]]
     return {
@@ -6306,6 +6355,483 @@ def phase_op_catalog(torch, ctx):
             "ok": bool(ok and random_ok and not missing)}
 
 
+# ---------------------------------------------------------------------------
+# the symbolic API: BERT-base through mx.mod.Module, MXNet's bucketing LSTM
+# through BucketingModule, and the executor / SymbolBlock / checkpoints
+# card vs CPU
+# ---------------------------------------------------------------------------
+MB_WARMUP, MB_STEPS = 2, 5
+# the Module's first step against the Gluon route's on the same weights and
+# batch, both on the card (the loss relative; the gradients, relative L2
+# over the model and in the worst tensor; Gluon's summed per-token
+# gradient over the tokens against SoftmaxOutput's batch-normalized one)
+SYM_PARITY_TOL = {"loss_rel": 1e-5, "grad_rel_model": 1e-5,
+                  "grad_rel_tensor": 1e-3}
+# MXNet 1.x example/rnn/bucketing/lstm_bucketing.py at its defaults
+LB = {"buckets": [10, 20, 30, 40, 50, 60], "batch": 32, "embed": 200,
+      "hidden": 200, "layers": 2, "vocab": 10000, "lr": 0.01, "mom": 0.0,
+      "wd": 1e-5, "invalid_label": 0, "disp_batches": 50}
+LB_SENTENCES = 2400          # about 75 batches an epoch, every bucket
+LB_ZIPF_A = 1.2
+LB_PARITY_TOL = 1e-4         # card vs CPU, of each tensor's max abs
+SYM_API_TOL = 1e-4           # card vs CPU, of each tensor's max abs
+
+
+def _max_abs_ratio(got, want):
+    """max |got - want| / max |want| over numpy arrays."""
+    scale = float(np.abs(want).max()) or 1.0
+    return float(np.abs(got - want).max()) / scale
+
+
+def _mlm_module(mx, body, dev, batch, length):
+    """The MLM head on an exported BERT graph: SoftmaxOutput over the
+    (B*T, V) reshape, normalized by the batch (the gradient of the mean
+    per-token cross-entropy), bound through Module on ``dev``."""
+    head = mx.sym.SoftmaxOutput(mx.sym.Reshape(body, shape=(-1, BERT_VOCAB)),
+                                normalization="batch", name="softmax")
+    mod = mx.mod.Module(head, context=dev)
+    mod.bind(data_shapes=[("data", (batch, length))],
+             label_shapes=[("softmax_label", (batch * length,))])
+    return mod
+
+
+def _softmax_loss(torch, probs, label):
+    """Mean -log p[label] of SoftmaxOutput's probabilities (a device
+    scalar)."""
+    p = probs._data.gather(1, label._data.long().reshape(-1, 1))
+    return -torch.log(p).mean()
+
+
+def phase_module_bert(torch, ctx):
+    """BERT-base exported by the port's ``HybridBlock.export``, loaded
+    with ``sym.load`` / ``nd.load`` and trained through ``mx.mod.Module``
+    at the train cell's batch and optimizer (32 x 512, Adam lr 1e-4, f32,
+    TF32 off): the first step against the Gluon route, then 2 warm-up and
+    5 timed ``forward_backward`` + ``update`` steps with the counters
+    zeroed just before."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.symbol.symbol import _topo_order
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", f"module_bert-{os.getpid()}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    net = bert_base(BERT_VOCAB, dropout=0.0,
+                    generator=torch.Generator().manual_seed(SEED + 15))
+    t0 = time.perf_counter()
+    net.export(path, 0)
+    export_s = time.perf_counter() - t0
+    tokens = np.random.RandomState(SEED + 15).randint(
+        0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(np.int32)
+    n_tok = tokens.size
+    data = nd.array(tokens, ctx=dev, dtype=np.int32)
+    label = nd.array(tokens.reshape(-1).astype(np.float32), ctx=dev)
+
+    # the Gluon route's first step on the same weights and batch
+    with autograd.record():
+        gl = _gluon_mlm(net, gluon.loss.SoftmaxCrossEntropyLoss(), data,
+                        label)
+    gl.backward()
+    gluon_loss = float(gl.mean().asscalar())
+    gluon_grads = {p.name: (p.grad().data.detach().double() / n_tok).cpu()
+                   for p in net.collect_params().values()}
+    del net, gl
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    body = mx.sym.load(f"{path}-symbol.json")
+    arg, aux = mx.model.load_params(path, 0)
+    ops = [n.op for n in _topo_order(body._entries) if not n.is_variable()]
+    mod = _mlm_module(mx, body, dev, TRAIN_BATCH, TRAIN_LEN)
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 1e-4})
+    bind_s = time.perf_counter() - t0
+    for suffix in ("-symbol.json", "-0000.params"):
+        os.remove(path + suffix)
+    n_params = sum(mod._exec.arg_dict[n].size for n in mod._param_names)
+    batch = mx.io.DataBatch([data], [label])
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        return _softmax_loss(torch, mod.get_outputs()[0], label)
+
+    torch.cuda.reset_peak_memory_stats()
+    mod.forward_backward(batch)
+    first = float(_softmax_loss(torch, mod.get_outputs()[0], label))
+    grads = {n: g._data.detach().double().cpu()
+             for n, g in mod._exec.grad_dict.items()}
+    mod.update()
+    g_model, g_worst = _rel_l2(grads, {n: gluon_grads[n] for n in grads})
+    parity = {"loss_module": first, "loss_gluon": gluon_loss,
+              "loss_rel": abs(first - gluon_loss) / abs(gluon_loss),
+              "grad_rel_model": g_model, "grad_rel_worst_tensor": g_worst[0],
+              "grad_worst_tensor": g_worst[1], "tol": SYM_PARITY_TOL}
+    del grads, gluon_grads
+    losses = [first] + [float(step()) for _ in range(MB_WARMUP - 1)]
+    counted = _det_zero_counters()
+    step_ms, wall, handles = _timed_steps(torch, step, (), MB_STEPS)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["module_bert"] = launches
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses += [float(h) for h in handles]
+    prof = _step_profile(torch, step, steps=1)
+    expected = {n: k * MB_STEPS for n, k in TRAIN_PER_STEP.items()}
+    tokens_per_s = n_tok * MB_STEPS / wall
+    ok = bool(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0] and launches == expected
+              and ops.count("LayerNorm") == 26
+              and ops.count("_contrib_flash_attention") == 12
+              and parity["loss_rel"] <= SYM_PARITY_TOL["loss_rel"]
+              and g_model <= SYM_PARITY_TOL["grad_rel_model"]
+              and g_worst[0] <= SYM_PARITY_TOL["grad_rel_tensor"])
+    del mod, batch
+    torch.cuda.empty_cache()
+    return {"model": "bert_base", "vocab": BERT_VOCAB, "params": n_params,
+            "graph_op_nodes": len(ops),
+            "graph_layer_norm_nodes": ops.count("LayerNorm"),
+            "graph_flash_attention_nodes":
+                ops.count("_contrib_flash_attention"),
+            "export_s": export_s, "load_bind_init_s": bind_s,
+            "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "optimizer": "adam",
+            "learning_rate": 1e-4, "steps": MB_STEPS, "wall_s": wall,
+            "tokens_per_s": tokens_per_s,
+            "step_ms_median": statistics.median(step_ms),
+            "step_ms": step_ms, "max_memory_allocated_gb": peak,
+            "gluon_bert_phase": ctx.get("gluon_bert_f32"),
+            "train_phase": ctx.get("train_f32"),
+            "losses": losses, "parity_vs_gluon": parity,
+            "launches": launches, "launches_expected": expected,
+            "profile_1_step": prof, "card": ctx["smi"], "ok": ok}
+
+
+def _lb_sentences(seed):
+    """A seeded Zipf stream over ids 1..V-1 (0 is the invalid label), cut
+    into sentences of 5-60 tokens: the stand-in for PTB."""
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(5, 61, LB_SENTENCES)
+    ids = (rng.zipf(LB_ZIPF_A, int(lengths.sum())) - 1) % (
+        LB["vocab"] - 1) + 1
+    cuts = np.cumsum(lengths)[:-1]
+    return [s.tolist() for s in np.split(ids, cuts)]
+
+
+def _lb_sym_gen(mx, cell):
+    """lstm_bucketing.py's sym_gen over ``cell`` (a SequentialRNNCell of
+    LSTMCells, or a FusedRNNCell as cudnn_lstm_bucketing.py)."""
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        embed = mx.sym.Embedding(data=data, input_dim=LB["vocab"],
+                                 output_dim=LB["embed"], name="embed")
+        cell.reset()
+        outputs, _ = cell.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = mx.sym.Reshape(outputs, shape=(-1, LB["hidden"]))
+        pred = mx.sym.FullyConnected(data=pred, num_hidden=LB["vocab"],
+                                     name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(data=pred, label=label, name="softmax")
+        return pred, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def _lb_cells(mx):
+    stack = mx.rnn.SequentialRNNCell()
+    for i in range(LB["layers"]):
+        stack.add(mx.rnn.LSTMCell(num_hidden=LB["hidden"],
+                                  prefix=f"lstm_l{i}_"))
+    fused = mx.rnn.FusedRNNCell(LB["hidden"], num_layers=LB["layers"],
+                                mode="lstm", prefix="lstm_")
+    return stack, fused
+
+
+def _lb_module(mx, cell, dev, it, arg_params):
+    mod = mx.mod.BucketingModule(_lb_sym_gen(mx, cell),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=dev)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(arg_params=arg_params)
+    # rescale_grad 1 / batch: MXNet's Module sets it from the batch size
+    # (module.py init_optimizer); the JAX Module, and so the port's, does
+    # not, so the example's optimizer passes it
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": LB["lr"], "momentum": LB["mom"], "wd": LB["wd"],
+        "rescale_grad": 1.0 / LB["batch"]})
+    return mod
+
+
+def _lb_iter(mx, sentences, dev, seed):
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
+    return mx.rnn.BucketSentenceIter(sentences, LB["batch"],
+                                     buckets=list(LB["buckets"]),
+                                     invalid_label=LB["invalid_label"],
+                                     ctx=dev)
+
+
+def _lb_parity(torch, mx, cell_of, args, sentences):
+    """Card vs CPU: two batches of two buckets through forward_backward
+    and update from the same weights; outputs and gradients of each, of
+    each tensor's max abs."""
+    runs = {}
+    for name, dev in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        it = _lb_iter(mx, sentences, dev, SEED + 31)
+        picked, keys = [], set()
+        for b in it:
+            if b.bucket_key not in keys:
+                picked.append(b)
+                keys.add(b.bucket_key)
+            if len(picked) == 2:
+                break
+        mod = _lb_module(mx, cell_of(), dev, it, {
+            k: v.copyto(dev) for k, v in args.items()})
+        got = []
+        for b in picked:
+            mod.forward_backward(b)
+            ex = mod._curr_module._exec
+            got.append({"output": ex.outputs[0].asnumpy(),
+                        **{f"grad:{k}": v.asnumpy()
+                           for k, v in ex.grad_dict.items()}})
+            mod.update()
+        runs[name] = (got, sorted(keys))
+    worst = max(_max_abs_ratio(c[k], p[k])
+                for c, p in zip(runs["card"][0], runs["cpu"][0]) for k in c)
+    return {"buckets": runs["card"][1], "worst_of_max_abs": worst,
+            "tol": LB_PARITY_TOL, "ok": worst <= LB_PARITY_TOL}
+
+
+def _lb_fit(torch, mx, mod, it):
+    """One epoch through BucketingModule.fit with the example's metric and
+    Speedometer; per batch: bucket, host seconds since the last batch end,
+    and the batch's perplexity (from the metric's running sums)."""
+    metric = mx.metric.Perplexity(LB["invalid_label"])
+    rows, last = [], {"t": None, "sum": 0.0, "n": 0}
+    speed = mx.callback.Speedometer(LB["batch"], LB["disp_batches"],
+                                    auto_reset=False)
+
+    def record(param):
+        now = time.perf_counter()
+        s, n = param.eval_metric.sum_metric, param.eval_metric.num_inst
+        key = param.locals["data_batch"].bucket_key
+        rows.append({"bucket": key,
+                     "s": None if last["t"] is None else now - last["t"],
+                     "ppl": math.exp((s - last["sum"])
+                                     / max(n - last["n"], 1))})
+        last.update(t=now, sum=s, n=n)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, eval_metric=metric, num_epoch=1,
+            batch_end_callback=[record, speed])
+    torch.cuda.synchronize()
+    return rows, time.perf_counter() - t0
+
+
+def _lb_rates(rows):
+    out = {}
+    for key in LB["buckets"]:
+        ss = [r["s"] for r in rows if r["bucket"] == key and r["s"]]
+        if ss:
+            med = statistics.median(ss)
+            out[str(key)] = {"batches": len(ss), "batch_ms_median": med * 1e3,
+                             "batches_per_s": 1.0 / med,
+                             "tokens_per_s": LB["batch"] * key / med}
+    return out
+
+
+def phase_module_lstm_bucketing(torch, ctx):
+    """MXNet 1.x's example/rnn/bucketing/lstm_bucketing.py at its defaults
+    on the card: 2 x LSTMCell(200) (``lstm_l%d_``), Embedding 200,
+    FullyConnected to the 10,000-word vocabulary, SoftmaxOutput; buckets
+    10-60, batch 32, invalid label 0; SGD lr 0.01, momentum 0, wd 1e-5
+    and ``rescale_grad`` 1/32, as MXNet's Module sets it;
+    ``Xavier(factor_type="in", magnitude=2.34)``; ``Perplexity(0)``;
+    ``Speedometer(32, 50)``; one epoch of BucketingModule.fit over a seeded
+    Zipf stream.  Then the same net with ``FusedRNNCell(200,
+    num_layers=2)`` (cudnn_lstm_bucketing.py), from the unfused net's
+    initial weights packed."""
+    import mxnet_tpu_torch as mx
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    mx.random.seed(SEED + 30)
+    sentences = _lb_sentences(SEED + 30)
+    # the example's Xavier draw, through a bound module
+    stack, fused = _lb_cells(mx)
+    it = _lb_iter(mx, sentences, dev, SEED + 30)
+    probe = mx.mod.BucketingModule(_lb_sym_gen(mx, stack),
+                                   default_bucket_key=it.default_bucket_key,
+                                   context=dev)
+    probe.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    probe.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                                 magnitude=2.34))
+    args0 = {k: v.copyto(mx.cpu()) for k, v in probe.get_params()[0].items()}
+    del probe
+    args_fused = fused.pack_weights(stack.unpack_weights(dict(args0)))
+    parity = {
+        "unfused": _lb_parity(torch, mx, lambda: _lb_cells(mx)[0], args0,
+                              sentences),
+        "fused": _lb_parity(torch, mx, lambda: _lb_cells(mx)[1], args_fused,
+                            sentences)}
+    res, ok = {}, all(p["ok"] for p in parity.values())
+    for name, cell, args in (("unfused", stack, args0),
+                             ("fused", fused, args_fused)):
+        it = _lb_iter(mx, sentences, dev, SEED + 30)
+        mod = _lb_module(mx, cell, dev, it, {k: v.copyto(dev)
+                                              for k, v in args.items()})
+        counted = _det_zero_counters()
+        rows, wall = _lb_fit(torch, mx, mod, it)
+        launches = {n: fn.launches for n, fn in counted.items()}
+        ctx.setdefault("launches", {})[f"module_lstm_bucketing_{name}"] = \
+            launches
+        it.reset()
+        batches = [b for b, _ in zip(it, range(4))]
+        pending = iter(batches)
+
+        def step():
+            mod.forward_backward(next(pending))
+            mod.update()
+
+        prof = _step_profile(torch, step, steps=len(batches))
+        ppl = [r["ppl"] for r in rows]
+        first, last = float(np.mean(ppl[:10])), float(np.mean(ppl[-10:]))
+        tokens = sum(LB["batch"] * r["bucket"] for r in rows)
+        good = bool(len(rows) >= 60
+                    and {r["bucket"] for r in rows} == set(LB["buckets"])
+                    and all(math.isfinite(p) for p in ppl) and last < first
+                    and not any(launches.values()))
+        ok = ok and good
+        res[name] = {"batches": len(rows), "wall_s": wall,
+                     "batches_per_s": len(rows) / wall,
+                     "tokens_per_s": tokens / wall,
+                     "per_bucket": _lb_rates(rows),
+                     "perplexity_first10_mean": first,
+                     "perplexity_last10_mean": last,
+                     "perplexity_by_batch": ppl, "launches": launches,
+                     "profile_4_batches": prof, "ok": good}
+        del mod
+    torch.cuda.empty_cache()
+    return {"config": LB, "sentences": LB_SENTENCES, "zipf_a": LB_ZIPF_A,
+            "params": sum(v.size for v in args0.values()),
+            "parity_card_vs_cpu": parity, **res, "card": ctx["smi"],
+            "ok": bool(ok)}
+
+
+def _api_block(mx):
+    """A transformer layer's kernel ops as an exported graph spells them
+    (LayerNorm, qkv, flash attention over 2 heads of 32, proj)."""
+    sym = mx.sym
+    x = sym.LayerNorm(sym.Variable("data"), name="ln", eps=1e-5)
+    qkv = sym.FullyConnected(x, num_hidden=192, flatten=False, name="qkv")
+    q, k, v = sym.split(qkv, num_outputs=3, axis=-1)
+    heads = [sym.Reshape(sym.transpose(sym.Reshape(
+        t, shape=(0, 0, -4, 2, 32)), axes=(0, 2, 1, 3)), shape=(-3, 0, 0))
+        for t in (q, k, v)]
+    out = sym._contrib_flash_attention(*heads, causal=True)
+    out = sym.Reshape(sym.transpose(sym.Reshape(
+        out, shape=(-4, -1, 2, 0, 0)), axes=(0, 2, 1, 3)), shape=(0, 0, -3))
+    return sym.FullyConnected(out, num_hidden=64, flatten=False, name="proj")
+
+
+def phase_symbol_api(torch, ctx):
+    """Card vs CPU, each within SYM_API_TOL of each tensor's max abs: the
+    Executor's forward and backward (grad_req write, then add over two
+    passes) of a transformer layer's kernel ops; ``SymbolBlock.imports``
+    of a port-exported small BERT (outputs and gradients); a
+    ``Module.save_checkpoint`` on the card loaded by ``Module.load`` on
+    the CPU and on the card (outputs)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.models.bert import bert_small
+
+    rs = np.random.RandomState(SEED + 40)
+    shapes = {"data": (4, 64, 64)}
+    sym0 = _api_block(mx)
+    arg_shapes, _, _ = sym0.infer_shape(**shapes)
+    feeds = {n: (rs.randn(*s) * (1.0 if n == "data" else 0.2)).astype(
+        np.float32) for n, s in zip(sym0.list_arguments(), arg_shapes)}
+    og = rs.randn(4, 64, 64).astype(np.float32)
+    res, worst = {}, {}
+    for req in ("write", "add"):
+        got = {}
+        for name, dev in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            exe = _api_block(mx).simple_bind(ctx=dev, grad_req=req, **shapes)
+            for _ in range(2 if req == "add" else 1):
+                exe.forward(is_train=True, **feeds)
+                exe.backward([nd.array(og, ctx=dev)])
+            got[name] = {"output": exe.outputs[0].asnumpy(),
+                         **{f"grad:{k}": v.asnumpy()
+                            for k, v in exe.grad_dict.items()}}
+        worst[f"executor_{req}"] = max(
+            _max_abs_ratio(got["card"][k], got["cpu"][k])
+            for k in got["cpu"])
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", f"symbol_api-{os.getpid()}")
+    net = bert_small(dropout=0.0, device="cpu",
+                     generator=torch.Generator().manual_seed(SEED + 40))
+    net.export(path, 0)
+    x = rs.randint(0, 512, (2, 16)).astype(np.float32)
+    got = {}
+    for name, dev in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        sb = mx.gluon.SymbolBlock.imports(f"{path}-symbol.json", ["data"],
+                                          f"{path}-0000.params", ctx=dev)
+        xa = nd.array(x, ctx=dev)
+        with autograd.record():
+            out = sb(xa)
+            loss = (out * out).mean()
+        loss.backward()
+        got[name] = {"output": out.asnumpy(),
+                     **{f"grad:{p.name}": p.grad().asnumpy()
+                        for p in sb.collect_params().values()
+                        if p.grad_req != "null"}}
+    worst["symbol_block_imports"] = max(
+        _max_abs_ratio(got["card"][k], got["cpu"][k]) for k in got["cpu"])
+
+    body = mx.sym.load(f"{path}-symbol.json")
+    arg, aux = mx.model.load_params(path, 0)
+    head = mx.sym.SoftmaxOutput(mx.sym.Reshape(body, shape=(-1, 512)),
+                                normalization="batch", name="softmax")
+    batch = mx.io.DataBatch([nd.array(x, ctx=mx.gpu(0))],
+                            [nd.array(x.reshape(-1), ctx=mx.gpu(0))])
+    mod = mx.mod.Module(head, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", (x.size,))])
+    mod.init_params(arg_params=arg, aux_params=aux)
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": 1e-3})
+    mod.forward_backward(batch)
+    mod.update()
+    mod.save_checkpoint(path, 1, save_optimizer_states=True)
+    mod.forward(batch, is_train=False)
+    want = mod.get_outputs()[0].asnumpy()
+    outs = {}
+    for name, dev in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        m2 = mx.mod.Module.load(path, 1, load_optimizer_states=True,
+                                context=dev)
+        m2.bind(data_shapes=[("data", x.shape)],
+                label_shapes=[("softmax_label", (x.size,))],
+                for_training=False)
+        m2.init_params()
+        m2.forward(mx.io.DataBatch([nd.array(x, ctx=dev)]), is_train=False)
+        outs[name] = m2.get_outputs()[0].asnumpy()
+    worst["checkpoint_reload_card"] = _max_abs_ratio(outs["card"], want)
+    worst["checkpoint_reload_cpu"] = _max_abs_ratio(outs["cpu"], want)
+    for f in os.listdir(os.path.dirname(path)):
+        if f.startswith(os.path.basename(path)):
+            os.remove(os.path.join(os.path.dirname(path), f))
+    res["worst_of_max_abs"] = worst
+    return {**res, "tol": SYM_API_TOL, "card": ctx["smi"],
+            "ok": bool(all(v <= SYM_API_TOL for v in worst.values()))}
+
+
 def main() -> int:
     import torch
 
@@ -6364,7 +6890,10 @@ def main() -> int:
               ("cv_ops", phase_cv_ops),
               ("train_lstm_lm", phase_train_lstm_lm),
               ("rnn_variants", phase_rnn_variants),
-              ("op_catalog", phase_op_catalog))
+              ("op_catalog", phase_op_catalog),
+              ("module_bert", phase_module_bert),
+              ("module_lstm_bucketing", phase_module_lstm_bucketing),
+              ("symbol_api", phase_symbol_api))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

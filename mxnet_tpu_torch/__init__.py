@@ -3,9 +3,12 @@
 Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
 ``autograd``, ``passes``, ``gluon``, ``init``, ``metric``, ``random``,
 ``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``,
-``recordio``, ``image``, ``io``, and the
-runtime services ``telemetry``, ``memwatch``, ``metrics_server``,
-``checkpoint``, ``fault``) in plain
+``recordio``, ``image``, ``io``, the runtime services ``telemetry``,
+``memwatch``, ``metrics_server``, ``checkpoint``, ``fault``, and the
+symbolic API ``sym`` / ``symbol``, ``mod`` / ``module``, ``rnn``,
+``model``, ``callback``, ``monitor`` / ``Monitor``, ``name``,
+``attribute`` / ``AttrScope``, ``subgraph``, ``viz`` /
+``visualization``) in plain
 PyTorch idiom: Gluon blocks (and so the models) are ``torch.nn.Module``s,
 state is tensors on an explicit ``torch.device``,
 randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
@@ -40,10 +43,29 @@ from . import recordio
 from . import image
 from . import io
 from . import models
+from . import name
+from . import attribute
+from .attribute import AttrScope
+from . import symbol
+from . import symbol as sym
+from .symbol import Symbol
+from . import subgraph
+from . import model
+from . import callback
+from . import monitor
+from .monitor import Monitor
+from . import module
+from . import module as mod
+from . import rnn
+from . import visualization
+from . import visualization as viz
 
 __all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd",
            "optimizer", "random", "initializer", "init", "metric", "kvstore",
            "kv", "gluon", "telemetry", "memwatch", "metrics_server",
-           "checkpoint", "fault", "recordio", "image", "io", "models"]
+           "checkpoint", "fault", "recordio", "image", "io", "models",
+           "name", "attribute", "AttrScope", "symbol", "sym", "Symbol",
+           "subgraph", "model", "callback", "monitor", "Monitor", "module",
+           "mod", "rnn", "visualization", "viz"]
 
 metrics_server.maybe_start()

@@ -4,7 +4,7 @@ losses, ``Trainer``, ``utils`` and ``data``, as in ``mxnet_tpu/gluon/``;
 blocks are ``torch.nn`` modules."""
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
-from .block import Block, CachedOp, HybridBlock
+from .block import Block, CachedOp, HybridBlock, SymbolBlock
 from . import nn
 from . import rnn
 from . import loss
@@ -15,5 +15,5 @@ from . import data
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
-           "CachedOp", "nn", "rnn", "loss", "utils", "split_and_load", "Trainer",
+           "CachedOp", "SymbolBlock", "nn", "rnn", "loss", "utils", "split_and_load", "Trainer",
            "data"]

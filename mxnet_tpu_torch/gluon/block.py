@@ -36,7 +36,16 @@ its :class:`CachedOp`.  Departure: the port has no trace, so the CachedOp
 runs the forward eagerly; it keeps one entry per (train flag, input
 signature), counted as the JAX one counts its traces, and is the place a
 CUDA-graph replay of ``static_alloc`` / ``static_shape`` goes (ROADMAP
-A.1).  ``export`` and ``SymbolBlock`` wait for ``symbol/`` (ROADMAP A.11).
+A.1).
+
+A third call convention writes the graph: called with a ``Symbol``, a
+``HybridBlock`` calls its ``hybrid_forward(F=mx.sym, x, ...,
+**{name: param.var()})`` (a ``Block`` its ``forward``), so the layers
+that define ``hybrid_forward`` (the JAX layers' own bodies) compose the JAX
+package's graph.  ``export`` writes that graph and the parameters keyed
+``arg:`` / ``aux:`` (the JAX files), and :class:`SymbolBlock` runs a graph
+(``SymbolBlock.imports`` of either package's files) through the executor's
+graph evaluation; its Parameters are leaves like any block's.
 
 :func:`cast` casts any ``torch.nn.Module`` (the port's models before they
 were Gluon blocks used it, and still may).
@@ -54,9 +63,10 @@ from torch import nn
 from .. import autograd
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Symbol, build_graph_eval
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock", "CachedOp", "cast"]
+__all__ = ["Block", "HybridBlock", "CachedOp", "SymbolBlock", "cast"]
 
 
 class _BlockScope(threading.local):
@@ -332,9 +342,15 @@ class Block(nn.Module):
 
     # ------------------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        if args and isinstance(args[0], Symbol):
+            return self._call_symbol(*args, **kwargs)
         if _has_nd(args, kwargs):
             return self._call_nd(args, kwargs)
         return super().__call__(*args, **kwargs)
+
+    def _call_symbol(self, *args, **kwargs):
+        """The graph-writing call: ``forward`` on Symbols."""
+        return self.forward(*args, **kwargs)
 
     def _call_nd(self, args, kwargs, run=None):
         """The MXNet call convention (see the module's docstring);
@@ -481,6 +497,130 @@ class HybridBlock(Block):
         return self.hybrid_forward(F, x, *args, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def _call_symbol(self, *args, **kwargs):
+        """``hybrid_forward`` with ``F = mx.sym`` and the Parameters as
+        graph variables (``Parameter.var``)."""
+        from .. import symbol as _sym
+
+        params = {name: p.var() for name, p in self._reg_params.items()}
+        return self.hybrid_forward(_sym, *args, **kwargs, **params)
+
+    def export(self, path: str, epoch: int = 0, input_names=("data",)):
+        """Write ``{path}-symbol.json`` and ``{path}-{epoch:04d}.params``:
+        the graph of ``hybrid_forward`` over Symbols named
+        ``input_names``, and every Parameter (Gluon layout) keyed
+        ``aux:`` when the graph reads it as an auxiliary state, else
+        ``arg:``.  Returns the graph's Symbol."""
+        from .. import symbol as _sym
+        from ..ndarray import utils
+
+        out = self(*[_sym.var(n) for n in input_names])
+        if isinstance(out, (list, tuple)):
+            out = _sym.Group(out)
+        out.save(f"{path}-symbol.json")
+
+        aux_names = set(out.list_auxiliary_states())
+        save_dict = {}
+        for param in self.collect_params().values():
+            if not param._inited:
+                raise MXNetError(
+                    f"export: parameter {param.name!r} is not initialized "
+                    "(run one forward to resolve deferred shapes first)")
+            key = (f"aux:{param.name}" if param.name in aux_names
+                   else f"arg:{param.name}")
+            save_dict[key] = param._reduce()
+        utils.save(f"{path}-{epoch:04d}.params", save_dict)
+        return out
+
+
+class SymbolBlock(HybridBlock):
+    """A block around a symbol graph (Gluon's ``SymbolBlock``).
+
+    The graph's non-input arguments become Parameters (``grad_req``
+    ``"write"``) and its auxiliary states Parameters with ``"null"``, by
+    their graph names; their shapes come from shape inference at the
+    first call when not loaded.  A call runs the graph eagerly
+    (``symbol.build_graph_eval``) on the inputs' device, in the block's
+    train mode (MXNet's flag on an NDArray call); in training, BatchNorm
+    moves its moving stats in place.  Called with Symbols it splices its
+    graph onto them by input name."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol as _sym
+
+        if isinstance(outputs, (list, tuple)):
+            outputs = _sym.Group(outputs)
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sym = outputs
+        self._sym_input_names = [s.name for s in inputs]
+        arg_names = outputs.list_arguments()
+        self._sym_aux_names = list(outputs.list_auxiliary_states())
+        self._sym_param_names = [n for n in arg_names
+                                 if n not in self._sym_input_names]
+        for n in self._sym_param_names:
+            self._reg_params[n] = self.params.get(
+                n, grad_req="write", allow_deferred_init=True)
+        for n in self._sym_aux_names:
+            self._reg_params[n] = self.params.get(
+                n, grad_req="null", allow_deferred_init=True)
+        self._evals: Dict[bool, Any] = {}
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock of ``symbol_file``'s graph, its Parameters loaded
+        from ``param_file`` (``arg:`` / ``aux:`` keys) onto ``ctx`` (the
+        card unless the CPU is given)."""
+        from .. import symbol as _sym
+        from ..ndarray import utils
+
+        sym = _sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [_sym.var(n) for n in input_names])
+        if param_file is not None:
+            raw = utils.load(param_file)
+            for k, v in raw.items():
+                tp, _, name = k.partition(":")
+                name = name if tp in ("arg", "aux") else k
+                if name in ret._reg_params:
+                    ret._reg_params[name]._load_init(v, ctx=ctx)
+        return ret
+
+    def _infer_sym_param_shapes(self, *args):
+        shapes = {n: tuple(a.shape)
+                  for n, a in zip(self._sym_input_names, args)}
+        arg_shapes, _, aux_shapes = self._sym.infer_shape(**shapes)
+        for name, shp in zip(self._sym.list_arguments(), arg_shapes):
+            if name in self._reg_params:
+                self._reg_params[name]._set_shape_if_deferred(shp)
+                self._reg_params[name]._finish_deferred_init()
+        for name, shp in zip(self._sym_aux_names, aux_shapes):
+            self._reg_params[name]._set_shape_if_deferred(shp)
+            self._reg_params[name]._finish_deferred_init()
+
+    def _call_symbol(self, x, *args):
+        mapping = dict(zip(self._sym_input_names, [x, *args]))
+        return self._sym(**mapping)
+
+    def forward(self, x, *args):
+        if any(p._deferred is not None for p in self._reg_params.values()):
+            self._infer_sym_param_shapes(x, *args)
+        for p in self._reg_params.values():
+            p._check_initialized()
+        fn = self._evals.get(self.training)
+        if fn is None:
+            fn = self._evals[self.training] = build_graph_eval(
+                self._sym._entries, self.training)
+        vals = dict(zip(self._sym_input_names, [x, *args]))
+        vals.update({n: p._tensor() for n, p in self._reg_params.items()})
+        outs = fn(vals)
+        return outs[0] if len(outs) == 1 else list(outs)
+
+    def hybrid_forward(self, F, *args, **kwargs):
         raise NotImplementedError
 
 

@@ -31,6 +31,12 @@ generator of the input's device (``random``).  ``GroupNorm`` and
 ``axis`` first) and, as they do, keep ``center`` / ``scale`` for the
 signature only.
 
+Each layer also has ``hybrid_forward(F, x, **params)``, the JAX layer's
+own body over ``F.<op>``: a block called with Symbols composes its graph
+through it (``export``); with ``F`` the registry over tensors it computes
+what ``forward`` does in inference (``Dropout`` is the identity there, as
+the op is outside training).
+
 Departures: the first positional argument of ``LayerNorm`` and
 ``BatchNorm`` is ``in_channels`` (the port's callers pass it so; Gluon's
 is ``axis``); ``Embedding(sparse_grad=True)`` raises
@@ -120,6 +126,11 @@ class HybridSequential(_Container, HybridBlock):
             x = block(x)
         return x
 
+    def hybrid_forward(self, F, x, *args):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
 
 class Dense(HybridBlock):
     """y = act(x W^T + b); ``flatten`` collapses every axis after the
@@ -170,6 +181,17 @@ class Dense(HybridBlock):
                                        flatten=True)
         return out if self.act is None else _ops.activation(out, self.act)
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, num_hidden=self._units,
+                                   no_bias=True, flatten=self.flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   no_bias=False, flatten=self.flatten)
+        if self.act:
+            out = F.Activation(out, act_type=self.act)
+        return out
+
 
 class Dropout(HybridBlock):
     """Zeroes each element with probability ``rate`` in training mode and
@@ -184,6 +206,9 @@ class Dropout(HybridBlock):
     def forward(self, x):
         return _ops.dropout(x, p=self.rate, axes=self.axes,
                             training=self.training)
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self.rate, axes=self.axes)
 
 
 class BatchNorm(HybridBlock):
@@ -253,6 +278,15 @@ class BatchNorm(HybridBlock):
                 run.mul_(m).add_(stat.to(run.dtype) * (1 - m))
         return out
 
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        # the graph's inference branch (an exported BatchNorm; the
+        # executor trains it by batch statistics)
+        return F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self.eps,
+            momentum=self.momentum, fix_gamma=not self.scale,
+            use_global_stats=True, output_mean_var=False, axis=self.axis,
+            training=False)
+
 
 class Embedding(HybridBlock):
     """Rows of ``weight`` (input_dim, output_dim) by index; float indices
@@ -272,6 +306,10 @@ class Embedding(HybridBlock):
 
     def forward(self, x):
         return _indexing.embedding(x, self.weight)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self.input_dim,
+                           output_dim=self.output_dim, sparse_grad=False)
 
 
 class LayerNorm(HybridBlock):
@@ -308,6 +346,9 @@ class LayerNorm(HybridBlock):
         out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(), w, b,
                                       self.eps)
         return out.reshape(x.shape)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=-1, eps=self.eps)
 
 
 class _GroupedNorm(HybridBlock):
@@ -348,6 +389,10 @@ class GroupNorm(_GroupedNorm):
         return _ops.group_norm(x, self.weight, self.bias,
                                num_groups=self._num_groups, eps=self.eps)
 
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self.eps)
+
 
 class InstanceNorm(_GroupedNorm):
     """Normalization of each sample's channel over its spatial axes."""
@@ -364,12 +409,18 @@ class InstanceNorm(_GroupedNorm):
         self._finish_deferred(x)
         return _ops.instance_norm(x, self.weight, self.bias, eps=self.eps)
 
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self.eps)
+
 
 class Flatten(HybridBlock):
     """(N, ...) -> (N, prod(...))."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
 
 
 def _op_fn(function):
@@ -393,13 +444,18 @@ class HybridLambda(HybridBlock):
 
     def __init__(self, function, prefix=None):
         super().__init__(prefix=prefix)
-        self._named = isinstance(function, str)
+        self._named = function if isinstance(function, str) else None
         self._func = _op_fn(function)
 
     def forward(self, *args):
         if self._named:
             return self._func(*args)
         return self._func(_F, *args)
+
+    def hybrid_forward(self, F, *args):
+        if self._named:
+            return getattr(F, self._named)(*args)
+        return self._func(F, *args)
 
 
 class Activation(HybridBlock):
@@ -413,6 +469,9 @@ class Activation(HybridBlock):
     def forward(self, x):
         return _ops.activation(x, self.act)
 
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self.act)
+
 
 class LeakyReLU(HybridBlock):
     """x where x >= 0, else alpha x."""
@@ -423,6 +482,9 @@ class LeakyReLU(HybridBlock):
 
     def forward(self, x):
         return _ops.leaky_relu(x, act_type="leaky", slope=self._alpha)
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
 
 
 class PReLU(HybridBlock):
@@ -440,6 +502,9 @@ class PReLU(HybridBlock):
     def forward(self, x):
         return _ops.leaky_relu(x, self.alpha, act_type="prelu")
 
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
 
 class ELU(HybridBlock):
     """x where x >= 0, else alpha (e^x - 1)."""
@@ -451,10 +516,16 @@ class ELU(HybridBlock):
     def forward(self, x):
         return _ops.leaky_relu(x, act_type="elu", slope=self._alpha)
 
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
 
 class SELU(HybridBlock):
     def forward(self, x):
         return _ops.leaky_relu(x, act_type="selu")
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
 
 
 class Swish(HybridBlock):
@@ -467,7 +538,13 @@ class Swish(HybridBlock):
     def forward(self, x):
         return x * torch.sigmoid(self._beta * x)
 
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
 
 class GELU(HybridBlock):
     def forward(self, x):
         return _ops.leaky_relu(x, act_type="gelu")
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")

@@ -17,6 +17,8 @@ initialization, ``set_data`` and ``load_parameters``), ``to_gluon`` back
 (``save_parameters``), and ``gluon_shape`` gives the shape initializers
 draw in (their fans come from it).  ``in_channels`` 0 is inferred at the
 first call; ``activation`` applies the ``Activation`` op after the bias.
+``hybrid_forward`` is the JAX layers' body over ``F.<op>`` (the graph of
+``export``; the weight in Gluon's layout).
 """
 from __future__ import annotations
 
@@ -126,6 +128,16 @@ class Conv2D(HybridBlock):
         out = _ops.convolution(*args, **self.kwargs)
         return out if self.act is None else _ops.activation(out, self.act)
 
+    def hybrid_forward(self, F, x, weight, bias=None):
+        # ``weight`` in Gluon's layout, as the graph variable has it
+        if bias is None:
+            out = F.Convolution(x, weight, **self.kwargs)
+        else:
+            out = F.Convolution(x, weight, bias, **self.kwargs)
+        if self.act:
+            out = F.Activation(out, act_type=self.act)
+        return out
+
 
 class _Pooling(HybridBlock):
     def __init__(self, pool_size, strides, padding, ceil_mode, global_pool,
@@ -145,6 +157,9 @@ class _Pooling(HybridBlock):
 
     def forward(self, x):
         return _ops.pooling(x, **self.kwargs)
+
+    def hybrid_forward(self, F, x):
+        return F.Pooling(x, **self.kwargs)
 
 
 class MaxPool2D(_Pooling):

@@ -420,6 +420,18 @@ class Parameter:
         if self._inited:
             self._store(self._tensor().detach().to(dtype_torch(dtype)))
 
+    def var(self):
+        """The graph variable of this Parameter (its name, Gluon shape and
+        dtype), for a block called with Symbols (``export``); one per
+        Parameter, so a Parameter shared within a graph is one node."""
+        from .. import symbol as _sym
+
+        cached = getattr(self, "_var_sym", None)
+        if cached is None:
+            cached = _sym.var(self.name, shape=self.shape, dtype=self.dtype)
+            self._var_sym = cached
+        return cached
+
 
 class _ConstInit:
     """Fills a Constant's value (an ``init_array`` look-alike)."""

@@ -86,6 +86,11 @@ class Initializer:
             self._init_weight(name, arr, generator)
         return arr
 
+    def dumps(self) -> str:
+        """'["name", {kwargs}]': the ``__init__`` attribute a symbol
+        variable carries in a graph file (the JAX ``Initializer.dumps``)."""
+        return json.dumps([type(self).__name__.lower(), dict(vars(self))])
+
     def _init_gamma(self, name, arr):
         arr.fill_(1.0)
 

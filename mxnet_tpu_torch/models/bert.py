@@ -9,6 +9,11 @@ LayerNorm runs kernel K1; with no ``valid_length`` and attention dropout
 inactive, every attention runs kernels K3-K5 (``flash_attention``), and
 with a ``valid_length`` the masked dense path, as in the JAX package.
 
+``BERTForMLM`` and ``BERTModel`` (with no ``valid_length``) have
+``hybrid_forward(F, ...)``, the JAX blocks' bodies, so ``export`` writes
+the JAX package's BERT graph (``mx.mod.Module`` trains it; every
+LayerNorm node runs K1 and every attention node K3-K5 on the card).
+
 The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
 scopes with their prefixes, so ``collect_params()`` gives the JAX net's
 names (``bertformlm0_bert_encoder_layer0_attn_qkv_weight``), which
@@ -23,6 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
@@ -86,6 +92,19 @@ class BERTModel(HybridBlock):
         out = self.encoder(x, mask)
         return out, torch.tanh(self.pooler(out[:, 0]))
 
+    def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
+        if valid_length is not None:
+            raise MXNetError("BERTModel has a graph spelling without "
+                             "valid_length only")
+        x = self.word_embed(inputs)
+        if token_types is not None:
+            x = x + self.token_type_embed(token_types)
+        x = self.embed_drop(self.embed_ln(self.pos_embed(x)))
+        out = self.encoder(x, None)
+        first = F.Reshape(F.slice_axis(out, axis=1, begin=0, end=1),
+                          shape=(0, -1))
+        return out, F.Activation(self.pooler(first), act_type="tanh")
+
 
 class BERTForMLM(HybridBlock):
     """BERT with the masked-LM head: forward(inputs, token_types=None,
@@ -124,6 +143,11 @@ class BERTForMLM(HybridBlock):
     def forward(self, inputs, token_types=None, valid_length=None):
         seq, _ = self.bert(inputs, token_types, valid_length)
         h = self.mlm_ln(F.gelu(self.mlm_dense(seq), approximate="none"))
+        return self.decoder(h)
+
+    def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
+        seq, _ = self.bert(inputs, token_types, valid_length)
+        h = self.mlm_ln(F.LeakyReLU(self.mlm_dense(seq), act_type="gelu"))
         return self.decoder(h)
 
 

@@ -35,6 +35,16 @@ cells); ``Transformer`` builds them post-LN, as the JAX class does
 projects to the vocabulary through its own ``out_proj`` (Gluon prefix
 ``out_``) instead of the shared embedding.
 
+The encoder's blocks (``MultiHeadAttention`` on its fused route,
+``PositionwiseFFN``, ``TransformerEncoderCell``, ``PositionalEmbedding``,
+``TransformerEncoder``) also have ``hybrid_forward(F, ...)``, the JAX
+blocks' bodies over ``F.<op>``, through which a block called with Symbols
+writes the JAX package's graph (``export``): the attention as
+``_contrib_flash_attention`` (kernels K3-K5 when the graph runs on the
+card), the LayerNorms as ``LayerNorm`` ops (kernel K1).  The masked route,
+the decoder and the seq2seq ``Transformer`` have no graph spelling yet
+(ROADMAP A.11).
+
 :func:`label_smoothed_ce` is the training loss of BASELINE config 4
 (``bench.py:706-751``), with the JAX function's roundings.
 """
@@ -76,6 +86,20 @@ def _merge_heads(t, num_heads: int):
     BH, T, hd = t.shape
     t = t.reshape(BH // num_heads, num_heads, T, hd).transpose(1, 2)
     return t.reshape(BH // num_heads, T, num_heads * hd)
+
+
+def _graph_split_heads(F, t, num_heads: int, head_dim: int):
+    # (B, T, C) -> (B*H, T, hd) in MXNet's reshape codes (the JAX
+    # ``_split_heads``)
+    t = F.Reshape(t, shape=(0, 0, -4, num_heads, head_dim))
+    t = F.transpose(t, axes=(0, 2, 1, 3))
+    return F.Reshape(t, shape=(-3, 0, 0))
+
+
+def _graph_merge_heads(F, t, num_heads: int):
+    # (B*H, T, hd) -> (B, T, C)
+    t = F.Reshape(t, shape=(-4, -1, num_heads, 0, 0))
+    return F.Reshape(F.transpose(t, axes=(0, 2, 1, 3)), shape=(0, 0, -3))
 
 
 def _big_neg(dtype) -> float:
@@ -154,6 +178,18 @@ class MultiHeadAttention(HybridBlock):
                              self.attn_drop)
         return self.proj(_merge_heads(out, H))
 
+    def hybrid_forward(self, F, x, mask=None):
+        if mask is not None or (self.attn_drop.rate != 0.0
+                                and self.training):
+            raise MXNetError("MultiHeadAttention has a graph spelling for "
+                             "its fused route only (no mask, attention "
+                             "dropout inactive)")
+        q, k, v = F.split(self.qkv(x), num_outputs=3, axis=-1)
+        q, k, v = (_graph_split_heads(F, t, self.num_heads, self.head_dim)
+                   for t in (q, k, v))
+        out = F._contrib_flash_attention(q, k, v, causal=self.causal)
+        return self.proj(_graph_merge_heads(F, out, self.num_heads))
+
 
 _ACTIVATIONS = {"gelu": lambda h: F.gelu(h, approximate="none"),
                 **{a: (lambda h, a=a: _activation_op(h, a))
@@ -169,6 +205,7 @@ class PositionwiseFFN(HybridBlock):
             raise MXNetError(f"activation must be one of "
                              f"{sorted(_ACTIVATIONS)}, got {activation!r}")
         self.act = _ACTIVATIONS[activation]
+        self.activation = activation
         with self.name_scope():
             self.ffn_1 = _linear(hidden_size, units, "ffn1_")
             self.ffn_2 = _linear(units, hidden_size, "ffn2_")
@@ -176,6 +213,12 @@ class PositionwiseFFN(HybridBlock):
 
     def forward(self, x):
         return self.drop(self.ffn_2(self.act(self.ffn_1(x))))
+
+    def hybrid_forward(self, F, x):
+        h = self.ffn_1(x)
+        h = (F.LeakyReLU(h, act_type="gelu") if self.activation == "gelu"
+             else F.Activation(h, act_type=self.activation))
+        return self.drop(self.ffn_2(h))
 
 
 class TransformerEncoderCell(HybridBlock):
@@ -202,6 +245,9 @@ class TransformerEncoderCell(HybridBlock):
         x = self.ln1(x + self.drop(self.attn(x, mask)))
         return self.ln2(x + self.ffn(x))
 
+    def hybrid_forward(self, F, x, mask=None):
+        return self.forward(x, mask)
+
 
 class PositionalEmbedding(HybridBlock):
     """Learned positional embedding: adds rows [0, T) of ``weight``."""
@@ -215,6 +261,10 @@ class PositionalEmbedding(HybridBlock):
 
     def forward(self, x):
         return x + self.weight[:x.shape[1]][None]
+
+    def hybrid_forward(self, F, x, weight):
+        pos = F.slice_like(F.expand_dims(weight, axis=0), x, axes=(1,))
+        return F.broadcast_add(x, pos)
 
 
 class TransformerEncoder(HybridBlock):
@@ -234,6 +284,9 @@ class TransformerEncoder(HybridBlock):
         for cell in self.layers:
             x = cell(x, mask)
         return x
+
+    def hybrid_forward(self, F, x, mask=None):
+        return self.forward(x, mask)
 
 
 class MultiHeadCrossAttention(HybridBlock):

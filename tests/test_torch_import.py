@@ -98,7 +98,26 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.ndarray.linalg",
           "mxnet_tpu_torch.gluon.rnn.rnn_layer",
           "mxnet_tpu_torch.gluon.rnn.rnn_cell",
-          "mxnet_tpu_torch.models.word_lm")
+          "mxnet_tpu_torch.models.word_lm",
+          "mxnet_tpu_torch.name",
+          "mxnet_tpu_torch.attribute",
+          "mxnet_tpu_torch.symbol",
+          "mxnet_tpu_torch.symbol.symbol",
+          "mxnet_tpu_torch.symbol.executor",
+          "mxnet_tpu_torch.symbol.contrib",
+          "mxnet_tpu_torch.subgraph",
+          "mxnet_tpu_torch.model",
+          "mxnet_tpu_torch.callback",
+          "mxnet_tpu_torch.monitor",
+          "mxnet_tpu_torch.module",
+          "mxnet_tpu_torch.module.base_module",
+          "mxnet_tpu_torch.module.module",
+          "mxnet_tpu_torch.module.bucketing_module",
+          "mxnet_tpu_torch.rnn",
+          "mxnet_tpu_torch.rnn.rnn_cell",
+          "mxnet_tpu_torch.rnn.io",
+          "mxnet_tpu_torch.rnn.rnn",
+          "mxnet_tpu_torch.visualization")
 
 
 def _no_cuda():
@@ -175,6 +194,33 @@ def test_detection_entry_points_need_cuda_unless_asked_for_cpu(tmp_path):
         with pytest.raises(MXNetError, match='device="cpu"'):
             net.initialize(mx.init.Xavier())
         net.initialize(mx.init.Xavier(), ctx=mx.cpu(), force_reinit=True)
+
+
+def test_symbolic_entry_points_need_cuda_unless_asked_for_cpu():
+    """The symbolic API binds on the card by default (``bind``,
+    ``simple_bind``, ``Module``, ``BucketSentenceIter``) and raises
+    without one; given the CPU it runs here."""
+    _no_cuda()
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError
+
+    net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2)
+    for make in (lambda **k: net.simple_bind(data=(1, 3), **k),
+                 lambda **k: mx.mod.Module(net, label_names=None, **k)):
+        with pytest.raises(MXNetError, match='device="cpu"'):
+            make()
+    net.simple_bind(ctx=mx.cpu(), data=(1, 3))
+    mx.mod.Module(net, label_names=None, context=mx.cpu())
+    sents = [[1, 2], [3, 4]]
+    with pytest.raises(MXNetError, match='device="cpu"'):
+        mx.rnn.BucketSentenceIter(sents, batch_size=2, buckets=[2])
+    mx.rnn.BucketSentenceIter(sents, batch_size=2, buckets=[2],
+                              ctx=mx.cpu())
+    assert {"sym", "mod", "rnn", "model", "callback", "monitor", "viz",
+            "name", "AttrScope"} <= set(dir(mx))
+    assert mx.gluon.SymbolBlock is not None and np is not None
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
