@@ -452,6 +452,34 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           launches a step (TRAIN_PER_STEP); losses finite
                           and falling; tokens/s, step ms (CUDA events),
                           peak memory, one profiled step (busy share).
+  train_resume            the rest of the training step at the train cell's
+                          widths (BERT-base, 32 x 512, Adam lr 1e-4, f32,
+                          TF32 off, seeded weights): 6 DataParallelStep
+                          steps at MX_ASYNC_INFLIGHT=0, again at 0, and at
+                          the default window (2), each from the same
+                          weights: losses and weights after ``drain`` equal
+                          within RESUME_SPREAD (0: bit for bit) of the
+                          first window-0 run, the window-2 run's depth
+                          reaching and never passing 2, K1 26 and K3-K5 12
+                          launches a step in every run (counters zeroed
+                          just before each); then 3 steps under two
+                          ``AsyncCheckpointer(save_every=3, keep=1)`` whose
+                          target is the step (format 1 with
+                          ``opt_state.nd``, and ``sharded=True``), each
+                          ``checkpoint.restore``d into a fresh model of
+                          another seed and a fresh step: its state_dict
+                          equal to the saved one bit for bit, its steps 4-6
+                          the window-0 run's losses 4-6 (RESUME_SPREAD) at
+                          26 / 12 launches a step, and after
+                          ``sync_to_block`` a Gluon (NDArray) forward of 2
+                          x 128 tokens equal to the step's tensor forward;
+                          then 3 steps of gluon_bert's loop through
+                          ``gluon.Trainer`` and of module_bert's graph
+                          through ``Module`` at windows 0 and 2: losses
+                          equal (RESUME_SPREAD), no fence at 0, depth 2 at
+                          2.  Prints tokens/s and busy share (3 profiled
+                          steps) at windows 0 and 2, each format's snapshot
+                          ms (device to host) and write s, peak memory.
   module_lstm_bucketing   MXNet 1.x's example/rnn/bucketing/lstm_bucketing.py
                           at its defaults (LB): 2 x ``LSTMCell(200)``,
                           Embedding 200, FullyConnected to 10,000 words,
@@ -466,10 +494,11 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           ``FusedRNNCell(200, num_layers=2)`` from the
                           unfused net's initial weights packed: the mean
                           perplexity of the last 10 batches below the first
-                          10's, K1-K7 0 launches; card vs CPU on one batch
-                          of each of two buckets (forward_backward, update,
-                          from the same weights) within LB_PARITY_TOL of
-                          each tensor's max abs; batches/s and tokens/s per
+                          10's and below the uniform perplexity, 10,000
+                          (LB_PPL_BOUND), K1-K7 0 launches; card vs CPU on
+                          one batch of each of two buckets
+                          (forward_backward, update, from the same weights)
+                          within LB_PARITY_TOL of each tensor's max abs; batches/s and tokens/s per
                           bucket, 4 profiled batches (busy share).
   symbol_api              card vs CPU within SYM_API_TOL of each tensor's
                           max abs: the Executor's forward and backward of a
@@ -4158,14 +4187,14 @@ def phase_serve_int4(torch, ctx):
 # name, source, the TPU kernel it replaces, the paths whose launches the
 # kernels line reports (summed)
 AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16",
-                   "module_bert")
+                   "module_bert", "train_resume")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
       "serve_fleet", "serve_int8", "serve_int4", "train_transformer",
       "train_transformer_bf16", "gluon_bert", "train_amp",
-      "train_amp_fp16", "module_bert")),
+      "train_amp_fp16", "module_bert", "train_resume")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -6374,6 +6403,9 @@ LB = {"buckets": [10, 20, 30, 40, 50, 60], "batch": 32, "embed": 200,
 LB_SENTENCES = 2400          # about 75 batches an epoch, every bucket
 LB_ZIPF_A = 1.2
 LB_PARITY_TOL = 1e-4         # card vs CPU, of each tensor's max abs
+# the last 10 batches' mean perplexity must be below the uniform model's,
+# the vocabulary size: a run that diverged and fell back a little fails
+LB_PPL_BOUND = float(LB["vocab"])
 SYM_API_TOL = 1e-4           # card vs CPU, of each tensor's max abs
 
 
@@ -6507,6 +6539,334 @@ def phase_module_bert(torch, ctx):
             "losses": losses, "parity_vs_gluon": parity,
             "launches": launches, "launches_expected": expected,
             "profile_1_step": prof, "card": ctx["smi"], "ok": ok}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the training step: the in-flight window, checkpoints of a
+# step, resume
+# ---------------------------------------------------------------------------
+RESUME_STEPS, RESUME_AT, RESUME_LOOP_STEPS = 6, 3, 3
+# the largest difference allowed between two runs that must agree (losses
+# and weights across windows and across a restore): 0, bit for bit, as
+# none of the port's kernels and no op on the path accumulates in an order
+# that varies; each run also repeats window 0 and reports its spread
+RESUME_SPREAD = 0.0
+RESUME_GLUON_BATCH = (2, 128)
+
+
+def _resume_window(window):
+    """Set ``MX_ASYNC_INFLIGHT`` (None: unset, the default window 2)."""
+    if window is None:
+        os.environ.pop("MX_ASYNC_INFLIGHT", None)
+    else:
+        os.environ["MX_ASYNC_INFLIGHT"] = str(window)
+
+
+def _resume_run(torch, step, batch, n):
+    """``n`` steps of ``step`` at the current window, the depth after each
+    dispatch, then ``drain``: (losses, depths, wall s)."""
+    handles, depths = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        handles.append(step.step(*batch))
+        depths.append(step.inflight_depth)
+    step.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [float(h) for h in handles], depths, wall
+
+
+def _resume_diff(a, b):
+    """The largest |a - b| over two equal-length lists of floats, or of
+    tensors (0.0 when every pair is equal bit for bit)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if hasattr(x, "shape"):
+            if not bool((x == y).all()):
+                worst = max(worst, float((x.double() - y.double()).abs()
+                                         .max()))
+        elif x != y:
+            worst = max(worst, abs(x - y))
+    return worst
+
+
+def _state_diff(a, b):
+    """Whether two ``state_dict()``s have the same keys, and the largest
+    difference over their values (numpy arrays, or CPU tensors)."""
+    import torch
+
+    def t(v):
+        return v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
+
+    same_keys = all(sorted(a[s]) == sorted(b[s])
+                    for s in ("params", "opt_state"))
+    vals = [(t(a[s][k]), t(b[s][k])) for s in ("params", "opt_state")
+            for k in a[s] if k in b[s]]
+    return same_keys and a["optimizer"] == b["optimizer"], _resume_diff(
+        [x for x, _ in vals], [y for _, y in vals])
+
+
+def phase_train_resume(torch, ctx):
+    """BERT-base through ``DataParallelStep`` at the train cell's widths
+    (32 x 512, Adam lr 1e-4, f32, TF32 off): windows 0 and 2, a checkpoint
+    of the step at step 3 in formats 1 and 2, each restored into a fresh
+    model (another seed) and step and continued; then the Gluon Trainer's
+    and the Module's windows."""
+    import shutil
+    import tempfile
+
+    before = os.environ.get("MX_ASYNC_INFLIGHT")
+    here = os.path.dirname(os.path.abspath(__file__))
+    build = os.path.join(here, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_resume-", dir=build)
+    try:
+        return _train_resume(torch, ctx, root, build)
+    finally:
+        _resume_window(None if before is None else int(before))
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _train_resume(torch, ctx, root, build):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, checkpoint, gluon, nd
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = mx.gpu(0)
+    tokens_np = np.random.RandomState(SEED).randint(
+        0, BERT_VOCAB, (TRAIN_BATCH, TRAIN_LEN)).astype(np.int32)
+    tokens = torch.from_numpy(tokens_np).cuda()
+    batch = (tokens, tokens.float())
+    n_tok = tokens_np.size
+    per_step = {n: k for n, k in TRAIN_PER_STEP.items()}
+    checks = {}
+
+    def new_step(model):
+        return DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                                optimizer_params={"learning_rate": 1e-4})
+
+    def launches_ok(launches, steps):
+        return launches == {n: k * steps for n, k in per_step.items()}
+
+    # -- leg 1: window 0 (twice) against the default window --------------
+    t0 = time.perf_counter()
+    model = bert_base(BERT_VOCAB, dropout=0.0,
+                      generator=torch.Generator().manual_seed(SEED))
+    init_s = time.perf_counter() - t0
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    legs, ref = {}, None
+    for name, window in (("window0", 0), ("window0_repeat", 0),
+                         ("window2", None)):
+        model.load_state_dict(start)
+        step = new_step(model)
+        _resume_window(window)
+        counted = _det_zero_counters()
+        losses, depths, wall = _resume_run(torch, step, batch,
+                                           RESUME_STEPS)
+        launches = {n: fn.launches for n, fn in counted.items()}
+        weights = [v.detach().clone() for v in model.state_dict().values()]
+        if ref is None:
+            ref = (losses, weights)
+        leg = {"losses": losses, "inflight_depths": depths,
+               "tokens_per_s": n_tok * RESUME_STEPS / wall,
+               "launches": launches,
+               "loss_diff_vs_window0": _resume_diff(losses, ref[0]),
+               "weight_diff_vs_window0": _resume_diff(weights, ref[1])}
+        del weights
+        if name != "window0_repeat":
+            leg["profile_3_steps"] = _step_profile(
+                torch, lambda: step.step(*batch), steps=3)
+            step.drain()
+        if name == "window2":
+            ctx.setdefault("launches", {})["train_resume"] = launches
+        legs[name] = leg
+        checks[f"{name}_launches"] = launches_ok(launches, RESUME_STEPS)
+        checks[f"{name}_depth"] = max(depths) <= (0 if window == 0 else 2)
+        del step
+    checks["window2_depth_reached_2"] = max(
+        legs["window2"]["inflight_depths"]) == 2
+    checks["window0_repeat"] = (
+        legs["window0_repeat"]["loss_diff_vs_window0"] <= RESUME_SPREAD
+        and legs["window0_repeat"]["weight_diff_vs_window0"]
+        <= RESUME_SPREAD)
+    checks["window2_equals_window0"] = (
+        legs["window2"]["loss_diff_vs_window0"] <= RESUME_SPREAD
+        and legs["window2"]["weight_diff_vs_window0"] <= RESUME_SPREAD)
+    want_rest = ref[0][RESUME_AT:]
+    del ref
+    torch.cuda.empty_cache()
+
+    # -- leg 2: checkpoint at step 3 in both formats, restore, continue ----
+    _resume_window(None)
+    model.load_state_dict(start)
+    del start
+    step = new_step(model)
+    dirs = {"format1": os.path.join(root, "format1"),
+            "format2": os.path.join(root, "format2")}
+    ckpts = {"format1": checkpoint.AsyncCheckpointer(
+                 dirs["format1"], save_every=RESUME_AT, keep=1),
+             "format2": checkpoint.AsyncCheckpointer(
+                 dirs["format2"], save_every=RESUME_AT, keep=1,
+                 sharded=True)}
+    saves = {}
+    for i in range(RESUME_AT):
+        step.step(*batch)
+        if i + 1 == RESUME_AT:
+            step.drain()  # the snapshot's copies then wait on nothing
+            torch.cuda.synchronize()
+        for fmt, ck in ckpts.items():
+            t0 = time.perf_counter()
+            saved = ck.step(step)
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            if saved:
+                d = os.path.join(dirs[fmt], f"step-{RESUME_AT}")
+                saves[fmt] = {
+                    "snapshot_d2h_ms": (t1 - t0) * 1e3,
+                    "write_s": t2 - t1,
+                    "bytes": sum(os.path.getsize(os.path.join(d, f))
+                                 for f in os.listdir(d)),
+                    "files": sorted(os.listdir(d))}
+    for ck in ckpts.values():
+        ck.close()
+    saved_state = step.state_dict()
+    checks["saved_both_formats"] = sorted(saves) == ["format1", "format2"]
+    checks["format1_has_opt_state"] = "opt_state.nd" in saves.get(
+        "format1", {}).get("files", [])
+    del step, model
+    torch.cuda.empty_cache()
+    resumed = {}
+    for k, fmt in enumerate(("format1", "format2")):
+        t0 = time.perf_counter()
+        fresh = bert_base(BERT_VOCAB, dropout=0.0,
+                          generator=torch.Generator().manual_seed(
+                              SEED + 16 + k))
+        step = new_step(fresh)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        at = checkpoint.restore(dirs[fmt], step)
+        restore_s = time.perf_counter() - t0
+        same_keys, state_diff = _state_diff(step.state_dict(), saved_state)
+        counted = _det_zero_counters()
+        losses, depths, _ = _resume_run(torch, step, batch,
+                                        RESUME_STEPS - RESUME_AT)
+        launches = {n: fn.launches for n, fn in counted.items()}
+        # a Gluon forward after sync_to_block against the step's forward
+        step.sync_to_block()
+        small = tokens[:RESUME_GLUON_BATCH[0], :RESUME_GLUON_BATCH[1]]
+        with torch.no_grad():
+            fresh.eval()
+            want = fresh(small)
+        got = fresh(nd.array(small.cpu().numpy(), ctx=dev, dtype=np.int32))
+        gluon_diff = _resume_diff([got._data], [want])
+        resumed[fmt] = {
+            "restored_step": at, "model_build_s": build_s,
+            "restore_s": restore_s, "state_keys_equal": same_keys,
+            "state_diff": state_diff, "losses_4_6": losses,
+            "loss_diff_vs_window0": _resume_diff(losses, want_rest),
+            "inflight_depths": depths, "launches": launches,
+            "gluon_forward_diff": gluon_diff}
+        checks[f"{fmt}_restored"] = bool(
+            at == RESUME_AT and same_keys and state_diff == 0.0
+            and resumed[fmt]["loss_diff_vs_window0"] <= RESUME_SPREAD
+            and launches_ok(launches, RESUME_STEPS - RESUME_AT)
+            and gluon_diff == 0.0)
+        del step, fresh, got, want
+        torch.cuda.empty_cache()
+    del saved_state
+
+    # -- leg 3: the Trainer's and the Module's windows ---------------------
+    data = nd.array(tokens_np, ctx=dev, dtype=np.int32)
+    label = nd.array(tokens_np.astype(np.float32), ctx=dev)
+    mx.random.seed(SEED)
+    net = bert_base(BERT_VOCAB, dropout=0.0, init_weights=False)
+    net.initialize(mx.init.Normal(0.02), ctx=dev)
+    net.hybridize()
+    params = net.collect_params()
+    init = {k: p._reduce().clone() for k, p in params.items()}
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    loops = {}
+    for window in (0, None):
+        _resume_window(window)
+        for k, p in params.items():
+            p.set_data(init[k])
+        trainer = gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+        handles, depths = [], []
+        for _ in range(RESUME_LOOP_STEPS):
+            with autograd.record():
+                loss = _gluon_mlm(net, loss_fn, data, label)
+            loss.backward()
+            trainer.step(n_tok)
+            handles.append(loss.mean())
+            depths.append(0 if trainer._inflight is None
+                          else trainer._inflight.depth)
+        trainer.drain()
+        loops[f"trainer_window{2 if window is None else 0}"] = {
+            "losses": [float(h.asscalar()) for h in handles],
+            "inflight_depths": depths, "fences": trainer._inflight
+            is not None}
+        del trainer, handles, loss
+    del net, params, init
+    torch.cuda.empty_cache()
+    src = bert_base(BERT_VOCAB, dropout=0.0,
+                    generator=torch.Generator().manual_seed(SEED + 15))
+    path = os.path.join(build, f"train_resume_module-{os.getpid()}")
+    src.export(path, 0)
+    del src
+    body = mx.sym.load(f"{path}-symbol.json")
+    arg, aux = mx.model.load_params(path, 0)
+    for suffix in ("-symbol.json", "-0000.params"):
+        os.remove(path + suffix)
+    flat = nd.array(tokens_np.reshape(-1).astype(np.float32), ctx=dev)
+    mbatch = mx.io.DataBatch([data], [flat])
+    for window in (0, None):
+        _resume_window(window)
+        mod = _mlm_module(mx, body, dev, TRAIN_BATCH, TRAIN_LEN)
+        mod.init_params(arg_params=arg, aux_params=aux)
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": 1e-4})
+        handles, depths = [], []
+        for _ in range(RESUME_LOOP_STEPS):
+            mod.forward_backward(mbatch)
+            mod.update()
+            handles.append(_softmax_loss(torch, mod.get_outputs()[0], flat))
+            ring = getattr(mod, "_inflight", None)
+            depths.append(0 if ring is None else ring.depth)
+        mod.drain()
+        loops[f"module_window{2 if window is None else 0}"] = {
+            "losses": [float(h) for h in handles],
+            "inflight_depths": depths,
+            "fences": getattr(mod, "_inflight", None) is not None}
+        del mod, handles
+        torch.cuda.empty_cache()
+    for kind in ("trainer", "module"):
+        w0, w2 = loops[f"{kind}_window0"], loops[f"{kind}_window2"]
+        diff = _resume_diff(w0["losses"], w2["losses"])
+        loops[f"{kind}_loss_diff"] = diff
+        checks[f"{kind}_windows"] = bool(
+            diff <= RESUME_SPREAD and not w0["fences"] and w2["fences"]
+            and max(w2["inflight_depths"]) == 2
+            and all(math.isfinite(x) for x in w0["losses"]))
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return {"model": "bert_base", "vocab": BERT_VOCAB, "init_s": init_s,
+            "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "optimizer": "adam",
+            "learning_rate": 1e-4, "steps": RESUME_STEPS,
+            "checkpoint_at": RESUME_AT, "spread_allowed": RESUME_SPREAD,
+            "window_legs": legs, "saves": saves, "resumed": resumed,
+            "loops": loops, "max_memory_allocated_gb": peak,
+            "launches": ctx["launches"]["train_resume"],
+            "launches_expected": {n: k * RESUME_STEPS
+                                  for n, k in per_step.items()},
+            "checks": checks, "card": ctx["smi"],
+            "ok": all(checks.values())}
 
 
 def _lb_sentences(seed):
@@ -6706,6 +7066,7 @@ def phase_module_lstm_bucketing(torch, ctx):
         good = bool(len(rows) >= 60
                     and {r["bucket"] for r in rows} == set(LB["buckets"])
                     and all(math.isfinite(p) for p in ppl) and last < first
+                    and last < LB_PPL_BOUND
                     and not any(launches.values()))
         ok = ok and good
         res[name] = {"batches": len(rows), "wall_s": wall,
@@ -6714,6 +7075,7 @@ def phase_module_lstm_bucketing(torch, ctx):
                      "per_bucket": _lb_rates(rows),
                      "perplexity_first10_mean": first,
                      "perplexity_last10_mean": last,
+                     "perplexity_last10_bound": LB_PPL_BOUND,
                      "perplexity_by_batch": ppl, "launches": launches,
                      "profile_4_batches": prof, "ok": good}
         del mod
@@ -6892,6 +7254,7 @@ def main() -> int:
               ("rnn_variants", phase_rnn_variants),
               ("op_catalog", phase_op_catalog),
               ("module_bert", phase_module_bert),
+              ("train_resume", phase_train_resume),
               ("module_lstm_bucketing", phase_module_lstm_bucketing),
               ("symbol_api", phase_symbol_api))
     for name, fn in phases:

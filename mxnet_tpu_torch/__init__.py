@@ -1,7 +1,9 @@
 """mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu.
 
-Mirrors the JAX package's layout (``base``, ``context``, ``nd``,
-``autograd``, ``passes``, ``gluon``, ``init``, ``metric``, ``random``,
+Mirrors the JAX package's layout (``base``, ``context`` with ``Context``,
+``current_context``, ``cpu_pinned`` and ``num_gpus``, ``engine`` and
+``waitall``, ``nd`` / ``NDArray``, ``autograd``, ``passes``,
+``precision``, ``contrib``, ``parallel``, ``lr_scheduler``, ``KVStore``, ``gluon``, ``init``, ``metric``, ``random``,
 ``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``,
 ``recordio``, ``image``, ``io``, the runtime services ``telemetry``,
 ``memwatch``, ``metrics_server``, ``checkpoint``, ``fault``, and the
@@ -15,7 +17,8 @@ randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
 kernels become hand-written CUDA C++ kernels for Hopper (``csrc/``), built
 on first use by ``ops.kernels._build``.
 
-Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``;
+Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``
+(or ``ctx=mx.cpu()``, or runs inside ``with mx.cpu():``);
 on a CPU tensor every kernel wrapper runs its plain PyTorch version.
 The package imports ``torch``, numpy and the standard library only.
 With ``MX_TELEMETRY_DIR`` set the telemetry recorder writes there from
@@ -23,17 +26,27 @@ import on; with ``MX_METRICS_PORT`` set the metrics endpoint starts at
 import, as in the JAX package.
 """
 from .base import MXNetError
-from .context import cpu, default_device, gpu
+from .context import (Context, cpu, cpu_pinned, current_context,
+                      default_device, gpu, num_gpus)
+from . import engine
 from . import autograd
+from . import ndarray
 from . import ndarray as nd
+from .ndarray import NDArray
 from . import optimizer
+from .optimizer import lr_scheduler
 from . import random
 from . import initializer
 from . import initializer as init
 from . import metric
 from . import kvstore
 from . import kvstore as kv
+from .kvstore import KVStore
 from . import gluon
+from . import parallel
+from . import precision
+from . import passes
+from . import contrib
 from . import telemetry
 from . import memwatch
 from . import metrics_server
@@ -60,12 +73,19 @@ from . import rnn
 from . import visualization
 from . import visualization as viz
 
-__all__ = ["MXNetError", "cpu", "gpu", "default_device", "nd", "autograd",
-           "optimizer", "random", "initializer", "init", "metric", "kvstore",
-           "kv", "gluon", "telemetry", "memwatch", "metrics_server",
+__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
+           "current_context", "num_gpus", "default_device", "engine",
+           "waitall", "ndarray", "nd", "NDArray", "autograd", "optimizer",
+           "lr_scheduler", "random", "initializer", "init", "metric",
+           "kvstore", "kv", "KVStore", "gluon", "parallel", "precision",
+           "passes", "contrib", "telemetry", "memwatch", "metrics_server",
            "checkpoint", "fault", "recordio", "image", "io", "models",
            "name", "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "subgraph", "model", "callback", "monitor", "Monitor", "module",
            "mod", "rnn", "visualization", "viz"]
 
 metrics_server.maybe_start()
+
+
+def waitall():
+    engine.wait_all()

@@ -26,11 +26,17 @@ Parameters are keyed by structural names
 (``encoder.layers.0.attn.qkv.weight``), in Gluon's layouts and dtypes,
 which both packages' Blocks share.  The
 optimizer states of a ``gluon.Trainer`` go through its ``save_states``
-bytes (the JAX package's pickle of numpy states).  ``meta.json``'s
+bytes (the JAX package's pickle of numpy states).  A target with
+``state_dict``, ``load_state_dict`` and ``layout`` (a
+``DataParallelStep``) is saved from its ``state_dict``: its optimizer
+slots (``mom.*``, ``mean.*``, ``var.*``, ``t``, ``amp.*``) go to
+``opt_state.nd`` and its ``layout()`` (with the optimizer's name) to
+``meta.json`` in format 1, and through its ``shard_state_dict`` in format
+2; ``restore`` hands the loaded state to its ``load_state_dict``.  Such
+checkpoints cross packages both ways with their slots.  ``meta.json``'s
 ``rng`` (the JAX package's PRNG key) is left null by the port, which
 records torch's generator states under ``torch_rng`` instead; seeds do
-not carry across the packages.  ``DataParallelStep`` targets (their
-optimizer slots and layouts) are not ported yet (ROADMAP A.6).
+not carry across the packages.
 """
 from __future__ import annotations
 
@@ -74,6 +80,14 @@ def _shard_wait_s() -> float:
         return 60.0
 
 
+def _is_step_target(obj) -> bool:
+    """Whether ``obj`` is a step-like target (``DataParallelStep``): it
+    owns its state (``state_dict`` / ``load_state_dict``) and describes
+    its placement (``layout``)."""
+    return (hasattr(obj, "state_dict") and hasattr(obj, "load_state_dict")
+            and hasattr(obj, "layout"))
+
+
 def _params_of(net_or_params) -> dict:
     """Structural name -> Parameter of a Block, or the dict given."""
     if hasattr(net_or_params, "_collect_params_with_prefix"):
@@ -89,8 +103,11 @@ def _snapshot_params(net_or_params) -> Dict[str, torch.Tensor]:
             for name, p in _params_of(net_or_params).items()}
 
 
-def _host_view(t: torch.Tensor) -> np.ndarray:
-    """A numpy view of a CPU tensor's bytes (bfloat16 through int16)."""
+def _host_view(t) -> np.ndarray:
+    """A numpy view of a CPU tensor's bytes (bfloat16 through int16), or
+    the numpy array itself."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()
@@ -131,8 +148,9 @@ class AsyncCheckpointer:
             ckpt.step(net, trainer=trainer)
         ckpt.close()
 
-    ``params`` is a Gluon Block (structural names) or a dict of
-    Parameters.  A new checkpointer on a non-empty directory continues
+    ``params`` is a Gluon Block (structural names), a dict of
+    Parameters, or a ``DataParallelStep`` (its parameters, optimizer slots
+    and layout).  A new checkpointer on a non-empty directory continues
     the step numbering from the newest step on disk; ``initial_step``
     overrides it (and drops the step directories above it).
     ``writer=False`` makes this process a non-writing member of a group
@@ -268,8 +286,8 @@ class AsyncCheckpointer:
     # ------------------------------------------------------------------
     def _snap(self, params, trainer, extra) -> dict:
         """The writer's work item: host params (format 1) or this rank's
-        shard state (format 2), trainer states, the RNG states."""
-        host = _snapshot_params(params)
+        shard state (format 2), a step's optimizer slots and layout,
+        trainer states, the RNG states."""
         snap = {
             "step": self._step,
             "trainer": (self._trainer_states(trainer)
@@ -277,6 +295,19 @@ class AsyncCheckpointer:
             "rng": _rng_state(),
             "extra": extra or {},
         }
+        if _is_step_target(params):
+            layout = params.layout()
+            if self.sharded:
+                state = params.shard_state_dict()
+                snap["sharded"] = state
+            else:
+                state = params.state_dict()
+                snap["params"] = state["params"]
+                snap["opt"] = state.get("opt_state")
+            layout["optimizer"] = state.get("optimizer")
+            snap["layout"] = layout
+            return snap
+        host = _snapshot_params(params)
         if self.sharded:
             snap["sharded"] = _block_shard_state(host, telemetry.rank())
             snap["layout"] = _block_layout(host)
@@ -334,6 +365,11 @@ class AsyncCheckpointer:
         digests = {}
         nd_utils.save(os.path.join(tmp, "params.nd"), snap["params"])
         digests["params.nd"] = _sha256_file(os.path.join(tmp, "params.nd"))
+        if snap.get("opt") is not None:
+            # a step target's optimizer slots, host copies like the params
+            nd_utils.save(os.path.join(tmp, "opt_state.nd"), snap["opt"])
+            digests["opt_state.nd"] = _sha256_file(
+                os.path.join(tmp, "opt_state.nd"))
         if snap["trainer"] is not None:
             with open(os.path.join(tmp, "trainer.states"), "wb") as f:
                 f.write(snap["trainer"])
@@ -344,6 +380,9 @@ class AsyncCheckpointer:
         # parseable meta whose digests verify is a valid checkpoint
         meta = {"step": step, "rng": None, "torch_rng": snap["rng"],
                 "extra": snap["extra"], "digests": digests}
+        if snap.get("layout") is not None:
+            meta["layout"] = snap["layout"]
+            meta["world_size"] = snap["layout"].get("world_size")
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
         self._publish(step, tmp, final)
@@ -506,10 +545,13 @@ def _queued_snapshot_arrays(ckpt):
     for snap in items:
         if isinstance(snap, dict):
             out.extend(_host_view(t) for t in snap.get("params", {}).values())
+            out.extend(_host_view(t)
+                       for t in (snap.get("opt") or {}).values())
             sharded = snap.get("sharded")
             if sharded:
-                for payloads in sharded.get("params", {}).values():
-                    out.extend(_host_view(a) for _, a in payloads)
+                for section in ("params", "opt_state"):
+                    for payloads in sharded.get(section, {}).values():
+                        out.extend(_host_view(a) for _, a in payloads)
     return out
 
 
@@ -789,10 +831,17 @@ def restore(directory: str, net, trainer=None,
             step: Optional[int] = None) -> int:
     """Apply the newest valid checkpoint (or exactly ``step=N``) to
     ``net`` (structural names) and ``trainer``.  Returns the restored
-    step (0 when no valid checkpoint exists)."""
+    step (0 when no valid checkpoint exists).  ``net`` may be a
+    ``DataParallelStep``: its parameters and optimizer slots go through
+    its ``load_state_dict`` with the saved layout."""
     state = load_checkpoint_state(directory, step=step)
     if state is None:
         return 0
+    if _is_step_target(net):
+        net.load_state_dict({"params": state["params"],
+                             "opt_state": state["opt_state"] or {}},
+                            saved_layout=state.get("layout"))
+        return state["step"]
     for name, p in _params_of(net).items():
         if name not in state["params"]:
             raise MXNetError(f"checkpoint missing parameter {name}")

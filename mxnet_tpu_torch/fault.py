@@ -307,10 +307,27 @@ def install_preemption_handler(ckpt, params, trainer=None,
     step=latest_valid_step(dir, multiple_of=save_every))`` — and treat the
     off-cycle checkpoint as a freshest-effort snapshot.
 
+    ``params`` is what ``ckpt.step`` takes: a Block, a dict of
+    Parameters, or a ``DataParallelStep``.  The handler first drains
+    every in-flight window (``parallel.async_loss.drain_all``), so a
+    pending step lands before the snapshot reads it and a deferred
+    failure does not pass for a checkpoint error.
+
     Returns the installed handler (mainly for tests)."""
+    # bound outside the handler: even `import sys` re-enters the import
+    # machinery (and its lock) when run inside a signal handler
+    import sys as _sys
+
     def _handler(signum, frame):
-        # the port has no in-flight ring to drain (ROADMAP A.6): the
-        # snapshot's host copies wait for the device work they read
+        # sys.modules lookup, not import: if the async layer was never
+        # imported nothing can be pending, and a signal handler must not
+        # run fresh imports
+        _async = _sys.modules.get("mxnet_tpu_torch.parallel.async_loss")
+        if _async is not None:
+            try:
+                _async.drain_all()
+            except BaseException:  # noqa: BLE001 — dying anyway
+                pass
         step = None
         try:
             step = ckpt.save_now(params, trainer=trainer)

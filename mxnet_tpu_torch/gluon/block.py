@@ -10,8 +10,12 @@ the module's own tensors.  It carries what Gluon's ``Block`` adds:
   * ``initialize``, ``save_parameters`` / ``load_parameters`` (structural
     names, ``_collect_params_with_prefix``; the file keeps Gluon's
     layouts), ``save_params`` / ``load_params`` (full names), ``cast``,
-    ``register_child`` and ``hybridize``.  Forward hooks are torch's
-    (``register_forward_hook(hook(block, args, out))``, Gluon's signature).
+    ``register_child`` and ``hybridize``.  Forward hooks keep Gluon's
+    signatures (``register_forward_pre_hook(hook(block, args))``,
+    ``register_forward_hook(hook(block, args, out))``) and run as
+    torch's; inside a call with NDArrays they get NDArrays, on the block
+    and on every block below it, as the JAX hooks do (their return value
+    is then ignored, as there).
 
 Two call conventions share the class:
 
@@ -52,6 +56,7 @@ were Gluon blocks used it, and still may).
 """
 from __future__ import annotations
 
+import functools
 import re
 import threading
 from collections import OrderedDict
@@ -165,6 +170,24 @@ def _arrays_in(x):
     if isinstance(x, (list, tuple)):
         return [a for v in x for a in _arrays_in(v)]
     return []
+
+
+# how deep this thread is in calls made with NDArrays: the hooks of the
+# blocks run inside one get NDArrays
+_nd_call = threading.local()
+
+
+def _gluon_hook(hook):
+    """``hook`` as a torch hook: inside an NDArray call it gets NDArrays
+    (the children are called with tensors), outside it is torch's."""
+    @functools.wraps(hook)
+    def run(module, *rest):
+        if getattr(_nd_call, "depth", 0):
+            hook(module, *(_wrap(r) for r in rest))
+            return None
+        return hook(module, *rest)
+
+    return run
 
 
 def _has_nd(args, kwargs) -> bool:
@@ -340,6 +363,14 @@ class Block(nn.Module):
         for child in _blocks_below(self):
             child.hybridize(active, **kwargs)
 
+    def register_forward_pre_hook(self, hook, *args, **kwargs):
+        return super().register_forward_pre_hook(_gluon_hook(hook), *args,
+                                                 **kwargs)
+
+    def register_forward_hook(self, hook, *args, **kwargs):
+        return super().register_forward_hook(_gluon_hook(hook), *args,
+                                             **kwargs)
+
     # ------------------------------------------------------------------
     def __call__(self, *args, **kwargs):
         if args and isinstance(args[0], Symbol):
@@ -372,9 +403,13 @@ class Block(nn.Module):
                                                 + list(kwargs.values())))
         targs = [_unwrap(a) for a in args]
         tkwargs = {k: _unwrap(v) for k, v in kwargs.items()}
-        with torch.set_grad_enabled(recording):
-            out = (self._run(targs, tkwargs) if run is None
-                   else run(*targs, **tkwargs))
+        _nd_call.depth = getattr(_nd_call, "depth", 0) + 1
+        try:
+            with torch.set_grad_enabled(recording):
+                out = (self._run(targs, tkwargs) if run is None
+                       else run(*targs, **tkwargs))
+        finally:
+            _nd_call.depth -= 1
         return _wrap(out)
 
     def _leaf_params(self) -> List[Parameter]:

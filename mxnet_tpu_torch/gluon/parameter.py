@@ -44,7 +44,7 @@ from torch import nn
 from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from ..base import MXNetError, tensor_from_numpy
-from ..context import default_device
+from ..context import default_device, resolve_device
 from ..ndarray.ndarray import NDArray, dtype_torch
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
@@ -77,7 +77,7 @@ def one_device(ctx) -> torch.device:
                 f"{len(ctx)}: {list(ctx)}; multi-device Parameters wait "
                 "for ROADMAP A.9")
         ctx = ctx[0]
-    dev = torch.device(ctx)
+    dev = resolve_device(ctx)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
@@ -99,6 +99,7 @@ class _View(NDArray):
 
     def __init__(self, param: "Parameter"):
         self._param = param
+        self._version = 0
         self._grad = None
         self._grad_req = "write"
 
@@ -112,6 +113,7 @@ class _View(NDArray):
 
     def __setstate__(self, state):
         self._grad, self._grad_req = state
+        self._version = 0
 
     @property
     def _data(self):
@@ -128,6 +130,7 @@ class _View(NDArray):
     def _set_data(self, new: torch.Tensor) -> None:
         with torch.no_grad():
             self._tensor().copy_(new)
+        self._version += 1
 
 
 class _DataView(_View):

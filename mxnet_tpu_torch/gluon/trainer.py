@@ -22,12 +22,17 @@ the Parameters (the optimizer's ``param_dict``).
 Under ``contrib.amp``, ``init_trainer`` sets ``_amp_loss_scaler`` and
 ``scale_loss`` sets ``_scale`` to the inverse loss scale, which the
 rescale above divides back out.
-Each ``step`` ends with the JAX Trainer's service hooks: a ``step`` event
-(``telemetry.record_step``, the host wall of the call; the first step is
-marked ``traced``), a heartbeat, and ``memwatch.on_step``.  Not ported:
-the in-flight ring (ROADMAP A.6) and more than one device (A.9);
-``ignore_stale_grad`` is accepted and, as in the JAX package, not
-checked.
+``step`` returns without waiting for the card and keeps the host at most
+``MX_ASYNC_INFLIGHT`` (default 2) un-synced steps ahead, as the fused
+step does: each step admits a ``StepFence`` (an event behind the update
+on the parameters' card) to the Trainer's ``InflightRing``, and a step
+past the window first waits on the oldest.  ``MX_ASYNC_INFLIGHT=0`` makes
+no fence; ``drain`` forces the window.  Each ``step`` ends with the JAX
+Trainer's service hooks: a ``step`` event (``telemetry.record_step``, the
+host wall of the call, ``inflight_depth`` and ``block_wait_ms``; the
+first step is marked ``traced``), a heartbeat, and ``memwatch.on_step``.
+Not ported: more than one device (A.9); ``ignore_stale_grad`` is accepted
+and, as in the JAX package, not checked.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from ..base import MXNetError
 from .. import kvstore as kvs_mod
 from .. import memwatch, telemetry
 from .. import optimizer as opt_mod
+from ..parallel.async_loss import InflightRing, StepFence, inflight_limit
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -77,6 +83,7 @@ class Trainer:
         self._update_on_kvstore = None
         self._updaters = None
         self._step_count = 0
+        self._inflight = None
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -133,14 +140,27 @@ class Trainer:
     # ------------------------------------------------------------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:
         """Rescale the gradients by 1 / ``batch_size``, reduce them and
-        update the weights."""
+        update the weights, within the in-flight window."""
         t0 = time.perf_counter()
+        limit = inflight_limit()
+        block_wait_s = 0.0
+        if limit > 0:
+            if self._inflight is None:
+                self._inflight = InflightRing("Trainer")
+            block_wait_s = self._inflight.make_room(limit)
         if not self._kv_initialized:
             self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._allreduce_grads()
         self._update(ignore_stale_grad)
         self._step_count += 1
+        depth = 0
+        if limit > 0:
+            fence = StepFence(
+                [p.data() for _i, p in self._live() if p._inited],
+                step=self._step_count, executor="Trainer",
+                ring=self._inflight)
+            depth = self._inflight.admit(fence)
         if telemetry.enabled():
             # the first step pays the kvstore and updater set-up: keep it
             # out of the steady-state aggregates
@@ -148,10 +168,17 @@ class Trainer:
                                   wall_s=time.perf_counter() - t0,
                                   samples=int(batch_size),
                                   traced=self._step_count == 1,
-                                  inflight_depth=0, block_wait_ms=0.0)
+                                  inflight_depth=depth,
+                                  block_wait_ms=round(block_wait_s * 1e3, 3))
             telemetry.heartbeat(self._step_count)
         # memory watchdog step boundary, after the dispatches
         memwatch.on_step(self._step_count)
+
+    def drain(self) -> None:
+        """Wait until every in-flight update has landed in the parameters
+        (epoch end, before a checkpoint)."""
+        if self._inflight is not None:
+            self._inflight.drain()
 
     def allreduce_grads(self) -> None:
         if not self._kv_initialized:

@@ -163,6 +163,11 @@ class BaseModule:
                                           locals=locals())
                     for cb in _as_list(batch_end_callback):
                         cb(param)
+            drain = getattr(self, "drain", None)
+            if drain is not None:
+                # the epoch's end lands every in-flight update (and
+                # surfaces a deferred failure) before params are read
+                drain()
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

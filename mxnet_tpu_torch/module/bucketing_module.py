@@ -2,7 +2,9 @@
 of ``mxnet_tpu/module/bucketing_module.py``).  One ``Module`` per bucket
 key, made by ``sym_gen(key)`` on the first batch of that key; every bucket
 binds the default bucket's parameter, gradient and aux NDArrays (the same
-objects), so an update through any bucket is seen by all.
+objects), so an update through any bucket is seen by all.  Each bucket's
+Module keeps its own in-flight window; ``drain`` drains them all (the JAX
+BucketingModule has no ``drain``, so its ``fit`` does not drain).
 """
 from __future__ import annotations
 
@@ -120,6 +122,12 @@ class BucketingModule(BaseModule):
 
     def update(self):
         self._curr_module.update()
+
+    def drain(self) -> None:
+        """Wait until every bucket module's in-flight updates have
+        landed (each bucket's Module keeps its own window)."""
+        for mod in self._buckets.values():
+            mod.drain()
 
     def get_outputs(self, merge_multi_context=True):
         return self._curr_module.get_outputs()

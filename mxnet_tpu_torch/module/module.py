@@ -11,13 +11,13 @@ attribute (an ``mx.rnn`` LSTM's forget-gate bias), else from
 bound arrays in place.  ``update`` hands every (index, gradient, weight)
 to the updater of ``optimizer.get_updater``: ``FusedUpdater.apply`` (one
 multi-tensor call per group) unless ``MX_FUSED_UPDATE=0`` pins the
-per-parameter updater.  ``save_checkpoint`` / ``load`` are ``model``'s
-files, with the optimizer states beside them.
-
-Departure: the JAX ``update`` keeps the host at most ``MX_ASYNC_INFLIGHT``
-steps ahead of the device through an in-flight ring
-(``parallel.async_loss``); the port has no ring yet (ROADMAP A.6), so it
-runs with no window, as the JAX Module does with the window at 0.
+per-parameter updater.  ``update`` keeps the host at most
+``MX_ASYNC_INFLIGHT`` (default 2) un-synced updates ahead of the card: it
+admits a ``StepFence`` to the module's ``InflightRing`` after each update
+and, past the window, first waits on the oldest (0 makes no fence);
+``drain`` forces the window, and ``fit`` drains at each epoch's end.
+``save_checkpoint`` / ``load`` are ``model``'s files, with the optimizer
+states beside them.
 """
 from __future__ import annotations
 
@@ -206,6 +206,14 @@ class Module(BaseModule):
     def update(self):
         if not self.optimizer_initialized:
             raise MXNetError("call init_optimizer before update")
+        from ..parallel.async_loss import (InflightRing, StepFence,
+                                           inflight_limit)
+
+        limit = inflight_limit()
+        if limit > 0:
+            if getattr(self, "_inflight", None) is None:
+                self._inflight = InflightRing("Module")
+            self._inflight.make_room(limit)
         entries = []
         for i, name in enumerate(self._param_names):
             grad = self._exec.grad_dict.get(name)
@@ -228,6 +236,18 @@ class Module(BaseModule):
         else:
             for i, grad, weight in entries:
                 self._updater(i, grad, weight)
+        if limit > 0 and entries:
+            self._update_count = getattr(self, "_update_count", 0) + 1
+            self._inflight.admit(StepFence(
+                [w for _i, _g, w in entries], step=self._update_count,
+                executor="Module", ring=self._inflight))
+
+    def drain(self) -> None:
+        """Wait until every in-flight update has landed (before a
+        checkpoint, at the end of ``fit``'s epoch)."""
+        ring = getattr(self, "_inflight", None)
+        if ring is not None:
+            ring.drain()
 
     def get_outputs(self, merge_multi_context=True):
         return self._exec.outputs

@@ -12,8 +12,9 @@ random ops themselves stay out of ``nd``, as in the JAX package.
 from the device's generator; the ufuncs (``add``, ``subtract``, ...,
 ``equal``, ``logical_xor``, ``power``, ``hypot``) take arrays or
 scalars.  ``save`` / ``load`` are the file format of
-``ndarray/utils.py``.  Arrays are created on the card (``cuda:0``) unless
-``ctx`` says otherwise, and creation raises without a card.
+``ndarray/utils.py``.  ``waitall`` is ``engine.wait_all``.  Arrays are
+created on the card (``cuda:0``) unless ``ctx`` (or a ``with`` Context
+scope) says otherwise, and creation raises without a card.
 """
 from __future__ import annotations
 
@@ -21,9 +22,11 @@ import inspect
 
 import torch
 
+from .. import engine as _engine
 from .. import ops as _ops  # noqa: F401  (registers the ops)
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import (Context, current_context,  # noqa: F401
+                       resolve_device)
 from ..ops import registry as _reg
 from .ndarray import NDArray, array, dtype_torch
 from .utils import load, save, save_legacy
@@ -33,7 +36,11 @@ from . import random  # noqa: F401  (nd.random namespace)
 from .random import _dtname
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "eye", "linspace", "save", "load", "save_legacy"]
+           "eye", "linspace", "save", "load", "save_legacy", "waitall"]
+
+
+def waitall():
+    _engine.wait_all()
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs) -> NDArray:

@@ -1,11 +1,11 @@
 """NDArray: the imperative n-dimensional array, over a torch tensor.
 
 Counterpart of ``mxnet_tpu/ndarray/ndarray.py``.  An NDArray owns a torch
-tensor on one device (its ``context``, a ``torch.device``).  Mutation
-(``copyto`` into an array, ``out=``) swaps the tensor in, as the JAX
-package swaps its immutable buffers.  Arithmetic and methods go through
-the op registry, so they are recorded by ``autograd`` and seen by the
-pass pipeline like any op.
+tensor on one device (its ``context``, a ``Context`` equal to the tensor's
+``torch.device``).  Mutation (``copyto`` into an array, ``out=``) swaps
+the tensor in, as the JAX package swaps its immutable buffers, and bumps
+``version``.  Arithmetic and methods go through the op registry, so they
+are recorded by ``autograd`` and seen by the pass pipeline like any op.
 
 ``wait_to_read`` and ``asnumpy`` block on the device, like MXNet's
 engine waits.
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from ..context import Context, resolve_device
 from ..ops import registry as _reg
 
 __all__ = ["NDArray", "array", "dtype_torch"]
@@ -43,14 +44,18 @@ def dtype_torch(dtype) -> torch.dtype:
 
 
 class NDArray:
-    __slots__ = ("_data", "_ctx", "_grad", "_grad_req", "__weakref__")
+    __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req",
+                 "__weakref__")
 
     # numpy should defer to our reflected dunders
     __array_priority__ = 1000.0
 
-    def __init__(self, data: torch.Tensor, ctx: Optional[torch.device] = None):
+    def __init__(self, data: torch.Tensor, ctx=None):
         self._data = data
-        self._ctx = torch.device(ctx) if ctx is not None else data.device
+        self._ctx = (data.device if ctx is None
+                     else ctx if type(ctx) is torch.device
+                     else resolve_device(ctx))
+        self._version = 0
         self._grad = None
         self._grad_req = "write"
 
@@ -81,10 +86,23 @@ class NDArray:
         return self._data.dim()
 
     @property
-    def context(self) -> torch.device:
-        return self._ctx
+    def context(self) -> Context:
+        return Context.from_device(self._ctx)
 
     ctx = context
+
+    @property
+    def stype(self) -> str:
+        return "default"
+
+    @property
+    def T(self) -> "NDArray":
+        return self.transpose()
+
+    @property
+    def version(self) -> int:
+        """How many times the array's contents were swapped or written."""
+        return self._version
 
     @property
     def grad(self) -> Optional["NDArray"]:
@@ -105,6 +123,7 @@ class NDArray:
         if self._grad is not None:
             new = new.detach().requires_grad_(True)
         self._data = new
+        self._version += 1
 
     # ------------------------------------------------------------------
     # host transfer / sync
@@ -135,19 +154,22 @@ class NDArray:
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 
+    def wait_to_write(self) -> None:
+        self.wait_to_read()
+
     # ------------------------------------------------------------------
     # device movement
     # ------------------------------------------------------------------
     def copyto(self, other) -> "NDArray":
         """A copy on device ``other``, or into the NDArray ``other``."""
         if isinstance(other, NDArray):
-            other._set_data(self._data.detach().to(other.context, copy=True))
+            other._set_data(self._data.detach().to(other._ctx, copy=True))
             return other
-        dev = torch.device(other)
+        dev = resolve_device(other)
         return NDArray(self._data.detach().to(dev, copy=True), ctx=dev)
 
     def as_in_context(self, ctx) -> "NDArray":
-        dev = torch.device(ctx)
+        dev = resolve_device(ctx)
         if dev == self._ctx:
             return self
         return NDArray(self._data.detach().to(dev), ctx=dev)
@@ -294,6 +316,16 @@ class NDArray:
     def copy(self) -> "NDArray":
         return self.copyto(self._ctx)
 
+    def tostype(self, stype: str) -> "NDArray":
+        """``"default"`` is this array; the sparse storage types raise
+        until ``nd.sparse`` is ported (ROADMAP A.7)."""
+        if stype == "default":
+            return self
+        if stype in ("row_sparse", "csr"):
+            raise MXNetError(f"storage type {stype!r} needs nd.sparse, "
+                             "which the port does not have yet")
+        raise MXNetError(f"unknown storage type {stype!r}")
+
     def __hash__(self):
         return id(self)
 
@@ -335,8 +367,6 @@ def array(source, ctx=None, dtype=None) -> NDArray:
     """An NDArray from array-like ``source`` on ``ctx`` (default: the
     card, ``cuda:0``, raising without one; pass ``ctx=mx.cpu()`` for the
     CPU).  float64 sources become float32, as in MXNet."""
-    from ..context import resolve_device
-
     dev = resolve_device(ctx)
     if isinstance(source, NDArray):
         src = source.asnumpy()

@@ -57,7 +57,8 @@ def _host(value):
         if t.dtype == torch.bfloat16:
             return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
         return str(t.dtype).replace("torch.", ""), t.numpy()
-    arr = np.ascontiguousarray(value)
+    # ascontiguousarray makes a 0-d array 1-d; the file keeps its shape
+    arr = np.ascontiguousarray(value).reshape(np.shape(value))
     if arr.dtype.name == "bfloat16":
         return "bfloat16", arr.view(np.uint16)
     return arr.dtype.name, arr
@@ -65,15 +66,16 @@ def _host(value):
 
 def _from_bytes(buf: bytes, dtype_name: str, shape, ctx) -> "NDArray":
     from ..base import tensor_from_numpy
+    from ..context import resolve_device
     from .ndarray import NDArray
 
     if dtype_name == "bfloat16":
         bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
         t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
     else:
-        t = tensor_from_numpy(np.frombuffer(buf, dtype=np.dtype(dtype_name))
-                              .reshape(shape))
-    dev = torch.device(ctx) if ctx is not None else torch.device("cpu")
+        t = tensor_from_numpy(np.frombuffer(
+            buf, dtype=np.dtype(dtype_name))).reshape(shape)  # 0-d stays
+    dev = resolve_device(ctx) if ctx is not None else torch.device("cpu")
     return NDArray(t.to(dev), ctx=dev)
 
 

@@ -81,7 +81,7 @@ def invoke(op: Operator, inputs: Sequence, out=None, ctx=None, **attrs):
 
 def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
                  **attrs):
-    from .. import autograd
+    from .. import autograd, engine
     from ..context import resolve_device
     from ..ndarray.ndarray import NDArray
 
@@ -92,7 +92,7 @@ def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
         for h in op_hooks:
             inputs = h.rewrite_inputs(op.name, inputs)
     tensors = [x._data for x in inputs]
-    ctx = inputs[0].context if inputs else resolve_device(ctx)
+    ctx = inputs[0]._ctx if inputs else resolve_device(ctx)
 
     fn = op.fn
     if op_hooks and tensors:
@@ -111,6 +111,8 @@ def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
         else:
             with torch.device(ctx):
                 outs = fn(**attrs)
+    if engine.is_naive() and ctx.type == "cuda":
+        torch.cuda.synchronize(ctx)
     if recording:
         autograd.register_leaves(inputs)
 
@@ -136,7 +138,7 @@ def invoke_fn(fn, inputs, out=None):
     from .. import autograd
     from ..ndarray.ndarray import NDArray
 
-    ctx = inputs[0].context
+    ctx = inputs[0]._ctx
     recording = autograd.is_recording()
     with torch.set_grad_enabled(recording):
         outs = fn(*[x._data for x in inputs])

@@ -31,7 +31,10 @@ import torch
 from .config import LossScaleConfig
 
 __all__ = ["init_scaler_host", "init_scaler", "grads_finite",
-           "scaler_update", "overflow_flag"]
+           "scaler_update", "overflow_flag", "SCALER_KEYS"]
+
+# checkpoint key order (state_dict writes `amp.<key>` opt_state entries)
+SCALER_KEYS = ("scale", "growth", "skipped")
 
 
 def init_scaler_host(cfg: LossScaleConfig) -> Dict[str, object]:

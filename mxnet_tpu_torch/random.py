@@ -25,8 +25,11 @@ __all__ = ["seed", "generator"]
 
 
 def generator(device="cpu") -> torch.Generator:
-    """The generator of ``device`` (a ``torch.device`` or its name)."""
-    dev = torch.device(device)
+    """The generator of ``device`` (a ``Context``, a ``torch.device`` or
+    its name)."""
+    from .context import resolve_device
+
+    dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.init()
         return torch.cuda.default_generators[

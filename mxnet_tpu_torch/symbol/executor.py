@@ -38,13 +38,13 @@ def _assign(arr, value) -> None:
     elif isinstance(value, torch.Tensor):
         t = value
     else:
-        t = array(value, ctx=arr.context, dtype=arr.dtype)._data
+        t = array(value, ctx=arr._ctx, dtype=arr.dtype)._data
     t = t.detach()
     if tuple(t.shape) == arr.shape:
         with torch.no_grad():
             arr._data.copy_(t)
     else:
-        arr._set_data(t.to(device=arr.context, dtype=arr._data.dtype))
+        arr._set_data(t.to(device=arr._ctx, dtype=arr._data.dtype))
 
 
 class Executor:

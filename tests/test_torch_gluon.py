@@ -612,3 +612,54 @@ def test_block_cast_and_custom_hybrid_forward():
     blk.cast("bfloat16")
     assert blk.w.dtype == torch.bfloat16
     assert blk.collect_params()["s_w"].dtype == "bfloat16"
+
+
+def _hook_trace(gluon, nd, ctx):
+    """What a Gluon pre-hook and hook on ``Dense(3, in_units=4)``, and a
+    hook on the second child of a ``HybridSequential``, see on a call with
+    ``nd.ones((2, 4))``: the argument and output types and the values
+    ``asnumpy`` reads inside the hooks."""
+    seen = []
+
+    def pre(block, args):
+        seen.append(("pre", type(args[0]).__name__, args[0].asnumpy()))
+
+    def post(block, args, out):
+        seen.append(("post", type(args[0]).__name__, type(out).__name__,
+                     out.asnumpy()))
+
+    dense = gluon.nn.Dense(3, in_units=4, prefix="hooked_")
+    dense.initialize(jmx.init.One() if gluon is jgluon else tmx.init.One(),
+                     **({"ctx": ctx} if ctx is not None else {}))
+    dense.register_forward_pre_hook(pre)
+    dense.register_forward_hook(post)
+    dense(nd.ones((2, 4), **({"ctx": ctx} if ctx is not None else {})))
+    seq = gluon.nn.HybridSequential(prefix="hseq_")
+    with seq.name_scope():
+        seq.add(gluon.nn.Dense(3, in_units=4), gluon.nn.Dense(2, in_units=3))
+    seq.initialize(jmx.init.One() if gluon is jgluon else tmx.init.One(),
+                   **({"ctx": ctx} if ctx is not None else {}))
+    seq[1].register_forward_hook(post)
+    seq(nd.ones((2, 4), **({"ctx": ctx} if ctx is not None else {})))
+    return seen
+
+
+def test_hooks_get_ndarrays_as_in_jax():
+    """C.5: on a call with NDArrays, a Gluon hook gets NDArrays in and out,
+    on the block and on a child of a ``HybridSequential``, as the JAX
+    hooks do; a call with torch tensors stays a torch module call, whose
+    hooks see tensors."""
+    jseen = _hook_trace(jgluon, jnd, None)
+    tseen = _hook_trace(tgluon, tnd, CPU)
+    assert [s[:-1] for s in tseen] == [s[:-1] for s in jseen] == [
+        ("pre", "NDArray"), ("post", "NDArray", "NDArray"),
+        ("post", "NDArray", "NDArray")]
+    for j, t in zip(jseen, tseen):
+        np.testing.assert_array_equal(t[-1], j[-1])
+    net = tgluon.nn.Dense(3, in_units=4, prefix="hooked_")
+    net.initialize(tmx.init.One(), ctx=CPU)
+    types = []
+    net.register_forward_hook(
+        lambda blk, args, out: types.append((type(args[0]), type(out))))
+    net(torch.ones(2, 4))
+    assert types == [(torch.Tensor, torch.Tensor)]

@@ -241,3 +241,64 @@ def test_chip_smoke_fails_alone(tmp_path):
                               if k != "PYTHONPATH"})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# JAX names the port does not have, each with what queues it in ROADMAP.md
+# (or why it has no counterpart); everything else the JAX namespaces
+# export, the port's export too.
+_A9 = "A.9 (multi-GPU: meshes, Plan, sharding, pipeline, ring)"
+_SUPERSTEP = "A.6's superstep, with A.1"
+QUEUED = {
+    "mx": {"profiler": "A.10", "operator": "A.11.3", "env_vars": "A.11.6",
+           "runtime": "A.11.6", "util": "A.11.6", "is_np_array": "A.11.6",
+           "test_utils": "A.11.6", "rtc": "A.11.8",
+           "aot_cache": "not queued: the port compiles no executables",
+           "tpu": "the TPU context: the port's cards are gpu(i)",
+           "num_tpus": "the TPU context: the port's cards are gpu(i)"},
+    "nd": {"sparse": "A.7.7", "CSRNDArray": "A.7.7",
+           "RowSparseNDArray": "A.7.7", "cast_storage": "A.7.7",
+           "Custom": "A.11.3", "from_jax": "no counterpart: jax arrays",
+           "np": "an import, not a name", "Optional": "an import",
+           "dtype_np": "an import"},
+    "parallel": dict(
+        {n: _A9 for n in (
+            "Plan", "compile_step_with_plan", "device_mesh", "dist",
+            "dp_plan", "global_allreduce", "host_barrier", "local_mesh",
+            "make_mesh", "make_train_step", "mesh", "pipeline",
+            "pipeline_apply", "pipeline_plan", "plan", "planner", "ring",
+            "ring_attention", "ring_attention_scope", "ring_plan",
+            "ring_scope", "ring_scope_mesh", "ring_self_attention", "scope",
+            "sharding", "tensor_parallel_plan", "ulysses", "ulysses_plan",
+            "ulysses_self_attention")},
+        StackedAsyncLoss=_SUPERSTEP, SuperstepLossView=_SUPERSTEP,
+        superstep_k=_SUPERSTEP),
+    "models": {n: _A9 for n in ("BERTForMLMPipelined",
+                                "StackedTransformerEncoder", "bert_pp",
+                                "bert_pp_sharding_rules", "bert_pp_small")},
+}
+
+
+def test_public_names_match_jax_or_are_queued():
+    """Every public name of ``mx``, ``mx.nd``, ``mx.parallel`` and
+    ``mx.models`` in the JAX package is in the port's namespace too, or
+    listed above with the ROADMAP item that queues it; a listed name the
+    port has gained fails, so the list stays current."""
+    import mxnet_tpu as jmx
+
+    import mxnet_tpu_torch as tmx
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")}
+
+    for key, jmod, tmod in (("mx", jmx, tmx), ("nd", jmx.nd, tmx.nd),
+                            ("parallel", jmx.parallel, tmx.parallel),
+                            ("models", jmx.models, tmx.models)):
+        missing = public(jmod) - public(tmod)
+        assert missing == set(QUEUED[key]), (key, sorted(
+            missing ^ set(QUEUED[key])))
+    for name in ("Context", "current_context", "cpu_pinned", "num_gpus",
+                 "waitall", "NDArray", "KVStore", "lr_scheduler",
+                 "parallel", "contrib", "engine"):
+        assert name in public(tmx), name
+    assert {"AsyncLoss", "StepFence", "InflightRing", "drain_all",
+            "inflight_limit"} <= public(tmx.parallel)
