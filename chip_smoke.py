@@ -509,6 +509,52 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           gradients); a ``Module.save_checkpoint`` on the
                           card loaded by ``Module.load`` on the card and on
                           the CPU.
+  train_imagenet          BASELINE config 2 as ``examples/train_imagenet.py
+                          --rec --model resnet50_v2 --batch-size 256`` runs
+                          it: a seeded 1,024-image JPEG RecordIO (~500 x
+                          375, labels in [0, 1000)) written under
+                          ``build/`` by the port's ``recordio``,
+                          ``vision.get_model("resnet50_v2")``,
+                          ``initialize(Xavier())``, ``DataParallelStep``
+                          SGD lr 0.1, momentum 0.9, wd 1e-4, f32 NCHW,
+                          ``ImageRecordIter(data_shape=(3, 224, 224),
+                          shuffle, rand_crop, rand_mirror)`` in
+                          ``DevicePrefetchIter``: 2 warm-up and 10 timed
+                          steps over 3 epochs (images/s through the
+                          pipeline), the iterator alone (ms a batch), 5
+                          steps on a staged batch (CUDA events), one
+                          profiled step, peak memory; losses finite, every
+                          batch (256, 3, 224, 224) f32 on the card with
+                          (256, 1) labels in [0, 1000), the first epoch's
+                          labels the file's, K1-K7 0.
+  zoo_train               vgg16 (batch 64), densenet121 (64), inceptionv3
+                          (64 at 299^2), mobilenetv2_1.0 (128),
+                          squeezenet1.1 (128), alexnet (128) from
+                          ``get_model``, each 2 warm-up and 3 timed
+                          ``DataParallelStep`` SGD steps on a staged
+                          seeded batch (step ms, images/s, peak memory,
+                          losses finite, K1-K7 0); then one training
+                          forward and backward at batch 2 with Dropout 0
+                          on the card, the CPU and the CPU in float64
+                          from the same weights (ZOO_PARITY_TOL).
+  zoo_forward             every one of ``get_model``'s 36 names built on
+                          the card, one eval forward at batch 2 (224^2,
+                          299^2 for Inception): logits (2, 1000), finite;
+                          one name a family card vs CPU within
+                          ZOO_FORWARD_TOL; resnet50_v2, mobilenetv2_1.0,
+                          densenet121 and inceptionv3 exported and
+                          ``SymbolBlock.imports``-ed on the card, equal to
+                          the Block within ZOO_EXPORT_TOL; K1-K7 0.
+  conv_nd                 ``Convolution`` (``num_group``, ``dilate``),
+                          ``Deconvolution`` (``adj``), ``Pooling`` (max,
+                          avg with and without ``count_include_pad``, sum,
+                          lp, ``full``, global), ``im2col`` / ``col2im`` on
+                          a 1-D audio block (16, 256, 16,000), ResNet's
+                          (32, 64, 56, 56) and a 3-D video block (8, 64,
+                          16, 56, 56), both layouts, f32 and bf16: forward
+                          and gradients card vs CPU on the first sample
+                          (CONV_ND_TOL), ms of a forward and backward at
+                          the full shape; K1-K7 0.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -4697,17 +4743,18 @@ def _worst_tensors(got, want, top=4):
     return [{"tensor": k, "rel": r} for r, k in sorted(rel)[::-1][:top]]
 
 
-def _det_parity_row(torch, res):
-    """The DET_PARITY_TOL comparison of the card's (loss, grads, out)
-    with the f32 CPU's and the float64 yardstick's."""
+def _det_parity_row(torch, res, tol=None, spread=DET_PARITY_SPREAD):
+    """The ``tol`` (default DET_PARITY_TOL) comparison of the card's
+    (loss, grads, out) with the f32 CPU's and the float64 yardstick's,
+    the gradient bounds widened to ``spread`` x the f32 CPU's own
+    distance from float64."""
     (l_g, g_g, o_g), (l_c, g_c, o_c), (_, g_y, _) = (
         res["card"], res["cpu"], res["float64"])
     card_model, card_worst = _rel_l2(g_g, g_y)
     cpu_model, cpu_worst = _rel_l2(g_c, g_y)
-    tol = DET_PARITY_TOL
-    bound_model = max(tol["grad_rel_model"], DET_PARITY_SPREAD * cpu_model)
-    bound_tensor = max(tol["grad_rel_tensor"],
-                       DET_PARITY_SPREAD * cpu_worst[0])
+    tol = DET_PARITY_TOL if tol is None else tol
+    bound_model = max(tol["grad_rel_model"], spread * cpu_model)
+    bound_tensor = max(tol["grad_rel_tensor"], spread * cpu_worst[0])
     row = {"loss_card": l_g, "loss_cpu": l_c, "loss_float64": res[
                "float64"][0],
            "loss_rel": abs(l_g - l_c) / abs(l_c),
@@ -5770,7 +5817,9 @@ def _op_catalog(rng):
     elementwise, 1M-element reductions, (1024, 1024) products, batched
     64 x 64 linear algebra, BERT-width per-head ``batch_dot`` (48 x 512 x
     64) and interleaved attention (512 tokens x 8 x 12 heads of 64), a
-    (30522, 768) embedding table, ResNet-sized feature maps."""
+    (30522, 768) embedding table, ResNet-sized feature maps, and the
+    convolution and pooling ops at their 1-D (audio) and 3-D (video)
+    ranks too."""
     def U(shape, lo=-1.0, hi=1.0):
         return rng.uniform(lo, hi, shape).astype(np.float32)
 
@@ -5982,6 +6031,7 @@ def _op_catalog(rng):
                       use_sequence_length=True))
     # layers
     img = U((32, 64, 28, 28))
+    aud, vid = U((16, 64, 4000)), U((4, 32, 8, 28, 28))
     c += [_cat("Deconvolution", "nn", [img, U((64, 32, 4, 4), -0.1, 0.1),
                                        U((32,))],
                kernel=(4, 4), stride=(2, 2), pad=(1, 1), num_filter=32,
@@ -6005,6 +6055,33 @@ def _op_catalog(rng):
                kernel=(3, 3), pad=(1, 1), num_filter=64, no_bias=True),
           _cat("Pooling", "nn", [img], kernel=(3, 3), stride=(2, 2),
                pad=(1, 1), pool_type="max"),
+          # the 1-D and 3-D ranks: audio (16, 64, 4000), video (4, 32, 8,
+          # 28, 28) blocks
+          _cat("Convolution", "nn", [aud, U((64, 32, 3), -0.1, 0.1)],
+               kernel=(3,), pad=(2,), dilate=(2,), num_filter=64,
+               num_group=2, no_bias=True),
+          _cat("Convolution", "nn", [vid, U((32, 32, 3, 3, 3), -0.1, 0.1),
+                                     U((32,))],
+               kernel=(3, 3, 3), pad=(1, 1, 1), num_filter=32),
+          _cat("Deconvolution", "nn", [aud, U((64, 32, 4), -0.1, 0.1)],
+               kernel=(4,), stride=(2,), pad=(1,), adj=(1,),
+               num_filter=32),
+          _cat("Deconvolution", "nn", [vid, U((32, 16, 3, 3, 3), -0.1, 0.1)],
+               kernel=(3, 3, 3), stride=(2, 2, 2), pad=(1, 1, 1),
+               adj=(1, 1, 1), num_filter=16),
+          _cat("Pooling", "nn", [aud], kernel=(3,), stride=(2,), pad=(1,),
+               pool_type="lp", p_value=2),
+          _cat("Pooling", "nn", [vid], kernel=(3, 3, 3), stride=(2, 2, 2),
+               pool_type="avg", pooling_convention="full",
+               count_include_pad=False),
+          _cat("im2col", "nn", [aud[:4, :16]], kernel=(5,), stride=(2,),
+               pad=(2,)),
+          _cat("im2col", "nn", [vid[:2, :8]], kernel=(3, 3, 3),
+               pad=(1, 1, 1)),
+          _cat("col2im", "nn", [U((4, 16 * 5, 2000))], output_size=(4000,),
+               kernel=(5,), stride=(2,), pad=(2,)),
+          _cat("col2im", "nn", [U((2, 8 * 27, 8 * 28 * 28))],
+               output_size=(8, 28, 28), kernel=(3, 3, 3), pad=(1, 1, 1)),
           _cat("Activation", "elemwise", [U(M)], act_type="softrelu"),
           _cat("LeakyReLU", "elemwise", [U(M)], act_type="gelu"),
           _cat("softmax", "nn", [U((4096, 1000))]),
@@ -7194,6 +7271,598 @@ def phase_symbol_api(torch, ctx):
             "ok": bool(all(v <= SYM_API_TOL for v in worst.values()))}
 
 
+# ---------------------------------------------------------------------------
+# the vision model zoo and config 2's ImageNet input path
+# (examples/train_imagenet.py --rec), and the 1-D / 3-D conv family
+# ---------------------------------------------------------------------------
+IMAGENET_REC_IMAGES, IMAGENET_BATCH, IMAGENET_RES = 1024, 256, 224
+IMAGENET_WARMUP, IMAGENET_STEPS = 2, 12  # 12 steps: 3 epochs of 4 batches
+IMAGENET_ITER_BATCHES, IMAGENET_STAGED_STEPS = 4, 5
+# (name, batch, resolution) of zoo_train; the parity step's resolution:
+# 224 where BatchNorm needs 7 x 7 maps at batch 2 to be well conditioned,
+# 64 for VGG (no BatchNorm; its CPU float64 step at 224 takes ~15 s)
+ZOO_TRAIN = (("vgg16", 64, 224, 64), ("densenet121", 64, 224, 224),
+             ("inceptionv3", 64, 299, 299),
+             ("mobilenetv2_1.0", 128, 224, 224),
+             ("squeezenet1.1", 128, 224, 224), ("alexnet", 128, 224, 224))
+ZOO_WARMUP, ZOO_STEPS = 2, 3
+# card vs CPU at batch 2 from the same weights, Dropout 0: the logits of
+# their max abs and the loss relative, card vs the f32 CPU; the
+# gradients, relative L2 over the net and in the worst tensor, card vs
+# the CPU in float64 within the larger of these and ZOO_PARITY_SPREAD x
+# the f32 CPU's own distance from float64 (DET_PARITY_TOL's reasoning:
+# the f32 BatchNorm backward's sums cancel)
+ZOO_PARITY_TOL = {"out_of_max_abs": 1e-4, "loss_rel": 1e-4,
+                  "grad_rel_model": 5e-3, "grad_rel_tensor": 2e-2}
+ZOO_PARITY_SPREAD = 2.0
+# a float64 gradient this far below the largest tensor's is 0 but for
+# rounding (see _zoo_parity)
+ZOO_ZERO_GRAD = 1e-9
+# zoo_forward: eval logits card vs CPU (one name a family) of their max
+# abs; an exported graph's SymbolBlock vs its Block, both on the card
+ZOO_FORWARD_TOL, ZOO_EXPORT_TOL = 1e-4, 1e-5
+ZOO_FORWARD_REF = ("resnet18_v1", "resnet50_v2", "alexnet", "vgg11",
+                   "squeezenet1.0", "densenet121", "mobilenet1.0",
+                   "mobilenetv2_1.0", "inceptionv3")
+ZOO_EXPORT = ("resnet50_v2", "mobilenetv2_1.0", "densenet121",
+              "inceptionv3")
+# conv_nd: card vs CPU of each output's and gradient's max abs, on inputs
+# that bf16 holds exactly (the CPU's f32 result is the yardstick of both
+# dtypes); bf16 rounds each output once after f32 sums (2^-8 of a value)
+CONV_ND_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# rank -> (N, C, spatial): audio, ResNet's stage 1, a video clip
+CONV_ND_BLOCKS = {1: (16, 256, (16000,)), 2: (32, 64, (56, 56)),
+                  3: (8, 64, (16, 56, 56))}
+
+
+def _panoramas(rng, count, size=1024):
+    """``count`` seeded photo-like HWC uint8 images of ``size``^2: four
+    octaves of smooth noise (upsampled 12-, 48-, 192- and 500-cell grids)
+    and a little grain, so that a JPEG cut from one has an ImageNet-like
+    size (white noise would not compress)."""
+    import cv2
+
+    out = []
+    for _ in range(count):
+        img = rng.normal(128.0, 8.0, (size, size, 3)).astype(np.float32)
+        for cells, amp in ((12, 80.0), (48, 40.0), (192, 30.0), (500, 20.0)):
+            small = rng.uniform(-amp, amp, (cells, cells, 3))
+            img += cv2.resize(small.astype(np.float32), (size, size),
+                              interpolation=cv2.INTER_CUBIC)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def _write_imagenet_rec(folder, n, seed):
+    """A classification .rec/.idx pair of ``n`` JPEGs (quality 90) at
+    ImageNet-like sizes (500 on the long side, 333-375 on the other; each
+    a seeded cut of one of 16 panoramas, mirrored at random), labels
+    drawn from [0, 1000), written by the port's ``recordio`` and
+    ``cv2.imencode``: (the .rec path, the labels, the file's bytes)."""
+    import cv2
+
+    from mxnet_tpu_torch import recordio
+
+    rng = np.random.RandomState(seed)
+    views = _panoramas(rng, 16)
+    rec = os.path.join(folder, "train.rec")
+    writer = recordio.MXIndexedRecordIO(os.path.join(folder, "train.idx"),
+                                        rec, "w")
+    labels = rng.randint(0, 1000, n)
+    for i in range(n):
+        short = int(rng.randint(333, 376))
+        h, w = (short, 500) if rng.rand() < 0.75 else (500, short)
+        view = views[rng.randint(len(views))]
+        y0, x0 = rng.randint(0, view.shape[0] - h), rng.randint(
+            0, view.shape[1] - w)
+        img = view[y0:y0 + h, x0:x0 + w]
+        if rng.rand() < 0.5:
+            img = img[:, ::-1]
+        ok, buf = cv2.imencode(".jpg", np.ascontiguousarray(img),
+                               [int(cv2.IMWRITE_JPEG_QUALITY), 90])
+        if not ok:
+            raise RuntimeError("cv2.imencode failed")
+        header = recordio.IRHeader(0, float(labels[i]), i, 0)
+        writer.write_idx(i, recordio.pack(header, buf.tobytes()))
+    writer.close()
+    return rec, labels, os.path.getsize(rec)
+
+
+def phase_train_imagenet(torch, ctx):
+    """BASELINE config 2 as ``examples/train_imagenet.py --rec train.rec
+    --model resnet50_v2 --batch-size 256`` runs it (``:49-107``), on the
+    port: ``vision.get_model("resnet50_v2")``, ``initialize(Xavier())``
+    (f32, NCHW, on the card), ``DataParallelStep`` SGD lr 0.1, momentum
+    0.9, wd 1e-4, ``ImageRecordIter(batch_size=256, data_shape=(3, 224,
+    224), shuffle=True, rand_crop=True, rand_mirror=True)`` at its other
+    defaults over a seeded 1,024-image JPEG RecordIO, wrapped in
+    ``DevicePrefetchIter(it, step)``; the example's ``batches()`` loop,
+    resetting at each epoch's end."""
+    import shutil
+    import tempfile
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    B, R = IMAGENET_BATCH, IMAGENET_RES
+    folder = tempfile.mkdtemp(prefix="imagenet_rec-", dir=_det_build_dir())
+    try:
+        t0 = time.perf_counter()
+        rec, written, rec_bytes = _write_imagenet_rec(
+            folder, IMAGENET_REC_IMAGES, SEED)
+        write_s = time.perf_counter() - t0
+        mx.random.seed(SEED)
+        t0 = time.perf_counter()
+        net = vision.get_model("resnet50_v2")
+        net.initialize(mx.init.Xavier())
+        init_s = time.perf_counter() - t0
+        values = sum(t.numel() for t in net.state_dict().values())
+        step = DataParallelStep(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                                optimizer="sgd", optimizer_params=RESNET_SGD)
+        it_args = dict(path_imgrec=rec, batch_size=B, data_shape=(3, R, R),
+                       shuffle=True, rand_crop=True, rand_mirror=True)
+        it = mx.io.DevicePrefetchIter(mx.io.ImageRecordIter(**it_args), step)
+        seen = []
+
+        def batches():
+            epoch = 0
+            while True:
+                for b in it:
+                    d, lab = b.data[0], b.label[0]
+                    # the label tensor itself: a host copy here would
+                    # wait for the step before it
+                    seen.append((epoch, tuple(d.shape), d._data.dtype,
+                                 d._data.device, lab._data))
+                    yield d, lab
+                it.reset()
+                epoch += 1
+
+        gen = batches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        warm = [step.step(*next(gen)) for _ in range(IMAGENET_WARMUP)]
+        warm = [float(h) for h in warm]
+        warm_s = time.perf_counter() - t0
+        counted = _det_zero_counters()
+        handles = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IMAGENET_STEPS - IMAGENET_WARMUP):
+            data, label = next(gen)
+            handles.append(step.step(data, label))
+        step.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counted.items()}
+        ctx.setdefault("launches", {})["train_imagenet"] = launches
+        losses = warm + [float(h) for h in handles]
+        # two steps through the pipeline under the profiler: how long the
+        # card waits for the host between them
+        pipe_prof = _step_profile(torch, lambda: step.step(*next(gen)),
+                                  steps=2, gaps=True)
+        gen.close()
+        # the iterator alone, a fresh one: host ms of ``next`` (decode,
+        # augment and the copy to the card, the workers running ahead)
+        raw = mx.io.ImageRecordIter(**it_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IMAGENET_ITER_BATCHES):
+            raw.next()
+        torch.cuda.synchronize()
+        iter_ms = (time.perf_counter() - t0) * 1e3 / IMAGENET_ITER_BATCHES
+        del raw
+        step_ms, _, _ = _timed_steps(torch, step.step, (data, label),
+                                     IMAGENET_STAGED_STEPS)
+        prof = _step_profile(torch, lambda: step.step(data, label), steps=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    dev = torch.device(mx.gpu(0))
+    seen = [s[:4] + (tuple(s[4].shape), s[4].cpu().numpy()[:, 0])
+            for s in seen]
+    first = [s for s in seen if s[0] == 0]
+    epoch0 = np.sort(np.concatenate([s[5] for s in first]))
+    batches_ok = all(s[1] == (B, 3, R, R) and s[2] == torch.float32
+                     and s[3] == dev and s[4] == (B, 1)
+                     and s[5].min() >= 0 and s[5].max() < 1000
+                     and np.array_equal(s[5], np.round(s[5]))
+                     for s in seen)
+    cover = (len(first) == IMAGENET_REC_IMAGES // B
+             and np.array_equal(epoch0, np.sort(written).astype(np.float32)))
+    staged = B * 1e3 / statistics.median(step_ms)
+    pipeline = B * (IMAGENET_STEPS - IMAGENET_WARMUP) / wall
+    iterator = B * 1e3 / iter_ms
+    return {"model": "resnet50_v2", "layout": "NCHW", "dtype": "float32",
+            "state_values": values, "init_s": init_s, "batch": B,
+            "resolution": R, "optimizer": "sgd", **RESNET_SGD,
+            "input": "ImageRecordIter (cv2 decode, 4 threads) -> "
+                     "DevicePrefetchIter",
+            "rec_images": IMAGENET_REC_IMAGES, "rec_bytes": rec_bytes,
+            "rec_mean_jpeg_kb": rec_bytes / IMAGENET_REC_IMAGES / 1e3,
+            "rec_write_s": write_s, "warmup_steps": IMAGENET_WARMUP,
+            "warmup_s": warm_s, "steps": IMAGENET_STEPS,
+            "epochs_seen": 1 + max(s[0] for s in seen),
+            "pipeline_wall_s": wall,
+            "pipeline_images_per_s": pipeline,
+            "iter_ms_per_batch": iter_ms,
+            "iter_images_per_s": iterator,
+            "staged_step_ms_median": statistics.median(step_ms),
+            "staged_step_ms": step_ms, "staged_images_per_s": staged,
+            "bound_by": ("the pipeline" if pipeline < 0.9 * staged
+                         else "the step"),
+            "pipeline_over_staged": pipeline / staged,
+            "losses": losses, "max_memory_allocated_gb": peak,
+            "profile_1_step": prof, "profile_pipeline_2_steps": pipe_prof,
+            "host_cpus": len(os.sched_getaffinity(0)),
+            "launches": launches,
+            "first_epoch_labels_cover_the_file": bool(cover),
+            "batches_ok": bool(batches_ok), "card": ctx["smi"],
+            "ok": bool(all(math.isfinite(v) for v in losses)
+                       and not any(launches.values()) and batches_ok
+                       and cover)}
+
+
+def _zero_dropout(net):
+    from mxnet_tpu_torch.gluon import nn
+
+    for m in net.modules():
+        if isinstance(m, nn.Dropout):
+            m.rate = 0.0
+    return net
+
+
+def _zoo_parity(torch, name, res):
+    """One training forward and backward of ``name`` (Dropout 0) at batch
+    2 on the card, the CPU and the CPU in float64 from the same weights:
+    the ZOO_PARITY_TOL row of :func:`_det_parity_row`."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    rng = np.random.RandomState(SEED + 17)
+    x = rng.rand(2, 3, res, res).astype(np.float32)
+    y = rng.randint(0, 1000, 2).astype(np.float32)
+
+    def warm(net):
+        net.eval()
+        with torch.no_grad():
+            net(torch.from_numpy(x[:1]))
+
+    fname = os.path.join(_det_build_dir(), f"zoo-{os.getpid()}.params")
+    nets = _carried_nets(torch, lambda: _zero_dropout(vision.get_model(name)),
+                         fname, warm)
+    out = {}
+    for key, net in nets.items():
+        dev = torch.device(mx.gpu(0)) if key == "card" else "cpu"
+        dt = torch.float64 if key == "float64" else torch.float32
+        net.train()
+        logits = net(torch.from_numpy(x).to(dev, dt))
+        loss = SoftmaxCrossEntropyLoss()(
+            logits, torch.from_numpy(y).to(dev, dt)).mean()
+        loss.backward()
+        out[key] = (float(loss.detach()), _grads_by_name(net),
+                    logits.detach().cpu().double())
+    del nets
+    # a BatchNorm beta feeding another training-mode BatchNorm through
+    # linear layers only (MobileNetV2's linear bottlenecks) has a gradient
+    # of exactly 0: a per-channel shift the next BatchNorm's mean removes.
+    # Its float64 value is rounding noise, so it leaves the per-tensor
+    # bound (the model-wide one keeps it)
+    yard = out["float64"][1]
+    top = max(float(g.norm()) for g in yard.values())
+    zero = sorted(k for k, g in yard.items()
+                  if float(g.norm()) <= ZOO_ZERO_GRAD * top)
+    for key in out:
+        loss, grads, logits = out[key]
+        out[key] = (loss, {k: g for k, g in grads.items() if k not in zero},
+                    logits)
+    row = _det_parity_row(torch, out, ZOO_PARITY_TOL, ZOO_PARITY_SPREAD)
+    row["zero_gradient_tensors"] = zero
+    return row
+
+
+def phase_zoo_train(torch, ctx):
+    """The other vision families at ImageNet width, each as
+    ``train_imagenet`` trains resnet50_v2 but on a staged seeded batch:
+    ``get_model(name)``, ``initialize(Xavier())`` on the card, one
+    inference forward to resolve the deferred shapes, ``DataParallelStep``
+    SGD (``RESNET_SGD``); 2 warm-up and 3 timed steps (CUDA events),
+    every kernel counter zeroed before them.  Then :func:`_zoo_parity` at
+    batch 2."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    torch.backends.cudnn.benchmark = True
+    rows, ok, total = {}, True, {}
+    for name, B, R, parity_res in ZOO_TRAIN:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rng = np.random.RandomState(SEED + 16)
+        x = torch.from_numpy(rng.rand(B, 3, R, R).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, B).astype(
+            np.float32)).cuda()
+        mx.random.seed(SEED)
+        t0 = time.perf_counter()
+        net = vision.get_model(name)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net.eval()
+        with torch.no_grad():
+            net(x[:1])
+        net.train()
+        init_s = time.perf_counter() - t0
+        values = sum(t.numel() for t in net.state_dict().values())
+        step = DataParallelStep(net, SoftmaxCrossEntropyLoss(),
+                                optimizer="sgd", optimizer_params=RESNET_SGD)
+        warm = [float(step.step(x, y)) for _ in range(ZOO_WARMUP)]
+        counted = _det_zero_counters()
+        step_ms, wall, handles = _timed_steps(torch, step.step, (x, y),
+                                              ZOO_STEPS)
+        launches = {n: fn.launches for n, fn in counted.items()}
+        for n, v in launches.items():
+            total[n] = total.get(n, 0) + v
+        losses = warm + [float(h) for h in handles]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        med = statistics.median(step_ms)
+        del step, net, x, y
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        parity = _zoo_parity(torch, name, parity_res)
+        parity["res"], parity["seconds"] = parity_res, \
+            time.perf_counter() - t0
+        row_ok = bool(all(math.isfinite(v) for v in losses)
+                      and not any(launches.values()) and parity["ok"])
+        rows[name] = {"batch": B, "resolution": R, "state_values": values,
+                      "init_s": init_s, "step_ms_median": med,
+                      "step_ms": step_ms, "images_per_s": B * 1e3 / med,
+                      "wall_images_per_s": B * ZOO_STEPS / wall,
+                      "losses": losses, "max_memory_allocated_gb": peak,
+                      "launches": launches, "parity": parity, "ok": row_ok}
+        ok = ok and row_ok
+    ctx.setdefault("launches", {})["zoo_train"] = total
+    return {"optimizer": "sgd", **RESNET_SGD, "warmup_steps": ZOO_WARMUP,
+            "steps": ZOO_STEPS, "parity_tol": ZOO_PARITY_TOL,
+            "parity_spread": ZOO_PARITY_SPREAD, "nets": rows,
+            "launches": total, "cudnn": _cudnn_settings(torch),
+            "card": ctx["smi"], "ok": ok}
+
+
+def phase_zoo_forward(torch, ctx):
+    """Every name of ``get_model``'s table on the card: built,
+    ``initialize(Xavier())``, one eval forward of a seeded (2, 3, 224,
+    224) batch (299^2 for Inception): finite logits of shape (2, 1000).
+    One name a family (ZOO_FORWARD_REF) is built and initialized on the
+    CPU, carried by ``save_parameters`` / ``load_parameters`` and held
+    card vs CPU within ZOO_FORWARD_TOL; four (ZOO_EXPORT) are exported and
+    ``SymbolBlock.imports``-ed on the card, whose output must be the
+    Block's within ZOO_EXPORT_TOL.  cuDNN autotuning is off here (one
+    forward a shape)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    here = _det_build_dir()
+    rows, ok = {}, True
+    counted = _det_zero_counters()
+    try:
+        for name in sorted(vision._models):
+            torch.cuda.empty_cache()
+            R = 299 if name.startswith("inception") else 224
+            x = np.random.RandomState(SEED + 18).rand(2, 3, R, R).astype(
+                np.float32)
+            xt = torch.from_numpy(x).cuda()
+            mx.random.seed(SEED)
+            row = {"resolution": R}
+            t0 = time.perf_counter()
+            if name in ZOO_FORWARD_REF:
+                cpu_net = vision.get_model(name)
+                cpu_net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+                cpu_net.eval()
+                with torch.no_grad():
+                    want = cpu_net(torch.from_numpy(x))
+                fname = os.path.join(here, f"zoo-{os.getpid()}.params")
+                cpu_net.save_parameters(fname)
+                net = vision.get_model(name)
+                net.load_parameters(fname, ctx=mx.gpu(0))
+                os.remove(fname)
+                del cpu_net
+            else:
+                net = vision.get_model(name)
+                net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+            net.eval()
+            with torch.no_grad():
+                out = net(xt)
+            torch.cuda.synchronize()
+            row["build_and_forward_s"] = time.perf_counter() - t0
+            row["shape"] = list(out.shape)
+            row_ok = bool(tuple(out.shape) == (2, 1000)
+                          and torch.isfinite(out).all())
+            if name in ZOO_FORWARD_REF:
+                row["card_vs_cpu_of_max_abs"] = _max_abs_ratio(
+                    out.cpu().numpy(), want.numpy())
+                row_ok = row_ok and (row["card_vs_cpu_of_max_abs"]
+                                     <= ZOO_FORWARD_TOL)
+            if name in ZOO_EXPORT:
+                path = os.path.join(here, f"zoo_export-{os.getpid()}")
+                net.export(path, 0)
+                sb = mx.gluon.SymbolBlock.imports(
+                    f"{path}-symbol.json", ["data"], f"{path}-0000.params",
+                    ctx=mx.gpu(0))
+                got = sb(nd.array(x, ctx=mx.gpu(0))).asnumpy()
+                with open(f"{path}-symbol.json") as f:
+                    row["graph_nodes"] = len(json.load(f)["nodes"])
+                row["symbol_block_of_max_abs"] = _max_abs_ratio(
+                    got, out.cpu().numpy())
+                row_ok = row_ok and (row["symbol_block_of_max_abs"]
+                                     <= ZOO_EXPORT_TOL)
+                for suffix in ("-symbol.json", "-0000.params"):
+                    os.remove(path + suffix)
+                del sb
+            row["ok"] = row_ok
+            rows[name] = row
+            ok = ok and row_ok
+            del net, out, xt
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["zoo_forward"] = launches
+    return {"names": len(rows), "tol": ZOO_FORWARD_TOL,
+            "export_tol": ZOO_EXPORT_TOL, "nets": rows,
+            "launches": launches, "card": ctx["smi"],
+            "ok": bool(ok and len(rows) == 36
+                       and not any(launches.values()))}
+
+
+def _conv_nd_cases(rng):
+    """(name, op, rank, full-size inputs, attrs) of conv_nd: a 1-D audio block (N 16, C 256, W 16,000), ResNet's
+    (32, 64, 56, 56) and a 3-D video block (N 8, C 64, 16 x 56 x 56),
+    channels first; values that bf16 holds exactly."""
+    import ml_dtypes
+
+    def U(*shape, s=1.0):
+        a = rng.uniform(-s, s, shape).astype(np.float32)
+        return a.astype(ml_dtypes.bfloat16).astype(np.float32)
+
+    cases = []
+    for n, (N, C, sp) in CONV_ND_BLOCKS.items():
+        x = U(N, C, *sp)
+        k, ones = (3,) * n, (1,) * n
+        cases.append((f"conv{n}d", "Convolution", n,
+                      [x, U(C, C // 2, *k, s=0.1), U(C, s=0.1)],
+                      dict(kernel=k, pad=(2,) * n, dilate=(2,) * n,
+                           num_filter=C, num_group=2, no_bias=False)))
+        cases.append((f"deconv{n}d", "Deconvolution", n,
+                      [x, U(C, C // 2, *k, s=0.1), U(C // 2, s=0.1)],
+                      dict(kernel=k, stride=(2,) * n, pad=ones, adj=ones,
+                           num_filter=C // 2, no_bias=False)))
+        pool = dict(kernel=k, stride=(2,) * n, pad=ones)
+        for tag, attrs in (("max", dict(pool_type="max")),
+                           ("avg", dict(pool_type="avg")),
+                           ("avg_nopad", dict(pool_type="avg",
+                                              count_include_pad=False)),
+                           ("sum", dict(pool_type="sum")),
+                           ("lp2", dict(pool_type="lp", p_value=2)),
+                           ("max_full", dict(pool_type="max",
+                                             pooling_convention="full")),
+                           ("global_avg", dict(pool_type="avg",
+                                               global_pool=True))):
+            cases.append((f"pool{n}d_{tag}", "Pooling", n, [x],
+                          dict(pool, **attrs)))
+        # im2col / col2im (channels first only) on a narrower block
+        small = U(2, 8, *[s // 2 for s in sp])
+        cases.append((f"im2col{n}d", "im2col", n, [small],
+                      dict(kernel=k, pad=ones, stride=(2,) * n)))
+        o = [(s // 2 + 2 - 3) // 2 + 1 for s in sp]
+        cases.append((f"col2im{n}d", "col2im", n,
+                      [U(2, 8 * 3 ** n, int(np.prod(o)))],
+                      dict(output_size=tuple(s // 2 for s in sp), kernel=k,
+                           pad=ones, stride=(2,) * n)))
+    return cases
+
+
+def _conv_nd_run(torch, fn, inputs, attrs, last, dev, dtype, seed):
+    """(outputs, input gradients) of one case in channels-first order:
+    the data (and weight) moved to the channel-last layout when
+    ``last``, gradients of a seeded cotangent."""
+    ts = []
+    for i, a in enumerate(inputs):
+        t = torch.from_numpy(a)
+        if last and i < 2 and t.dim() > 2:
+            t = t.movedim(1, -1).contiguous()
+        ts.append(t.to(dev, dtype).requires_grad_(True))
+    out = fn(*ts, **attrs)
+    g = torch.Generator().manual_seed(seed)
+    first = out.movedim(-1, 1) if last else out
+    ct = torch.randn(first.shape, generator=g).to(dev, dtype)
+    grads = torch.autograd.grad(out, ts, ct.movedim(1, -1) if last else ct)
+    res = [out.detach()] + [d.detach() for d in grads]
+    if last:
+        res = [r.movedim(-1, 1) if r.dim() > 2 and i < 3 else r
+               for i, r in enumerate(res)]
+    return [r.float().cpu() for r in res]
+
+
+def phase_conv_nd(torch, ctx):
+    """The 1-D, 2-D and 3-D convolution and pooling family at the shapes
+    users run (:func:`_conv_nd_cases`), card vs CPU: each case in both
+    layouts (but ``im2col`` / ``col2im``, channels first) in f32 and bf16,
+    forward and the gradient of a seeded cotangent, on the first sample
+    (the first two for the column ops) against the CPU's f32 on the same
+    values, within CONV_ND_TOL of each tensor's max abs; then the card's
+    ms for the forward and backward at the full shape (CUDA events, median
+    of 3 after a warm-up)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    torch.backends.cudnn.benchmark = True
+    card = torch.device(mx.gpu(0))
+    rng = np.random.RandomState(SEED + 19)
+    rows, ok = {}, True
+    counted = _det_zero_counters()
+    for name, op, n, inputs, attrs in _conv_nd_cases(rng):
+        fn = registry.get_op(op).fn
+        one = [inputs[0][:1 if op not in ("im2col", "col2im") else 2]] + \
+            inputs[1:]
+        layouts = (("first", "last") if op not in ("im2col", "col2im")
+                   else ("first",))
+        want = _conv_nd_run(torch, fn, one, attrs, False, "cpu",
+                            torch.float32, SEED)
+        row = {"shape": list(inputs[0].shape)}
+        for lay in layouts:
+            kw = dict(attrs)
+            if lay == "last":
+                kw["layout"] = ("NWC", "NHWC", "NDHWC")[n - 1]
+            for dt in ("float32", "bfloat16"):
+                dtype = getattr(torch, dt)
+                got = _conv_nd_run(torch, fn, one, kw, lay == "last",
+                                   card, dtype, SEED)
+                err = max(_max_abs_ratio(g.numpy(), w.numpy())
+                          for g, w in zip(got, want))
+                full = []
+                for i, a in enumerate(inputs):
+                    t = torch.from_numpy(a)
+                    if lay == "last" and i < 2 and t.dim() > 2:
+                        t = t.movedim(1, -1).contiguous()
+                    full.append(t.to(card, dtype).requires_grad_(True))
+
+                def fwd_bwd():
+                    out = fn(*full, **kw)
+                    out.backward(torch.ones_like(out))
+
+                fwd_bwd()
+                marks = [(torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                         for _ in range(3)]
+                for a, b in marks:
+                    a.record()
+                    fwd_bwd()
+                    b.record()
+                torch.cuda.synchronize()
+                key = f"{lay}_{dt}"
+                row[key] = {"of_max_abs": err,
+                            "fwd_bwd_ms": statistics.median(
+                                a.elapsed_time(b) for a, b in marks)}
+                row_ok = err <= CONV_ND_TOL[dt]
+                row[key]["ok"] = bool(row_ok)
+                ok = ok and row_ok
+                del full
+        rows[name] = row
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    ctx.setdefault("launches", {})["conv_nd"] = launches
+    return {"tol_of_max_abs": CONV_ND_TOL, "cases": rows,
+            "launches": launches, "cudnn": _cudnn_settings(torch),
+            "card": ctx["smi"],
+            "ok": bool(ok and not any(launches.values()))}
+
+
 def main() -> int:
     import torch
 
@@ -7256,7 +7925,11 @@ def main() -> int:
               ("module_bert", phase_module_bert),
               ("train_resume", phase_train_resume),
               ("module_lstm_bucketing", phase_module_lstm_bucketing),
-              ("symbol_api", phase_symbol_api))
+              ("symbol_api", phase_symbol_api),
+              ("train_imagenet", phase_train_imagenet),
+              ("zoo_train", phase_zoo_train),
+              ("zoo_forward", phase_zoo_forward),
+              ("conv_nd", phase_conv_nd))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

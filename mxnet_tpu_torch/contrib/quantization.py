@@ -203,7 +203,7 @@ def _quantize_weight_np(w: np.ndarray):
 
 def _conv_kwargs(conv):
     """The layer's convolution attributes; the twins compute NCHW."""
-    if conv.nhwc:
+    if conv.channel_last:
         raise MXNetError(f"{conv.name}: the quantized convolution is NCHW "
                          "(the JAX op's layout); an NHWC Conv2D stays f32")
     return conv.kwargs

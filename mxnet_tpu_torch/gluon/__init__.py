@@ -1,7 +1,7 @@
 """Gluon: ``Parameter`` / ``ParameterDict``, ``Block`` / ``HybridBlock``,
 the layers (``nn``), the recurrent layers and cells (``rnn``), the
-losses, ``Trainer``, ``utils`` and ``data``, as in ``mxnet_tpu/gluon/``;
-blocks are ``torch.nn`` modules."""
+losses, ``Trainer``, ``utils``, ``data`` and the vision ``model_zoo``, as
+in ``mxnet_tpu/gluon/``; blocks are ``torch.nn`` modules."""
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from .block import Block, CachedOp, HybridBlock, SymbolBlock
@@ -12,8 +12,9 @@ from . import utils
 from .utils import split_and_load
 from .trainer import Trainer
 from . import data
+from . import model_zoo
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError", "Block", "HybridBlock",
-           "CachedOp", "SymbolBlock", "nn", "rnn", "loss", "utils", "split_and_load", "Trainer",
-           "data"]
+           "CachedOp", "SymbolBlock", "nn", "rnn", "loss", "utils",
+           "split_and_load", "Trainer", "data", "model_zoo"]

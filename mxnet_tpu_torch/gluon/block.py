@@ -197,13 +197,17 @@ def _has_nd(args, kwargs) -> bool:
 
 class _TensorOps:
     """``F`` of ``hybrid_forward`` in the port: the registered ops' torch
-    functions by name (``F.FullyConnected``), then torch's."""
+    functions by name (``F.FullyConnected``; ``F.concat``, ``flatten``
+    and ``cast`` are ``Concat``, ``Flatten`` and ``Cast``, as in
+    ``mx.sym`` and ``mx.nd``), then torch's."""
+
+    _ALIASES = {"concat": "Concat", "flatten": "Flatten", "cast": "Cast"}
 
     def __getattr__(self, name):
         from ..ops import registry
 
         try:
-            return registry.get_op(name).fn
+            return registry.get_op(self._ALIASES.get(name, name)).fn
         except MXNetError:
             return getattr(torch, name)
 

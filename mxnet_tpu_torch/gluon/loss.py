@@ -107,7 +107,11 @@ class SoftmaxCrossEntropyLoss(Loss):
         if not self._from_logits:
             pred = log_softmax(pred, self.axis)
         if self._sparse_label:
-            index = label.long().unsqueeze(self.axis % pred.dim())
+            # the label may lack the class axis, (B,), or keep it as size
+            # 1, (B, 1) as ImageRecordIter gives it (the JAX loss's pick)
+            index = label.long()
+            if index.dim() == pred.dim() - 1:
+                index = index.unsqueeze(self.axis % pred.dim())
             loss = -pred.gather(self.axis, index)
         else:
             loss = -(pred * label.reshape(pred.shape)).sum(

@@ -6,13 +6,14 @@ names and attributes.
 to torch's convolutions and pooling (cuDNN on the card), as the JAX ops
 go to XLA's; ``BatchNorm`` is ``torch.native_batch_norm`` (see
 :func:`batch_norm`).  None of them reaches a Pallas kernel in the JAX
-package, so none has a kernel here.  They are 2-D, NCHW or NHWC (the 1-D
-and 3-D family waits: ROADMAP A.12).  NHWC keeps the JAX package's
-tensors at the op's boundary: the data is (N, H, W, C) and the weight
-(O, kh, kw, I) ((I, kh, kw, O/g) for ``Deconvolution``); inside the op
-both are permuted views in torch's channels-first order, which for a
-contiguous NHWC tensor is ``torch.channels_last`` memory, so nothing is
-copied.
+package, so none has a kernel here.  They take 1, 2 or 3 spatial axes
+(the rank of ``kernel``, or of the data for ``Pooling``), channels first
+(NCW, NCHW, NCDHW) or last (NWC, NHWC, NDHWC).  A channel-last layout
+keeps the JAX package's tensors at the op's boundary: the data is (N,
+*spatial, C) and the weight (O, *k, I) ((I, *k, O/g) for
+``Deconvolution``); inside the op both are views in torch's
+channels-first order, which for a contiguous NHWC tensor is
+``torch.channels_last`` memory, so nothing is copied.
 
 ``LayerNorm`` takes kernel K1 through ``LayerNormFunction`` on a CUDA
 tensor, as the JAX op takes its Pallas kernel wherever it compiles
@@ -30,11 +31,12 @@ the legacy output ops (``SoftmaxOutput``, the regression outputs,
 ignores the incoming gradient, as MXNet's does), ``ctc_loss``
 (``torch.nn.functional.ctc_loss`` after the blank and padding
 conventions are mapped), ``Pad``, ``Crop``, ``moments``, ``im2col`` /
-``col2im`` (``unfold`` / ``fold``, 2-D) and the packed ``RNN`` op
-(``rnn_ops``).
+``col2im`` (strided slices of the padded input, any rank) and the packed
+``RNN`` op (``rnn_ops``).
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
@@ -53,23 +55,32 @@ def _pair(v, n):
     return tuple(v)
 
 
-def _nhwc(layout, op: str) -> bool:
-    """True for NHWC, False for NCHW (or no layout); the ops are 2-D."""
-    if layout in (None, "NCHW"):
+_LAYOUTS = {1: ("NCW", "NWC"), 2: ("NCHW", "NHWC"), 3: ("NCDHW", "NDHWC")}
+
+
+def _channel_last(layout, n: int, op: str) -> bool:
+    """True for the channel-last layout of ``n`` spatial axes, False for
+    the channels-first one (or no layout); raise on anything else."""
+    if n not in _LAYOUTS:
+        raise MXNetError(f"{op}: {n} spatial axes; 1, 2 or 3 are supported")
+    first, last = _LAYOUTS[n]
+    if layout in (None, first):
         return False
-    if layout == "NHWC":
+    if layout == last:
         return True
-    raise MXNetError(f"{op}: layout {layout!r} is not ported (NCHW, NHWC)")
+    raise MXNetError(f"{op}: layout {layout!r} does not fit {n} spatial "
+                     f"axes ({first} or {last})")
 
 
 def _to_channels_first(x, last: bool):
-    """(N, H, W, C) -> a (N, C, H, W) view when ``last``; else ``x``."""
-    return x.permute(0, 3, 1, 2) if last else x
+    """(N, *spatial, C) -> a (N, C, *spatial) view when ``last``; else
+    ``x``."""
+    return x.movedim(-1, 1) if last else x
 
 
 def _from_channels_first(x, last: bool):
     """The inverse view of :func:`_to_channels_first`."""
-    return x.permute(0, 2, 3, 1) if last else x
+    return x.movedim(1, -1) if last else x
 
 
 def _onehot(label, n: int, dtype):
@@ -102,21 +113,26 @@ def fully_connected(data, weight, *bias, num_hidden=None, no_bias=False,
     return y
 
 
+def _spatial_rank(data, kernel, op: str) -> int:
+    n = len(kernel)
+    if data.dim() != n + 2:
+        raise MXNetError(f"{op}: a {n}-d kernel on {data.dim()}-d data")
+    return n
+
+
 @register("Convolution")
 def convolution(data, weight, *bias, kernel=(), stride=(), dilate=(), pad=(),
                 num_filter=1, num_group=1, no_bias=False, workspace=1024,
                 cudnn_tune=None, cudnn_off=False, layout=None):
-    """2-D convolution.  The weight follows the data's layout, as in
-    MXNet: (O, I/g, kh, kw) for NCHW, (O, kh, kw, I/g) for NHWC; float16
-    computes in f32 and rounds back, as the JAX op's safe accumulation.
-    ``workspace`` and the ``cudnn_*`` attributes are accepted and
-    ignored."""
-    if len(kernel) != 2 or data.dim() != 4:
-        raise MXNetError(f"Convolution: only 2-D is ported, got a "
-                         f"{len(kernel)}-d kernel on {data.dim()}-d data")
+    """1-, 2- or 3-D convolution (the rank of ``kernel``).  The weight
+    follows the data's layout, as in MXNet: (O, I/g, *k) channels first,
+    (O, *k, I/g) channels last; float16 computes in f32 and rounds back,
+    as the JAX op's safe accumulation.  ``workspace`` and the ``cudnn_*``
+    attributes are accepted and ignored."""
+    n = _spatial_rank(data, kernel, "Convolution")
     data, weight, *bias = _amp.cast_inputs("Convolution", data, weight,
                                            *bias)
-    last = _nhwc(layout, "Convolution")
+    last = _channel_last(layout, n, "Convolution")
     x = _to_channels_first(data, last)
     w = _to_channels_first(weight, last)
     b = bias[0] if bias and not no_bias else None
@@ -124,56 +140,73 @@ def convolution(data, weight, *bias, kernel=(), stride=(), dilate=(), pad=(),
     if half:
         x, w = x.float(), w.float()
         b = None if b is None else b.float()
-    out = F.conv2d(x, w, b, stride=_pair(stride or 1, 2),
-                   padding=_pair(pad, 2), dilation=_pair(dilate or 1, 2),
-                   groups=num_group)
+    conv = (F.conv1d, F.conv2d, F.conv3d)[n - 1]
+    out = conv(x, w, b, stride=_pair(stride or 1, n), padding=_pair(pad, n),
+               dilation=_pair(dilate or 1, n), groups=num_group)
     if half:
         out = out.to(data.dtype)
     return _from_channels_first(out, last)
 
 
 def _window_sum(x, kernel, stride):
-    """Sums over windows of a padded NCHW ``x``, exactly (no division)."""
-    return F.avg_pool2d(x, kernel, stride, divisor_override=1)
+    """Sums over windows of a padded channels-first ``x``, exactly (no
+    division); 1-D as 2-D over a unit height.  16-bit data sums in f32
+    and rounds once, as torch's CUDA pooling does inside (its CPU 3-D
+    pooling has no bf16 kernel)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _window_sum(x.float(), kernel, stride).to(x.dtype)
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + tuple(kernel),
+                            (1,) + tuple(stride),
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
 
 
 @register("Pooling")
 def pooling(data, kernel=(), pool_type="max", global_pool=False, stride=(),
             pad=(), pooling_convention="valid", count_include_pad=True,
             cudnn_off=False, p_value=2, layout=None):
-    """2-D max, average or sum pooling, with the JAX op's windows:
-    ``pooling_convention="full"`` pads the high side so that the last
-    window covers the input (ceil mode, a window may lie in the
-    padding), max pads with -inf and the sums with 0; an average divides
-    by the window's size with ``count_include_pad``, else by its count of
-    input elements."""
-    if data.dim() != 4:
-        raise MXNetError(f"Pooling: only 2-D is ported, got {data.dim()}-d "
-                         f"data")
-    last = _nhwc(layout, "Pooling")
+    """1-, 2- or 3-D max, average, sum or Lp pooling (the data's rank),
+    with the JAX op's windows: ``pooling_convention="full"`` pads the
+    high side so that the last window covers the input (ceil mode, a
+    window may lie in the padding), max pads with -inf and the sums with
+    0; an average divides by the window's size with
+    ``count_include_pad``, else by its count of input elements; ``lp``
+    is (the window's sum of |x| ** p_value) ** (1 / p_value)."""
+    n = data.dim() - 2
+    last = _channel_last(layout, n, "Pooling")
     x = _to_channels_first(data, last)
     if global_pool:
-        kernel, stride, pad = tuple(x.shape[2:]), (1, 1), (0, 0)
-    kernel = _pair(kernel, 2)
-    stride = _pair(stride or 1, 2)
-    pad = _pair(pad, 2)
-    if pool_type not in ("max", "avg", "sum"):
-        raise MXNetError(f"pool_type {pool_type} is not ported")
+        kernel, stride, pad = tuple(x.shape[2:]), (1,) * n, (0,) * n
+    kernel = _pair(kernel, n)
+    stride = _pair(stride or 1, n)
+    pad = _pair(pad, n)
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise MXNetError(f"pool_type {pool_type}")
     if global_pool and pool_type == "avg":
-        return _from_channels_first(x.mean(dim=(2, 3), keepdim=True), last)
+        return _from_channels_first(
+            x.mean(dim=tuple(range(2, n + 2)), keepdim=True), last)
     hi = list(pad)
     if pooling_convention == "full":
-        for i in range(2):
+        for i in range(n):
             size = x.shape[2 + i]
             n_out = math.ceil((size + 2 * pad[i] - kernel[i]) / stride[i]) + 1
             need = (n_out - 1) * stride[i] + kernel[i] - size - pad[i]
             hi[i] = max(need, pad[i])
     if pool_type == "max":
+        pool = (F.max_pool1d, F.max_pool2d, F.max_pool3d)[n - 1]
         if hi == list(pad) and all(2 * p <= k for p, k in zip(pad, kernel)):
-            out = F.max_pool2d(x, kernel, stride, pad)  # -inf padding
+            out = pool(x, kernel, stride, pad)  # -inf padding
         else:
-            out = F.max_pool2d(_pad(x, pad, hi, -math.inf), kernel, stride)
+            out = pool(_pad(x, pad, hi, -math.inf), kernel, stride)
         return _from_channels_first(out, last)
+    if pool_type == "lp":
+        # |x| with the JAX op's gradient at 0 (+1, where torch's abs has 0)
+        mag = torch.where(x >= 0, x, -x)
+        summed = _window_sum(_pad(mag ** p_value, pad, hi, 0.0), kernel,
+                             stride)
+        return _from_channels_first(summed ** (1.0 / p_value), last)
     summed = _window_sum(_pad(x, pad, hi, 0.0), kernel, stride)
     if pool_type == "sum":
         out = summed
@@ -361,20 +394,17 @@ def deconvolution(data, weight, *bias, kernel=(), stride=(), dilate=(),
                   pad=(), adj=(), target_shape=(), num_filter=1, num_group=1,
                   no_bias=True, workspace=1024, cudnn_tune=None,
                   cudnn_off=False, layout=None):
-    """2-D transposed convolution, out = (in - 1) s - 2 p + d (k - 1) + 1
-    + adj.  The weight is (C_in, C_out / g, kh, kw) for NCHW, as MXNet's
-    and torch's, and (C_in, kh, kw, C_out / g) for NHWC.  Other ranks
-    wait for the 1-D and 3-D family (ROADMAP A.12)."""
-    if len(kernel) != 2 or data.dim() != 4:
-        raise MXNetError(f"Deconvolution: only 2-D is ported (ROADMAP "
-                         f"A.12), got a {len(kernel)}-d kernel")
+    """1-, 2- or 3-D transposed convolution, out = (in - 1) s - 2 p + d (k
+    - 1) + 1 + adj.  The weight is (C_in, C_out / g, *k) channels first,
+    as MXNet's and torch's, and (C_in, *k, C_out / g) channels last."""
+    n = _spatial_rank(data, kernel, "Deconvolution")
     if target_shape:
         raise NotImplementedError(
             "Deconvolution target_shape is not supported; give pad/adj "
             "explicitly (out = (in-1)*s - 2p + d*(k-1) + 1 + adj)")
     data, weight, *bias = _amp.cast_inputs("Deconvolution", data, weight,
                                            *bias)
-    last = _nhwc(layout, "Deconvolution")
+    last = _channel_last(layout, n, "Deconvolution")
     x = _to_channels_first(data, last)
     w = _to_channels_first(weight, last)
     b = bias[0] if bias and not no_bias else None
@@ -382,11 +412,10 @@ def deconvolution(data, weight, *bias, kernel=(), stride=(), dilate=(),
     if half:
         x, w = x.float(), w.float()
         b = None if b is None else b.float()
-    out = F.conv_transpose2d(x, w, b, stride=_pair(stride or 1, 2),
-                             padding=_pair(pad, 2),
-                             output_padding=_pair(adj or 0, 2),
-                             groups=num_group,
-                             dilation=_pair(dilate or 1, 2))
+    conv = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[n - 1]
+    out = conv(x, w, b, stride=_pair(stride or 1, n), padding=_pair(pad, n),
+               output_padding=_pair(adj or 0, n), groups=num_group,
+               dilation=_pair(dilate or 1, n))
     if half:
         out = out.to(data.dtype)
     return _from_channels_first(out, last)
@@ -741,28 +770,50 @@ def moments(data, axes=None, keepdims=False):
     return mean.to(data.dtype), var.to(data.dtype)
 
 
-def _unfold_args(kernel, stride, dilate, pad, op):
-    if len(kernel) != 2:
-        raise MXNetError(f"{op}: only 2-D is ported (ROADMAP A.12)")
-    return dict(kernel_size=tuple(int(k) for k in kernel),
-                stride=_pair(stride or 1, 2), dilation=_pair(dilate or 1, 2),
-                padding=_pair(pad or 0, 2))
+def _window_geometry(kernel, stride, dilate, pad, padded):
+    """(kernel, stride, dilate, pad, output sizes, the slices of each
+    kernel position) of sliding windows over spatial sizes ``padded``."""
+    n = len(kernel)
+    kernel = tuple(int(k) for k in kernel)
+    stride = _pair(stride or 1, n)
+    dilate = _pair(dilate or 1, n)
+    pad = _pair(pad or 0, n)
+    padded = [padded[i] + 2 * pad[i] for i in range(n)]
+    o_sp = [(padded[i] - (dilate[i] * (kernel[i] - 1) + 1)) // stride[i] + 1
+            for i in range(n)]
+    slices = [tuple(slice(k[i] * dilate[i],
+                          k[i] * dilate[i] + (o_sp[i] - 1) * stride[i] + 1,
+                          stride[i]) for i in range(n))
+              for k in itertools.product(*(range(k) for k in kernel))]
+    return pad, o_sp, slices
 
 
 @register("im2col")
 def im2col(data, kernel=(), stride=(), dilate=(), pad=()):
-    """(B, C, H, W) -> (B, C * kh * kw, L), channel-major features."""
-    return F.unfold(data, **_unfold_args(kernel, stride, dilate, pad,
-                                         "im2col"))
+    """(B, C, *spatial) -> (B, C * prod(kernel), L), channel-major
+    features then kernel positions in row-major order, any rank."""
+    pad, o_sp, slices = _window_geometry(kernel, stride, dilate, pad,
+                                         data.shape[2:])
+    x = _pad(data, pad, pad, 0.0)
+    cols = torch.stack([x[(slice(None), slice(None)) + sl] for sl in slices],
+                       2)
+    return cols.reshape(data.shape[0], -1, math.prod(o_sp))
 
 
 @register("col2im")
 def col2im(data, output_size=(), kernel=(), stride=(), dilate=(), pad=()):
     """The inverse of im2col: overlapping patches add into (B, C,
-    *output_size)."""
-    out = F.fold(data.float(), tuple(int(s) for s in output_size),
-                 **_unfold_args(kernel, stride, dilate, pad, "col2im"))
-    return out.to(data.dtype)
+    *output_size), in f32."""
+    out_sp = tuple(int(s) for s in output_size)
+    pad, o_sp, slices = _window_geometry(kernel, stride, dilate, pad, out_sp)
+    B = data.shape[0]
+    cols = data.float().reshape((B, -1, len(slices)) + tuple(o_sp))
+    out = cols.new_zeros((B, cols.shape[1])
+                         + tuple(s + 2 * p for s, p in zip(out_sp, pad)))
+    for j, sl in enumerate(slices):
+        out[(slice(None), slice(None)) + sl] += cols[:, :, j]
+    crop = tuple(slice(p, p + s) for p, s in zip(pad, out_sp))
+    return out[(slice(None), slice(None)) + crop].to(data.dtype)
 
 
 @register("RNN")

@@ -71,7 +71,7 @@ def collect_quantizable(block, exclude: Iterable[str] = ()) -> List[Tuple]:
             if isinstance(child, gnn.Conv2D):
                 # the quantized convolution is NC-first; a channel-last
                 # conv stays f32, as in the JAX package
-                if not child.nhwc and p not in exclude \
+                if not child.channel_last and p not in exclude \
                         and child.name not in exclude:
                     out.append((p, child))
             elif isinstance(child, gnn.Dense):

@@ -275,15 +275,23 @@ QUEUED = {
     "models": {n: _A9 for n in ("BERTForMLMPipelined",
                                 "StackedTransformerEncoder", "bert_pp",
                                 "bert_pp_sharding_rules", "bert_pp_small")},
+    "gluon": {"contrib": "A.11.4"},
+    "gluon.nn": {},
+    "gluon.model_zoo.vision": {},
+    "io": {"LibSVMIter": "A.7.7",
+           "native": "A.13 (item 6): the native libmxio pipeline"},
 }
 
 
 def test_public_names_match_jax_or_are_queued():
-    """Every public name of ``mx``, ``mx.nd``, ``mx.parallel`` and
-    ``mx.models`` in the JAX package is in the port's namespace too, or
-    listed above with the ROADMAP item that queues it; a listed name the
-    port has gained fails, so the list stays current."""
+    """Every public name of ``mx``, ``mx.nd``, ``mx.parallel``,
+    ``mx.models``, ``mx.gluon``, ``mx.gluon.nn``,
+    ``mx.gluon.model_zoo.vision`` and ``mx.io`` in the JAX package is in
+    the port's namespace too, or listed above with the ROADMAP item that
+    queues it; a listed name the port has gained fails, so the list stays
+    current."""
     import mxnet_tpu as jmx
+    import mxnet_tpu.io.native  # noqa: F401 - a JAX ImageRecordIter loads it
 
     import mxnet_tpu_torch as tmx
 
@@ -292,7 +300,13 @@ def test_public_names_match_jax_or_are_queued():
 
     for key, jmod, tmod in (("mx", jmx, tmx), ("nd", jmx.nd, tmx.nd),
                             ("parallel", jmx.parallel, tmx.parallel),
-                            ("models", jmx.models, tmx.models)):
+                            ("models", jmx.models, tmx.models),
+                            ("gluon", jmx.gluon, tmx.gluon),
+                            ("gluon.nn", jmx.gluon.nn, tmx.gluon.nn),
+                            ("gluon.model_zoo.vision",
+                             jmx.gluon.model_zoo.vision,
+                             tmx.gluon.model_zoo.vision),
+                            ("io", jmx.io, tmx.io)):
         missing = public(jmod) - public(tmod)
         assert missing == set(QUEUED[key]), (key, sorted(
             missing ^ set(QUEUED[key])))

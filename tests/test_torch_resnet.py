@@ -338,19 +338,23 @@ def test_ops_are_registered_in_nd():
 
 
 @pytest.mark.parametrize("op,shape,attrs", [
-    ("Convolution", (2, 3, 8), {"kernel": (3,), "num_filter": 4}),
-    ("Convolution", (2, 3, 4, 8, 8), {"kernel": (3, 3, 3), "num_filter": 4}),
+    ("Convolution", (2, 3, 8), {"kernel": (3,), "num_filter": 4,
+                                "layout": "NCHW"}),
+    ("Convolution", (2, 3, 4, 4, 4, 4), {"kernel": (3, 3, 3, 3),
+                                         "num_filter": 4}),
     ("Convolution", (2, 8, 3), {"kernel": (3,), "num_filter": 4,
-                                "layout": "NWC"}),
+                                "layout": "NHWC"}),
     ("Convolution", (2, 3, 8, 8), {"kernel": (3, 3), "num_filter": 4,
                                    "layout": "NCDHW"}),
-    ("Pooling", (2, 3, 8), {"kernel": (2,)}),
-    ("Pooling", (2, 3, 4, 8, 8), {"kernel": (2, 2, 2)}),
+    ("Pooling", (2, 3, 8), {"kernel": (2,), "layout": "NHWC"}),
+    ("Pooling", (2, 3, 4, 4, 4, 4), {"kernel": (2, 2, 2, 2)}),
     ("Pooling", (2, 8, 8, 3), {"kernel": (2, 2), "layout": "NDHWC"}),
 ])
 def test_conv_and_pooling_ops_refuse_what_is_not_2d(op, shape, attrs):
-    """The ops are 2-D, NCHW or NHWC (ROADMAP A.12 adds the rest): other
-    ranks and layouts raise instead of running untested."""
+    """The ops take 1, 2 or 3 spatial axes, each in its own two layouts
+    (``tests/test_torch_conv_nd.py`` holds them to the JAX ops): four
+    spatial axes, or a layout of another rank, raise instead of running
+    untested."""
     x = torch.zeros(shape)
     args = (x,)
     if op == "Convolution":

@@ -211,6 +211,19 @@ _LAYERS = {
     "avgpool": (lambda: tnn.AvgPool2D(3, strides=2, padding=1), _IMG),
     "globalavgpool": (lambda: tnn.GlobalAvgPool2D(), _IMG),
     "globalmaxpool": (lambda: tnn.GlobalMaxPool2D(), _IMG),
+    "conv1d": (lambda: tnn.Conv1D(5, 3, padding=1, groups=5,
+                                  activation="relu"), (2, 5, 9)),
+    "conv3d_ndhwc": (lambda: tnn.Conv3D(3, 2, layout="NDHWC"),
+                     (2, 4, 5, 6, 4)),
+    "conv2d_transpose": (lambda: tnn.Conv2DTranspose(3, 3, strides=2,
+                                                     output_padding=1),
+                         _IMG),
+    "maxpool1d": (lambda: tnn.MaxPool1D(3, ceil_mode=True), (2, 4, 10)),
+    "avgpool3d": (lambda: tnn.AvgPool3D(2, padding=1,
+                                        count_include_pad=False),
+                  (2, 4, 5, 6, 4)),
+    "globalmaxpool1d": (lambda: tnn.GlobalMaxPool1D(layout="NWC"),
+                        (2, 10, 4)),
     "hybridsequential": (_seq, _X2),
     "mha": (lambda: ttr.MultiHeadAttention(16, 2), _X3),
     "ffn": (lambda: ttr.PositionwiseFFN(16, 32), _X3),
