@@ -555,6 +555,49 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           and gradients card vs CPU on the first sample
                           (CONV_ND_TOL), ms of a forward and backward at
                           the full shape; K1-K7 0.
+  profile_bert            gluon_bert's step (BERT-base, 32 x 512, Adam
+                          through gluon.Trainer) under ``mx.profiler``,
+                          with ``hybridize(False)`` and hybridized: the
+                          ranked rows name FullyConnected, LayerNorm and
+                          _contrib_flash_attention, then one
+                          ``CachedOp:<class>`` row and none from inside
+                          it; the trace segment lists each of our
+                          kernels as often as its launch counter counts;
+                          each profiled step launches K1 26 and K3-K5 12
+                          times; profiled and unprofiled step ms, the top
+                          rows, the op sites' cost with the profiler
+                          stopped.  (Runs after gluon_bert, on its net.)
+  serve_fullprefix        serve's Transformer-big decoder over a fixed
+                          source through ``FullPrefixAdapter`` (no pages):
+                          8 slots, an (8, 64) buffer, 8 prompts of 4-24
+                          tokens, 16 new tokens each; tokens equal a host
+                          greedy loop over the same buffer on the card; K1
+                          18 a step, K2 0; tokens/s, step ms.
+  train_sparse_lm         the medium LSTM LM with ``Embedding(sparse_grad=
+                          True)``, SGD lr 20, clip 0.25 a token, dropout 0:
+                          20 steps, each within SPARSE_LM_STEP_TOL
+                          (relative L2) of a dense step from its state on
+                          every loss and parameter, its gradient a
+                          RowSparseNDArray of the batch's distinct ids;
+                          20-step runs' drift from the dense run (sparse,
+                          a dense rerun, a dense run summing the embedding
+                          gradient by index_add_) reported; tokens/s; the
+                          op sites' cost; K1-K7 0.
+  train_sparse_adam       the same model at WikiText-103's vocabulary
+                          (267,735) with lazy Adam (wd 1e-4), 5 steps:
+                          untouched rows bit-identical in the weight and
+                          both moments, touched rows within SPARSE_ADAM_TOL
+                          of the rule in float64; tokens/s, rows touched,
+                          the embedding's lazy update vs a dense
+                          ``adam_update`` of it (CUDA events); K1-K7 0.
+  libsvm_sparse           a seeded Avazu-shaped LibSVM file (65,536 rows of
+                          15 ids in [1, 1,000,000], 1-based) through
+                          ``LibSVMIter`` at batch 8,192: components equal
+                          the phase's numpy reader's; ``nd.sparse.dot``
+                          with and without ``transpose_a`` within SVM_TOL of
+                          float64; peak device memory under 1 GB; rows/s
+                          of the iterator alone and with the products;
+                          K1-K7 0.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -2362,6 +2405,9 @@ TRAIN_PER_STEP = {"layer_norm": 26, "paged_decode_attention": 0,
 # 64>, ...)
 OUR_KERNELS = ("ln_fwd_", "paged_decode", "flash_fwd", "flash_bwd_dq",
                "flash_bwd_dkv")
+# the wrapper whose launch counter counts each of those kernels
+OUR_KERNEL_COUNTER = dict(zip(OUR_KERNELS, ("layer_norm",
+                                            "paged_decode_attention") + FLASH))
 
 
 def _mlm_loss(torch):
@@ -4233,14 +4279,15 @@ def phase_serve_int4(torch, ctx):
 # name, source, the TPU kernel it replaces, the paths whose launches the
 # kernels line reports (summed)
 AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16",
-                   "module_bert", "train_resume")
+                   "module_bert", "train_resume", "profile_bert")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix", "serve_beam",
       "serve_fleet", "serve_int8", "serve_int4", "train_transformer",
       "train_transformer_bf16", "gluon_bert", "train_amp",
-      "train_amp_fp16", "module_bert", "train_resume")),
+      "train_amp_fp16", "module_bert", "train_resume", "serve_fullprefix",
+      "profile_bert")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -4478,6 +4525,8 @@ def phase_gluon_bert(torch, ctx):
     prof = _step_profile(torch, step, steps=1)
     expected = {n: k * GB_STEPS for n, k in TRAIN_PER_STEP.items()}
     tokens_per_s = n_tok * GB_STEPS / wall
+    # profile_bert profiles this loop's step, unhybridized and hybridized
+    ctx["gluon_bert_loop"] = (net, step)
     ctx["gluon_bert_f32"] = {"tokens_per_s": tokens_per_s,
                              "step_ms_median": statistics.median(step_ms),
                              "max_memory_allocated_gb": peak}
@@ -5437,14 +5486,14 @@ LM_PARITY_TOL = {"logits_of_max_abs": 1e-4, "loss_rel": 1e-5,
                  "state_abs": 1e-5}
 
 
-def _lm_batches(batch, seed):
+def _lm_batches(batch, seed, vocab=LM_VOCAB):
     """LM_PERIOD (data, target) pairs of (LM_BPTT, batch) token ids from
     a Zipf-distributed (p ~ 1/rank) seeded stream, laid out in ``batch``
     columns as MXNet's ``batchify`` lays out a corpus."""
     rng = np.random.RandomState(seed)
-    p = 1.0 / np.arange(1, LM_VOCAB + 1)
+    p = 1.0 / np.arange(1, vocab + 1)
     rows = LM_PERIOD * LM_BPTT + 1
-    stream = rng.choice(LM_VOCAB, size=rows * batch, p=p / p.sum())
+    stream = rng.choice(vocab, size=rows * batch, p=p / p.sum())
     cols = stream.reshape(batch, rows).T.astype(np.float32)
     return [(cols[i * LM_BPTT:(i + 1) * LM_BPTT],
              cols[i * LM_BPTT + 1:(i + 1) * LM_BPTT + 1])
@@ -7863,6 +7912,735 @@ def phase_conv_nd(torch, ctx):
             "ok": bool(ok and not any(launches.values()))}
 
 
+# ---------------------------------------------------------------------------
+# the profiler, serving without pages, nd.sparse
+# ---------------------------------------------------------------------------
+# rows the unhybridized BERT step must show under their registry names, and
+# the op rows a hybridized call must not show (its ops run inside the
+# CachedOp row, as the JAX package traces them)
+PROFILE_NAMES = ("FullyConnected", "LayerNorm", "_contrib_flash_attention")
+PROFILE_INSIDE = PROFILE_NAMES + ("Embedding",)
+
+
+def _trace_kernels(path):
+    """The device kernels a Chrome trace lists: count, and ours by name."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"kernels": len(names), "bytes": os.path.getsize(path),
+            "ours": {k: sum(k in n for n in names) for k in OUR_KERNELS}}
+
+
+def _site_cost(torch, step, step_s, calls=200_000, rounds=5):
+    """What the profiler's op sites cost with the profiler stopped: the
+    site calls in one ``step()`` (every call of a site, nested ones too,
+    counted by ``sys.setprofile``), the time a site adds to a call (a site
+    around a function that returns at once, against that function, the
+    best of ``rounds`` loops of ``calls``), and their product over the
+    step's time ``step_s``."""
+    import sys
+    from mxnet_tpu_torch import profiler
+
+    assert not profiler.is_recording()
+
+    def bare(a, b, c, k=None):
+        return a
+
+    site = profiler.op_site("probe", bare)
+    code, n = site.__code__, [0]
+
+    def count(frame, event, arg):
+        if event == "call" and frame.f_code is code:
+            n[0] += 1
+
+    sys.setprofile(count)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        sys.setprofile(None)
+    best = {"site": math.inf, "bare": math.inf}
+    for _ in range(rounds):
+        for name, fn in (("site", site), ("bare", bare)):
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn(1, 2, 3, k=4)
+            best[name] = min(best[name], (time.perf_counter() - t0) / calls)
+    added = best["site"] - best["bare"]
+    return {"site_calls_a_step": n[0], "ns_added_a_call": added * 1e9,
+            "ns_bare_call": best["bare"] * 1e9,
+            "us_a_step": n[0] * added * 1e6, "step_ms": step_s * 1e3,
+            "share_of_step": n[0] * added / step_s}
+
+
+def _profiled_step(torch, step):
+    """One unprofiled step, then one between ``profiler.start()`` and
+    ``stop()`` with the kernel counters zeroed just before; each ends in
+    a sync: (plain ms, profiled ms, start() ms, launches, json rows,
+    trace file)."""
+    from mxnet_tpu_torch import profiler
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    profiler.reset_stats()
+    counted = _det_zero_counters()
+    t0 = time.perf_counter()
+    profiler.start()
+    start_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    prof_ms = (time.perf_counter() - t0) * 1e3
+    profiler.stop()
+    launches = {n: fn.launches for n, fn in counted.items()}
+    rows = json.loads(profiler.dumps(format="json", reset=True))
+    return (plain_ms, prof_ms, start_ms, launches, rows,
+            profiler.dump()[-1])
+
+
+def _torch_profiled_step(torch, step, path):
+    """One step in a bare ``torch.profiler`` session (no
+    ``mx.profiler`` prime): each of our kernels as [listed in the trace,
+    launched]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counted = _det_zero_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    ours = _trace_kernels(path)["ours"]
+    return {k: [ours[k], counted[c].launches]
+            for k, c in OUR_KERNEL_COUNTER.items()}
+
+
+def phase_profile_bert(torch, ctx):
+    """gluon_bert's BERT-base step (32 x 512, Adam through gluon.Trainer)
+    under ``mx.profiler``: once with ``hybridize(False)``, once
+    hybridized.  Unhybridized the ranked rows name FullyConnected,
+    LayerNorm and _contrib_flash_attention; hybridized one
+    ``CachedOp:<class>`` row and no op row from inside it; the trace
+    segment lists each of our kernels as often as its wrapper's counter
+    saw it launched; each profiled step launches K1 26 and K3-K5 12
+    times, as an unprofiled step.  Also the op sites' cost in an eager
+    step with the profiler stopped."""
+    from mxnet_tpu_torch import profiler
+
+    net, step = ctx.pop("gluon_bert_loop")
+    here = os.path.dirname(os.path.abspath(__file__))
+    profiler.set_config(filename=os.path.join(here, "build", "profile_bert",
+                                              "bert.json"))
+    res, ok = {}, True
+    want = dict(TRAIN_PER_STEP)
+    # the control: the same step in a bare torch.profiler session, whose
+    # trace loses some of the first device events late in a process
+    net.hybridize(False)
+    step()
+    os.makedirs(os.path.join(here, "build", "profile_bert"), exist_ok=True)
+    res["bare_torch_profiler_traced_and_launched"] = _torch_profiled_step(
+        torch, step, os.path.join(here, "build", "profile_bert",
+                                  "bare.json"))
+    for tag, active in (("eager", False), ("hybridized", True)):
+        net.hybridize(active)
+        step()  # a first call of this form outside the window
+        plain, prof, start_ms, launches, rows, seg = _profiled_step(torch,
+                                                                    step)
+        names = [r["name"] for r in rows]
+        totals = [r["total_ms"] for r in rows]
+        trace = _trace_kernels(seg)
+        cached = [n for n in names if n.startswith("CachedOp:")]
+        if active:
+            shape_ok = (len(cached) == 1
+                        and not set(names) & set(PROFILE_INSIDE))
+        else:
+            shape_ok = set(PROFILE_NAMES) <= set(names) and not cached
+        traced = {k: [trace["ours"][k], launches[c]]
+                  for k, c in OUR_KERNEL_COUNTER.items()}
+        this_ok = bool(shape_ok and launches == want
+                       and totals == sorted(totals, reverse=True)
+                       and trace["kernels"] > 0
+                       and all(t == n for t, n in traced.values()))
+        ok = ok and this_ok
+        ctx.setdefault("launches", {})
+        ctx["launches"]["profile_bert"] = {
+            n: ctx["launches"].get("profile_bert", {}).get(n, 0) + v
+            for n, v in launches.items()}
+        res[tag] = {"ok": this_ok, "step_ms": plain, "profiled_step_ms": prof,
+                    "start_ms": start_ms,
+                    "overhead": prof / plain, "rows": len(rows),
+                    "top5": rows[:5], "cached_op_rows": cached,
+                    "launches": launches, "trace": trace,
+                    "traced_and_launched": traced,
+                    "trace_file": os.path.relpath(seg, here)}
+        if not active:
+            res[tag]["profiler_sites_stopped"] = _site_cost(
+                torch, step, plain / 1e3)
+    net.hybridize()
+    return {"model": "bert_base", "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN,
+            "launches_expected_a_step": want, **res, "card": ctx["smi"],
+            "ok": ok}
+
+
+FP_SLOTS, FP_LEN, FP_REQUESTS, FP_NEW = 8, 64, 8, 16
+
+
+def phase_serve_fullprefix(torch, ctx):
+    """Transformer-big's decoder over a fixed source (serve's model and
+    seeded weights; a seeded 8-token source per slot) served by
+    ``FullPrefixAdapter``: no pages, the prompt in the slot's (8, 64)
+    buffer, the decoder over the whole buffer every step.  8 requests of
+    4-24 prompt tokens, 16 new tokens each.  Tokens equal a host greedy
+    loop over the same buffer through the same logits function on the
+    card, and so does the buffer of the engine's last step (each token
+    written after its position); K1 3 a decoder layer a step (18), K2
+    0."""
+    from mxnet_tpu_torch.serving import (FullPrefixAdapter, Request,
+                                         ServingEngine)
+
+    model = ctx["model"]
+    vocab, S, L = 32000, FP_SLOTS, FP_LEN
+    dev = next(model.parameters()).device
+    rng = np.random.RandomState(SEED + 40)
+    with torch.no_grad():
+        src = torch.from_numpy(rng.randint(3, vocab, (S, 8)).astype(
+            np.int32)).to(dev)
+        mem, keep = model._encode_h(src)
+    seen = {}
+
+    def logits_fn(buf):
+        seen["buf"] = buf.clone()
+        return model._decode_h(buf, mem, keep)
+
+    prompts = [rng.randint(3, vocab, rng.randint(4, 25)).astype(np.int32)
+               for _ in range(FP_REQUESTS)]
+
+    def requests():
+        return [Request(p, max_new_tokens=FP_NEW, bos_id=1, eos_id=-1)
+                for p in prompts]
+
+    kw = dict(slots=S, max_len=L)
+    ServingEngine(FullPrefixAdapter(logits_fn, L), **kw).serve(
+        requests()[:2])
+    eng = ServingEngine(FullPrefixAdapter(logits_fn, L), **kw)
+    reqs = requests()
+    out, launches, wall = _counted(torch, lambda: eng.serve(reqs))
+    toks = [[int(t) for t in out[r.id]] for r in reqs]
+    engine_buf = seen["buf"].cpu().numpy()
+    steps = eng.step_count
+    n_layers = len(model.decoder.layers)
+    expected = _expected(3 * n_layers * steps, 0)
+    ctx.setdefault("launches", {})["serve_fullprefix"] = launches
+    # the host greedy loop: every row of the same buffer through the same
+    # function, the engine's gather and selection
+    buf = torch.zeros((S, L), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        buf[i, :len(p)] = torch.from_numpy(p)
+    pos = torch.tensor([len(p) - 1 for p in prompts], device=dev)
+    rows = torch.arange(S, device=dev)
+    loop = []
+    with torch.no_grad():
+        for _ in range(FP_NEW):
+            lg = logits_fn(buf)
+            loop_buf = seen["buf"].cpu().numpy()
+            at = pos[:, None, None].expand(-1, 1, lg.shape[-1])
+            nxt = torch.argmax(torch.log_softmax(lg.gather(1, at)[:, 0],
+                                                 dim=-1), dim=-1)
+            loop.append(nxt.cpu().numpy())
+            buf[rows, torch.clamp(pos + 1, max=L - 1)] = nxt.to(torch.int32)
+            pos = pos + 1
+    loop = np.stack(loop, axis=1).tolist()
+    bursts = [t / n * 1e3 for n, t in eng.burst_times if n]
+    return {"model": "transformer_big decoder", "slots": S, "max_len": L,
+            "requests": FP_REQUESTS, "prompt_lengths": [len(p) for p in
+                                                        prompts],
+            "new_tokens": FP_NEW, "steps": steps, "wall_s": wall,
+            "tokens_per_s": FP_REQUESTS * FP_NEW / wall,
+            "step_ms_median": statistics.median(bursts),
+            "launches": launches, "launches_expected": expected,
+            "k1_a_step": 3 * n_layers, "tokens_equal_host_loop":
+            toks == loop, "last_buffer_equal": bool(np.array_equal(
+                engine_buf, loop_buf)), "pool_bytes": eng.pool_bytes,
+            "distinct_tokens": len({t for r in toks for t in r}),
+            "card": ctx["smi"],
+            "ok": bool(toks == loop and np.array_equal(engine_buf, loop_buf)
+                       and launches == expected
+                       and eng.pool_bytes == 0
+                       and all(len(t) == FP_NEW for t in toks))}
+
+
+# the sparse-gradient LSTM: MXNet's word_language_model defaults (lr 20,
+# clip 0.25 a token), dropout 0 for the comparison.  Each of 20 sparse
+# steps is held to a dense step from the same state on the same batch:
+# the loss and every parameter after it within SPARSE_LM_STEP_TOL
+# (relative L2; measured at most 6.9e-10 on an H100).  Two 20-step runs
+# from the same weights drift apart by the order of each embedding row's
+# sum (the sparse gradient's index_add_ against the dense lookup's
+# backward), which 20 steps at lr 20 amplify to about 1e-4 and which
+# differs from one run to the next: the drift is reported beside that
+# of a dense run whose embedding gradient is summed by index_add_ (the
+# same sums in another order) and of a dense rerun, and not gated.
+# (Float64 does not remove it: the dense update rounds every weight
+# through f32, as the reference's ops do, and the lazy one adds an f32
+# step to the rows.)
+SPARSE_LM_LR, SPARSE_LM_CLIP, SPARSE_LM_STEPS = 20.0, 0.25, 20
+SPARSE_LM_STEP_TOL = 1e-6
+
+
+def _swap_encoder(torch, net, kind):
+    """Give ``net``'s encoder, under the same name, a row-sparse gradient
+    (``kind`` "sparse": ``Embedding(sparse_grad=True)``) or a dense one
+    summed by ``index_add_`` ("atomic": the dense lookup with only its
+    sums' order changed); "dense" keeps it."""
+    from mxnet_tpu_torch.gluon import nn
+
+    old = net.encoder
+    if kind == "sparse":
+        net.encoder = nn.Embedding(old.input_dim, old.output_dim,
+                                   sparse_grad=True, prefix=old.prefix)
+    elif kind == "atomic":
+        class Lookup(torch.autograd.Function):
+            @staticmethod
+            def forward(fctx, idx, weight):
+                fctx.save_for_backward(idx)
+                fctx.rows = weight.shape[0]
+                return weight[idx]
+
+            @staticmethod
+            def backward(fctx, g):
+                (idx,) = fctx.saved_tensors
+                width = g.shape[-1]
+                return None, g.new_zeros((fctx.rows, width)).index_add_(
+                    0, idx.reshape(-1), g.reshape(-1, width))
+
+        class AtomicEmbedding(nn.Embedding):
+            def forward(self, x):
+                return Lookup.apply(x.long().clamp(0, self.input_dim - 1),
+                                    self.weight)
+
+        net.encoder = AtomicEmbedding(old.input_dim, old.output_dim,
+                                      prefix=old.prefix)
+    return net
+
+
+def _lm_step_fn(torch, net, dev):
+    """``step(x, y, hidden) -> (loss, hidden, encoder grad stype, rows)``:
+    one Trainer step of the LSTM LM (SGD lr 20, clip 0.25 a token)."""
+    from mxnet_tpu_torch import autograd, gluon
+
+    params = net.collect_params()
+    enc = next(p for p in params.values()
+               if p.name.endswith("embedding0_weight"))
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": SPARSE_LM_LR})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def step(x, y, hidden):
+        batch = x.shape[1]
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            logits, hidden = net(x, hidden)
+            loss = loss_fn(logits, y.reshape((-1,)))
+        loss.backward()
+        g = enc.grad()
+        info = (g.stype, int(g._data.shape[0]))
+        gluon.utils.clip_global_norm([p.grad() for p in params.values()],
+                                     SPARSE_LM_CLIP * LM_BPTT * batch)
+        trainer.step(LM_BPTT * batch)
+        return loss.mean(), hidden, info
+
+    return step
+
+
+def _rel_l2_params(torch, a_net, b_net):
+    b_params = b_net.collect_params()
+    out = {}
+    for k, p in a_net.collect_params().items():
+        a = p.data()._data.detach().double()
+        b = b_params[k].data()._data.detach().double()
+        out[k] = float((a - b).norm() / max(float(b.norm()), 1e-30))
+    return out
+
+
+def _lm_run(torch, net, dev, batches):
+    """20 steps of ``net`` from its weights: (losses, seconds after the
+    first step)."""
+    step = _lm_step_fn(torch, net, dev)
+    hidden = net.begin_state(LM_BATCH, ctx=dev)
+    losses = []
+    for k in range(SPARSE_LM_STEPS):
+        if k == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        loss, hidden, _ = step(*batches[k % len(batches)], hidden)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    return [float(v.asscalar()) for v in losses], time.perf_counter() - t0
+
+
+def phase_train_sparse_lm(torch, ctx):
+    """The medium LSTM LM (vocabulary 10,000, 650, 2 x 650, batch 20 x
+    35) with ``Embedding(sparse_grad=True)``, SGD lr 20, clip 0.25 a
+    token, dropout 0 (plain SGD with wd 0 updates the same either way):
+    20 steps, each held to a dense step from the same state within
+    SPARSE_LM_STEP_TOL, its gradient a RowSparseNDArray of the batch's
+    distinct ids; then 20-step runs (sparse, dense, a dense rerun, a
+    dense run summing the embedding gradient by index_add_) from the
+    same weights, timed, their drift from the dense run reported; and
+    the profiler sites' cost in a dense step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.models import lstm_lm_medium
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    mx.random.seed(SEED + 30)
+    start = lstm_lm_medium(dropout=0.0, prefix="slm_")
+    start.initialize(mx.init.Uniform(0.05), ctx=dev)
+
+    def fresh(kind):
+        net = _swap_encoder(torch, lstm_lm_medium(dropout=0.0,
+                                                  prefix="slm_"), kind)
+        net.initialize(ctx=dev)
+        mine = net.collect_params()
+        for k, p in start.collect_params().items():
+            mine[k].set_data(p.data()._data)
+        return net
+
+    host = _lm_batches(LM_BATCH, SEED + 30)
+    ids = [len(np.unique(x)) for x, _ in host]
+    batches = [(nd.array(x, ctx=dev), nd.array(y, ctx=dev))
+               for x, y in host]
+    counted = _det_zero_counters()
+    # each sparse step against a dense step from the same state
+    sparse_net, shadow = fresh("sparse"), fresh("dense")
+    s_step = _lm_step_fn(torch, sparse_net, dev)
+    d_step = _lm_step_fn(torch, shadow, dev)
+    hidden = sparse_net.begin_state(LM_BATCH, ctx=dev)
+    per_step, grads = [], []
+    for k in range(SPARSE_LM_STEPS):
+        for key, p in sparse_net.collect_params().items():
+            shadow.collect_params()[key].set_data(p.data()._data)
+        x, y = batches[k % len(batches)]
+        d_loss, _, d_info = d_step(x, y, hidden)
+        s_loss, hidden, s_info = s_step(x, y, hidden)
+        a, b = float(s_loss.asscalar()), float(d_loss.asscalar())
+        rel = _rel_l2_params(torch, sparse_net, shadow)
+        per_step.append({"loss_rel": abs(a - b) / abs(b),
+                         "param_rel_l2_max": max(rel.values()),
+                         "worst": max(rel, key=rel.get)})
+        grads.append((s_info[0], s_info[1], ids[k % len(batches)],
+                      d_info[0]))
+    # the 20-step runs from the same weights, timed after their first step
+    runs = {}
+    for kind in ("sparse", "dense", "dense_rerun", "atomic"):
+        net = fresh(kind.split("_")[0])
+        losses, wall = _lm_run(torch, net, dev, batches)
+        runs[kind] = (losses, wall, net)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["train_sparse_lm"] = launches
+    ld, wd, dnet = runs["dense"]
+    drift = {kind: {"loss_rel_max": max(abs(a - b) / abs(b)
+                                        for a, b in zip(runs[kind][0], ld)),
+                    "param_rel_l2": _rel_l2_params(torch, runs[kind][2],
+                                                   dnet)}
+             for kind in ("sparse", "dense_rerun", "atomic")}
+    for d in drift.values():
+        d["param_rel_l2_max"] = max(d["param_rel_l2"].values())
+    step_loss = max(r["loss_rel"] for r in per_step)
+    step_param = max(r["param_rel_l2_max"] for r in per_step)
+    grads_ok = all(st == "row_sparse" and 0 < rows <= n and dst == "default"
+                   for st, rows, n, dst in grads)
+    tokens = (SPARSE_LM_STEPS - 1) * LM_BPTT * LM_BATCH
+    d_step = _lm_step_fn(torch, dnet, dev)
+    hidden = dnet.begin_state(LM_BATCH, ctx=dev)
+    sites = _site_cost(torch, lambda: d_step(*batches[0], hidden),
+                       wd / (SPARSE_LM_STEPS - 1))
+    ls = runs["sparse"][0]
+    walls = {k: v[1] for k, v in runs.items()}
+    del start, sparse_net, shadow, runs, dnet, batches
+    torch.cuda.empty_cache()
+    return {"model": "lstm_lm_medium", "vocab": LM_VOCAB, "batch": LM_BATCH,
+            "bptt": LM_BPTT, "lr": SPARSE_LM_LR, "clip": SPARSE_LM_CLIP,
+            "steps": SPARSE_LM_STEPS, "tol_step_rel_l2": SPARSE_LM_STEP_TOL,
+            "per_step_loss_rel_max": step_loss,
+            "per_step_param_rel_l2_max": step_param, "per_step": per_step,
+            "tokens_per_s": {k: tokens / w for k, w in walls.items()},
+            "losses_sparse": ls, "losses_dense": ld,
+            "run_drift_from_dense": drift,
+            "grad_rows_and_distinct_ids": [[r, n] for _, r, n, _ in grads],
+            "profiler_sites_stopped": sites,
+            "launches": launches, "card": ctx["smi"],
+            "ok": bool(grads_ok and step_loss <= SPARSE_LM_STEP_TOL
+                       and step_param <= SPARSE_LM_STEP_TOL
+                       and all(math.isfinite(v) for v in ls + ld)
+                       and not any(launches.values()))}
+
+
+# lazy Adam at WikiText-103's vocabulary (267,735, as GluonNLP's
+# WikiText103 counts it): untouched rows exactly as they started, touched
+# rows the rule's (mxnet_tpu/optimizer/optimizer.py:231-240) in float64
+# on the host from the same aggregated gradients
+WT103_VOCAB = 267_735
+SPARSE_ADAM = {"learning_rate": 1e-3, "wd": 1e-4}
+SPARSE_ADAM_STEPS = 5
+SPARSE_ADAM_TOL = {"weight_abs": 1e-6, "moment_of_max_abs": 1e-5}
+
+
+def _lazy_adam_f64(w0, records, lr, wd, b1=0.9, b2=0.999, eps=1e-8):
+    """Replay the lazy Adam rule in float64 over ``records`` (each a step's
+    (ids, f32 summed rows, rescale)) from the rows ``w0``: (weight, mean,
+    var) of those rows."""
+    w = w0.astype(np.float64)
+    mean, var = np.zeros_like(w), np.zeros_like(w)
+    rows = records[0][3]
+    for t, (ids, vals, rescale, _) in enumerate(records, 1):
+        at = np.searchsorted(rows, ids)
+        g = vals.astype(np.float64) * rescale + wd * w[at]
+        lr_t = lr * math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+        mean[at] = b1 * mean[at] + (1 - b1) * g
+        var[at] = b2 * var[at] + (1 - b2) * g * g
+        w[at] -= lr_t * mean[at] / (np.sqrt(var[at]) + eps)
+    return w, mean, var
+
+
+def phase_train_sparse_adam(torch, ctx):
+    """The LSTM LM at WikiText-103's vocabulary (267,735 x 650 embedding
+    with ``sparse_grad=True``, 2 x 650, dense decoder) trained 5 steps
+    with lazy Adam (lr 1e-3, wd 1e-4) through ``gluon.Trainer``, clip
+    0.25 a token.  Rows no batch touched: bit-identical in the weight,
+    zero in both moments; touched rows within SPARSE_ADAM_TOL of the rule
+    in float64.  Then the embedding's lazy update timed against a dense
+    ``adam_update`` of the same weight (CUDA events)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models import lstm_lm_medium
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.ndarray.sparse import RowSparseNDArray
+    from mxnet_tpu_torch.optimizer import Adam
+
+    torch.cuda.empty_cache()
+    dev = mx.gpu(0)
+    mx.random.seed(SEED + 50)
+    t0 = time.perf_counter()
+    net = _swap_encoder(torch, lstm_lm_medium(
+        vocab_size=WT103_VOCAB, dropout=0.0, prefix="wt_"), "sparse")
+    net.initialize(mx.init.Uniform(0.05), ctx=dev)
+    init_s = time.perf_counter() - t0
+    params = net.collect_params()
+    enc = params["wt_embedding0_weight"]
+    w0 = enc.data()._data.detach().clone()
+    trainer = gluon.Trainer(params, "adam", dict(SPARSE_ADAM))
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    host = _lm_batches(LM_BATCH, SEED + 50, vocab=WT103_VOCAB)
+    batches = [(nd.array(x, ctx=dev), nd.array(y, ctx=dev))
+               for x, y in host]
+    hidden = net.begin_state(LM_BATCH, ctx=dev)
+    n_tok = LM_BPTT * LM_BATCH
+    records, losses = [], []
+    counted = _det_zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(SPARSE_ADAM_STEPS):
+        x, y = batches[k % len(batches)]
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            logits, hidden = net(x, hidden)
+            loss = loss_fn(logits, y.reshape((-1,)))
+        loss.backward()
+        gluon.utils.clip_global_norm([p.grad() for p in params.values()],
+                                     SPARSE_LM_CLIP * n_tok)
+        g = enc.grad()
+        records.append((g._aux["indices"].cpu().numpy(),
+                        g._data.cpu().numpy(), 1.0 / n_tok, None))
+        trainer.step(n_tok)
+        losses.append(loss.mean())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["train_sparse_adam"] = launches
+    losses = [float(v.asscalar()) for v in losses]
+    touched = np.unique(np.concatenate([r[0] for r in records]))
+    records = [(i, v, s, touched) for i, v, s, _ in records]
+    idx = trainer._param2idx[enc.name]
+    mean, var = trainer._updaters[0].states[idx]
+    w1 = enc.data()._data.detach()
+    keep = torch.ones(WT103_VOCAB, dtype=torch.bool, device=w1.device)
+    keep[torch.from_numpy(touched).to(w1.device)] = False
+    untouched_ok = bool(torch.equal(w1[keep], w0[keep])
+                        and not mean._data[keep].any()
+                        and not var._data[keep].any())
+    rw, rm, rv = _lazy_adam_f64(w0[torch.from_numpy(touched).to(
+        w1.device)].cpu().numpy(), records, SPARSE_ADAM["learning_rate"],
+        SPARSE_ADAM["wd"])
+    sel = torch.from_numpy(touched).to(w1.device)
+    err = {"weight_abs": float(np.abs(w1[sel].cpu().numpy() - rw).max()),
+           "moment_of_max_abs": max(
+               float(np.abs(m._data[sel].cpu().numpy() - r).max()
+                     / max(np.abs(r).max(), 1e-30))
+               for m, r in ((mean, rm), (var, rv)))}
+    # the embedding's update alone: lazy (the last step's gradient) vs a
+    # dense adam_update of the same weight
+    ids_t = torch.from_numpy(records[-1][0]).to(dev)
+    vals_t = torch.from_numpy(records[-1][1]).to(dev)
+    g_rs = RowSparseNDArray(vals_t, {"indices": ids_t}, tuple(w1.shape),
+                            ctx=dev)
+    w_nd = NDArray(w1.clone(), ctx=dev)
+    st = (NDArray(torch.zeros_like(w1), ctx=dev),
+          NDArray(torch.zeros_like(w1), ctx=dev))
+    opt = Adam(rescale_grad=1.0 / n_tok, **SPARSE_ADAM)
+    lazy_ms = time_ms(torch, lambda: opt.update(0, w_nd, g_rs, st),
+                      samples=10, reps=5)
+    g_dense = g_rs.todense()
+    dense_ms = time_ms(torch, lambda: nd.adam_update(
+        w_nd, g_dense, st[0], st[1], lr=1e-3, wd=1e-4,
+        rescale_grad=1.0 / n_tok), samples=10, reps=5)
+    row_bytes = 650 * 4
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del net, trainer, batches, w_nd, st, g_dense, w0, mean, var
+    torch.cuda.empty_cache()
+    return {"model": "lstm LM, WikiText-103 vocabulary", "vocab":
+            WT103_VOCAB, "embed": 650, "init_s": init_s,
+            "steps": SPARSE_ADAM_STEPS, "optimizer": SPARSE_ADAM,
+            "wall_s": wall, "tokens_per_s": SPARSE_ADAM_STEPS * n_tok / wall,
+            "losses": losses, "rows_touched": int(touched.size),
+            "rows_a_step": [int(r[0].size) for r in records],
+            "untouched_bit_identical": untouched_ok, "errors": err,
+            "tol": SPARSE_ADAM_TOL,
+            "embedding_update_ms": {"lazy": lazy_ms, "dense_adam_update":
+                                    dense_ms, "dense_over_lazy":
+                                    dense_ms / lazy_ms},
+            "dense_update_bytes": 7 * WT103_VOCAB * row_bytes,
+            "max_memory_allocated_gb": peak, "launches": launches,
+            "card": ctx["smi"],
+            "ok": bool(untouched_ok and all(math.isfinite(v) for v in losses)
+                       and all(err[k] <= SPARSE_ADAM_TOL[k] for k in err)
+                       and not any(launches.values()))}
+
+
+# an Avazu-shaped LibSVM file: 65,536 rows of 15 distinct 1-based feature
+# ids in [1, 1,000,000], value 1, a 0/1 label
+SVM_ROWS, SVM_NNZ, SVM_FEAT, SVM_BATCH = 65_536, 15, 1_000_000, 8192
+SVM_TOL = 1e-5  # of the product's max abs, against float64
+
+
+def _write_libsvm(path, seed):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, SVM_FEAT + 1, (SVM_ROWS, SVM_NNZ))
+    while True:  # redraw the rows with a repeated id
+        ids.sort(axis=1)
+        dup = (np.diff(ids, axis=1) == 0).any(axis=1)
+        if not dup.any():
+            break
+        ids[dup] = rng.randint(1, SVM_FEAT + 1, (int(dup.sum()), SVM_NNZ))
+    labels = rng.randint(0, 2, SVM_ROWS)
+    order = rng.rand(SVM_ROWS, SVM_NNZ).argsort(axis=1)  # unsorted on disk
+    shuffled = np.take_along_axis(ids, order, axis=1)
+    with open(path, "w") as f:
+        f.writelines(f"{lab} " + " ".join(f"{i}:1" for i in row) + "\n"
+                     for lab, row in zip(labels, shuffled.tolist()))
+
+
+def _read_libsvm(path):
+    """The phase's own reader (numpy on the file's tokens): labels and
+    each row's sorted 0-based ids and values."""
+    with open(path) as f:
+        tok = np.array(f.read().split()).reshape(SVM_ROWS, SVM_NNZ + 1)
+    labels = tok[:, 0].astype(np.float32)
+    pairs = np.char.partition(tok[:, 1:], ":")
+    ids = pairs[..., 0].astype(np.int64) - 1
+    vals = pairs[..., 2].astype(np.float32)
+    order = ids.argsort(axis=1)
+    return (labels, np.take_along_axis(ids, order, axis=1),
+            np.take_along_axis(vals, order, axis=1))
+
+
+def phase_libsvm_sparse(torch, ctx):
+    """``LibSVMIter(data_shape=(1000000,), batch_size=8192, one_based=True)``
+    over a seeded Avazu-shaped file written here: each batch's indptr,
+    indices and values equal the phase's own numpy reader's; ``nd.sparse.
+    dot(batch, w)`` with w (1,000,000, 1) and ``dot(batch, r,
+    transpose_a=True)`` with r (8192, 1) within SVM_TOL of float64; the
+    phase's peak device memory under 1 GB (no dense batch)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import io, nd
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    folder = os.path.join(here, "build", "libsvm")
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, "avazu_shaped.libsvm")
+    t0 = time.perf_counter()
+    _write_libsvm(path, SEED + 60)
+    write_s = time.perf_counter() - t0
+    labels, ids, vals = _read_libsvm(path)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dev = mx.gpu(0)
+    t0 = time.perf_counter()
+    it = io.LibSVMIter(path, data_shape=(SVM_FEAT,), batch_size=SVM_BATCH,
+                       one_based=True, ctx=dev)
+    parse_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 61)
+    w_np = rng.randn(SVM_FEAT, 1).astype(np.float32)
+    r_np = rng.randn(SVM_BATCH, 1).astype(np.float32)
+    w, r = nd.array(w_np, ctx=dev), nd.array(r_np, ctx=dev)
+    counted = _det_zero_counters()
+
+    def epoch(products):
+        it.reset()
+        out = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in it:
+            csr = b.data[0]
+            if products:
+                out.append((csr, nd.sparse.dot(csr, w),
+                            nd.sparse.dot(csr, r, transpose_a=True)))
+            else:
+                out.append((csr, b.label[0]))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    alone, alone_s = epoch(False)
+    with_dot, dot_s = epoch(True)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    ctx.setdefault("launches", {})["libsvm_sparse"] = launches
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    comps_ok, dot_err, tdot_err = True, 0.0, 0.0
+    for k, ((csr, lab), (_, y, yt)) in enumerate(zip(alone, with_dot)):
+        rows = slice(k * SVM_BATCH, (k + 1) * SVM_BATCH)
+        want_ptr = np.arange(0, SVM_BATCH * SVM_NNZ + 1, SVM_NNZ)
+        comps_ok = comps_ok and bool(
+            np.array_equal(csr.indptr.asnumpy(), want_ptr)
+            and np.array_equal(csr.indices.asnumpy(), ids[rows].ravel())
+            and np.array_equal(csr.data.asnumpy(), vals[rows].ravel())
+            and np.array_equal(lab.asnumpy(), labels[rows]))
+        ref = w_np.astype(np.float64)[ids[rows]].sum(axis=1)
+        dot_err = max(dot_err, float(np.abs(y.asnumpy() - ref).max()
+                                     / np.abs(ref).max()))
+        reft = np.bincount(ids[rows].ravel(), minlength=SVM_FEAT,
+                           weights=np.repeat(r_np[:, 0].astype(np.float64),
+                                             SVM_NNZ))[:, None]
+        tdot_err = max(tdot_err, float(np.abs(yt.asnumpy() - reft).max()
+                                       / np.abs(reft).max()))
+    return {"rows": SVM_ROWS, "features": SVM_FEAT, "nnz_a_row": SVM_NNZ,
+            "batch": SVM_BATCH, "batches": len(alone),
+            "file_mb": os.path.getsize(path) / 1e6, "write_s": write_s,
+            "parse_s": parse_s, "rows_per_s_iterator": SVM_ROWS / alone_s,
+            "rows_per_s_with_products": SVM_ROWS / dot_s,
+            "components_equal": comps_ok, "dot_of_max_abs": dot_err,
+            "dot_transpose_a_of_max_abs": tdot_err, "tol": SVM_TOL,
+            "peak_device_gb": peak_gb, "launches": launches,
+            "card": ctx["smi"],
+            "ok": bool(comps_ok and len(alone) == SVM_ROWS // SVM_BATCH
+                       and dot_err <= SVM_TOL and tdot_err <= SVM_TOL
+                       and peak_gb < 1.0 and not any(launches.values()))}
+
+
 def main() -> int:
     import torch
 
@@ -7895,6 +8673,7 @@ def main() -> int:
               ("serve_fleet", phase_serve_fleet),
               ("serve_int8", phase_serve_int8),
               ("serve_int4", phase_serve_int4),
+              ("serve_fullprefix", phase_serve_fullprefix),
               ("train", phase_train),
               ("train_parity", phase_train_parity),
               ("train_profile", phase_train_profile),
@@ -7914,6 +8693,7 @@ def main() -> int:
               ("optimizer", phase_optimizer),
               ("gluon_mnist", phase_gluon_mnist),
               ("gluon_bert", phase_gluon_bert),
+              ("profile_bert", phase_profile_bert),
               ("gluon_bert_parity", phase_gluon_bert_parity),
               ("train_ssd", phase_train_ssd),
               ("detect_ssd", phase_detect_ssd),
@@ -7929,7 +8709,10 @@ def main() -> int:
               ("train_imagenet", phase_train_imagenet),
               ("zoo_train", phase_zoo_train),
               ("zoo_forward", phase_zoo_forward),
-              ("conv_nd", phase_conv_nd))
+              ("conv_nd", phase_conv_nd),
+              ("train_sparse_lm", phase_train_sparse_lm),
+              ("train_sparse_adam", phase_train_sparse_adam),
+              ("libsvm_sparse", phase_libsvm_sparse))
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

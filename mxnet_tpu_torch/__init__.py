@@ -6,8 +6,8 @@ Mirrors the JAX package's layout (``base``, ``context`` with ``Context``,
 ``precision``, ``contrib``, ``parallel``, ``lr_scheduler``, ``KVStore``, ``gluon``, ``init``, ``metric``, ``random``,
 ``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``,
 ``recordio``, ``image``, ``io``, the runtime services ``telemetry``,
-``memwatch``, ``metrics_server``, ``checkpoint``, ``fault``, and the
-symbolic API ``sym`` / ``symbol``, ``mod`` / ``module``, ``rnn``,
+``profiler``, ``memwatch``, ``metrics_server``, ``checkpoint``,
+``fault``, and the symbolic API ``sym`` / ``symbol``, ``mod`` / ``module``, ``rnn``,
 ``model``, ``callback``, ``monitor`` / ``Monitor``, ``name``,
 ``attribute`` / ``AttrScope``, ``subgraph``, ``viz`` /
 ``visualization``) in plain
@@ -48,6 +48,7 @@ from . import precision
 from . import passes
 from . import contrib
 from . import telemetry
+from . import profiler
 from . import memwatch
 from . import metrics_server
 from . import checkpoint
@@ -78,7 +79,8 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "waitall", "ndarray", "nd", "NDArray", "autograd", "optimizer",
            "lr_scheduler", "random", "initializer", "init", "metric",
            "kvstore", "kv", "KVStore", "gluon", "parallel", "precision",
-           "passes", "contrib", "telemetry", "memwatch", "metrics_server",
+           "passes", "contrib", "telemetry", "profiler", "memwatch",
+           "metrics_server",
            "checkpoint", "fault", "recordio", "image", "io", "models",
            "name", "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "subgraph", "model", "callback", "monitor", "Monitor", "module",

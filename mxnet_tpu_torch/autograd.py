@@ -22,6 +22,13 @@ Counterpart of ``mxnet_tpu/autograd.py`` (``record``/``pause`` scopes,
     written in place by the Parameter's ``grad_req``, ``add``
     accumulating until ``zero_grad``.
 
+A gradient of a weight looked up by ``Embedding(sparse_grad=True)``
+while recording (outside a hybridized block's call, :class:`traced`) is
+torch's sparse one: a ``RowSparseNDArray`` buffer takes its rows summed
+per id (``write`` replaces them, ``add`` merges), a dense buffer its
+dense form, and :func:`grad` returns it as a ``RowSparseNDArray``; a
+dense gradient into a row-sparse buffer fills every row.
+
 ``is_training()`` is this module's flag, set by ``record``/``train_mode``
 and the ``train_mode`` arguments, not ``nn.Module.training``.
 
@@ -50,6 +57,8 @@ class _State(threading.local):
     def __init__(self):
         self.recording = False
         self.training = False
+        # > 0 inside a hybridized block's call (the JAX CachedOp's trace)
+        self.traced = 0
         # id(leaf tensor) -> (tensor, weakref to the NDArray whose .grad
         # receives its gradient)
         self.leaves: Dict[int, Any] = {}
@@ -103,6 +112,25 @@ def is_recording() -> bool:
 
 def is_training() -> bool:
     return _state.training
+
+
+class traced:
+    """The scope of a hybridized block's call, which the JAX package runs
+    as one traced program: an op's sparse-gradient pullback applies only
+    outside it (``Embedding(sparse_grad=True)`` inside takes the dense
+    gradient, every row, as the JAX ``CachedOp``'s ``vjp`` gives)."""
+
+    def __enter__(self):
+        _state.traced += 1
+        return self
+
+    def __exit__(self, *exc):
+        _state.traced -= 1
+        return False
+
+
+def is_traced() -> bool:
+    return _state.traced > 0
 
 
 def set_recording(flag: bool) -> bool:
@@ -172,11 +200,18 @@ def backward(heads, head_grads=None, retain_graph=False,
         return
     grads = torch.autograd.grad(outs, [t for t, _ in leaves], seeds,
                                 retain_graph=retain_graph, allow_unused=True)
+    from .ndarray.sparse import RowSparseNDArray
+
     for (_, ref), g in zip(leaves, grads):
         nd = ref()
         if g is None or nd is None or nd._grad is None:
             continue
         buf = nd._grad
+        if isinstance(buf, RowSparseNDArray):
+            buf._write_grad(g, add=nd._grad_req == "add")
+            continue
+        if g.layout != torch.strided:
+            g = g.to_dense()  # a sparse gradient into a dense buffer
         g = g.to(buf._data.dtype)
         buf._set_data(buf._data + g if nd._grad_req == "add" else g)
 
@@ -216,8 +251,22 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     except RuntimeError as e:
         raise MXNetError("one of the variables is not part of the recorded "
                          f"graph ({e})") from None
-    res = [NDArray(g, ctx=v.context) for g, v in zip(grads, variables)]
+    res = [_grad_array(g, v) for g, v in zip(grads, variables)]
     return res[0] if single else res
+
+
+def _grad_array(g, v):
+    """A gradient as the array :func:`grad` returns: a sparse one (an
+    ``Embedding(sparse_grad=True)`` weight's) as a ``RowSparseNDArray`` of
+    its summed rows."""
+    from .ndarray.ndarray import NDArray
+    from .ndarray.sparse import RowSparseNDArray, aggregate_rows
+
+    if g.layout == torch.sparse_coo:
+        uids, vals = aggregate_rows(g._indices()[0], g._values())
+        return RowSparseNDArray(vals, {"indices": uids}, tuple(g.shape),
+                                ctx=v.context)
+    return NDArray(g, ctx=v.context)
 
 
 class _FunctionNode(torch.autograd.Function):

@@ -39,9 +39,13 @@ the op is outside training).
 
 Departures: the first positional argument of ``LayerNorm`` and
 ``BatchNorm`` is ``in_channels`` (the port's callers pass it so; Gluon's
-is ``axis``); ``Embedding(sparse_grad=True)`` raises
-(no ``nd.sparse``); ``Lambda`` / ``HybridLambda`` given a name call the
+is ``axis``); ``Lambda`` / ``HybridLambda`` given a name call the
 registered op of that name on tensors.
+
+Profiler sites: the layers call the op functions (each a site of its
+registry op's name); ``LayerNorm`` (kernel K1) and ``Dense`` without
+flattening (``F.linear``) call torch or the kernel themselves and are
+sites of ``LayerNorm`` and ``FullyConnected``.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from ...base import MXNetError
 from ... import initializer as _init
+from ... import profiler as _profiler
 from ...ops import indexing as _indexing
 from ...ops import nn as _ops
 from ...precision import runtime as _prec
@@ -66,6 +71,12 @@ __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
            "BatchNorm", "Embedding", "LayerNorm", "GroupNorm",
            "InstanceNorm", "Flatten", "Lambda", "HybridLambda", "Activation",
            "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU"]
+
+# profiler sites of the registry ops these layers stand for
+# (``LayerNormFunction`` looked up at each call)
+_linear_site = _profiler.op_site("FullyConnected", F.linear)
+_layer_norm_site = _profiler.op_site(
+    "LayerNorm", lambda *args: LayerNormFunction.apply(*args))
 
 
 def weight_tensor(shape, fill: Optional[float] = None) -> nn.Parameter:
@@ -172,7 +183,7 @@ class Dense(HybridBlock):
         if not self.flatten:
             x, w, b = _prec.cast_inputs("FullyConnected", x, self.weight,
                                         self.bias)
-            out = F.linear(x, w, b)
+            out = _linear_site(x, w, b)
         else:
             args = (x, self.weight) + (() if self.bias is None
                                        else (self.bias,))
@@ -290,26 +301,31 @@ class BatchNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """Rows of ``weight`` (input_dim, output_dim) by index; float indices
-    (the JAX package's habit) are cast to integers."""
+    (the JAX package's habit) are cast to integers.  With ``sparse_grad``
+    the weight's gradient is a ``RowSparseNDArray`` of the looked-up rows
+    (``grad_stype="row_sparse"``), which the lazy optimizer updates read;
+    the weight stays dense."""
 
     def __init__(self, input_dim: int, output_dim: int, dtype="float32",
                  weight_initializer=None, sparse_grad: bool = False,
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
-        if sparse_grad:
-            raise MXNetError("Embedding(sparse_grad=True) needs nd.sparse, "
-                             "which the port does not have")
         self.input_dim, self.output_dim = input_dim, output_dim
+        self._sparse_grad = bool(sparse_grad)
         self.weight = nn.Parameter(torch.empty(input_dim, output_dim))
         self._gluon_param("weight", shape=(input_dim, output_dim),
-                          dtype=dtype, init=weight_initializer)
+                          dtype=dtype, init=weight_initializer,
+                          grad_stype="row_sparse" if sparse_grad
+                          else "default")
 
     def forward(self, x):
-        return _indexing.embedding(x, self.weight)
+        return _indexing.embedding(x, self.weight,
+                                   sparse_grad=self._sparse_grad)
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self.input_dim,
-                           output_dim=self.output_dim, sparse_grad=False)
+                           output_dim=self.output_dim,
+                           sparse_grad=self._sparse_grad)
 
 
 class LayerNorm(HybridBlock):
@@ -343,8 +359,8 @@ class LayerNorm(HybridBlock):
         self._finish_deferred(x)
         x, w, b = _prec.cast_inputs("LayerNorm", x, self.weight, self.bias)
         C = x.shape[-1]
-        out = LayerNormFunction.apply(x.reshape(-1, C).contiguous(), w, b,
-                                      self.eps)
+        out = _layer_norm_site(x.reshape(-1, C).contiguous(), w, b,
+                               self.eps)
         return out.reshape(x.shape)
 
     def hybrid_forward(self, F, x, gamma, beta):

@@ -29,9 +29,15 @@ own (``ParameterDict.get`` outside a layer) owns an ``nn.Parameter``.
     hooks turn them into its own (an NHWC convolution's (O, kh, kw, I)
     weight is torch's OIHW in ``channels_last`` memory).
 
+``grad_stype="row_sparse"`` (``Embedding(sparse_grad=True)``'s weight)
+keeps the weight dense and gives it a ``RowSparseNDArray`` gradient
+buffer, empty until ``autograd.backward`` writes the looked-up rows into
+it (``zero_grad`` empties it again), as the JAX Parameter does; ``stype``
+is recorded and the weight stays dense, as there.
+
 Departures: one device per Parameter (a list of more raises and names
-ROADMAP A.9); no row-sparse storage; the initializers draw from the CPU
-generator of ``random``, not numpy's.
+ROADMAP A.9); the initializers draw from the CPU generator of ``random``,
+not numpy's.
 """
 from __future__ import annotations
 
@@ -153,9 +159,6 @@ class Parameter:
                  init=None, allow_deferred_init: bool = False,
                  differentiable: bool = True, stype: str = "default",
                  grad_stype: str = "default"):
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError("row_sparse parameters need nd.sparse, which "
-                             "the port does not have")
         if grad_req not in ("write", "add", "null"):
             raise MXNetError(f"invalid grad_req {grad_req!r}")
         self.name = name
@@ -163,6 +166,9 @@ class Parameter:
         self.dtype = _dtype_name(dtype)
         self.init = init
         self.allow_deferred_init = allow_deferred_init
+        self.stype = stype
+        self.grad_stype = grad_stype
+        self._sparse_grad = None  # the row_sparse gradient buffer
         self._grad_req = grad_req if differentiable else "null"
         self._lr_mult = float(lr_mult)
         self._wd_mult = float(wd_mult)
@@ -220,9 +226,28 @@ class Parameter:
             if not want:
                 t.grad = None
             t.lr_mult, t.wd_mult = self._lr_mult, self._wd_mult
-        self._view._grad = (None if self._grad_req == "null"
-                            else self._grad_view)
+        grad = self._grad_view
+        if self.grad_stype == "row_sparse":
+            grad = self._sparse_grad_buffer(t)
+        self._view._grad = None if self._grad_req == "null" else grad
         self._view._grad_req = self._grad_req
+
+    def _sparse_grad_buffer(self, t: torch.Tensor):
+        """The row_sparse gradient buffer on the tensor's device and in its
+        dtype (None while the tensor is uninitialized)."""
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if isinstance(t, _UNINIT):
+            return None
+        buf = self._sparse_grad
+        if (buf is None or buf._ctx != t.device or buf._data.dtype != t.dtype
+                or buf.shape != tuple(t.shape)):
+            buf = self._sparse_grad = RowSparseNDArray(
+                t.new_zeros((0,) + tuple(t.shape[1:])).detach(),
+                {"indices": torch.zeros((0,), dtype=torch.int64,
+                                        device=t.device)},
+                tuple(t.shape), ctx=t.device)
+        return buf
 
     def _from_gluon(self, value: torch.Tensor) -> torch.Tensor:
         hook = getattr(self._owner, "from_gluon", None)
@@ -370,6 +395,8 @@ class Parameter:
         self._check_initialized(ctx)
         if self._grad_req == "null":
             raise MXNetError(f"parameter {self.name} has grad_req='null'")
+        if self.grad_stype == "row_sparse":
+            return self._sparse_grad_buffer(self._tensor())
         return self._grad_view
 
     def list_grad(self) -> List[NDArray]:
@@ -410,7 +437,13 @@ class Parameter:
 
     def zero_grad(self) -> None:
         t = self._tensor()
-        if self._grad_req != "null" and t.grad is not None:
+        if self._grad_req == "null":
+            return
+        if self.grad_stype == "row_sparse":
+            buf = self._sparse_grad_buffer(t)
+            if buf is not None:
+                buf.zero()
+        elif t.grad is not None:
             t.grad.zero_()
 
     def reset_ctx(self, ctx) -> None:

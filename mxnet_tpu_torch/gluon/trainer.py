@@ -31,6 +31,10 @@ no fence; ``drain`` forces the window.  Each ``step`` ends with the JAX
 Trainer's service hooks: a ``step`` event (``telemetry.record_step``, the
 host wall of the call, ``inflight_depth`` and ``block_wait_ms``; the
 first step is marked ``traced``), a heartbeat, and ``memwatch.on_step``.
+A row-sparse gradient (``Embedding(sparse_grad=True)``) takes the
+optimizer's lazy update through the per-parameter path; the kvstore
+reduces it dense, and ``_row_sparse_pull`` pulls the whole value, as the
+JAX Trainer does (``_contains_sparse_grad`` stays False there too).
 Not ported: more than one device (A.9); ``ignore_stale_grad`` is accepted
 and, as in the JAX package, not checked.
 """
@@ -70,6 +74,7 @@ class Trainer:
             self._params.append(param)
             param._trainer = self
         self._compression_params = compression_params
+        self._contains_sparse_grad = False
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         # contrib.amp: init_trainer sets the loss scaler, scale_loss sets
@@ -136,6 +141,11 @@ class Trainer:
                 if param._inited:
                     kv.init(i, param.data())
         self._kv_initialized = True
+
+    def _row_sparse_pull(self, parameter, out, row_id, full_idx=False):
+        """Dense, as the JAX Trainer's: the whole value."""
+        if self._kvstore is not None:
+            self._kvstore.pull(self._param2idx[parameter.name], out)
 
     # ------------------------------------------------------------------
     def step(self, batch_size: int, ignore_stale_grad: bool = False) -> None:

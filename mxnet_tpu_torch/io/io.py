@@ -9,8 +9,10 @@ without blocking on a CUDA device.  ``DevicePrefetchIter`` and
 ``stage_batches`` stage batches onto a ``DataParallelStep``'s device
 through its ``stage`` from a background thread, and call its ``drain``
 at the end, as the JAX ones stage onto the step's shardings.
-``LibSVMIter`` is not ported: its batches are ``csr`` arrays, and the
-port has no ``nd.sparse`` (ROADMAP A.7).
+``LibSVMIter`` gives ``csr`` batches built straight from the parsed
+rows (the JAX iterator densifies each batch first, which at a million
+features is 32 GB a batch of 8,192): the same ``indptr``, ``indices``
+and values, copied to ``ctx``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import numpy as np
 from ..base import MXNetError
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
-           "CSVIter", "PrefetchingIter", "DevicePrefetchIter",
+           "CSVIter", "LibSVMIter", "PrefetchingIter", "DevicePrefetchIter",
            "stage_batches"]
 
 
@@ -408,6 +410,135 @@ class CSVIter(DataIter):
     @property
     def provide_label(self):
         return self._inner.provide_label
+
+
+class LibSVMIter(DataIter):
+    """A libsvm-format iterator giving ``csr`` batches (reference:
+    ``src/io/iter_libsvm.cc``), with dense labels on ``ctx`` (default
+    the card).
+
+    ``one_based=True`` reads a 1-based file (liblinear / svmlight),
+    ``False`` a 0-based one; ``None`` shifts only when the largest id
+    equals the feature count, and warns that it did.  Within a row the
+    ids are sorted, a repeated id keeps its last value and zero values
+    are dropped: the rows a dense batch converted to ``csr`` would give,
+    without the dense batch.  ``round_batch`` fills the last batch from
+    the start of the file and reports the filled rows in ``pad``;
+    otherwise the last partial batch is dropped."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 batch_size=1, round_batch=True, one_based=None, ctx=None,
+                 **kwargs):
+        from ..context import resolve_device
+
+        super().__init__(batch_size)
+        self._n_feat = int(np.prod(data_shape))
+        self.ctx = resolve_device(ctx)
+        labels, counts, cols, vals = [], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                counts.append(len(parts) - 1)
+                for p in parts[1:]:
+                    k, v = p.split(":")
+                    cols.append(int(k))
+                    vals.append(float(v))
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                labels = [float(line.split()[0]) for line in f
+                          if line.strip()]
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals, np.float32)
+        if cols.size:
+            lo, hi = int(cols.min()), int(cols.max())
+            if one_based is True:
+                if lo < 1:
+                    raise MXNetError(
+                        f"one_based=True but found feature index {lo}")
+                cols -= 1
+            elif one_based is None and lo >= 1 and hi == self._n_feat:
+                import warnings
+
+                warnings.warn(
+                    "LibSVMIter: max feature index equals n_feat; assuming "
+                    "a 1-based file and shifting indices.  Pass one_based="
+                    "True/False to silence this heuristic.", stacklevel=2)
+                cols -= 1
+            if int(cols.max()) >= self._n_feat:
+                raise MXNetError(
+                    f"libsvm feature index {int(cols.max())} out of range "
+                    f"for data_shape {data_shape}")
+        rows = np.repeat(np.arange(len(counts), dtype=np.int64), counts)
+        # sorted by (row, id), the last of a repeated id kept, zeros gone
+        order = np.lexsort((np.arange(cols.size), cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+        last = np.ones(cols.size, bool)
+        last[:-1] = (rows[1:] != rows[:-1]) | (cols[1:] != cols[:-1])
+        keep = last & (vals != 0)
+        rows, self._cols, self._vals = rows[keep], cols[keep], vals[keep]
+        self._ptr = np.zeros(len(counts) + 1, np.int64)
+        self._ptr[1:] = np.cumsum(np.bincount(rows, minlength=len(counts)))
+        self._labels = np.asarray(labels, np.float32)
+        self._round = round_batch
+        self._pos = 0
+
+    @property
+    def provide_data(self):
+        return [DataDesc(name="data",
+                         shape=(self.batch_size, self._n_feat))]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(name="softmax_label", shape=(self.batch_size,))]
+
+    def reset(self):
+        self._pos = 0
+
+    def _span(self, a, b):
+        """(indptr from 0, ids, values) of rows [a, b)."""
+        p = self._ptr
+        return (p[a:b + 1] - p[a], self._cols[p[a]:p[b]],
+                self._vals[p[a]:p[b]])
+
+    def next(self):
+        from ..context import to_device
+        from ..ndarray import NDArray
+        from ..ndarray.sparse import CSRNDArray
+
+        n = len(self._ptr) - 1
+        if self._pos >= n:
+            raise StopIteration
+        end = min(self._pos + self.batch_size, n)
+        pad = self.batch_size - (end - self._pos)
+        if pad and not self._round:
+            raise StopIteration
+        indptr, cols, vals = self._span(self._pos, end)
+        label = self._labels[self._pos:end]
+        if pad:  # wrap around to the first rows, as the reference does
+            ptr2, cols2, vals2 = self._span(0, pad)
+            indptr = np.concatenate([indptr, ptr2[1:] + indptr[-1]])
+            cols = np.concatenate([cols, cols2])
+            vals = np.concatenate([vals, vals2])
+            label = np.concatenate([label, self._labels[:pad]])
+        self._pos += self.batch_size
+        dev = self.ctx
+        csr = CSRNDArray(to_device(vals, dev),
+                         {"indices": to_device(cols, dev),
+                          "indptr": to_device(indptr, dev)},
+                         (self.batch_size, self._n_feat), ctx=dev)
+        return DataBatch([csr], [NDArray(to_device(label, dev), ctx=dev)],
+                         pad=pad, provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+    def iter_next(self):
+        try:
+            self.current_batch = self.next()
+            return True
+        except StopIteration:
+            return False
 
 
 class _ThreadedIter(DataIter):

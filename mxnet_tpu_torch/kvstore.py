@@ -1,7 +1,8 @@
 """KVStore, in one process on one device.
 
 Counterpart of ``mxnet_tpu/kvstore.py`` for the ``local`` and ``device``
-stores: ``init``, ``push`` (a list of values for one key is summed),
+stores: ``init``, ``push`` (a list of values for one key is summed,
+sparse values in their dense form, as the JAX store reduces them),
 ``pull``, ``pushpull``, ``row_sparse_pull`` (dense, as the JAX one),
 ``set_updater`` / ``set_optimizer`` (the "server-side" optimizer runs on
 each push, batched through ``FusedUpdater.apply`` when several keys
@@ -68,7 +69,9 @@ class KVStore:
         for k, v in zip(*self._key_value(key, value)):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized")
-            vals = _as_list(v)
+            # a sparse value reduces dense, as the JAX store's
+            vals = [x.todense() if x.stype != "default" else x
+                    for x in _as_list(v)]
             dev = self._store[k].context
             total = vals[0]._data.detach().to(dev, copy=True)
             for x in vals[1:]:
@@ -110,7 +113,7 @@ class KVStore:
 
     def row_sparse_pull(self, key, out=None, priority=0,
                         row_ids=None) -> None:
-        """Dense: the whole value (the port has no row-sparse storage)."""
+        """Dense, as the JAX store's: the whole value."""
         self.pull(key, out, priority)
 
     # ------------------------------------------------------------------

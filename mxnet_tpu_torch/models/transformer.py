@@ -58,6 +58,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
@@ -72,6 +73,12 @@ __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "PositionalEmbedding", "TransformerDecoderCell",
            "TransformerDecoder", "DenseStepCache", "Transformer",
            "transformer_base", "transformer_big", "label_smoothed_ce"]
+
+# the fused attention is a profiler site of the registry op it stands for
+# (``flash_attention`` looked up at each call)
+_flash_site = _profiler.op_site(
+    "_contrib_flash_attention",
+    lambda *args, **kwargs: flash_attention(*args, **kwargs))
 
 
 def _split_heads(t, num_heads: int, head_dim: int):
@@ -172,7 +179,7 @@ class MultiHeadAttention(HybridBlock):
             # attention-prob dropout is inactive, so it computes what the
             # dense path does
             q, k, v = _prec.cast_inputs("_contrib_flash_attention", q, k, v)
-            out = flash_attention(q, k, v, causal=self.causal)
+            out = _flash_site(q, k, v, causal=self.causal)
         else:
             out = _attention(q, k, v, hd, H, mask, self.causal,
                              self.attn_drop)

@@ -12,9 +12,11 @@ random ops themselves stay out of ``nd``, as in the JAX package.
 from the device's generator; the ufuncs (``add``, ``subtract``, ...,
 ``equal``, ``logical_xor``, ``power``, ``hypot``) take arrays or
 scalars.  ``save`` / ``load`` are the file format of
-``ndarray/utils.py``.  ``waitall`` is ``engine.wait_all``.  Arrays are
-created on the card (``cuda:0``) unless ``ctx`` (or a ``with`` Context
-scope) says otherwise, and creation raises without a card.
+``ndarray/utils.py``.  ``nd.sparse`` holds the ``row_sparse`` and ``csr``
+storage types; ``cast_storage`` converts between them and dense.
+``waitall`` is ``engine.wait_all``.  Arrays are created on the card
+(``cuda:0``) unless ``ctx`` (or a ``with`` Context scope) says
+otherwise, and creation raises without a card.
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ from .utils import load, save, save_legacy
 from . import contrib  # noqa: F401  (nd.contrib namespace)
 from . import linalg  # noqa: F401  (nd.linalg namespace)
 from . import random  # noqa: F401  (nd.random namespace)
+from . import sparse  # noqa: F401  (nd.sparse namespace)
 from .random import _dtname
+from .sparse import CSRNDArray, RowSparseNDArray
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "eye", "linspace", "save", "load", "save_legacy", "waitall"]
@@ -103,6 +107,27 @@ def Dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False, out=None,
         return _reg.invoke_by_name("identity", [data], out=out)
     return _reg.invoke_by_name("Dropout", [data], out=out, p=p, mode=mode,
                                axes=tuple(axes), training=True)
+
+
+def cast_storage(data, stype="default", out=None):
+    """Convert between dense and sparse storage (``tostype``, always a new
+    array); ``out`` of the target storage type receives the result."""
+    res = data.tostype(stype)
+    if res is data:
+        res = data.copy()
+    if out is not None:
+        if out.stype != stype:
+            raise MXNetError(f"cast_storage: out has stype {out.stype!r}, "
+                             f"expected {stype!r}")
+        if stype == "default":
+            out._set_data(res._data)
+        else:
+            out._data = res._data
+            out._aux = dict(res._aux)
+            out._shape = res._shape
+            out._version += 1
+        return out
+    return res
 
 
 def onehot_encode(indices, out):

@@ -317,13 +317,16 @@ class NDArray:
         return self.copyto(self._ctx)
 
     def tostype(self, stype: str) -> "NDArray":
-        """``"default"`` is this array; the sparse storage types raise
-        until ``nd.sparse`` is ported (ROADMAP A.7)."""
+        """``"default"`` is this array; ``"row_sparse"`` and ``"csr"``
+        compress it on its device (``nd.sparse``)."""
         if stype == "default":
             return self
-        if stype in ("row_sparse", "csr"):
-            raise MXNetError(f"storage type {stype!r} needs nd.sparse, "
-                             "which the port does not have yet")
+        from . import sparse as _sparse
+
+        if stype == "row_sparse":
+            return _sparse.row_sparse_array(self)
+        if stype == "csr":
+            return _sparse.csr_matrix(self)
         raise MXNetError(f"unknown storage type {stype!r}")
 
     def __hash__(self):

@@ -74,9 +74,16 @@ def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
 def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
               sparse_grad=False):
     """Rows of ``weight`` by index, clipped to [0, vocab); the gradient
-    scatters into ``weight`` (``torch.nn.functional.embedding``)."""
+    scatters into ``weight`` (``torch.nn.functional.embedding``).  With
+    ``sparse_grad`` under ``autograd.record()`` (outside a hybridized
+    block's call) the weight's gradient is torch's sparse one, the looked-up
+    rows only, which autograd writes into a row-sparse buffer."""
+    from .. import autograd
+
     idx = data.long().clamp(0, weight.shape[0] - 1)
-    return torch.nn.functional.embedding(idx, weight)
+    sparse = bool(sparse_grad and autograd.is_recording()
+                  and not autograd.is_traced())
+    return torch.nn.functional.embedding(idx, weight, sparse=sparse)
 
 
 def _time_mask(data, sequence_length, axis):

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile 0
+         -o build/<name>-<hash>.so csrc/<name>.cu
 
 and is loaded through ``ctypes``.  The sources share ``csrc/dtypes.cuh``
 (element types and their f32 conversions).  What ``ptxas -v`` reports
@@ -41,8 +42,12 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("layer_norm", "paged_attention", "flash_attention",
            "softmax_cross_entropy")
+# -split-compile 0: nvcc optimizes a source's kernels on as many threads
+# as the machine has cores, which cuts the build of flash_attention.cu
+# (the longest, with its many template instances) by more than half
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "-split-compile", "0")
 
 # the element types the kernels take, by the code their C entry points
 # read (csrc/dtypes.cuh)

@@ -17,7 +17,11 @@ Departures from the JAX package, on purpose:
     under ``torch.no_grad()``, so arrays with ``attach_grad`` build no
     graph unless recording (see ``autograd.py``);
   * no per-attribute ``jit`` cache and no typed attribute validation
-    (``ops/params.validate_known``): PyTorch dispatches eagerly.
+    (``ops/params.validate_known``): PyTorch dispatches eagerly;
+  * the port's layers call op functions without ``invoke``, so
+    :func:`register` makes each function a profiler site of its op's
+    name (``profiler.op_site``); ``invoke`` times the whole dispatch,
+    and the function's site inside it records nothing.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from .. import profiler as _profiler
 from ..base import MXNetError
 from ..passes import hooks as _pass_hooks
 
@@ -49,14 +54,16 @@ class Operator:
 
 
 def register(name: Optional[str] = None, differentiable: bool = True):
-    """Decorator: register a torch function as an operator."""
+    """Decorator: register a torch function as an operator; the function
+    returned (and the Operator's ``fn``) is its profiler site."""
 
     def deco(fn: Callable) -> Callable:
         opname = name or fn.__name__
         if opname in _OPS:
             raise MXNetError(f"op {opname!r} registered twice")
-        _OPS[opname] = Operator(opname, fn, differentiable=differentiable)
-        return fn
+        site = _profiler.op_site(opname, fn)
+        _OPS[opname] = Operator(opname, site, differentiable=differentiable)
+        return site
 
     return deco
 
@@ -75,7 +82,11 @@ def list_ops() -> List[str]:
 def invoke(op: Operator, inputs: Sequence, out=None, ctx=None, **attrs):
     """Execute ``op`` on NDArray inputs; returns an NDArray or a list of
     them.  ``ctx`` only places zero-input ops; otherwise outputs follow
-    their inputs' device."""
+    their inputs' device.  While the profiler runs the dispatch is timed
+    under the op's name."""
+    if _profiler._running:
+        return _profiler.timed_call(op.name, _invoke_impl, op, inputs,
+                                    out=out, ctx=ctx, **attrs)
     return _invoke_impl(op, inputs, out=out, ctx=ctx, **attrs)
 
 

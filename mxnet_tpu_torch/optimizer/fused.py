@@ -20,8 +20,8 @@ Design rules, as in the JAX module:
     dict (this class subclasses it), so ``get_states`` / ``set_states``
     and the ``MX_FUSED_UPDATE=0`` switch see one representation;
   * what a spec cannot express (another optimizer class, a weight and a
-    gradient on different devices, a state of another layout) takes the
-    per-parameter update, for just those parameters.
+    gradient on different devices, a state of another layout, a sparse
+    gradient) takes the per-parameter update, for just those parameters.
 
 Multi-precision fuses too: the f32 master is updated and the 16-bit
 weight is the master rounded once.  Weights are swapped for new tensors,
@@ -51,7 +51,10 @@ def fused_enabled() -> bool:
 
 
 def _is_nd(x) -> bool:
-    return isinstance(x, NDArray) and x._data.layout == torch.strided
+    """A dense NDArray: a sparse gradient (a ``RowSparseNDArray``) takes
+    the per-parameter update, its lazy one, as in the JAX module."""
+    return (isinstance(x, NDArray) and x.stype == "default"
+            and x._data.layout == torch.strided)
 
 
 def _clip(opt) -> Optional[float]:

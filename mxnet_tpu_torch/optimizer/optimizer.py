@@ -15,7 +15,15 @@ Multi-precision: a bf16 or f16 weight keeps an f32 master copy in its
 state, updated by the ``mp_*`` ops (SGD) or by the class's own update on
 the master (the others), and the weight is the master rounded once.
 
-The port has no ``nd.sparse``: a row-sparse gradient raises.
+A row-sparse gradient (``Embedding(sparse_grad=True)``) takes the lazy
+update of SGD (with or without momentum) and Adam, as the JAX ones do
+(reference ``SGDUpdateRspImpl`` / ``AdamUpdateRspImpl``): the ids are
+aggregated (``sparse.aggregate_rows``) and only those rows of the weight
+and its state are read and written, in place, after ``rescale_grad``,
+``clip_gradient`` and ``wd``; the other rows see no decay and no moment
+update.  The other classes refuse it: the JAX ones hand its values to
+their dense op, which fails on the shapes (or, for a one-row gradient,
+broadcasts that row over every row).
 """
 from __future__ import annotations
 
@@ -56,8 +64,39 @@ def _dense(grad):
     """Refuse a gradient that is not a dense NDArray."""
     if getattr(grad, "stype", "default") != "default" or \
             grad._data.layout != torch.strided:
-        raise MXNetError("row_sparse gradients need nd.sparse, which the "
-                         "port does not have yet (ROADMAP.md A.7)")
+        raise MXNetError(
+            f"a {getattr(grad, 'stype', 'sparse')} gradient takes the lazy "
+            "update of SGD and Adam only (the JAX optimizers give its values "
+            "to their dense op, which does not take them)")
+
+
+def _row_sparse(grad) -> bool:
+    return getattr(grad, "stype", "default") == "row_sparse"
+
+
+def _rs_rows(grad, weight, kw):
+    """(unique ids, the rows' f32 gradient after rescale, clip and wd, the
+    ids' rows of the weight in f32) of a row_sparse gradient."""
+    from ..ndarray.sparse import aggregate_rows
+
+    uids, g = aggregate_rows(grad._aux["indices"], grad._data)
+    g = g.to(torch.float32) * kw["rescale_grad"]
+    if kw["clip_gradient"] > 0:
+        g = torch.clamp(g, -kw["clip_gradient"], kw["clip_gradient"])
+    rows_w = weight._data.detach()[uids].to(torch.float32)
+    return uids, g + kw["wd"] * rows_w
+
+
+@torch.no_grad()
+def _rs_apply(weight, uids, delta, states=()) -> None:
+    """Add ``delta`` to the weight's rows ``uids`` and write each (state,
+    rows) pair's rows, in place: no other row is touched."""
+    w = weight._data
+    w.index_add_(0, uids, delta.to(w.dtype))
+    weight._version += 1
+    for st, rows in states:
+        st._data.index_copy_(0, uids, rows)
+        st._version += 1
 
 
 def _zeros_like32(weight):
@@ -205,6 +244,8 @@ class SGD(Optimizer):
         return _zeros_like32(weight) if self.momentum != 0.0 else None
 
     def update(self, index, weight, grad, state):
+        if _row_sparse(grad):
+            return self._update_rows(index, weight, grad, state)
         _dense(grad)
         self._update_count(index)
         kw = self._common_kwargs(index)
@@ -214,6 +255,18 @@ class SGD(Optimizer):
             _swap((weight, state), _reg.invoke_by_name(
                 "sgd_mom_update", [weight, grad, state],
                 momentum=self.momentum, **kw))
+
+    def _update_rows(self, index, weight, grad, state):
+        """The lazy update: w[rows] -= lr * g, or with momentum m[rows] =
+        momentum * m[rows] - lr * g and w[rows] += m[rows]."""
+        self._update_count(index)
+        kw = self._common_kwargs(index)
+        uids, g = _rs_rows(grad, weight, kw)
+        if state is None:
+            _rs_apply(weight, uids, -kw["lr"] * g)
+        else:
+            new_m = self.momentum * state._data[uids] - kw["lr"] * g
+            _rs_apply(weight, uids, new_m, [(state, new_m)])
 
     def update_multi_precision(self, index, weight, grad, state):
         if not (isinstance(state, tuple) and len(state) == 2
@@ -272,13 +325,27 @@ class Adam(Optimizer):
         return (_zeros_like32(weight), _zeros_like32(weight))
 
     def update(self, index, weight, grad, state):
-        _dense(grad)
+        sparse = _row_sparse(grad)
+        if not sparse:
+            _dense(grad)
         self._update_count(index)
         t = self._index_update_count[index]
         kw = self._common_kwargs(index)
         # bias correction folded into lr, as the reference's Adam.update
         kw["lr"] *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
         mean, var = state
+        if sparse:
+            # the lazy update: the rows' moments and weight only
+            uids, g = _rs_rows(grad, weight, kw)
+            new_mean = (self.beta1 * mean._data[uids]
+                        + (1 - self.beta1) * g)
+            new_var = (self.beta2 * var._data[uids]
+                       + (1 - self.beta2) * torch.square(g))
+            step = kw["lr"] * new_mean / (torch.sqrt(new_var)
+                                          + self.epsilon)
+            _rs_apply(weight, uids, -step,
+                      [(mean, new_mean), (var, new_var)])
+            return
         _swap((weight, mean, var), _reg.invoke_by_name(
             "adam_update", [weight, grad, mean, var], beta1=self.beta1,
             beta2=self.beta2, epsilon=self.epsilon, **kw))

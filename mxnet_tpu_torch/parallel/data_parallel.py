@@ -115,7 +115,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import fault
 from .. import memwatch
-from .. import telemetry
+from .. import profiler, telemetry
 from ..base import MXNetError, tensor_from_numpy
 from ..context import resolve_device
 from ..optimizer.foreach import adam_, grad_terms_, sgd_
@@ -554,7 +554,14 @@ class DataParallelStep:
                             traced=step_no == 1):
             fault.on_dispatch(step_no)
             try:
-                loss = self._dispatch(datas, label)
+                if profiler._running:
+                    # the step is one profiled call, as the JAX step's
+                    # compiled program is: the ops inside record nothing
+                    loss = profiler.timed_call(
+                        f"FusedStep:{type(self.block).__name__}",
+                        self._dispatch, datas, label)
+                else:
+                    loss = self._dispatch(datas, label)
             except Exception as e:
                 if memwatch.is_resource_exhausted(e):
                     memwatch.emit_oom_report(

@@ -194,6 +194,7 @@ class _RewriteAdapterBase:
     def _init_common(self, inner):
         from .. import memwatch
 
+        self.uses_pages = inner.uses_pages
         self.num_layers = inner.num_layers
         self.num_heads = inner.num_heads
         self.head_dim = inner.head_dim

@@ -1,14 +1,15 @@
 """Continuous-batching serving on a paged KV cache, with the front door:
 seeded sampling, speculative decoding, the copy-on-write prefix cache,
 batched beam serving, weight hot-swap, and the fleet's HTTP servers
-(``ReplicaServer`` per engine, a ``Router`` over them).  The counterpart
-of ``mxnet_tpu/serving``; its ``FullPrefixAdapter`` is not ported yet
-(ROADMAP A.5)."""
+(``ReplicaServer`` per engine, a ``Router`` over them), and
+``FullPrefixAdapter`` for decoder-only logits functions served without
+pages.  The counterpart of ``mxnet_tpu/serving``."""
 from .paged_cache import (PagedKVCache, PagedStepCache, gather_pages,
                           page_coords, paged_attend, pages_for, write_page)
 from .scheduler import (ContinuousBatchingScheduler, PrefixCache, Request,
                         TokenStream, prefix_key, queue_bound)
-from .engine import ServingAdapter, ServingEngine, TransformerAdapter
+from .engine import (FullPrefixAdapter, ServingAdapter, ServingEngine,
+                     TransformerAdapter)
 from .speculative import DraftProposer, NGramDraft
 from .router import (ReplicaServer, Router, discover_replicas,
                      serve_portfile_path)
@@ -18,6 +19,7 @@ __all__ = ["PagedKVCache", "PagedStepCache", "gather_pages", "page_coords",
            "ContinuousBatchingScheduler", "Request", "TokenStream",
            "queue_bound", "PrefixCache", "prefix_key",
            "ServingAdapter", "ServingEngine", "TransformerAdapter",
+           "FullPrefixAdapter",
            "DraftProposer", "NGramDraft",
            "ReplicaServer", "Router", "discover_replicas",
            "serve_portfile_path"]

@@ -47,6 +47,10 @@ Any model servable here implements :class:`ServingAdapter`;
 the paged KV cache, whose self-attention is kernel K2 and whose
 LayerNorms are kernel K1.  Every decode body, verify and ingest ones
 included, runs 3 K1 and 1 K2 launches per decoder layer.
+:class:`FullPrefixAdapter` serves any decoder-only logits function over
+a fixed (S, L) token buffer without pages (``uses_pages`` False): the
+engine builds no KV cache, the prompt's prefill is the first decode, and
+speculation, the prefix cache and forced prefixes are refused.
 """
 from __future__ import annotations
 
@@ -70,7 +74,8 @@ from .scheduler import (ContinuousBatchingScheduler, PrefixCache, Request,
                         prefix_key)
 from .speculative import NGramDraft, traced_propose
 
-__all__ = ["ServingAdapter", "TransformerAdapter", "ServingEngine"]
+__all__ = ["ServingAdapter", "TransformerAdapter", "FullPrefixAdapter",
+           "ServingEngine"]
 
 
 # ---------------------------------------------------------------------------
@@ -79,8 +84,10 @@ __all__ = ["ServingAdapter", "TransformerAdapter", "ServingEngine"]
 class ServingAdapter:
     """What a model must expose to be served.
 
-    ``num_layers``/``num_heads``/``head_dim`` size the paged KV pools."""
+    ``num_layers``/``num_heads``/``head_dim`` size the paged KV pools
+    (ignored when ``uses_pages`` is False)."""
 
+    uses_pages = True
     num_layers = 0
     num_heads = 1
     head_dim = 1
@@ -89,16 +96,17 @@ class ServingAdapter:
         """Adapter-owned device state with a leading slot dim (e.g. the
         encoder memory per slot), its floating state in ``dtype`` (the
         engine's).  OrderedDict name -> tensor."""
-        raise NotImplementedError
+        return OrderedDict()
 
     def prefill_src(self, request: Request):
-        """Padded (1, Ts) int32 numpy prefill input for ``request``."""
-        raise NotImplementedError
+        """Padded (1, Ts) int32 numpy prefill input for ``request``, or
+        None when the prefill folds into decode."""
+        return None
 
     def prefill(self, src):
         """(1, Ts) tokens -> dict of extra-state rows (each (1, ...)) to
         install into the request's slot."""
-        raise NotImplementedError
+        return {}
 
     def install(self, state, slot: int, request: Request) -> None:
         """Per-slot state at admission, after the engine has set
@@ -193,6 +201,59 @@ class TransformerAdapter(ServingAdapter):
                                        extra["src_keep"], caches)
 
 
+class FullPrefixAdapter(ServingAdapter):
+    """Serve any fixed-shape decoder-only logits function, the prefill
+    chunked into the decode step: the prompt sits in the slot's token
+    buffer and the first decode computes it with everything else.
+
+    ``logits_fn(buf) -> (S, L, V)`` over the (S, L) int32 token buffer
+    (a causal block's forward, say).  O(L^2) a generated token (no KV
+    cache), with every input's shape fixed whatever the request's
+    length."""
+
+    uses_pages = False
+
+    def __init__(self, logits_fn, max_len: int, pad_id: int = 0):
+        self._fn = logits_fn
+        self.max_len = int(max_len)
+        self.pad_id = int(pad_id)
+
+    def extra_state(self, slots, device, dtype=torch.float32):
+        return OrderedDict(buf=torch.zeros((slots, self.max_len),
+                                           dtype=torch.int32, device=device))
+
+    def validate(self, request):
+        need = request.tokens.shape[0] + request.max_new_tokens
+        if need > self.max_len:
+            raise MXNetError(
+                f"request {request.id} needs {need} buffer positions "
+                f"(prompt {request.tokens.shape[0]} + max_new "
+                f"{request.max_new_tokens}) > adapter max_len "
+                f"{self.max_len} — the fixed prefix buffer would "
+                "silently truncate")
+
+    def install(self, state, slot, request):
+        row = np.full((self.max_len,), self.pad_id, np.int32)
+        n = request.tokens.shape[0]
+        row[:n] = request.tokens
+        state["buf"][slot] = torch.from_numpy(row)
+        state["pos"][slot] = max(0, n - 1)
+
+    def decode_logits(self, tok, pos, table, pages, rows, lengths, extra,
+                      pools):
+        logits = self._fn(extra["buf"])                    # (S, L, V)
+        at = pos.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+        return logits.gather(1, at)[:, 0]                  # (S, V)
+
+    def advance_extra(self, extra, nxt, pos):
+        """Write each slot's chosen token after its position (the last
+        buffer position at most), in place."""
+        buf = extra["buf"]
+        S, L = buf.shape
+        wpos = torch.clamp(pos.long() + 1, max=L - 1)
+        buf[torch.arange(S, device=buf.device), wpos] = nxt.to(buf.dtype)
+
+
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -238,9 +299,18 @@ class ServingEngine:
         self._dtype = torch_dtype(dtype)
         self._sampling = bool(sampling)
         self._spec_k = max(0, int(spec_k))
+        if self._spec_k and not adapter.uses_pages:
+            raise MXNetError(
+                "speculative decoding (spec_k > 0) needs a paged-KV "
+                "adapter — the verify step teacher-forces K positions "
+                "through the paged cache")
         self._draft = draft
         if self._spec_k and self._draft is None:
             self._draft = NGramDraft()
+        if prefix_cache and not adapter.uses_pages:
+            raise MXNetError(
+                "the prefix cache shares paged KV pages — it needs a "
+                "paged-KV adapter (uses_pages)")
         self._prefix = (PrefixCache(prefix_entries) if prefix_cache
                         else None)
         self._prefix_chunk = 8
@@ -274,21 +344,25 @@ class ServingEngine:
                 f"max_positions {cap} (positional table) — out-of-table "
                 "positions would silently clamp; lower max_len or build "
                 "the model with a larger max_length")
-        n_pages = pool_pages if pool_pages is not None \
-            else self._S * pages_for(self._max_len, self._ps) + 1
-        self._cache = PagedKVCache(
-            adapter.num_layers, n_pages, self._ps, adapter.num_heads,
-            adapter.head_dim, device=self._device, dtype=self._dtype)
-        # table wide enough that positions overrun by a full burst (a
-        # request finishing mid-burst keeps decoding until the stream
-        # boundary) land on zero -> the trash page, never a live page; a
-        # verify overruns by up to K + 1 positions, and a prefix ingest
-        # writes _prefix_chunk positions past every live slot's pos, so
-        # the widest of the three (a narrower table would clamp those
-        # writes onto the slot's last live page)
-        overrun = max(self._stream_every, self._spec_k + 1,
-                      self._prefix_chunk)
-        self._P = pages_for(self._max_len + overrun, self._ps)
+        if adapter.uses_pages:
+            n_pages = pool_pages if pool_pages is not None \
+                else self._S * pages_for(self._max_len, self._ps) + 1
+            self._cache = PagedKVCache(
+                adapter.num_layers, n_pages, self._ps, adapter.num_heads,
+                adapter.head_dim, device=self._device, dtype=self._dtype)
+            # table wide enough that positions overrun by a full burst (a
+            # request finishing mid-burst keeps decoding until the stream
+            # boundary) land on zero -> the trash page, never a live page;
+            # a verify overruns by up to K + 1 positions, and a prefix
+            # ingest writes _prefix_chunk positions past every live slot's
+            # pos, so the widest of the three (a narrower table would clamp
+            # those writes onto the slot's last live page)
+            overrun = max(self._stream_every, self._spec_k + 1,
+                          self._prefix_chunk)
+            self._P = pages_for(self._max_len + overrun, self._ps)
+        else:
+            self._cache = None
+            self._P = 1
         self._sched = ContinuousBatchingScheduler(queue_bound)
         self._slots: List[Optional[_Active]] = [None] * self._S
         self._arrivals: List = []  # (arrive_at_step, request), sorted
@@ -326,8 +400,7 @@ class ServingEngine:
         # resident footprint; the staged swap weights (the transient 2x
         # window) read empty again after the flip
         memwatch.register("serving", self, lambda eng: (
-            list(eng._state.values())
-            + [t for pair in eng._cache.pools for t in pair]))
+            list(eng._state.values()) + eng._pool_tensors()))
         memwatch.register("staging", self,
                           lambda eng: list(eng._staging.values()))
 
@@ -341,6 +414,11 @@ class ServingEngine:
                 f"request {request.id} prefix {plen} + max_new_tokens "
                 f"{request.max_new_tokens} > engine max_len "
                 f"{self._max_len}")
+        if plen and not self._adapter.uses_pages:
+            raise MXNetError(
+                f"request {request.id} carries a decoder prefix but the "
+                "adapter has no paged KV cache to teacher-force it into "
+                "— fold the prefix into the prompt instead")
         if request.temperature > 0 and not self._sampling:
             raise MXNetError(
                 f"request {request.id} asks for temperature "
@@ -612,17 +690,25 @@ class ServingEngine:
 
     @property
     def pages_free(self) -> int:
-        return self._cache.pages_free
+        return self._cache.pages_free if self._cache is not None else 0
 
     @property
     def num_pages(self) -> int:
-        return self._cache.num_pages
+        return self._cache.num_pages if self._cache is not None else 0
 
     @property
     def pool_bytes(self) -> int:
         """Bytes of the KV pools on the device (every layer's K and V)."""
         return sum(t.numel() * t.element_size()
-                   for pair in self._cache.pools for t in pair)
+                   for t in self._pool_tensors())
+
+    def _pool_tensors(self) -> List[torch.Tensor]:
+        if self._cache is None:
+            return []
+        return [t for pair in self._cache.pools for t in pair]
+
+    def _pools(self):
+        return self._cache.pools if self._cache is not None else []
 
     # ------------------------------------------------------------------
     # the hot dispatch bodies: no host syncs
@@ -633,7 +719,7 @@ class ServingEngine:
         lengths = pos + 1  # rows valid incl. the one written this step
         pages, rows = page_coords(table, pos, self._ps)
         extra = {k: st[k] for k in self._extra_names}
-        pools = self._cache.pools
+        pools = self._pools()
         if not self._sampling:
             nxt = self._adapter.decode(tok, pos, table, pages, rows,
                                        lengths, extra, pools)
@@ -861,8 +947,9 @@ class ServingEngine:
         free = [i for i, m in enumerate(self._slots) if m is None]
         if not free or not self._sched.depth:
             return 0
-        ready = self._sched.pop_ready(len(free), self._cache.pages_free,
-                                      self._ps)
+        pages_free = (self._cache.pages_free if self._cache is not None
+                      else len(free))
+        ready = self._sched.pop_ready(len(free), pages_free, self._ps)
         n = 0
         for i, (slot, req) in enumerate(zip(free, ready)):
             if self._admit(slot, req):
@@ -889,10 +976,13 @@ class ServingEngine:
                 "serve_queue", req.t_queue_start, req.t_admit,
                 request_id=req.id,
                 **({"trace_id": req.trace_id} if req.trace_id else {}))
-        self._cache.annotate(
-            slot, request_id=req.id,
-            **({"trace_id": req.trace_id} if req.trace_id else {}))
-        self._prefill_into(slot, req, self._adapter.prefill_src(req))
+        if self._cache is not None:
+            self._cache.annotate(
+                slot, request_id=req.id,
+                **({"trace_id": req.trace_id} if req.trace_id else {}))
+        src = self._adapter.prefill_src(req)
+        if src is not None:
+            self._prefill_into(slot, req, src)
         st["tok"][slot, 0] = req.bos_id
         st["pos"][slot] = 0
         if self._sampling:
@@ -1114,14 +1204,15 @@ class ServingEngine:
 
     def _release_prefix_entry(self, e: dict) -> None:
         owner = e["payload"].get("owner")
-        if owner is not None:
+        if owner is not None and self._cache is not None:
             self._cache.free_slot(owner)
 
     def _clear_slot_state(self, slot: int) -> None:
         """Free the slot's pages and zero its table, position, extra and
         sampling state."""
         st = self._state
-        self._cache.free_slot(slot)
+        if self._cache is not None:
+            self._cache.free_slot(slot)
         st["table"][slot] = 0
         st["pos"][slot] = 0
         for name in self._extra_names + self._samp_names:
@@ -1147,6 +1238,8 @@ class ServingEngine:
         so re-decoding reproduces its tokens) until the survivors can
         advance; a single request that cannot fit at all is a
         configuration error and raises."""
+        if self._cache is None:
+            return burst
         while True:
             feas = self._grow_tables(burst)
             if feas > 0:
@@ -1287,9 +1380,10 @@ class ServingEngine:
             "sampling": bool(self._sampling),
             "spec_k": self._spec_k,
             "max_len": self._max_len,
-            "pages_free": self._cache.pages_free,
-            "pages_total": self._cache.num_pages,
         }
+        if self._cache is not None:
+            snap["pages_free"] = self._cache.pages_free
+            snap["pages_total"] = self._cache.num_pages
         if self._prefix is not None:
             snap["prefix_entries"] = len(self._prefix)
             snap["prefix_hits"] = self._prefix.hits

@@ -7,9 +7,8 @@ Held to the JAX package: ``Context``'s equality, repr, fields and the
 deferred failure after waiting on everything, ``MXNET_ENGINE_TYPE``'s
 naive engine, and ``NDArray.T``, ``stype``, ``tostype``, ``version`` and
 ``wait_to_write``.  Departures held here: a port ``Context`` also equals
-(and hashes as) the ``torch.device`` it names, ``current_context()`` is
-``gpu(0)`` outside a scope, and the sparse storage types raise until
-``nd.sparse`` lands.  Everything is exact.
+(and hashes as) the ``torch.device`` it names, and ``current_context()``
+is ``gpu(0)`` outside a scope.  Everything is exact.
 """
 import gc
 import pickle
@@ -186,8 +185,9 @@ def test_ndarray_surface_matches_jax():
     assert t.stype == j.stype == "default"
     assert t.tostype("default") is t and j.tostype("default") is j
     for stype in ("csr", "row_sparse"):
-        with pytest.raises(MXNetError, match="nd.sparse"):
-            t.tostype(stype)
+        ts, js = t.tostype(stype), j.tostype(stype)
+        assert ts.stype == js.stype == stype
+        np.testing.assert_array_equal(ts.asnumpy(), js.asnumpy())
     with pytest.raises(MXNetError, match="unknown storage"):
         t.tostype("dense")
     t.wait_to_write()

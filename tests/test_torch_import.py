@@ -249,15 +249,13 @@ def test_chip_smoke_fails_alone(tmp_path):
 _A9 = "A.9 (multi-GPU: meshes, Plan, sharding, pipeline, ring)"
 _SUPERSTEP = "A.6's superstep, with A.1"
 QUEUED = {
-    "mx": {"profiler": "A.10", "operator": "A.11.3", "env_vars": "A.11.6",
+    "mx": {"operator": "A.11.3", "env_vars": "A.11.6",
            "runtime": "A.11.6", "util": "A.11.6", "is_np_array": "A.11.6",
            "test_utils": "A.11.6", "rtc": "A.11.8",
            "aot_cache": "not queued: the port compiles no executables",
            "tpu": "the TPU context: the port's cards are gpu(i)",
            "num_tpus": "the TPU context: the port's cards are gpu(i)"},
-    "nd": {"sparse": "A.7.7", "CSRNDArray": "A.7.7",
-           "RowSparseNDArray": "A.7.7", "cast_storage": "A.7.7",
-           "Custom": "A.11.3", "from_jax": "no counterpart: jax arrays",
+    "nd": {"Custom": "A.11.3", "from_jax": "no counterpart: jax arrays",
            "np": "an import, not a name", "Optional": "an import",
            "dtype_np": "an import"},
     "parallel": dict(
@@ -278,22 +276,25 @@ QUEUED = {
     "gluon": {"contrib": "A.11.4"},
     "gluon.nn": {},
     "gluon.model_zoo.vision": {},
-    "io": {"LibSVMIter": "A.7.7",
-           "native": "A.13 (item 6): the native libmxio pipeline"},
+    "io": {"native": "A.13 (item 6): the native libmxio pipeline"},
+    "serving": {},
 }
 
 
 def test_public_names_match_jax_or_are_queued():
     """Every public name of ``mx``, ``mx.nd``, ``mx.parallel``,
     ``mx.models``, ``mx.gluon``, ``mx.gluon.nn``,
-    ``mx.gluon.model_zoo.vision`` and ``mx.io`` in the JAX package is in
+    ``mx.gluon.model_zoo.vision``, ``mx.io`` and ``mx.serving`` in the JAX
+    package is in
     the port's namespace too, or listed above with the ROADMAP item that
     queues it; a listed name the port has gained fails, so the list stays
     current."""
     import mxnet_tpu as jmx
     import mxnet_tpu.io.native  # noqa: F401 - a JAX ImageRecordIter loads it
+    import mxnet_tpu.serving  # noqa: F401 - not loaded by the package
 
     import mxnet_tpu_torch as tmx
+    import mxnet_tpu_torch.serving  # noqa: F401
 
     def public(mod):
         return {n for n in dir(mod) if not n.startswith("_")}
@@ -306,7 +307,8 @@ def test_public_names_match_jax_or_are_queued():
                             ("gluon.model_zoo.vision",
                              jmx.gluon.model_zoo.vision,
                              tmx.gluon.model_zoo.vision),
-                            ("io", jmx.io, tmx.io)):
+                            ("io", jmx.io, tmx.io),
+                            ("serving", jmx.serving, tmx.serving)):
         missing = public(jmod) - public(tmod)
         assert missing == set(QUEUED[key]), (key, sorted(
             missing ^ set(QUEUED[key])))

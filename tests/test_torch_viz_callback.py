@@ -27,9 +27,12 @@ def _convnet(mx):
 
 
 @pytest.mark.parametrize("shape", [None, {"data": (1, 3, 8, 8)}])
-def test_print_summary_text_equal(capsys, shape):
+def test_print_summary_text_equal(capsys, monkeypatch, shape):
     texts = []
     for mx in (tmx, jmx):
+        # fresh auto-name counters: a counter's width pads its column, and
+        # each package's count depends on the tests run before in its process
+        monkeypatch.setattr(mx.symbol.symbol, "_UID", {})
         mx.visualization.print_summary(_convnet(mx), shape=shape)
         texts.append(capsys.readouterr().out)
     assert uncounted(texts[0].splitlines()) == uncounted(
