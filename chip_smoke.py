@@ -2,7 +2,13 @@
 """Drive the PyTorch port (``mxnet_tpu_torch``) on one CUDA card and check
 it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [PHASE ...]
+
+With no argument every phase runs, and the kernels line and the last line
+(``{"ok": true, "device": ...}``) follow.  Named phases (say ``device
+kernel_flash_attention``) run alone, in the order below, with neither
+line; a phase that reads what an earlier one left needs that one named
+too (``train_bf16`` and ``train_amp*`` read ``train``'s batch).
 
 Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
 
@@ -10,8 +16,10 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           CUDA versions, and the seconds the kernel build
                           took (one nvcc per ``csrc/*.cu``, all at once),
                           with each kernel's ``ptxas -v`` lines (registers,
-                          spills); K3's block shape, shared memory and
-                          blocks per SM at hd 16, 32, 64, 128 and 256; the floor of
+                          spills, wgmma serialisation); K3's block shape,
+                          shared memory and blocks per SM at hd 16, 32, 64,
+                          128 and 256 (f32) and of its 16-bit design at hd
+                          64 and 128; the floor of
                           back-to-back launches, a one-element in-place
                           add timed like the kernels (a yardstick only).
   kernel_layer_norm       kernel K1 vs its plain version at (8, 1024),
@@ -156,6 +164,17 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           its backward (fwd+bwd minus fwd; dq, dk and dv in
                           one call, beside K4 and K5 and their sum
                           ``bwd_pair_ms``) as the library yardsticks.
+                          Every 16-bit row names its ``design``: K3 and
+                          K5 at bf16 and f16 and hd 64 and 128 run
+                          ``wgmma16`` (csrc/flash_attention_16.cu), every
+                          other row ``f32-core``; it carries the 16-bit
+                          bound (989 TFLOP/s) and its time over SDPA's in
+                          the same dtype; a ``wgmma16`` row may read no
+                          faster than that bound and is held to ulp_ratio
+                          <= 0.5, an ``f32-core`` row to the 3xTF32 bound
+                          and <= 1; a ragged hd 64 bf16 case and a
+                          causal Lq != Lk hd 128 f16 case are checked, not
+                          timed.
   train                   BERT-base MLM (vocab 30522, 12 layers, 768/3072,
                           12 heads, dropout 0) with seeded random weights,
                           trained by ``DataParallelStep`` with Adam (lr
@@ -224,7 +243,8 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   train_bf16              (after train_profile) BERT-base cast to bf16 as
                           bench.py:677 does, Adam lr 1e-4, the train cell's
                           batch: one warm-up and 5 timed steps, K1 26 and
-                          K3-K5 12 launches a step; losses finite and
+                          K3-K5 12 launches a step, K3's and K5's all of
+                          the ``wgmma16`` design; losses finite and
                           falling; tokens/s, step ms and peak memory beside
                           the f32 train phase's; one profiled step with
                           K3-K5's share of the busy time.
@@ -232,7 +252,8 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           the AMP policy in bf16 (f32 masters): losses
                           finite, falling and within 2e-2 relative of the
                           f32 cell's, K1 and K3-K5 as many launches as
-                          there, LayerNorm fed f32 and attention bf16.
+                          there (K3's and K5's of the ``wgmma16`` design),
+                          LayerNorm fed f32 and attention bf16.
   train_amp_fp16          the same in fp16 with the dynamic loss scaler:
                           a step forced to overflow is skipped, and the
                           scaled step makes no host synchronization.
@@ -616,7 +637,11 @@ function must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s
 (the H100 SXM data sheet at 700 W); for K3-K5 the operations are f32-
 accurate products on the tensor cores, three TF32 products each (3xTF32)
 at 495 TFLOP/s, and the CUDA-core figure stays beside it as
-``bound_f32_cores_ms``.  No kernel may read faster than its bound.
+``bound_f32_cores_ms``; a 16-bit row's ``bound_16bit_ms`` takes its
+products at the dense bf16/f16 rate, 989 TFLOP/s, and is the bound of a
+row of the ``wgmma16`` design; a 16-bit row of the f32 core multiplies in
+3xTF32 and keeps the 3xTF32 bound.  No kernel may read faster than its
+bound.
 """
 from __future__ import annotations
 
@@ -659,6 +684,12 @@ def bound_3xtf32(n_bytes: float, n_flops: float):
 # straddle a rounding boundary; the tolerance is two units relative to the
 # plain version's value plus one unit at the tensor's scale (max |value|)
 EPS16 = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+# the 16-bit design (wgmma16) rounds P and dS to the input type before
+# their products; its rows are held to half that gate, the bound its CPU
+# emulation is held to (tests/test_torch_flash16.py): the sound kernels
+# read at most 0.31 on an H100, while that emulation with lse rounded to
+# bf16 before the exponential reads 0.95 on dk and 0.84 on dv
+ULP_WGMMA16 = 0.5
 
 
 def ulp_ratio(got, want, eps: float) -> float:
@@ -711,6 +742,7 @@ def phase_device(torch, ctx):
     # K3's launch shape per head dim; its registers and spills are in the
     # ptxas lines of flash_fwd<float, hd, ...> below
     k3 = {hd: _fwd_shape(hd) for hd in HEAD_DIMS + (320,)}
+    k3_16 = {hd: _fwd_shape(hd, torch.bfloat16) for hd in (64, 128)}
     # the floor of back-to-back launches: a one-element in-place add, a
     # yardstick that no path of the port calls
     one = torch.zeros(1, device=torch.device("cuda", 0))
@@ -721,7 +753,7 @@ def phase_device(torch, ctx):
             "build_s": build_s, "launch_floor_ms": floor_ms,
             "launch_floor_is": "one-element in-place add on cuda:0, "
                                "back to back",
-            "flash_fwd_f32": k3,
+            "flash_fwd_f32": k3, "flash_fwd_wgmma16": k3_16,
             "ptxas": {k: _ptxas(v) for k, v in _build.BUILD_LOG.items()}}
 
 
@@ -730,7 +762,7 @@ def _ptxas(log: str) -> list:
     registers, shared memory and spills), as nvcc printed them."""
     return [line.strip() for line in log.splitlines()
             if "Function properties" in line or "spill" in line
-            or "Used" in line]
+            or "Used" in line or "Performance Loss" in line]
 
 
 def phase_layer_norm(torch, ctx):
@@ -1038,6 +1070,8 @@ def _padded_head_dim_case(torch, g, N, L, D, causal, tol,
     autograd through the plain forward at D (16-bit: by ulp ratio)."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention,
                                              flash_attention_ref)
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (_design,
+                                                             pad_head_dim)
 
     q, k, v, do = (t.to(getattr(torch, dtype))
                    for t in _flash_inputs(torch, g, N, L, L, D))
@@ -1056,9 +1090,11 @@ def _padded_head_dim_case(torch, g, N, L, D, causal, tol,
            "Lk": L, "hd": D, "causal": causal, "errors": err}
     if dtype == "float32":
         return dict(row, ok=all(err[key] <= tol[key] for key in err))
+    row["design"] = _design(q.dtype, pad_head_dim(q, q, q)[0].shape[-1])
+    gate = ULP_WGMMA16 if row["design"] == "wgmma16" else 1
     ratios = {n: ulp_ratio(a, b, EPS16[dtype]) for n, (a, b) in pairs.items()}
     return dict(row, ulp_ratios=ratios,
-                ok=all(r <= 1 for r in ratios.values()))
+                ok=all(r <= gate for r in ratios.values()))
 
 
 def phase_flash_attention(torch, ctx):
@@ -1161,20 +1197,36 @@ def phase_flash_attention(torch, ctx):
         checked_err = [c["errors"][key] for c in checks
                        for key in outputs[kname] if key in c["errors"]]
         ctx[kname] = dict(rows_[0], max_abs_err=max(
-            [r["max_abs_err"] for r in rows_] + checked_err))
+            [r["max_abs_err"] for r in rows_] + checked_err),
+            design="f32-core")
         ctx[kname]["library_is"] = (
             "scaled_dot_product_attention forward" if kname.endswith("fwd")
             else "scaled_dot_product_attention backward (dq, dk and dv in "
                  "one call: fwd+bwd minus fwd)")
     more = _flash_rows_16bit_and_wide(torch, g, tol)
+    # the kernels line's rows of the 16-bit design: the train shape in bf16
+    train16 = next(r for r in more
+                   if r["case"] == "train" and r["dtype"] == "bfloat16")
+    for kname, key, outs in (("flash_attention_fwd", "fwd", ("out", "lse")),
+                             ("flash_attention_dkv", "dkv", ("dk", "dv"))):
+        ctx[kname + "_wgmma16"] = dict(
+            {k_: train16[key][k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by",
+                                             "design")},
+            max_abs_err=max(train16["errors"][o] for o in outs),
+            library_is=ctx[kname]["library_is"] + ", bf16")
     checks += [_padded_head_dim_case(torch, g, 4, 100, 200, causal, tol, dt)
                for dt in ("float32", "bfloat16") for causal in (False, True)]
     return {"tol": tol, "kernels": out_rows, "bwd_pairs": pairs_out,
             "checked": checks, "dtypes_and_widths": more,
-            "tol_16bit": "ulp_ratio <= 1 on out, dq, dk, dv; lse atol 2e-5",
+            "tol_16bit": "ulp_ratio <= 1 on out, dq, dk, dv (a wgmma16 row: "
+                         "<= 0.5); lse atol 2e-5",
             "bound_is": "bound_ms: bytes / 3.35 TB/s or 3 x f32 operations "
-                        "/ 495 TFLOP/s (3xTF32 on the tensor cores); "
-                        "bound_f32_cores_ms: f32 operations / 67 TFLOP/s",
+                        "/ 495 TFLOP/s (3xTF32 on the tensor cores), or at "
+                        "a wgmma16 row bound_16bit_ms; bound_f32_cores_ms: "
+                        "f32 operations / 67 TFLOP/s; bound_16bit_ms: "
+                        "16-bit bytes / 3.35 TB/s or operations / 989 "
+                        "TFLOP/s",
             "ok": all(r["ok"] for rows_ in out_rows.values() for r in rows_)
             and all(c["ok"] for c in checks + more)}
 
@@ -1198,29 +1250,42 @@ FLASH_MORE = {"train": ((32 * 12, 512, 512, 64, False),
                                ("float32", "bfloat16"))}
 # the wide rows' calls take milliseconds: fewer samples of fewer calls
 WIDE_TIMING = {"samples": 10, "reps": 3}
+# name: (N, Lq, Lk, D, causal) and its dtype: ragged tiles of the 16-bit
+# design, checked but not timed
+FLASH16_CHECKED = {"ragged_hd64": ((3, 200, 333, 64, False), "bfloat16"),
+                   "causal_lq_ne_lk_hd128": ((4, 130, 70, 128, True),
+                                             "float16")}
 
 
 def _flash_rows_16bit_and_wide(torch, g, tol):
     """K3-K5 at FLASH_MORE's cases against the plain versions, timed with
-    their plain versions and SDPA in the same dtype beside the bound."""
+    their plain versions and SDPA in the same dtype beside the bound; then
+    FLASH16_CHECKED's cases, checked only.  A 16-bit row names the design
+    K3 and K5 ran (``_design``; K4 is always ``f32-core``) and is held to
+    the 16-bit bound."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
                                              flash_attention_dkv_ref,
                                              flash_attention_dq,
                                              flash_attention_dq_ref,
                                              flash_attention_fwd,
                                              flash_attention_ref)
+    from mxnet_tpu_torch.ops.kernels.flash_attention import (_design,
+                                                             _fwd_shape)
 
     F = torch.nn.functional
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for name, ((N, Lq, Lk, D, causal), dtypes) in FLASH_MORE.items():
         for dtype in dtypes:
             q, k, v, do = (t.to(getattr(torch, dtype))
                            for t in _flash_inputs(torch, g, N, Lq, Lk, D))
             eps = EPS16.get(dtype)
+            design = _design(q.dtype, D)
             err, same, fwd_same, args, ratios = _flash_errors(
                 torch, q, k, v, do, causal, eps)
             if eps:
-                ok = (all(r <= 1 for r in ratios.values())
+                gate = ULP_WGMMA16 if design == "wgmma16" else 1
+                ok = (all(r <= gate for r in ratios.values())
                       and err["lse"] <= tol["lse"])
             else:
                 ok = all(err[key] <= tol[key] for key in err)
@@ -1247,23 +1312,33 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                              lambda: flash_attention_dkv_ref(*args),
                              sdpa_bwd)}
             times = {}
-            tk = WIDE_TIMING if D > 256 else {}
             for kname, (kern, plain, lib_ms) in timed.items():
-                b_ms, b_by = bound_3xtf32(*work[kname])
-                times[kname] = {"ms": time_ms(torch, kern, **tk),
-                                "plain_ms": time_ms(torch, plain, **tk),
-                                "library_ms": lib_ms, "bound_ms": b_ms,
-                                "bound_by": b_by}
-                if dtype != "float32":
+                ms = time_ms(torch, kern, **tk)
+                t = times[kname] = {"ms": ms,
+                                    "plain_ms": time_ms(torch, plain, **tk),
+                                    "library_ms": lib_ms,
+                                    "over_library": ms / lib_ms}
+                t["bound_ms"], t["bound_by"] = bound_3xtf32(*work[kname])
+                if eps:
                     # the least time for the work from 16-bit operands:
                     # their bytes, and the products at the dense 16-bit
-                    # tensor-core rate
-                    times[kname]["bound_16bit_ms"], \
-                        times[kname]["bound_16bit_by"] = bound(
-                            *work[kname], BF16_FLOPS_PER_S)
-                times[kname]["ok"] = times[kname]["ms"] >= b_ms
+                    # tensor-core rate; the bound of a wgmma16 kernel
+                    b16 = bound(*work[kname], BF16_FLOPS_PER_S)
+                    t["design"] = design if kname != "dq" else "f32-core"
+                    t["bound_16bit_ms"], t["bound_16bit_by"] = b16
+                    if t["design"] == "wgmma16":
+                        t["bound_ms"], t["bound_by"] = b16
+                # a row of the f32 core multiplies in 3xTF32 whatever its
+                # input type: its bound stays bound_3xtf32's
+                t["ok"] = ms >= t["bound_ms"]
+            shape = _fwd_shape(D, q.dtype)
+            tiles = N * -(-Lq // shape["rows"])
+            # the wgmma16 forward is persistent: one block an SM at most
+            times["fwd"]["blocks"] = (min(tiles, sms) if design == "wgmma16"
+                                      else tiles)
             rows.append({"case": name, "dtype": dtype, "N": N, "Lq": Lq,
                          "Lk": Lk, "hd": D, "causal": causal,
+                         **({"design": design} if eps else {}),
                          "errors": err, "ulp_ratios": ratios,
                          "fwd_bitwise_repeatable": fwd_same,
                          "bwd_bitwise_repeatable": same,
@@ -1271,6 +1346,19 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                          and all(t["ok"] for t in times.values()), **times})
             del l4, q, k, v, do, args
             torch.cuda.empty_cache()
+    for name, ((N, Lq, Lk, D, causal), dtype) in FLASH16_CHECKED.items():
+        q, k, v, do = (t.to(getattr(torch, dtype))
+                       for t in _flash_inputs(torch, g, N, Lq, Lk, D))
+        err, same, fwd_same, _, ratios = _flash_errors(
+            torch, q, k, v, do, causal, EPS16[dtype])
+        rows.append({"case": name, "dtype": dtype, "N": N, "Lq": Lq,
+                     "Lk": Lk, "hd": D, "causal": causal,
+                     "design": _design(q.dtype, D), "errors": err,
+                     "ulp_ratios": ratios, "fwd_bitwise_repeatable": fwd_same,
+                     "bwd_bitwise_repeatable": same,
+                     "ok": (all(r <= ULP_WGMMA16 for r in ratios.values())
+                            and err["lse"] <= tol["lse"] and same
+                            and fwd_same)})
     return rows
 
 
@@ -2621,6 +2709,32 @@ def _counters():
     return {n: getattr(kernels, n) for n in ALL_KERNELS}
 
 
+# K3's and K5's wrappers also count their launches of the 16-bit design
+# (csrc/flash_attention_16.cu) in ``launches_wgmma16``
+WGMMA16_KERNELS = ("flash_attention_fwd", "flash_attention_dkv")
+
+
+def _wgmma16_zero():
+    from mxnet_tpu_torch.ops import kernels
+
+    for n in WGMMA16_KERNELS:
+        getattr(kernels, n).launches_wgmma16 = 0
+
+
+def _wgmma16_read():
+    """K3's and K5's launches of the ``wgmma16`` design since
+    ``_wgmma16_zero``, by wrapper name."""
+    from mxnet_tpu_torch.ops import kernels
+
+    return {n: getattr(kernels, n).launches_wgmma16 for n in WGMMA16_KERNELS}
+
+
+def _f32_core(launches, wgmma16):
+    """K3's and K5's launches of the f32 core: the wrapper's count less
+    the ``wgmma16`` design's."""
+    return {n: launches[n] - wgmma16[n] for n in WGMMA16_KERNELS}
+
+
 def phase_add_layer_norm(torch, ctx):
     from mxnet_tpu_torch.ops.kernels import add_layer_norm, add_layer_norm_ref
 
@@ -2842,7 +2956,8 @@ def _imperative_arrays(inputs, labels, dev, dtype="float32"):
 
 def _imperative_run(torch, arrs, lab, B, L, fused):
     """One forward and backward of the imperative path under the
-    fused_kernels pass or none: (loss, launches, wall ms)."""
+    fused_kernels pass or none: (loss, launches, wall ms, K3's and K5's
+    launches of the ``wgmma16`` design)."""
     from mxnet_tpu_torch import autograd, nd
     from mxnet_tpu_torch.passes import FusedKernelPass, PassPipeline
 
@@ -2850,6 +2965,7 @@ def _imperative_run(torch, arrs, lab, B, L, fused):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    _wgmma16_zero()
     C = IMP_H * IMP_HD
     arrs["x"].wait_to_read()
     t0 = time.perf_counter()
@@ -2866,7 +2982,8 @@ def _imperative_run(torch, arrs, lab, B, L, fused):
     loss.wait_to_read()
     wall_ms = (time.perf_counter() - t0) * 1e3
     return (float(loss.asscalar()),
-            {n: fn.launches for n, fn in counters.items()}, wall_ms)
+            {n: fn.launches for n, fn in counters.items()}, wall_ms,
+            _wgmma16_read())
 
 
 def _grads(arrs):
@@ -2950,7 +3067,8 @@ IMP_BF16_TOL = {"loss_rel": 2.0 ** -6, "grad_of_max_abs": 2.0 ** -5}
 def phase_imperative_bf16(torch, ctx):
     """The imperative path with every array in bf16, so that K6, K1 and
     K3-K5 run in bf16 from the MXNet entry points: pass on and off (one
-    warm-up and one run each, launches as in ``imperative``), on against
+    warm-up and one run each, launches as in ``imperative``, K3's and K5's
+    of the ``wgmma16`` design), on against
     off, then the card against the CPU on a (2 x 128)-token batch with the
     pass on, at IMP_BF16_TOL."""
     dev = torch.device("cuda", 0)
@@ -2968,7 +3086,11 @@ def phase_imperative_bf16(torch, ctx):
     torch.cuda.empty_cache()
     on, off = runs[True], runs[False]
     ctx.setdefault("launches", {})["imperative_bf16"] = on[1]
-    launches_ok = on[1] == IMP_PASS_ON and off[1] == IMP_PASS_OFF
+    ctx.setdefault("launches_wgmma16", {})["imperative_bf16"] = on[3]
+    # bf16 at IMP_HD 64: every K3 and K5 launch is of the wgmma16 design
+    launches_ok = (on[1] == IMP_PASS_ON and off[1] == IMP_PASS_OFF
+                   and all(r[3] == {n: r[1][n] for n in WGMMA16_KERNELS}
+                           for r in (on, off)))
     on_off, on_off_ok = _compare(on[0], grads[True], off[0], grads[False],
                                  **tol)
     del grads
@@ -2982,6 +3104,8 @@ def phase_imperative_bf16(torch, ctx):
     card_cpu, card_cpu_ok = _compare(*res["cuda"], *res["cpu"], **tol)
     return {"dtype": "bfloat16", "batch": [B, L],
             "launches_pass_on": on[1], "launches_pass_off": off[1],
+            "launches_wgmma16_pass_on": on[3],
+            "launches_wgmma16_pass_off": off[3],
             "wall_ms_pass_on": on[2], "wall_ms_pass_off": off[2],
             "pass_on_vs_off": on_off, "card_vs_cpu": dict(
                 card_cpu, batch=[b2, l2], loss_card=res["cuda"][0],
@@ -3044,10 +3168,14 @@ def phase_train_bf16(torch, ctx):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    _wgmma16_zero()
     losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
                                          TRAIN_STEPS)
     launches = {n: fn.launches for n, fn in counters.items()}
+    wgmma16 = _wgmma16_read()
+    f32_core = _f32_core(launches, wgmma16)
     ctx["launches"]["train_bf16"] = launches
+    ctx.setdefault("launches_wgmma16", {})["train_bf16"] = wgmma16
     expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prof = _step_profile(torch, lambda: step.step(tokens, labels))
@@ -3072,11 +3200,14 @@ def phase_train_bf16(torch, ctx):
         "f32_train_phase": f32,
         "tokens_per_s_over_f32": tps / f32["tokens_per_s"] if f32 else None,
         "launches": launches, "launches_expected": expected,
+        "launches_wgmma16": wgmma16, "launches_f32_core": f32_core,
         "profile_one_step": prof, "flash_ms": flash,
         "flash_share_of_busy": sum(flash.values()) / busy if busy else None,
         "card": ctx["smi"],
         "ok": bool(all(math.isfinite(x) for x in losses)
                    and losses[-1] < losses[0] and launches == expected
+                   and wgmma16 == {n: expected[n] for n in wgmma16}
+                   and not any(f32_core.values())
                    and dtypes == ["torch.bfloat16"])}
 
 
@@ -3984,11 +4115,15 @@ def _amp_cell(torch, ctx, dtype):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    _wgmma16_zero()
     losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
                                          TRAIN_STEPS)
     launches = {n: fn.launches for n, fn in counters.items()}
+    wgmma16 = _wgmma16_read()
+    f32_core = _f32_core(launches, wgmma16)
     name = "train_amp" if dtype == "bfloat16" else "train_amp_fp16"
     ctx["launches"][name] = launches
+    ctx.setdefault("launches_wgmma16", {})[name] = wgmma16
     expected = {n: k * TRAIN_STEPS for n, k in TRAIN_PER_STEP.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [first] + losses
@@ -4006,7 +4141,8 @@ def _amp_cell(torch, ctx, dtype):
         "train": {k: v for k, v in f32.items() if k != "losses"},
         "train_bf16": ctx.get("train_bf16"),
         "tokens_per_s_over_train": tps / f32["tokens_per_s"],
-        "launches": launches, "launches_expected": expected}
+        "launches": launches, "launches_expected": expected,
+        "launches_wgmma16": wgmma16, "launches_f32_core": f32_core}
     if scaled:
         line["scaler_after_steps"] = {
             k: float(v) for k, v in step.scaler_state.items()}
@@ -4023,6 +4159,8 @@ def _amp_cell(torch, ctx, dtype):
     line["ok"] = bool(
         all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
         and launches == expected and rel <= AMP_LOSS_REL
+        and wgmma16 == {n: expected[n] for n in wgmma16}
+        and not any(f32_core.values())
         and dtypes == {"layer_norm": ["torch.float32"],
                        "flash_attention": [f"torch.{dtype}"]}
         and masters == ["torch.float32"]
@@ -4277,9 +4415,15 @@ def phase_serve_int4(torch, ctx):
 
 
 # name, source, the TPU kernel it replaces, the paths whose launches the
-# kernels line reports (summed)
-AMP_FLASH_PATHS = ("train", "gluon_bert", "train_amp", "train_amp_fp16",
-                   "module_bert", "train_resume", "profile_bert")
+# kernels line reports (summed).  K3 and K5 have a row for each design:
+# the f32 core of flash_attention.cu (the wrapper's launches less the
+# wgmma16 ones) on the f32 paths, and the 16-bit wgmma16 of
+# flash_attention_16.cu (its own counts) on the 16-bit paths; K4 has one
+# core and one row over both
+F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
+                   "profile_bert")
+AMP_FLASH_PATHS = F32_FLASH_PATHS + ("train_amp", "train_amp_fp16")
+BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
@@ -4293,11 +4437,17 @@ KERNELS = (
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
       "serve_beam", "serve_fleet", "serve_int8", "serve_int4")),
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:72", AMP_FLASH_PATHS),
+     "mxnet_tpu/ops/pallas/flash_attention.py:72", F32_FLASH_PATHS),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:131", AMP_FLASH_PATHS),
     ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:158", AMP_FLASH_PATHS),
+     "mxnet_tpu/ops/pallas/flash_attention.py:158", F32_FLASH_PATHS),
+    ("flash_attention_fwd_wgmma16",
+     "mxnet_tpu_torch/csrc/flash_attention_16.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:72", BF16_FLASH_PATHS),
+    ("flash_attention_dkv_wgmma16",
+     "mxnet_tpu_torch/csrc/flash_attention_16.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:158", BF16_FLASH_PATHS),
     ("add_layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:166", "imperative"),
     ("softmax_cross_entropy", "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
@@ -8713,6 +8863,13 @@ def main() -> int:
               ("train_sparse_lm", phase_train_sparse_lm),
               ("train_sparse_adam", phase_train_sparse_adam),
               ("libsvm_sparse", phase_libsvm_sparse))
+    named = sys.argv[1:]
+    unknown = sorted(set(named) - {n for n, _ in phases})
+    if unknown:
+        print(f"chip_smoke: no phase {unknown}", file=sys.stderr)
+        return 2
+    if named:
+        phases = tuple(p for p in phases if p[0] in named)
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -8730,21 +8887,31 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if named:
+        return 0
     kernels = []
+    w16 = ctx.get("launches_wgmma16", {})
     for name, source, replaces, paths in KERNELS:
         k = ctx[name]
         paths = (paths,) if isinstance(paths, str) else paths
+        wrapper = name.removesuffix("_wgmma16")
+        if wrapper != name:  # the wgmma16 design: its own counts
+            by_path = {p: c[wrapper] for p, c in w16.items()}
+        elif wrapper in WGMMA16_KERNELS:  # the f32 core: the rest
+            by_path = {p: c[wrapper] - w16.get(p, {}).get(wrapper, 0)
+                       for p, c in ctx["launches"].items()}
+        else:
+            by_path = {p: c[name] for p, c in ctx["launches"].items()}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": sum(ctx["launches"][p][name] for p in paths),
+            "launches": sum(by_path[p] for p in paths),
             "path": paths[0] if len(paths) == 1 else list(paths),
-            "launches_by_path": {p: ctx["launches"][p][name]
-                                 for p in ctx["launches"]},
+            "launches_by_path": by_path,
             **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms", "bound_f32_cores_ms",
-                                       "bwd_pair_ms")
+                                       "bwd_pair_ms", "design")
                if key in k},
             **({"library_is": k["library_is"]} if "library_is" in k
                else {})})

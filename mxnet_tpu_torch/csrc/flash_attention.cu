@@ -72,7 +72,9 @@
 //   the gradients are bitwise repeatable.  Causal q blocks (K3, K4) skip
 //   k tiles wholly above the diagonal, which are never loaded, and dk/dv
 //   blocks q tiles wholly below it (there p is exactly 0).
-// - bf16 and f16 inputs are converted to f32 on their way into shared
+// - bf16 and f16 inputs (except K3 and K5 at hd 64 and 128, which
+//   flash_attention_16.cu takes: mx_flash_attention_fwd and _dkv refuse
+//   them) are converted to f32 on their way into shared
 //   memory (8-byte loads of four values, two to four in flight a thread,
 //   then f32 stores: cp.async cannot convert), so the f32 tiles, the 3xTF32
 //   core and its fragment loaders are the f32 kernels' own; outputs are
@@ -1319,10 +1321,22 @@ int by_type_hd(int dtype, int hd, Args... args) {
   return on_hd(float{});
 }
 
+// K3 and K5 at bf16 or f16 and hd 64 or 128 are flash_attention_16.cu's
+// (its wgmma design); they are not instantiated here.
+template <typename T, int HD>
+constexpr bool in_16bit_design() {
+  return !std::is_same<T, float>::value && (HD == 64 || HD == 128);
+}
+
 template <typename T>
 struct Fwd_ {
   template <int HD, typename... A>
-  static cudaError_t run(A... a) { return fwd<T, HD>(a...); }
+  static cudaError_t run(A... a) {
+    if constexpr (in_16bit_design<T, HD>())
+      return cudaErrorInvalidValue;
+    else
+      return fwd<T, HD>(a...);
+  }
   static cudaError_t wide(int D, const void* q, const void* k, const void* v, void* out,
                           float* lse, int N, int Lq, int Lk, int causal, float sm_scale,
                           cudaStream_t stream) {
@@ -1343,7 +1357,12 @@ struct Dq_ {
 template <typename T>
 struct Dkv_ {
   template <int HD, typename... A>
-  static cudaError_t run(A... a) { return bwd_dkv<T, HD>(a...); }
+  static cudaError_t run(A... a) {
+    if constexpr (in_16bit_design<T, HD>())
+      return cudaErrorInvalidValue;
+    else
+      return bwd_dkv<T, HD>(a...);
+  }
   static cudaError_t wide(int D, const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv, int N,
                           int Lq, int Lk, int causal, float sm_scale, cudaStream_t stream) {

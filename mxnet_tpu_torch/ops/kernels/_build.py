@@ -41,7 +41,7 @@ __all__ = ["load", "build_all", "check", "dtype_code", "count_launch",
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("layer_norm", "paged_attention", "flash_attention",
-           "softmax_cross_entropy")
+           "flash_attention_16", "softmax_cross_entropy")
 # -split-compile 0: nvcc optimizes a source's kernels on as many threads
 # as the machine has cores, which cuts the build of flash_attention.cu
 # (the longest, with its many template instances) by more than half
@@ -125,12 +125,13 @@ def build_all(names: Iterable[str] = SOURCES) -> None:
             _libs[n] = ctypes.CDLL(str(out))
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)
-    under a lock: serving replicas launch from several driver threads,
-    and a bare ``+= 1`` can lose counts between them."""
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count),
+    or to its counter ``attr``, under a lock: serving replicas launch from
+    several driver threads, and a bare ``+= 1`` can lose counts between
+    them."""
     with _count_lock:
-        wrapper.launches += 1
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -19,7 +19,12 @@ v and do; D in {16, 32, 64, 128, 256} or a multiple of 64 above 256;
 contiguous and 16-byte aligned) or raises.  The kernels compute in f32
 and round out, dq, dk and dv to the input type; lse and delta are f32.
 Above 256 the kernels reduce the scores over D in chunks of 64 columns
-and make one launch per 64 output columns.  :func:`flash_attention` takes
+and make one launch per 64 output columns.  K3 and K5 at bf16 or f16 and
+D 64 or 128 launch the 16-bit design of ``csrc/flash_attention_16.cu``
+(wgmma and TMA; P and dS rounded to the input type before their
+products); every other (dtype, D), and K4, the f32 core of
+``csrc/flash_attention.cu``.  :func:`_design` decides, from the dtype and
+D alone.  :func:`flash_attention` takes
 any D: it zero-pads q, k and v to the next head dim a kernel takes
 (:func:`pad_head_dim`) and slices the results back.
 """
@@ -44,8 +49,23 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_STEP = 64
 
 
+# K3 and K5 at these dtypes and head dims run csrc/flash_attention_16.cu
+WGMMA16_DTYPES = (torch.bfloat16, torch.float16)
+WGMMA16_HEAD_DIMS = (64, 128)
+
+
 def _has_kernel(D: int) -> bool:
     return D in HEAD_DIMS or (D > HEAD_DIMS[-1] and D % WIDE_STEP == 0)
+
+
+def _design(dtype, D: int) -> str:
+    """The kernel design K3 and K5 launch at (dtype, D): ``"wgmma16"``
+    (16-bit wgmma fed by TMA, ``csrc/flash_attention_16.cu``) for bf16 and
+    f16 at D 64 and 128, else ``"f32-core"`` (16-bit tiles converted to
+    f32 and multiplied in 3xTF32, ``csrc/flash_attention.cu``)."""
+    if dtype in WGMMA16_DTYPES and D in WGMMA16_HEAD_DIMS:
+        return "wgmma16"
+    return "f32-core"
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +144,22 @@ def _lib():
     return lib
 
 
+def _lib16():
+    lib = _build.load("flash_attention_16")
+    fwd = lib.mx_flash_attention_fwd16
+    if fwd.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # dtype, N, Lq, Lk, hd, causal, scale, stream
+        tail = [i, i, i, i, i, i, f, p]
+        fwd.argtypes = [p] * 5 + tail
+        lib.mx_flash_attention_dkv16.argtypes = [p] * 8 + tail
+        lib.mx_flash_attention_fwd16_shape.argtypes = [i] + [p] * 4
+        for fn in (fwd, lib.mx_flash_attention_dkv16,
+                   lib.mx_flash_attention_fwd16_shape):
+            fn.restype = ctypes.c_int
+    return lib
+
+
 def _check(what: str, q, k, **others) -> int:
     """q (N, Lq, D), k (N, Lk, D); ``others`` name -> (tensor, shape), in
     q's dtype, or (tensor, shape, dtype).  Returns q's dtype code."""
@@ -173,14 +209,19 @@ def flash_attention_fwd(q, k, v, causal: bool = False, sm_scale=None):
     N, Lq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((N, Lq), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    wgmma16 = _design(q.dtype, D) == "wgmma16"
+    lib = _lib16() if wgmma16 else _lib()
+    entry = (lib.mx_flash_attention_fwd16 if wgmma16
+             else lib.mx_flash_attention_fwd)
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_fwd")
     _build.count_launch(flash_attention_fwd)
+    if wgmma16:
+        _build.count_launch(flash_attention_fwd, "launches_wgmma16")
     return out, lse
 
 
@@ -227,33 +268,42 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     N, Lq, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
+    wgmma16 = _design(q.dtype, D) == "wgmma16"
+    lib = _lib16() if wgmma16 else _lib()
+    entry = (lib.mx_flash_attention_dkv16 if wgmma16
+             else lib.mx_flash_attention_dkv)
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_dkv(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dt, N, Lq, k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dkv")
     _build.count_launch(flash_attention_dkv)
+    if wgmma16:
+        _build.count_launch(flash_attention_dkv, "launches_wgmma16")
     return dk, dv
 
 
-def _fwd_shape(D: int) -> dict:
-    """K3's launch shape at head dim D, as the kernel's source sets it:
-    q ``rows`` and ``threads`` of a block, its dynamic shared memory
-    (``smem_bytes``) and ``blocks_per_sm``, the blocks an SM of the
-    current card holds.  A forward over N heads of Lq rows launches
-    N * ceil(Lq / rows) blocks.  Needs a card; a diagnostic for
-    ``chip_smoke.py`` that no path of the port calls."""
+def _fwd_shape(D: int, dtype=torch.float32) -> dict:
+    """K3's launch shape at head dim D and ``dtype``, as the source of the
+    design :func:`_design` picks sets it: q ``rows`` and ``threads`` of a
+    block, its dynamic shared memory (``smem_bytes``) and
+    ``blocks_per_sm``, the blocks an SM of the current card holds.  A
+    forward over N heads of Lq rows has N * ceil(Lq / rows) tiles: a
+    block each, or at ``wgmma16`` one persistent block an SM walking over
+    them.  Needs a card; a diagnostic for ``chip_smoke.py`` that no path
+    of the port calls."""
     if not _has_kernel(D):
         raise MXNetError(f"_fwd_shape: no kernel at head_dim {D} (it takes "
                          f"{HEAD_DIMS} or a multiple of {WIDE_STEP} above "
                          f"{HEAD_DIMS[-1]})")
-    lib = _lib()
+    wgmma16 = _design(dtype, D) == "wgmma16"
+    lib = _lib16() if wgmma16 else _lib()
+    entry = (lib.mx_flash_attention_fwd16_shape if wgmma16
+             else lib.mx_flash_attention_fwd_shape)
     vals = [ctypes.c_int(0) for _ in range(4)]
-    err = lib.mx_flash_attention_fwd_shape(
-        D, *(ctypes.byref(x) for x in vals))
+    err = entry(D, *(ctypes.byref(x) for x in vals))
     _build.check(lib, err, "_fwd_shape")
     return dict(zip(("rows", "threads", "smem_bytes", "blocks_per_sm"),
                     (x.value for x in vals)))
@@ -262,6 +312,9 @@ def _fwd_shape(D: int) -> dict:
 flash_attention_fwd.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
+# K3's and K5's launches of the 16-bit design, also counted in ``launches``
+flash_attention_fwd.launches_wgmma16 = 0
+flash_attention_dkv.launches_wgmma16 = 0
 
 
 # ---------------------------------------------------------------------------

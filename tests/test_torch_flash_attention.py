@@ -177,7 +177,8 @@ def test_kernel_argument_checks(change, match):
 
 
 def _c_argtypes(fn: str):
-    text = (_build.CSRC / "flash_attention.cu").read_text()
+    source = "flash_attention_16.cu" if "16" in fn else "flash_attention.cu"
+    text = (_build.CSRC / source).read_text()
     params = re.search(rf"\bint {fn}\(([^)]*)\)", text).group(1)
     out = []
     for p in params.split(","):
@@ -206,13 +207,18 @@ class _FakeLib:
 @pytest.mark.parametrize("fn", ["mx_flash_attention_fwd",
                                 "mx_flash_attention_dq",
                                 "mx_flash_attention_dkv",
-                                "mx_flash_attention_fwd_shape"])
+                                "mx_flash_attention_fwd_shape",
+                                "mx_flash_attention_fwd16",
+                                "mx_flash_attention_dkv16",
+                                "mx_flash_attention_fwd16_shape"])
 def test_ctypes_binding_matches_c_signature(monkeypatch, fn):
     """Every argument of each C entry point is declared: without
-    ``argtypes`` a float cannot pass and a pointer is cut to 32 bits."""
+    ``argtypes`` a float cannot pass and a pointer is cut to 32 bits.
+    The 16-bit design's entry points are those of
+    ``csrc/flash_attention_16.cu``, bound by ``_lib16``."""
     fake = _FakeLib()
     monkeypatch.setattr(_build, "load", lambda name: fake)
-    fa_mod._lib()
+    (fa_mod._lib16 if "16" in fn else fa_mod._lib)()
     got = getattr(fake, fn)
     assert got.argtypes == _c_argtypes(fn)
     assert got.restype is ctypes.c_int
