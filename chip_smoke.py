@@ -164,8 +164,8 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           its backward (fwd+bwd minus fwd; dq, dk and dv in
                           one call, beside K4 and K5 and their sum
                           ``bwd_pair_ms``) as the library yardsticks.
-                          Every 16-bit row names its ``design``: K3 and
-                          K5 at bf16 and f16 and hd 64 and 128 run
+                          Every 16-bit row names its ``design``: K3, K4
+                          and K5 at bf16 and f16 and hd 64 and 128 run
                           ``wgmma16`` (csrc/flash_attention_16.cu), every
                           other row ``f32-core``; it carries the 16-bit
                           bound (989 TFLOP/s) and its time over SDPA's in
@@ -243,8 +243,8 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
   train_bf16              (after train_profile) BERT-base cast to bf16 as
                           bench.py:677 does, Adam lr 1e-4, the train cell's
                           batch: one warm-up and 5 timed steps, K1 26 and
-                          K3-K5 12 launches a step, K3's and K5's all of
-                          the ``wgmma16`` design; losses finite and
+                          K3-K5 12 launches a step, all of the
+                          ``wgmma16`` design; losses finite and
                           falling; tokens/s, step ms and peak memory beside
                           the f32 train phase's; one profiled step with
                           K3-K5's share of the busy time.
@@ -252,7 +252,7 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           the AMP policy in bf16 (f32 masters): losses
                           finite, falling and within 2e-2 relative of the
                           f32 cell's, K1 and K3-K5 as many launches as
-                          there (K3's and K5's of the ``wgmma16`` design),
+                          there (K3-K5's of the ``wgmma16`` design),
                           LayerNorm fed f32 and attention bf16.
   train_amp_fp16          the same in fp16 with the dynamic loss scaler:
                           a step forced to overflow is skipped, and the
@@ -1208,11 +1208,13 @@ def phase_flash_attention(torch, ctx):
     train16 = next(r for r in more
                    if r["case"] == "train" and r["dtype"] == "bfloat16")
     for kname, key, outs in (("flash_attention_fwd", "fwd", ("out", "lse")),
+                             ("flash_attention_dq", "dq", ("dq",)),
                              ("flash_attention_dkv", "dkv", ("dk", "dv"))):
         ctx[kname + "_wgmma16"] = dict(
             {k_: train16[key][k_] for k_ in ("ms", "plain_ms", "library_ms",
                                              "bound_ms", "bound_by",
-                                             "design")},
+                                             "design", "bwd_pair_ms")
+             if k_ in train16[key]},
             max_abs_err=max(train16["errors"][o] for o in outs),
             library_is=ctx[kname]["library_is"] + ", bf16")
     checks += [_padded_head_dim_case(torch, g, 4, 100, 200, causal, tol, dt)
@@ -1259,10 +1261,12 @@ FLASH16_CHECKED = {"ragged_hd64": ((3, 200, 333, 64, False), "bfloat16"),
 
 def _flash_rows_16bit_and_wide(torch, g, tol):
     """K3-K5 at FLASH_MORE's cases against the plain versions, timed with
-    their plain versions and SDPA in the same dtype beside the bound; then
-    FLASH16_CHECKED's cases, checked only.  A 16-bit row names the design
-    K3 and K5 ran (``_design``; K4 is always ``f32-core``) and is held to
-    the 16-bit bound."""
+    their plain versions and SDPA in the same dtype (K4 and K5 beside
+    SDPA's whole backward) beside the bound; then FLASH16_CHECKED's cases,
+    checked only.  A 16-bit row names the design K3, K4 and K5 ran
+    (``_design``, one for the three) and carries the 16-bit bound, the
+    bound of a ``wgmma16`` kernel; its ulp ratios (dq's too) are held to
+    ``ULP_WGMMA16`` and its dq, dk and dv must repeat bitwise."""
     from mxnet_tpu_torch.ops.kernels import (flash_attention_dkv,
                                              flash_attention_dkv_ref,
                                              flash_attention_dq,
@@ -1324,13 +1328,18 @@ def _flash_rows_16bit_and_wide(torch, g, tol):
                     # their bytes, and the products at the dense 16-bit
                     # tensor-core rate; the bound of a wgmma16 kernel
                     b16 = bound(*work[kname], BF16_FLOPS_PER_S)
-                    t["design"] = design if kname != "dq" else "f32-core"
+                    t["design"] = design
                     t["bound_16bit_ms"], t["bound_16bit_by"] = b16
                     if t["design"] == "wgmma16":
                         t["bound_ms"], t["bound_by"] = b16
                 # a row of the f32 core multiplies in 3xTF32 whatever its
                 # input type: its bound stays bound_3xtf32's
                 t["ok"] = ms >= t["bound_ms"]
+            # K4 + K5, the backward SDPA's one call computes
+            pair = times["dq"]["ms"] + times["dkv"]["ms"]
+            for key in ("dq", "dkv"):
+                times[key].update(bwd_pair_ms=pair,
+                                  bwd_pair_over_library=pair / sdpa_bwd)
             shape = _fwd_shape(D, q.dtype)
             tiles = N * -(-Lq // shape["rows"])
             # the wgmma16 forward is persistent: one block an SM at most
@@ -2709,9 +2718,10 @@ def _counters():
     return {n: getattr(kernels, n) for n in ALL_KERNELS}
 
 
-# K3's and K5's wrappers also count their launches of the 16-bit design
-# (csrc/flash_attention_16.cu) in ``launches_wgmma16``
-WGMMA16_KERNELS = ("flash_attention_fwd", "flash_attention_dkv")
+# K3's, K4's and K5's wrappers also count their launches of the 16-bit
+# design (csrc/flash_attention_16.cu) in ``launches_wgmma16``
+WGMMA16_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                   "flash_attention_dkv")
 
 
 def _wgmma16_zero():
@@ -2722,7 +2732,7 @@ def _wgmma16_zero():
 
 
 def _wgmma16_read():
-    """K3's and K5's launches of the ``wgmma16`` design since
+    """K3's, K4's and K5's launches of the ``wgmma16`` design since
     ``_wgmma16_zero``, by wrapper name."""
     from mxnet_tpu_torch.ops import kernels
 
@@ -2730,8 +2740,8 @@ def _wgmma16_read():
 
 
 def _f32_core(launches, wgmma16):
-    """K3's and K5's launches of the f32 core: the wrapper's count less
-    the ``wgmma16`` design's."""
+    """K3's, K4's and K5's launches of the f32 core: the wrapper's count
+    less the ``wgmma16`` design's."""
     return {n: launches[n] - wgmma16[n] for n in WGMMA16_KERNELS}
 
 
@@ -2956,7 +2966,7 @@ def _imperative_arrays(inputs, labels, dev, dtype="float32"):
 
 def _imperative_run(torch, arrs, lab, B, L, fused):
     """One forward and backward of the imperative path under the
-    fused_kernels pass or none: (loss, launches, wall ms, K3's and K5's
+    fused_kernels pass or none: (loss, launches, wall ms, K3-K5's
     launches of the ``wgmma16`` design)."""
     from mxnet_tpu_torch import autograd, nd
     from mxnet_tpu_torch.passes import FusedKernelPass, PassPipeline
@@ -3067,7 +3077,7 @@ IMP_BF16_TOL = {"loss_rel": 2.0 ** -6, "grad_of_max_abs": 2.0 ** -5}
 def phase_imperative_bf16(torch, ctx):
     """The imperative path with every array in bf16, so that K6, K1 and
     K3-K5 run in bf16 from the MXNet entry points: pass on and off (one
-    warm-up and one run each, launches as in ``imperative``, K3's and K5's
+    warm-up and one run each, launches as in ``imperative``, K3-K5's
     of the ``wgmma16`` design), on against
     off, then the card against the CPU on a (2 x 128)-token batch with the
     pass on, at IMP_BF16_TOL."""
@@ -3087,7 +3097,7 @@ def phase_imperative_bf16(torch, ctx):
     on, off = runs[True], runs[False]
     ctx.setdefault("launches", {})["imperative_bf16"] = on[1]
     ctx.setdefault("launches_wgmma16", {})["imperative_bf16"] = on[3]
-    # bf16 at IMP_HD 64: every K3 and K5 launch is of the wgmma16 design
+    # bf16 at IMP_HD 64: every K3-K5 launch is of the wgmma16 design
     launches_ok = (on[1] == IMP_PASS_ON and off[1] == IMP_PASS_OFF
                    and all(r[3] == {n: r[1][n] for n in WGMMA16_KERNELS}
                            for r in (on, off)))
@@ -4415,14 +4425,12 @@ def phase_serve_int4(torch, ctx):
 
 
 # name, source, the TPU kernel it replaces, the paths whose launches the
-# kernels line reports (summed).  K3 and K5 have a row for each design:
-# the f32 core of flash_attention.cu (the wrapper's launches less the
-# wgmma16 ones) on the f32 paths, and the 16-bit wgmma16 of
-# flash_attention_16.cu (its own counts) on the 16-bit paths; K4 has one
-# core and one row over both
+# kernels line reports (summed).  K3, K4 and K5 have a row for each
+# design: the f32 core of flash_attention.cu (the wrapper's launches less
+# the wgmma16 ones) on the f32 paths, and the 16-bit wgmma16 of
+# flash_attention_16.cu (its own counts) on the 16-bit paths
 F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
                    "profile_bert")
-AMP_FLASH_PATHS = F32_FLASH_PATHS + ("train_amp", "train_amp_fp16")
 BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
@@ -4439,12 +4447,15 @@ KERNELS = (
     ("flash_attention_fwd", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:72", F32_FLASH_PATHS),
     ("flash_attention_dq", "mxnet_tpu_torch/csrc/flash_attention.cu",
-     "mxnet_tpu/ops/pallas/flash_attention.py:131", AMP_FLASH_PATHS),
+     "mxnet_tpu/ops/pallas/flash_attention.py:131", F32_FLASH_PATHS),
     ("flash_attention_dkv", "mxnet_tpu_torch/csrc/flash_attention.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:158", F32_FLASH_PATHS),
     ("flash_attention_fwd_wgmma16",
      "mxnet_tpu_torch/csrc/flash_attention_16.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:72", BF16_FLASH_PATHS),
+    ("flash_attention_dq_wgmma16",
+     "mxnet_tpu_torch/csrc/flash_attention_16.cu",
+     "mxnet_tpu/ops/pallas/flash_attention.py:131", BF16_FLASH_PATHS),
     ("flash_attention_dkv_wgmma16",
      "mxnet_tpu_torch/csrc/flash_attention_16.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:158", BF16_FLASH_PATHS),
@@ -8805,7 +8816,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, here)
 
-    ctx, failed = {}, []
+    # launches by path: the serving phases and the training phases add to it
+    ctx, failed = {"launches": {}}, []
     phases = (("device", phase_device),
               ("kernel_layer_norm", phase_layer_norm),
               ("kernel_paged_attention", phase_paged_attention),

@@ -72,9 +72,9 @@
 //   the gradients are bitwise repeatable.  Causal q blocks (K3, K4) skip
 //   k tiles wholly above the diagonal, which are never loaded, and dk/dv
 //   blocks q tiles wholly below it (there p is exactly 0).
-// - bf16 and f16 inputs (except K3 and K5 at hd 64 and 128, which
-//   flash_attention_16.cu takes: mx_flash_attention_fwd and _dkv refuse
-//   them) are converted to f32 on their way into shared
+// - bf16 and f16 inputs (except at hd 64 and 128, where
+//   flash_attention_16.cu takes K3, K4 and K5: mx_flash_attention_fwd,
+//   _dq and _dkv refuse them) are converted to f32 on their way into shared
 //   memory (8-byte loads of four values, two to four in flight a thread,
 //   then f32 stores: cp.async cannot convert), so the f32 tiles, the 3xTF32
 //   core and its fragment loaders are the f32 kernels' own; outputs are
@@ -1321,7 +1321,7 @@ int by_type_hd(int dtype, int hd, Args... args) {
   return on_hd(float{});
 }
 
-// K3 and K5 at bf16 or f16 and hd 64 or 128 are flash_attention_16.cu's
+// K3, K4 and K5 at bf16 or f16 and hd 64 or 128 are flash_attention_16.cu's
 // (its wgmma design); they are not instantiated here.
 template <typename T, int HD>
 constexpr bool in_16bit_design() {
@@ -1346,7 +1346,12 @@ struct Fwd_ {
 template <typename T>
 struct Dq_ {
   template <int HD, typename... A>
-  static cudaError_t run(A... a) { return bwd_dq<T, HD>(a...); }
+  static cudaError_t run(A... a) {
+    if constexpr (in_16bit_design<T, HD>())
+      return cudaErrorInvalidValue;
+    else
+      return bwd_dq<T, HD>(a...);
+  }
   static cudaError_t wide(int D, const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dq, int N, int Lq, int Lk,
                           int causal, float sm_scale, cudaStream_t stream) {

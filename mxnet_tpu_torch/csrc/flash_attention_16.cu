@@ -1,44 +1,50 @@
-// FlashAttention forward (K3) and dk/dv (K5) for 16-bit inputs on Hopper's
-// tensor cores (sm_90a): bf16 or f16 q, k, v and do at head dims 64 and 128.
+// FlashAttention forward (K3), dq (K4) and dk/dv (K5) for 16-bit inputs on
+// Hopper's tensor cores (sm_90a): bf16 or f16 q, k, v and do at head dims 64
+// and 128.
 //
-// Replaces, for those inputs, two Pallas kernels of
+// Replaces, for those inputs, three Pallas kernels of
 // mxnet_tpu/ops/pallas/flash_attention.py:
 //   _fwd_kernel (K3): out = softmax(q k^T * scale [masked]) v and the row
 //     logsumexp, by an online softmax over k tiles;
+//   _dq_kernel  (K4): dq = scale * sum_k p * (do v^T - delta) k;
 //   _dkv_kernel (K5): dv = p^T do, dk = (p * (do v^T - delta))^T (q * scale),
 // with p = exp(s - lse) recomputed from the forward's lse and delta =
 // rowsum(do * out) computed outside.  Keys at kpos >= Lk, and above the
 // diagonal (qpos < kpos) when causal, score -1e30 as on the TPU.  Every
-// other (dtype, head dim), K4 in every dtype, and f32 run in
-// flash_attention.cu; the wrapper (ops/kernels/flash_attention.py::_design)
-// picks the file by dtype and head dim alone.
+// other (dtype, head dim), and f32, run in flash_attention.cu; the wrapper
+// (ops/kernels/flash_attention.py::_design) picks the file by dtype and head
+// dim alone.
 //
 // Bound on this card.  At the BERT-base training shape (N = 384 heads,
 // L = 512, hd = 64) K3 does 4 N L^2 hd = 25.8 GFLOP against 100.7 MB of
 // 16-bit q, k, v and out: 256 flops a byte, just under the card's ridge of
 // 989 TFLOP/s over 3.35 TB/s (~295), so bytes (0.030 ms) and operations
-// (0.026 ms) bound it almost equally.  K5 does 8 N L^2 hd = 51.5 GFLOP
+// (0.026 ms) bound it almost equally.  K4 does 6 N L^2 hd = 38.7 GFLOP
+// against 127 MB (q, k, v, do, dq, lse, delta): bound by operations (0.039
+// ms), by bytes almost as much (0.038 ms).  K5 does 8 N L^2 hd = 51.5 GFLOP
 // against 151 MB (q, k, v, do, dk, dv): 341 flops a byte, bound by
-// operations (0.052 ms).  Both need the tensor cores' 16-bit rate, which
-// only wgmma reaches, fed from shared memory without register staging.
+// operations (0.052 ms).  All three need the tensor cores' 16-bit rate,
+// which only wgmma reaches, fed from shared memory without register
+// staging.
 //
 // The design:
 // - Products are wgmma m64nNk16 with f32 accumulators.  Scores (S = Q K^T
-//   in K3; S^T = K Q^T and dP^T = V dO^T in K5) are SS: both operands from
-//   shared memory, K-major (hd contiguous).  The products over a tile's
-//   rows (O += P V; dV += P^T dO, dK += dS^T Q) are RS: the A operand is the
-//   score accumulator rounded to the input type and repacked in registers
+//   in K3; S = Q K^T and dP = dO V^T in K4; S^T = K Q^T and dP^T = V dO^T
+//   in K5) are SS: both operands from shared memory, K-major (hd
+//   contiguous).  The products over a tile's rows (O += P V; dQ += dS K;
+//   dV += P^T dO, dK += dS^T Q) are RS: the A operand is the score
+//   accumulator rounded to the input type and repacked in registers
 //   (accumulator columns 16kk .. 16kk+15 are the k-step kk fragment as they
-//   stand), and B (V, dO or Q) is read MN-major through wgmma's transpose
-//   bit, so no tile is ever transposed or copied.
+//   stand), and B (V, K, dO or Q) is read MN-major through wgmma's
+//   transpose bit, so no tile is ever transposed or copied.
 // - P and dS are rounded to the input type before their products, where
 //   the plain versions (and the Pallas kernels) keep them in f32; S, dP,
-//   the softmax statistics, lse and every sum stay f32, and outputs are
-//   rounded once.  The error this adds is stated and tested beside the
+//   the softmax statistics, lse, delta and every sum stay f32, and outputs
+//   are rounded once.  The error this adds is stated and tested beside the
 //   plain versions (tests/test_torch_flash16.py).
 // - The scale is applied to S in f32, folded with log2 e into one FMA
-//   (p = 2^(s * scale * log2 e - m)); dK is multiplied by it once, at the
-//   store.  Q is never rescaled, so any scale is exact to f32.
+//   (p = 2^(s * scale * log2 e - m)); dQ and dK are multiplied by it once,
+//   at the store.  Q is never rescaled, so any scale is exact to f32.
 // - Tiles move by TMA (cp.async.bulk.tensor, 3-D maps over (hd, L, N) built
 //   on the host with cuTensorMapEncodeTiled reached through
 //   cudaGetDriverEntryPoint, passed as __grid_constant__ parameters) in
@@ -57,10 +63,10 @@
 //   empty.  No wait lasts more than microseconds; one past ~2^36 clocks
 //   traps instead of hanging.
 // - Persistent blocks: one block an SM walks over the work tiles (q tiles
-//   in K3, key blocks in K5) with a stride of the grid, and the producer
-//   loads the next tile's Q (K3) or K and V (K5) into a second buffer
-//   while the consumers finish this one: at L = 512 a block's own start
-//   and drain would otherwise cost a third of K3's time.
+//   in K3 and K4, key blocks in K5) with a stride of the grid, and the
+//   producer loads the next tile's Q (K3), Q and dO (K4) or K and V (K5)
+//   into a second buffer while the consumers finish this one: at L = 512 a
+//   block's own start and drain would otherwise cost a third of K3's time.
 // - K3 (flash_fwd16): work tiles of 128 q rows, K and V streamed in tiles
 //   of 128 keys (hd 64) or 64 (hd 128) through three stages.  A warpgroup
 //   issues tile t's S together with tile t - 1's P V and runs tile t's
@@ -70,6 +76,18 @@
 //   sum take two quad shuffles.  Registers a consumer thread: S 64, P 32,
 //   O 32 at hd 64; S 32, P 16, O 64 at hd 128.  Shared memory: two Q
 //   buffers and three K/V stages, 132,176 B at hd 64, 164,944 B at hd 128.
+// - K4 (flash_bwd_dq16): work tiles of 128 q rows, as K3's, with Q and dO
+//   loaded a tile ahead; K and V streamed in tiles of 128 keys (hd 64) or
+//   64 (hd 128) through three stages.  A warpgroup issues tile t's S and
+//   dP together with tile t - 1's dS K and forms tile t's dS while dS K is
+//   on the tensor cores; the K tile that S reads K-major is read MN-major
+//   by dS K.  lse (times log2 e) and delta of the thread's two rows go to
+//   registers once a q tile.  Registers a consumer thread: S 64, dP 64, dS
+//   fragments 32, dQ 32 at hd 64; S 32, dP 32, dS 16, dQ 64 at hd 128.
+//   Shared memory: two Q/dO buffers and three K/V stages, 164,944 B at hd
+//   64, 230,480 B at hd 128.  At hd 64, 128-key tiles took 0.098 ms at the
+//   training shape against 0.109 ms for 64-key ones (PERF.md), without a
+//   spill.
 // - K5 (flash_bwd_dkv16): work tiles of 128 keys (64 a consumer
 //   warpgroup), Q and dO streamed in tiles of 64 q rows (hd 64) or 16 (hd
 //   128) through two stages, with lse (times log2 e) and delta written into
@@ -78,19 +96,21 @@
 //   thread: dK and dV 2 x 32, S^T and dP^T 2 x 32, P^T and dS^T 2 x 16 at
 //   hd 64; 2 x 64, 2 x 8 and 2 x 4 at hd 128, where the 16-row q tile keeps
 //   S^T and dP^T beside the two 64 x 128 accumulators.  ptxas reports the
-//   168 registers of __launch_bounds__(384, 1) for every kernel and no
-//   spill; a 32-row q tile at hd 128 spilled and serialised its wgmmas.
+//   168 registers of __launch_bounds__(384, 1) for every kernel (K3, K4 and
+//   K5) and no spill; a 32-row q tile at hd 128 spilled and serialised K5's
+//   wgmmas.
 // - Every output row is summed in one block, without atomics: out, lse,
-//   dk and dv are bitwise repeatable.  Causal K3 tiles stop at the last
-//   key tile that reaches their diagonal (later tiles are never loaded),
-//   causal K5 tiles start at the first q tile that does, and tiles with
-//   every (q, k) pair live skip the mask tests.
+//   dq, dk and dv are bitwise repeatable.  Causal K3 and K4 tiles stop at
+//   the last key tile that reaches their diagonal (later tiles are never
+//   loaded), causal K5 tiles start at the first q tile that does, and tiles
+//   with every (q, k) pair live skip the mask tests.
 // What bounds K3 at hd 64 is the exponentials: one ex2 a score on the SFUs
 // (16 a clock an SM) takes as long as the score's 4 hd products on the
 // tensor cores, and the two consumer warpgroups overlap the two only in
-// part (ping-pong turns between them measured slower).  Not yet: an
-// exponential on the FMA units for part of a tile, TMA stores of the
-// outputs.
+// part (ping-pong turns between them measured slower).  K4 carries 6 hd
+// products a score and K5 8, so the exponential weighs less there.  Not
+// yet: an exponential on the FMA units for part of a tile, TMA stores of
+// the outputs.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -847,6 +867,237 @@ flash_bwd_dkv16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 }
 
 // ---------------------------------------------------------------------------
+// K4: a persistent block walks over q tiles of 128 rows (n, q0), Q and dO
+// loaded a q tile ahead into two buffers.  Consumer warpgroup c owns q rows
+// q0 + 64c .. q0 + 64c + 63: S = Q K^T and dP = dO V^T over a tile of kBN
+// keys, dS = P (dP - delta) in place, dQ += dS K with K read MN-major; dQ
+// is scaled at the store.  A warpgroup issues tile t's S and dP together
+// with tile t - 1's dS K and forms tile t's dS while dS K is on the tensor
+// cores.  The K/V ring runs on across q tiles.
+// ---------------------------------------------------------------------------
+template <int HD>
+struct Dq16 {
+  static constexpr int kRows = 128;        // q rows: two consumer warpgroups of 64
+  static constexpr int kBN = HD == 64 ? 128 : 64;  // keys of a streamed K or V tile
+  static constexpr int kStages = 3;
+  static constexpr int kCB = HD / kBoxCols;
+  static constexpr int kQWG = 64 * HD * 2;  // a consumer warpgroup's Q (or dO) rows
+  static constexpr int kQ = 2 * kQWG;       // a q tile's Q; its dO after it
+  static constexpr int kQdO = 2 * kQ;       // two buffers of Q and dO
+  static constexpr int kKV = kBN * HD * 2;  // one K or V tile
+  static constexpr int kRing = 2 * kQdO;
+  // barriers: qfull[2], qempty[2], full[kStages], empty[kStages]
+  static constexpr int kBars = kRing + kStages * 2 * kKV;
+  static constexpr size_t kSmem = 1024 + kBars + 8 * (4 + 2 * kStages);
+};
+
+// K4's dS over one score tile, in place: the raw scores sc (rows r, r + 8;
+// key columns 8j + 2t (+1)) become ds = p (dp - delta) with p = 2^(s *
+// scale_log2 - lse * log2 e) in one FMA.  kMask: p is 0 for keys at kpos >=
+// Lk or above the diagonal (their -1e30 scores on the TPU).
+template <bool kMask, int NA>
+__device__ __forceinline__ void dq_scores(float (&sc)[NA], const float (&dp)[NA],
+                                          const float (&lse2)[2], const float (&delta)[2],
+                                          float scale_log2, int kpos0, int row0, int Lk,
+                                          int causal) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = ex2(fmaf(sc[i], scale_log2, -lse2[h]));
+    if (kMask) {
+      const int kpos = kpos0 + 8 * (i >> 2) + (i & 1);
+      if (kpos >= Lk || (causal && row0 + 8 * h < kpos)) p = 0.f;
+    }
+    sc[i] = p * (dp[i] - delta[h]);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               T* __restrict__ dq, int Lq, int Lk, int q_tiles, int n_tiles, int causal,
+               float sm_scale, float scale_log2) {
+  using F = Dq16<HD>;
+  constexpr int S = F::kStages, BN = F::kBN, NA = BN / 2, NO = HD / 2;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + F::kBars);
+  uint64_t* qempty = qfull + 2;
+  uint64_t* full = qempty + 2;
+  uint64_t* empty = full + S;
+  // the key tiles of the q tile at q0
+  auto key_tiles = [&](int q0) {
+    const int kt = (Lk + BN - 1) / BN;
+    return causal ? min(kt, (min(q0 + F::kRows, Lq) - 1) / BN + 1) : kt;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      bar_init(qfull + b, 1);
+      bar_init(qempty + b, 2 * kWG);
+    }
+    for (int s = 0; s < S; ++s) {
+      bar_init(full + s, 1);
+      bar_init(empty + s, 2 * kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWG;
+  if (wg == 0) {  // producer: one thread issues every copy, a q tile ahead
+    regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int kv = 0;  // K/V tiles issued so far: the ring runs on across q tiles
+      for (int w = blockIdx.x, i = 0; w < n_tiles; w += gridDim.x, ++i) {
+        const FwdTile tile(w, q_tiles, F::kRows);
+        const int b = i & 1;
+        bar_wait(qempty + b, ((i >> 1) & 1) ^ 1);
+        bar_expect_tx(qfull + b, F::kQdO);
+        uint8_t* qb = smem + b * F::kQdO;
+        for (int c = 0; c < 2; ++c)
+          for (int cb = 0; cb < F::kCB; ++cb) {
+            const int at = c * F::kQWG + cb * 64 * kRowBytes;
+            tma_load(qb + at, &tq, qfull + b, cb * kBoxCols, tile.q0 + 64 * c, tile.n);
+            tma_load(qb + F::kQ + at, &tdo, qfull + b, cb * kBoxCols, tile.q0 + 64 * c,
+                     tile.n);
+          }
+        const int k_tiles = key_tiles(tile.q0);
+        for (int t = 0; t < k_tiles; ++t, ++kv) {
+          const int s = kv % S;
+          bar_wait(empty + s, ((kv / S) & 1) ^ 1);
+          bar_expect_tx(full + s, 2 * F::kKV);
+          uint8_t* kt = smem + F::kRing + s * 2 * F::kKV;
+          for (int cb = 0; cb < F::kCB; ++cb) {
+            tma_load(kt + cb * BN * kRowBytes, &tk, full + s, cb * kBoxCols, t * BN, tile.n);
+            tma_load(kt + F::kKV + cb * BN * kRowBytes, &tv, full + s, cb * kBoxCols, t * BN,
+                     tile.n);
+          }
+        }
+      }
+    }
+  } else {  // consumers
+    regs_inc<kConsumerRegs>();
+    const int c = wg - 1;
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int r16 = 64 * c + 16 * warp + (lane >> 2);  // rows r16, r16 + 8 of a q tile
+    const int col0 = 2 * (lane & 3);                    // columns 8j + col0 (+1)
+    const uint32_t ring = smem_u32(smem + F::kRing);
+
+    float acc[NO], sc[NA], dp[NA], lse2[2], dlt[2];
+    uint32_t da[BN / 16][4];
+    int kv = 0;  // K/V tiles consumed so far
+    for (int w = blockIdx.x, i = 0; w < n_tiles; w += gridDim.x, ++i) {
+      const FwdTile tile(w, q_tiles, F::kRows);
+      const int k_tiles = key_tiles(tile.q0);
+      const int row0 = tile.q0 + r16;
+      // the first q row of this warpgroup: a key tile wholly at or below it
+      // is live for every row
+      const int qw0 = tile.q0 + 64 * c;
+      const uint32_t qaddr = smem_u32(smem + (i & 1) * F::kQdO + c * F::kQWG);
+      const uint32_t oaddr = qaddr + F::kQ;
+      const size_t qo = (size_t)tile.n * Lq;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows past Lq: zero q and do, so dS = 0
+        const int r = row0 + 8 * h;
+        lse2[h] = r < Lq ? lse[qo + r] * kLog2e : 0.f;
+        dlt[h] = r < Lq ? delta[qo + r] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NO; ++j) acc[j] = 0.f;
+
+      // S = Q K_t^T into sc and dP = dO V_t^T into dp (K-major tiles, 16
+      // columns of hd a step)
+      auto issue_sdp = [&](int t) {
+        const uint32_t kaddr = ring + ((kv + t) % S) * 2 * F::kKV;
+        const uint32_t vaddr = kaddr + F::kKV;
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t a_off = (kk >> 2) * 64 * kRowBytes + (kk & 3) * 32;
+          const uint32_t b_off = (kk >> 2) * BN * kRowBytes + (kk & 3) * 32;
+          wgmma_ss(sc, desc(qaddr + a_off, kKMajor), desc(kaddr + b_off, kKMajor), kk > 0, T{});
+          wgmma_ss(dp, desc(oaddr + a_off, kKMajor), desc(vaddr + b_off, kKMajor), kk > 0, T{});
+        }
+      };
+      // dQ += dS K_t (dS from registers, K MN-major, 16 keys a step)
+      auto issue_dsk = [&](int t) {
+        const uint32_t kaddr = ring + ((kv + t) % S) * 2 * F::kKV;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs(acc, da[kk], desc(kaddr + kk * 16 * kRowBytes, BN * kRowBytes), T{});
+      };
+      auto scores = [&](int t) {
+        const int k0 = t * BN;
+        if (k0 + BN <= Lk && (!causal || k0 + BN - 1 <= qw0))
+          dq_scores<false>(sc, dp, lse2, dlt, scale_log2, k0 + col0, row0, Lk, causal);
+        else
+          dq_scores<true>(sc, dp, lse2, dlt, scale_log2, k0 + col0, row0, Lk, causal);
+      };
+      auto pack_ds = [&] {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) frag_a<T>(da[kk], sc, kk);
+      };
+      auto full_of = [&](int t) {
+        bar_wait(full + (kv + t) % S, ((kv + t) / S) & 1);
+      };
+
+      bar_wait(qfull + (i & 1), (i >> 1) & 1);
+      if (k_tiles > 0) {
+        full_of(0);
+        wg_fence();
+        issue_sdp(0);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        scores(0);
+        pack_ds();
+      }
+      for (int t = 1; t < k_tiles; ++t) {
+        full_of(t);
+        fence_regs(acc);
+        wg_fence();
+        issue_sdp(t);
+        wg_commit();
+        issue_dsk(t - 1);
+        wg_commit();
+        wg_wait<1>();  // S and dP of tile t are in; dS K of tile t - 1 runs on
+        fence_regs(sc);
+        fence_regs(dp);
+        scores(t);
+        wg_wait<0>();  // dS K of tile t - 1 is in: da and dQ are free
+        fence_regs(acc);
+        bar_arrive(empty + (kv + t - 1) % S);  // this thread is done with tile t - 1
+        pack_ds();
+      }
+      if (k_tiles > 0) {
+        fence_regs(acc);
+        wg_fence();
+        issue_dsk(k_tiles - 1);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(acc);
+        bar_arrive(empty + (kv + k_tiles - 1) % S);
+      }
+      bar_arrive(qempty + (i & 1));  // the producer may load the q tile after next
+      kv += k_tiles;
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 8 * h;
+        if (r >= Lq) continue;  // rows past Lq are computed from zero q, never written
+        T* row = dq + (qo + r) * HD + col0;
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+          store2(row + 8 * j, acc[4 * j + 2 * h] * sm_scale, acc[4 * j + 2 * h + 1] * sm_scale);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host: tensor maps and launches.
 // ---------------------------------------------------------------------------
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -952,10 +1203,38 @@ cudaError_t dkv16(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t dq16(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dq, int N, int Lq, int Lk,
+                 int causal, float sm_scale, cudaStream_t stream) {
+  using F = Dq16<HD>;
+  CUtensorMap tq{}, tdo{}, tk{}, tv{};
+  cudaError_t err = make_map<T>(&tq, q, HD, Lq, N, 64);
+  if (err == cudaSuccess) err = make_map<T>(&tdo, dout, HD, Lq, N, 64);
+  if (err == cudaSuccess) err = make_map<T>(&tk, k, HD, Lk, N, F::kBN);
+  if (err == cudaSuccess) err = make_map<T>(&tv, v, HD, Lk, N, F::kBN);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dq16<T, HD>, F::kSmem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int tiles = (Lq + F::kRows - 1) / F::kRows;
+  const int n_tiles = N * tiles;  // one block an SM walks over them
+  flash_bwd_dq16<T, HD><<<min(n_tiles, sms), kThreads, F::kSmem, stream>>>(
+      tq, tdo, tk, tv, lse, delta, static_cast<T*>(dq), Lq, Lk, tiles, n_tiles, causal,
+      sm_scale, sm_scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T>
 struct Fwd_ {
   template <int HD, typename... A>
   static cudaError_t run(A... a) { return fwd16<T, HD>(a...); }
+};
+template <typename T>
+struct Dq_ {
+  template <int HD, typename... A>
+  static cudaError_t run(A... a) { return dq16<T, HD>(a...); }
 };
 template <typename T>
 struct Dkv_ {
@@ -996,7 +1275,7 @@ cudaError_t fwd16_shape(int* rows, int* threads, int* smem, int* per_sm) {
 
 extern "C" {
 
-// The entry points take q, out, dout: (N, Lq, hd); k, v, dk, dv: (N, Lk,
+// The entry points take q, out, dout, dq: (N, Lq, hd); k, v, dk, dv: (N, Lk,
 // hd), all contiguous, 16-byte aligned, of one 16-bit element type (dtype 1
 // bf16, 2 f16); lse, delta: (N, Lq) f32; hd 64 or 128.  Each builds its
 // tensor maps, launches once and returns cudaGetLastError() (or the error
@@ -1009,6 +1288,16 @@ int mx_flash_attention_fwd16(const void* q, const void* k, const void* v, void* 
   if (bad_args(N, Lq, Lk)) return (int)cudaErrorInvalidValue;
   if (N == 0 || Lq == 0) return (int)cudaSuccess;
   return by_type_hd<Fwd_>(dtype, hd, q, k, v, out, lse, N, Lq, Lk, causal, sm_scale, stream);
+}
+
+int mx_flash_attention_dq16(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dq, int dtype, int N,
+                            int Lq, int Lk, int hd, int causal, float sm_scale,
+                            cudaStream_t stream) {
+  if (bad_args(N, Lq, Lk)) return (int)cudaErrorInvalidValue;
+  if (N == 0 || Lq == 0) return (int)cudaSuccess;
+  return by_type_hd<Dq_>(dtype, hd, q, k, v, dout, lse, delta, dq, N, Lq, Lk, causal, sm_scale,
+                         stream);
 }
 
 int mx_flash_attention_dkv16(const void* q, const void* k, const void* v, const void* dout,

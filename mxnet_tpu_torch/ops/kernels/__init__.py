@@ -8,9 +8,10 @@ launches in a plain integer attribute (``layer_norm.launches``,
 ``flash_attention_fwd.launches``, ``flash_attention_dq.launches``,
 ``flash_attention_dkv.launches``, ``softmax_cross_entropy.launches``),
 added to under a lock (``_build.count_launch``), so launches from several
-threads (two serving replicas) all count.  K3's and K5's launches of the
-16-bit design (``csrc/flash_attention_16.cu``) also count in
-``flash_attention_fwd.launches_wgmma16`` and
+threads (two serving replicas) all count.  K3's, K4's and K5's launches
+of the 16-bit design (``csrc/flash_attention_16.cu``) also count in
+``flash_attention_fwd.launches_wgmma16``,
+``flash_attention_dq.launches_wgmma16`` and
 ``flash_attention_dkv.launches_wgmma16``.
 
 ``registry`` maps op-classes of ``ops.registry`` to these kernels for the

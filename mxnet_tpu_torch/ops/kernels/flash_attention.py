@@ -19,12 +19,12 @@ v and do; D in {16, 32, 64, 128, 256} or a multiple of 64 above 256;
 contiguous and 16-byte aligned) or raises.  The kernels compute in f32
 and round out, dq, dk and dv to the input type; lse and delta are f32.
 Above 256 the kernels reduce the scores over D in chunks of 64 columns
-and make one launch per 64 output columns.  K3 and K5 at bf16 or f16 and
-D 64 or 128 launch the 16-bit design of ``csrc/flash_attention_16.cu``
-(wgmma and TMA; P and dS rounded to the input type before their
-products); every other (dtype, D), and K4, the f32 core of
-``csrc/flash_attention.cu``.  :func:`_design` decides, from the dtype and
-D alone.  :func:`flash_attention` takes
+and make one launch per 64 output columns.  K3, K4 and K5 at bf16 or f16
+and D 64 or 128 launch the 16-bit design of
+``csrc/flash_attention_16.cu`` (wgmma and TMA; P and dS rounded to the
+input type before their products); every other (dtype, D) the f32 core
+of ``csrc/flash_attention.cu``.  :func:`_design` decides, from the dtype
+and D alone.  :func:`flash_attention` takes
 any D: it zero-pads q, k and v to the next head dim a kernel takes
 (:func:`pad_head_dim`) and slices the results back.
 """
@@ -49,7 +49,7 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 WIDE_STEP = 64
 
 
-# K3 and K5 at these dtypes and head dims run csrc/flash_attention_16.cu
+# K3, K4 and K5 at these dtypes and head dims run csrc/flash_attention_16.cu
 WGMMA16_DTYPES = (torch.bfloat16, torch.float16)
 WGMMA16_HEAD_DIMS = (64, 128)
 
@@ -59,7 +59,7 @@ def _has_kernel(D: int) -> bool:
 
 
 def _design(dtype, D: int) -> str:
-    """The kernel design K3 and K5 launch at (dtype, D): ``"wgmma16"``
+    """The kernel design K3, K4 and K5 launch at (dtype, D): ``"wgmma16"``
     (16-bit wgmma fed by TMA, ``csrc/flash_attention_16.cu``) for bf16 and
     f16 at D 64 and 128, else ``"f32-core"`` (16-bit tiles converted to
     f32 and multiplied in 3xTF32, ``csrc/flash_attention.cu``)."""
@@ -152,12 +152,24 @@ def _lib16():
         # dtype, N, Lq, Lk, hd, causal, scale, stream
         tail = [i, i, i, i, i, i, f, p]
         fwd.argtypes = [p] * 5 + tail
+        lib.mx_flash_attention_dq16.argtypes = [p] * 7 + tail
         lib.mx_flash_attention_dkv16.argtypes = [p] * 8 + tail
         lib.mx_flash_attention_fwd16_shape.argtypes = [i] + [p] * 4
-        for fn in (fwd, lib.mx_flash_attention_dkv16,
+        for fn in (fwd, lib.mx_flash_attention_dq16,
+                   lib.mx_flash_attention_dkv16,
                    lib.mx_flash_attention_fwd16_shape):
             fn.restype = ctypes.c_int
     return lib
+
+
+def _entry(name: str, dtype, D: int):
+    """(library, its entry point for kernel ``name`` ("fwd", "dq" or
+    "dkv") in the design :func:`_design` picks at (dtype, D), whether that
+    design is ``wgmma16``)."""
+    wgmma16 = _design(dtype, D) == "wgmma16"
+    lib = _lib16() if wgmma16 else _lib()
+    suffix = "16" if wgmma16 else ""
+    return lib, getattr(lib, f"mx_flash_attention_{name}{suffix}"), wgmma16
 
 
 def _check(what: str, q, k, **others) -> int:
@@ -209,10 +221,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False, sm_scale=None):
     N, Lq, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((N, Lq), dtype=torch.float32, device=q.device)
-    wgmma16 = _design(q.dtype, D) == "wgmma16"
-    lib = _lib16() if wgmma16 else _lib()
-    entry = (lib.mx_flash_attention_fwd16 if wgmma16
-             else lib.mx_flash_attention_fwd)
+    lib, entry, wgmma16 = _entry("fwd", q.dtype, D)
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -244,15 +253,17 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal: bool = False,
     dt = _bwd_check("flash_attention_dq", q, k, v, do, lse, delta)
     N, Lq, D = q.shape
     dq = torch.empty_like(q)
-    lib = _lib()
+    lib, entry, wgmma16 = _entry("dq", q.dtype, D)
     with torch.cuda.device(q.device):
-        err = lib.mx_flash_attention_dq(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dt, N, Lq,
             k.shape[1], D, int(causal), sm_scale,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "flash_attention_dq")
     _build.count_launch(flash_attention_dq)
+    if wgmma16:
+        _build.count_launch(flash_attention_dq, "launches_wgmma16")
     return dq
 
 
@@ -268,10 +279,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = False,
     N, Lq, D = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    wgmma16 = _design(q.dtype, D) == "wgmma16"
-    lib = _lib16() if wgmma16 else _lib()
-    entry = (lib.mx_flash_attention_dkv16 if wgmma16
-             else lib.mx_flash_attention_dkv)
+    lib, entry, wgmma16 = _entry("dkv", q.dtype, D)
     with torch.cuda.device(q.device):
         err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -312,8 +320,10 @@ def _fwd_shape(D: int, dtype=torch.float32) -> dict:
 flash_attention_fwd.launches = 0
 flash_attention_dq.launches = 0
 flash_attention_dkv.launches = 0
-# K3's and K5's launches of the 16-bit design, also counted in ``launches``
+# K3's, K4's and K5's launches of the 16-bit design, also counted in
+# ``launches``
 flash_attention_fwd.launches_wgmma16 = 0
+flash_attention_dq.launches_wgmma16 = 0
 flash_attention_dkv.launches_wgmma16 = 0
 
 
