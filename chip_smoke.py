@@ -619,6 +619,47 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           float64; peak device memory under 1 GB; rows/s
                           of the iterator alone and with the products;
                           K1-K7 0.
+  train_bert_dense        BERT-base as bench.py:670-690 builds it:
+                          ``bert_base()`` at its default dropout 0.1, cast
+                          to bf16, 32 x 512, Adam 1e-4 through
+                          ``DataParallelStep``, 2 warm-up and 5 timed steps
+                          on a repeated seeded batch: in training every
+                          attention is dense (attention dropout active),
+                          so K1 26 a step and K3-K5 0; finite, falling
+                          losses; tokens/s, step ms, peak memory, one
+                          profiled step's busy share.  Then a predict-mode
+                          NDArray forward of the same model (the fused
+                          route: K3 12, all ``wgmma16``, K4/K5 0, K1 26),
+                          and a masked f32 step at (2, 128) with
+                          ``valid_length`` seeded in [64, 128] and dropout
+                          0, card vs CPU within DENSE_PARITY_TOL
+                          (phase_train_parity's bounds), K1 26, K3-K5 0.
+  graph_spellings         exports loaded as ``SymbolBlock`` on the card,
+                          predict mode within GRAPH_TOL of max |eager|:
+                          BERT-base at dropout 0.1 (25 Dropout nodes,
+                          active in train mode; K1 26 and K3 12 launched
+                          by its LayerNorm and fused-attention nodes; with
+                          a ``valid_length`` the export raises, as JAX's
+                          does, so the masked encoder's graph is held
+                          instead: 24 ``batch_dot``, K1 24, K3 0);
+                          Transformer-big's widths at 2 + 2 layers (the
+                          masked and causal dense graph); SSD-512 and
+                          Faster-RCNN at 512^2; ``gluon.rnn.LSTM`` and a
+                          two-cell stack of each cell, which JAX cannot
+                          export: the port's export raises too, and the
+                          spelled bodies equal the eager steps on the card.
+  estimator_fit           ``gluon.contrib.estimator``: LeNet (the example's
+                          widths) on seeded data, ``Estimator.fit`` for 2
+                          epochs of 8 batches of 64 with every handler;
+                          its per-batch losses within EST_LOSS_REL of the
+                          loop written out from the same weights (cuDNN
+                          deterministic), the last checkpoint loaded back
+                          equal to the fitted net; K1-K7 0.
+  contrib_custom          ``Conv2DLSTMCell``, ``LSTMPCell`` and
+                          ``VariationalDropoutCell`` (rates 0) unrolled on
+                          the card vs the CPU, and an ``nd.Custom`` op's
+                          forward and user backward card vs CPU, within
+                          CONTRIB_TOL; K1-K7 0.
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -4430,8 +4471,9 @@ def phase_serve_int4(torch, ctx):
 # the wgmma16 ones) on the f32 paths, and the 16-bit wgmma16 of
 # flash_attention_16.cu (its own counts) on the 16-bit paths
 F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
-                   "profile_bert")
-BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16")
+                   "profile_bert", "graph_spellings")
+BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16",
+                    "train_bert_dense_predict")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
@@ -4439,7 +4481,8 @@ KERNELS = (
       "serve_fleet", "serve_int8", "serve_int4", "train_transformer",
       "train_transformer_bf16", "gluon_bert", "train_amp",
       "train_amp_fp16", "module_bert", "train_resume", "serve_fullprefix",
-      "profile_bert")),
+      "profile_bert", "train_bert_dense", "train_bert_dense_predict",
+      "graph_spellings")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -8802,6 +8845,683 @@ def phase_libsvm_sparse(torch, ctx):
                        and peak_gb < 1.0 and not any(launches.values()))}
 
 
+# ---------------------------------------------------------------------------
+# BERT as bench.py builds it (dropout 0.1, the dense route), the graph
+# spellings, gluon.contrib's Estimator and cells, nd.Custom
+# ---------------------------------------------------------------------------
+DENSE_WARMUP, DENSE_STEPS = 2, 5  # bench.py:670-690
+DENSE_PREDICT_BATCH = 8
+# the masked f32 step's batch and phase_train_parity's bounds: the loss
+# within 1e-5 relative, each gradient within 1e-3 of its max abs
+DENSE_PARITY_BATCH, DENSE_VLEN = (2, 128), (64, 128)
+DENSE_PARITY_TOL = {"loss_rel": 1e-5, "grad_of_max": 1e-3}
+# per step of BERT-base at dropout 0.1 in training: every LayerNorm on
+# K1, every attention dense (plain torch, as the JAX package leaves it
+# to XLA)
+DENSE_PER_STEP = {**{n: 0 for n in ALL_KERNELS}, "layer_norm": 26}
+
+
+def _bert_tokens(torch, shape, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, BERT_VOCAB, shape).astype(np.int32))
+
+
+def _zero_launches(torch, counters):
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    _wgmma16_zero()
+
+
+def _read_launches(torch, counters):
+    """Every wrapper's launches and the ``wgmma16`` design's since
+    ``_zero_launches``."""
+    torch.cuda.synchronize()
+    return {n: fn.launches for n, fn in counters.items()}, _wgmma16_read()
+
+
+def _dense_parity(torch):
+    """One masked f32 step (dropout 0, ``valid_length`` seeded in
+    DENSE_VLEN) of BERT-base on the card and on the CPU from the same
+    weights: loss and three gradients, and the card step's launches."""
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    net = bert_base(BERT_VOCAB, dropout=0.0,
+                    generator=torch.Generator().manual_seed(SEED + 21))
+    cpu_net = bert_base(BERT_VOCAB, dropout=0.0, device="cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in
+                             net.state_dict().items()})
+    names = ("bert.encoder.layers.0.attn.qkv.weight", "bert.embed_ln.weight",
+             "decoder.weight")
+    tokens = _bert_tokens(torch, DENSE_PARITY_BATCH, SEED + 22)
+    lo, hi = DENSE_VLEN
+    vlen = torch.from_numpy(np.random.RandomState(SEED + 23).randint(
+        lo, hi + 1, DENSE_PARITY_BATCH[0]).astype(np.float32))
+    mlm = _mlm_loss(torch)
+    counters = _counters()
+
+    def forward_backward(model, device):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        t = tokens.to(device)
+        loss = mlm(model(t, None, vlen.to(device)), t.float()).float().mean()
+        loss.backward()
+        params = dict(model.named_parameters())
+        grads = {n: params[n].grad.detach().cpu() for n in names}
+        model.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    _zero_launches(torch, counters)
+    loss_g, grads_g = forward_backward(net, next(net.parameters()).device)
+    launches, wgmma16 = _read_launches(torch, counters)
+    loss_c, grads_c = forward_backward(cpu_net, torch.device("cpu"))
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    diffs = {n: {"max_abs_diff": float((grads_g[n] - grads_c[n]).abs().max()),
+                 "max_abs": float(grads_c[n].abs().max())} for n in names}
+    ok = (rel <= DENSE_PARITY_TOL["loss_rel"]
+          and all(d["max_abs_diff"] <= DENSE_PARITY_TOL["grad_of_max"]
+                  * d["max_abs"] for d in diffs.values())
+          and launches == DENSE_PER_STEP)
+    del net, cpu_net
+    return {"batch": list(DENSE_PARITY_BATCH),
+            "valid_length": vlen.tolist(), "loss_card": loss_g,
+            "loss_cpu": loss_c, "loss_rel_diff": rel, "grads": diffs,
+            "tol": DENSE_PARITY_TOL, "launches": launches,
+            "launches_wgmma16": wgmma16, "ok": bool(ok)}
+
+
+def phase_train_bert_dense(torch, ctx):
+    """BERT-base as bench.py:670-690 builds it: ``bert_base()`` at its
+    default dropout of 0.1, cast to bf16, 32 x 512, Adam at 1e-4 through
+    ``DataParallelStep``, 2 warm-up and 5 timed steps on one repeated
+    seeded batch.  In training every attention takes the dense route
+    (attention dropout is active): K1 26 launches a step, K3-K5 none.
+    Then one predict-mode NDArray forward of the same model takes the
+    fused route (K3 12 times, all of the ``wgmma16`` design), and one
+    masked f32 step (``valid_length``, dropout 0) is held against the
+    CPU (DENSE_PARITY_TOL)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    for key in ("model", "adapter", "cpu_model", "bert", "train_step",
+                "gluon_bert_loop"):
+        ctx.pop(key, None)
+    torch.cuda.empty_cache()
+    model = cast(bert_base(BERT_VOCAB,
+                           generator=torch.Generator().manual_seed(SEED)),
+                 "bfloat16")
+    rate = model.bert.encoder.layers[0].attn.attn_drop.rate
+    step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4})
+    tokens = _bert_tokens(torch, (TRAIN_BATCH, TRAIN_LEN), SEED).cuda()
+    labels = tokens.float()
+    torch.cuda.reset_peak_memory_stats()
+    warm = [float(step.step(tokens, labels)) for _ in range(DENSE_WARMUP)]
+    counters = _counters()
+    _zero_launches(torch, counters)
+    losses, step_ms, wall = _train_steps(torch, step, tokens, labels,
+                                         DENSE_STEPS)
+    launches, wgmma16 = _read_launches(torch, counters)
+    ctx["launches"]["train_bert_dense"] = launches
+    ctx.setdefault("launches_wgmma16", {})["train_bert_dense"] = wgmma16
+    expected = {n: k * DENSE_STEPS for n, k in DENSE_PER_STEP.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = _step_profile(torch, lambda: step.step(tokens, labels))
+    tps = TRAIN_BATCH * TRAIN_LEN * DENSE_STEPS / wall
+    all_losses = warm + losses
+    train_ok = (all(math.isfinite(x) for x in all_losses)
+                and all_losses[-1] < all_losses[0] and launches == expected
+                and not any(wgmma16.values()) and rate == 0.1)
+
+    # predict mode: MXNet's flag off, attention dropout inactive -> fused
+    _zero_launches(torch, counters)
+    with autograd.predict_mode():
+        out = model(mx.nd.NDArray(tokens[:DENSE_PREDICT_BATCH]))
+    pred_launches, pred_w16 = _read_launches(torch, counters)
+    ctx["launches"]["train_bert_dense_predict"] = pred_launches
+    ctx["launches_wgmma16"]["train_bert_dense_predict"] = pred_w16
+    pred_ok = (bool(torch.isfinite(out.data.float()).all())
+               and pred_launches["layer_norm"] == 26
+               and pred_launches["flash_attention_fwd"] == 12
+               and pred_w16["flash_attention_fwd"] == 12
+               and pred_launches["flash_attention_dq"] == 0
+               and pred_launches["flash_attention_dkv"] == 0)
+    del out, step, model
+    torch.cuda.empty_cache()
+    parity = _dense_parity(torch)
+    torch.cuda.empty_cache()
+    return {
+        "model": "bert_base", "dropout": rate, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_LEN, "optimizer": "adam",
+        "learning_rate": 1e-4, "warmup": DENSE_WARMUP, "steps": DENSE_STEPS,
+        "warmup_losses": warm, "losses": losses, "wall_s": wall,
+        "tokens_per_s": tps, "step_ms_median": statistics.median(step_ms),
+        "step_ms": step_ms, "max_memory_allocated_gb": peak_gb,
+        "profile_one_step": prof, "launches": launches,
+        "launches_expected": expected, "launches_wgmma16": wgmma16,
+        "predict": {"batch": DENSE_PREDICT_BATCH, "launches": pred_launches,
+                    "launches_wgmma16": pred_w16, "ok": pred_ok},
+        "masked_f32_step": parity, "card": ctx["smi"],
+        "ok": bool(train_ok and pred_ok and parity["ok"])}
+
+
+# the graphs' outputs against the eager blocks', max |diff| / max |eager|
+# (the zoo's export bound; both run the same kernels on the card)
+GRAPH_TOL = ZOO_EXPORT_TOL
+GRAPH_BERT_BATCH = (2, 128)
+# Transformer-big's widths at 2 + 2 layers
+GRAPH_S2S = {"vocab": 32000, "units": 1024, "hidden": 4096, "heads": 16,
+             "layers": 2, "batch": 2, "src": 32, "tgt": 24}
+GRAPH_DET_BATCH = 2
+GRAPH_RNN = {"hidden": 256, "layers": 2, "seq": 35, "batch": 20,
+             "input": 128}
+
+
+def _exports_dir():
+    """``build/exports``: the exports and checkpoints of the graph and
+    Estimator phases, removed as each is read back."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "exports")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def _graph_roundtrip(torch, mx, net, names, inputs, want, counters=None):
+    """Export ``net`` with ``names``, load it as ``SymbolBlock`` on the
+    card and run it in predict mode on ``inputs`` (NDArrays): its
+    outputs against ``want`` (numpy) and the graph's node count; with
+    ``counters``, the kernels launched by the SymbolBlock's forward."""
+    path = os.path.join(_exports_dir(), f"g-{os.getpid()}")
+    t0 = time.perf_counter()
+    net.export(path, 0, input_names=names)
+    with open(f"{path}-symbol.json") as f:
+        ops = [n["op"] for n in json.load(f)["nodes"]]
+    sb = mx.gluon.SymbolBlock.imports(f"{path}-symbol.json", list(names),
+                                      f"{path}-0000.params", ctx=mx.gpu(0))
+    if counters is not None:
+        _zero_launches(torch, counters)
+    got = sb(*inputs)
+    got = got if isinstance(got, (list, tuple)) else [got]
+    got = [g.asnumpy() for g in got]
+    row = {"nodes": len(ops), "export_load_run_s": time.perf_counter() - t0,
+           "of_max_abs": [_max_abs_ratio(g, w) for g, w in zip(got, want)]}
+    if counters is not None:
+        row["launches"], row["launches_wgmma16"] = _read_launches(torch, counters)
+    row["ok"] = bool(len(got) == len(want)
+                     and max(row["of_max_abs"]) <= GRAPH_TOL)
+    for suffix in ("-symbol.json", "-0000.params"):
+        os.remove(path + suffix)
+    return row, ops, sb
+
+
+def _raises(fn):
+    try:
+        fn()
+    except AttributeError as e:
+        return f"AttributeError: {e}"[:200]
+    return None
+
+
+def _graph_bert(torch, mx, counters):
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    net = bert_base(BERT_VOCAB,
+                    generator=torch.Generator().manual_seed(SEED + 31))
+    net.eval()
+    tokens = _bert_tokens(torch, GRAPH_BERT_BATCH, SEED + 32).cuda()
+    with torch.no_grad():
+        want = net(tokens).float().cpu().numpy()
+    x = mx.nd.NDArray(tokens)
+    row, ops, sb = _graph_roundtrip(torch, mx, net, ("data",), [x], [want],
+                                    counters)
+    with autograd.train_mode():
+        trained = sb(x).asnumpy()
+    row["dropout_nodes"] = ops.count("Dropout")
+    row["train_mode_of_max_abs"] = _max_abs_ratio(trained, want)
+    lay = row["launches"]
+    row["ok"] = bool(row["ok"] and ops.count("LayerNorm") == 26
+                     and ops.count("_contrib_flash_attention") == 12
+                     and lay["layer_norm"] == 26
+                     and lay["flash_attention_fwd"] == 12
+                     and lay["flash_attention_dq"] == 0
+                     and row["dropout_nodes"] == 25
+                     and row["train_mode_of_max_abs"] > 10 * GRAPH_TOL)
+    # with a valid_length the body reads inputs.shape: no graph, as in JAX
+    row["valid_length_export"] = _raises(lambda: net.export(
+        os.path.join(_exports_dir(), "vl"), 0,
+        input_names=("data", "types", "valid_length")))
+    # the masked encoder: the graph a valid_length batch runs past its mask
+    lo, hi = DENSE_VLEN
+    vlen = np.random.RandomState(SEED + 33).randint(lo, hi + 1,
+                                                    GRAPH_BERT_BATCH[0])
+    B, T = GRAPH_BERT_BATCH
+    keep = (np.arange(T)[None] < vlen[:, None]).astype(np.float32)
+    mask = keep[:, :, None] * keep[:, None, :]
+    units = net.bert.pooler.weight.shape[0]
+    h = np.random.RandomState(SEED + 34).randn(B, T, units).astype(
+        np.float32)
+    with torch.no_grad():
+        want_enc = net.bert.encoder(torch.from_numpy(h).cuda(),
+                                    torch.from_numpy(mask).cuda())
+    enc, enc_ops, _ = _graph_roundtrip(
+        torch, mx, net.bert.encoder, ("data", "mask"),
+        [mx.nd.array(h, ctx=mx.gpu(0)), mx.nd.array(mask, ctx=mx.gpu(0))],
+        [want_enc.cpu().numpy()], counters)
+    enc["ok"] = bool(enc["ok"] and enc_ops.count("batch_dot") == 24
+                     and enc["launches"]["layer_norm"] == 24
+                     and enc["launches"]["flash_attention_fwd"] == 0)
+    row["masked_encoder"] = enc
+    row["ok"] = bool(row["ok"] and row["valid_length_export"] is not None
+                     and enc["ok"])
+    del net, sb
+    return row
+
+
+def _graph_seq2seq(torch, mx):
+    from mxnet_tpu_torch.models.transformer import Transformer
+
+    c = GRAPH_S2S
+    net = Transformer(c["vocab"], units=c["units"], hidden_size=c["hidden"],
+                      num_heads=c["heads"], num_layers=c["layers"],
+                      dropout=0.3,
+                      generator=torch.Generator().manual_seed(SEED + 41))
+    net.eval()
+    rng = np.random.RandomState(SEED + 42)
+    src = rng.randint(3, c["vocab"], (c["batch"], c["src"])).astype(np.int32)
+    tgt = rng.randint(3, c["vocab"], (c["batch"], c["tgt"])).astype(np.int32)
+    src[1, -7:] = 0  # padding: the key-padding masks matter
+    tgt[1, -5:] = 0
+    st, tt = torch.from_numpy(src).cuda(), torch.from_numpy(tgt).cuda()
+    with torch.no_grad():
+        want = net(st, tt).cpu().numpy()
+    row, ops, sb = _graph_roundtrip(
+        torch, mx, net, ("src", "tgt"),
+        [mx.nd.NDArray(st), mx.nd.NDArray(tt)], [want])
+    row["ok"] = bool(row["ok"] and ops.count("cumsum") == c["layers"]
+                     and ops.count("batch_dot") == 6 * c["layers"])
+    del net, sb
+    return row
+
+
+def _graph_detectors(torch, mx):
+    from mxnet_tpu_torch.models import faster_rcnn_small, ssd_300
+
+    rows = {}
+    x = np.random.RandomState(SEED + 51).rand(
+        GRAPH_DET_BATCH, 3, DET_RES, DET_RES).astype(np.float32)
+    xn = mx.nd.array(x, ctx=mx.gpu(0))
+    for name, make in (("ssd_512", lambda: ssd_300(num_classes=DET_CLASSES)),
+                       ("faster_rcnn", lambda: faster_rcnn_small(
+                           num_classes=DET_CLASSES))):
+        net = make()
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        if name == "faster_rcnn":
+            net.detect(xn)  # both stages' deferred shapes
+        else:
+            net(xn)
+        net.eval()
+        with torch.no_grad():
+            want = [o.cpu().numpy() for o in net(xn.data)]
+        rows[name], _, sb = _graph_roundtrip(torch, mx, net, ("data",),
+                                             [xn], want)
+        del net, sb
+    return rows
+
+
+def _graph_rnn(torch, mx):
+    """No recurrent cell or layer traces a graph in either package: each
+    export raises; the JAX bodies on tensors equal the eager steps on the
+    card."""
+    from mxnet_tpu_torch.gluon import rnn
+    from mxnet_tpu_torch.gluon.block import F as TF
+
+    c = GRAPH_RNN
+    rows, ok = {}, True
+    dev = mx.gpu(0)
+    rng = np.random.RandomState(SEED + 61)
+
+    def params(block):
+        return {n: p._tensor() for n, p in block._reg_params.items()}
+
+    layer = rnn.LSTM(c["hidden"], num_layers=c["layers"],
+                     input_size=c["input"])
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = torch.from_numpy(rng.randn(c["seq"], c["batch"], c["input"])
+                         .astype(np.float32)).to(dev)
+    states = [torch.zeros(c["layers"], c["batch"], c["hidden"], device=dev)
+              for _ in range(2)]
+    with torch.no_grad():
+        want, want_st = layer.eval()(x, states)
+        got, got_st = layer.hybrid_forward(TF, x, states, **params(layer))
+    rows["LSTM"] = {
+        "export": _raises(lambda: layer.export(
+            os.path.join(_exports_dir(), "lstm"), 0)),
+        "spelled_vs_eager_max_abs": max(
+            float((a - b).abs().max())
+            for a, b in zip([got] + got_st, [want] + want_st))}
+    cells = {"RNNCell": lambda: rnn.RNNCell(c["hidden"],
+                                            input_size=c["input"]),
+             "LSTMCell": lambda: rnn.LSTMCell(c["hidden"],
+                                              input_size=c["input"]),
+             "GRUCell": lambda: rnn.GRUCell(c["hidden"],
+                                            input_size=c["input"]),
+             "DropoutCell": lambda: rnn.DropoutCell(0.5),
+             "ZoneoutCell": lambda: rnn.ZoneoutCell(
+                 rnn.RNNCell(c["input"], input_size=c["input"]), 0.3, 0.3),
+             "ResidualCell": lambda: rnn.ResidualCell(
+                 rnn.GRUCell(c["input"], input_size=c["input"]))}
+    for name, make in cells.items():
+        stack = rnn.SequentialRNNCell()
+        stack.add(make())
+        stack.add(make())
+        stack.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        sym = mx.sym
+        names = [f"h{i}" for i in range(len(stack.state_info()))]
+        export = _raises(lambda: stack.unroll(
+            2, [sym.var("x0"), sym.var("x1")],
+            begin_state=[sym.var(n) for n in names]))
+        cell = stack[0]
+        xs = x[0]
+        st = [torch.from_numpy(rng.randn(*s["shape"]).astype(np.float32))
+              .to(dev) for s in cell.state_info(c["batch"])]
+        with torch.no_grad():
+            w_out, w_st = cell.eval()(xs, st)
+            g_out, g_st = cell.hybrid_forward(TF, xs, st, **params(cell))
+        rows[name] = {"stack_unroll_on_symbols": export,
+                      "spelled_vs_eager_max_abs": max(
+                          [float((g_out - w_out).abs().max())]
+                          + [float((a - b).abs().max())
+                             for a, b in zip(g_st, w_st)])}
+    for row in rows.values():
+        raised = row.get("export", row.get("stack_unroll_on_symbols"))
+        row["ok"] = bool(raised is not None
+                         and row["spelled_vs_eager_max_abs"] <= 1e-6)
+        ok = ok and row["ok"]
+    return rows, ok
+
+
+def phase_graph_spellings(torch, ctx):
+    """The graph spellings on the card: BERT-base (dropout 0.1) exported
+    and loaded as ``SymbolBlock`` (predict mode equal to the eager model,
+    K1 26 and K3 12 launched by its LayerNorm and fused-attention nodes,
+    train mode's Dropout nodes active), with a ``valid_length`` raising
+    as in JAX and the masked encoder's graph instead; the seq2seq
+    Transformer-big at 2 + 2 layers and full widths; SSD-512 and
+    Faster-RCNN (JAX exports both); ``gluon.rnn.LSTM`` and a two-cell
+    stack of each cell, which JAX cannot export: the port raises, and
+    their spelled bodies equal the eager steps.  Outputs within
+    GRAPH_TOL of max |eager|."""
+    import mxnet_tpu_torch as mx
+
+    for key in ("model", "adapter", "cpu_model", "bert", "train_step",
+                "gluon_bert_loop"):
+        ctx.pop(key, None)
+    torch.cuda.empty_cache()
+    counters = _counters()
+    out = {"tol": GRAPH_TOL}
+    out["bert_base"] = bert = _graph_bert(torch, mx, counters)
+    enc = bert["masked_encoder"]
+    ctx["launches"]["graph_spellings"] = {
+        n: bert["launches"][n] + enc["launches"][n] for n in counters}
+    ctx.setdefault("launches_wgmma16", {})["graph_spellings"] = {
+        n: bert["launches_wgmma16"][n] + enc["launches_wgmma16"][n]
+        for n in WGMMA16_KERNELS}
+    torch.cuda.empty_cache()
+    out["transformer_big_2_2"] = _graph_seq2seq(torch, mx)
+    torch.cuda.empty_cache()
+    out.update(_graph_detectors(torch, mx))
+    rnn_rows, rnn_ok = _graph_rnn(torch, mx)
+    out["rnn"] = rnn_rows
+    torch.cuda.empty_cache()
+    ok = all(out[k]["ok"] for k in ("bert_base", "transformer_big_2_2",
+                                    "ssd_512", "faster_rcnn")) and rnn_ok
+    return {**out, "card": ctx["smi"], "ok": bool(ok)}
+
+
+EST_BATCH, EST_TRAIN, EST_VAL, EST_EPOCHS = 64, 8, 2, 2  # batches
+EST_LR = 1e-3
+EST_LOSS_REL = 1e-6
+
+
+def _est_batches(mx):
+    X, y = _synthetic_mnist((EST_TRAIN + EST_VAL) * EST_BATCH)
+    dev = mx.gpu(0)
+    out = [(mx.nd.array(X[i:i + EST_BATCH], ctx=dev),
+            mx.nd.array(y[i:i + EST_BATCH], ctx=dev))
+           for i in range(0, len(X), EST_BATCH)]
+    return out[:EST_TRAIN], out[EST_TRAIN:]
+
+
+def phase_estimator_fit(torch, ctx):
+    """``gluon.contrib.estimator``: LeNet at examples/train_mnist.py's
+    widths on seeded data, ``Estimator.fit`` for 2 epochs with every
+    handler (stopping, metrics, validation every 4 batches, logging,
+    checkpoints with the best kept, early stopping), Adam at 1e-3 through
+    ``gluon.Trainer``; its per-batch losses against the loop written out
+    (``record`` -> ``backward`` -> ``Trainer.step``) from the same
+    weights on the card, EST_LOSS_REL relative (cuDNN deterministic);
+    the last checkpoint loaded back through ``load_parameters`` equal to
+    the fitted net; K1-K7 0."""
+    import logging
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.gluon.contrib import estimator as E
+
+    folder = os.path.join(_exports_dir(), f"estimator-{os.getpid()}")
+    os.makedirs(folder, exist_ok=True)
+    counters = _counters()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        train, val = _est_batches(mx)
+        net = _lenet(gluon)
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(train[0][0])
+        start = os.path.join(folder, "start.params")
+        net.save_parameters(start)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        est = E.Estimator(net, loss_fn, context=mx.gpu(0),
+                          trainer=gluon.Trainer(net.collect_params(), "adam",
+                                                {"learning_rate": EST_LR}))
+        seen = []
+
+        class Losses(E.BatchEnd):
+            def batch_end(self, estimator, *args, **kwargs):
+                seen.append(float(kwargs["loss"].mean().asscalar()))
+
+        ck = E.CheckpointHandler(folder, "lenet",
+                                 monitor=est.train_loss_metric,
+                                 save_best=True, max_checkpoints=2)
+        handlers = [E.StoppingHandler(max_epoch=EST_EPOCHS),
+                    E.MetricHandler(est.train_metrics
+                                    + [est.train_loss_metric]),
+                    E.ValidationHandler(val, est.evaluate, batch_period=4),
+                    E.LoggingHandler(log_interval=4,
+                                     metrics=est.train_metrics),
+                    ck, E.EarlyStoppingHandler(est.train_metrics[0],
+                                               patience=EST_EPOCHS),
+                    Losses()]
+        records = []
+        log = logging.getLogger("mxnet_tpu_torch.estimator")
+        catcher = logging.Handler()
+        catcher.emit = records.append
+        level = log.level
+        log.addHandler(catcher)
+        log.setLevel(logging.INFO)
+        _zero_launches(torch, counters)
+        t0 = time.perf_counter()
+        est.fit(train, val_data=val, epochs=EST_EPOCHS,
+                event_handlers=handlers)
+        fit_s = time.perf_counter() - t0
+        launches, _ = _read_launches(torch, counters)
+        log.removeHandler(catcher)
+        log.setLevel(level)
+        ctx["launches"]["estimator_fit"] = launches
+        val_metrics = est.evaluate(val)
+
+        # the loop written out, from the same weights
+        net2 = _lenet(gluon)
+        net2.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net2(train[0][0])
+        net2.load_parameters(start, ctx=mx.gpu(0))
+        trainer2 = gluon.Trainer(net2.collect_params(), "adam",
+                                 {"learning_rate": EST_LR})
+        manual = []
+        for _ in range(EST_EPOCHS):
+            for data, label in train:
+                with autograd.record():
+                    loss = loss_fn(net2(data), label)
+                loss.backward()
+                trainer2.step(data.shape[0])
+                manual.append(float(loss.mean().asscalar()))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(seen, manual))
+        files = sorted(os.listdir(folder))
+        net3 = _lenet(gluon)
+        net3.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net3(train[0][0])
+        net3.load_parameters(os.path.join(
+            folder, f"lenet-epoch{EST_EPOCHS}.params"), ctx=mx.gpu(0))
+        same = all(np.array_equal(a.data().asnumpy(), b.data().asnumpy())
+                   for a, b in zip(net3.collect_params().values(),
+                                   net.collect_params().values()))
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    for name in os.listdir(folder):
+        os.remove(os.path.join(folder, name))
+    os.rmdir(folder)
+    n = EST_EPOCHS * EST_TRAIN
+    return {"model": "lenet", "batch": EST_BATCH, "batches": EST_TRAIN,
+            "epochs": EST_EPOCHS, "fit_s": fit_s,
+            "images_per_s": n * EST_BATCH / fit_s,
+            "losses": seen, "loop_losses": manual,
+            "max_loss_rel_diff": rel, "tol": EST_LOSS_REL,
+            "val": val_metrics, "log_lines": len(records),
+            "checkpoint_files": files, "checkpoint_loads_back": same,
+            "handlers": [type(h).__name__ for h in handlers],
+            "launches": launches, "card": ctx["smi"],
+            "ok": bool(len(seen) == len(manual) == n
+                       and rel <= EST_LOSS_REL and same
+                       and "lenet-best.params" in files
+                       and f"lenet-epoch{EST_EPOCHS}.params" in files
+                       and len(records) == 2 + EST_EPOCHS * (
+                           1 + EST_TRAIN // 4)
+                       and not any(launches.values()))}
+
+
+CONTRIB_TOL = 1e-4  # of max |CPU|: f32 recurrences over 8-16 steps
+CONTRIB_CELLS = {"conv2d_lstm": {"input": (16, 32, 32), "hidden": 32,
+                                 "seq": 8, "batch": 4},
+                 "lstmp": {"input": 64, "hidden": 256, "proj": 128,
+                           "seq": 16, "batch": 8},
+                 "vardrop_lstm": {"input": 64, "hidden": 128, "seq": 16,
+                                  "batch": 8}}
+CUSTOM_SHAPE = (1024, 1024)
+
+
+def _contrib_cell(mx, name):
+    crnn = mx.gluon.contrib.rnn
+    c = CONTRIB_CELLS[name]
+    if name == "conv2d_lstm":
+        return crnn.Conv2DLSTMCell(c["input"], c["hidden"], 3, 3,
+                                   i2h_pad=1, prefix="c2dlstm_")
+    if name == "lstmp":
+        return crnn.LSTMPCell(c["hidden"], c["proj"], input_size=c["input"],
+                              prefix="lstmp_")
+    return crnn.VariationalDropoutCell(
+        mx.gluon.rnn.LSTMCell(c["hidden"], input_size=c["input"],
+                              prefix="vdlstm_"), 0.0, 0.0, 0.0)
+
+
+def _unroll_on(mx, cell, x, states, ctx):
+    out, st = cell.unroll(x.shape[1], mx.nd.array(x, ctx=ctx), layout="NTC",
+                          merge_outputs=True,
+                          begin_state=[mx.nd.array(s, ctx=ctx)
+                                       for s in states])
+    return [out.asnumpy()] + [s.asnumpy() for s in st]
+
+
+def _register_chip_op(mx):
+    op = mx.operator
+
+    @op.register("chip_scaled_square")
+    class Prop(op.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class ScaledSquare(op.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0],
+                                in_data[0] * in_data[0] * 0.5)
+
+                def backward(self, req, out_grad, in_data, out_data,
+                             in_grad, aux):
+                    # the user's gradient, not the forward's derivative
+                    self.assign(in_grad[0], req[0],
+                                3.0 * in_data[0] * out_grad[0])
+
+            return ScaledSquare()
+
+
+def phase_contrib_custom(torch, ctx):
+    """``gluon.contrib.rnn``'s Conv2DLSTMCell, LSTMPCell and
+    VariationalDropoutCell (rates 0) unrolled on the card against the
+    same weights and states on the CPU, and an ``nd.Custom`` op's forward
+    and user backward card vs CPU, within CONTRIB_TOL of max |CPU|;
+    K1-K7 0."""
+    import mxnet_tpu_torch as mx
+
+    counters = _counters()
+    _zero_launches(torch, counters)
+    rows, ok = {}, True
+    rng = np.random.RandomState(SEED + 71)
+    for name, c in CONTRIB_CELLS.items():
+        cell = _contrib_cell(mx, name)
+        cell.initialize(mx.init.Xavier(), ctx=mx.cpu())
+        inp = c["input"] if isinstance(c["input"], tuple) else (c["input"],)
+        x = rng.randn(c["batch"], c["seq"], *inp).astype(np.float32)
+        states = [rng.randn(*s["shape"]).astype(np.float32)
+                  for s in cell.state_info(c["batch"])]
+        t0 = time.perf_counter()
+        want = _unroll_on(mx, cell, x, states, mx.cpu())
+        cell.collect_params().reset_ctx(mx.gpu(0))
+        got = _unroll_on(mx, cell, x, states, mx.gpu(0))
+        torch.cuda.synchronize()
+        err = max(_max_abs_ratio(g, w) for g, w in zip(got, want))
+        rows[name] = {"shape": list(x.shape), "of_max_abs": err,
+                      "s": time.perf_counter() - t0,
+                      "ok": bool(err <= CONTRIB_TOL)}
+        ok = ok and rows[name]["ok"]
+    _register_chip_op(mx)
+    x = rng.randn(*CUSTOM_SHAPE).astype(np.float32)
+    res = []
+    for dev in (mx.cpu(), mx.gpu(0)):
+        xa = mx.nd.array(x, ctx=dev)
+        xa.attach_grad()
+        with mx.autograd.record():
+            y = mx.nd.Custom(xa, op_type="chip_scaled_square")
+            loss = (y * 2.0).sum()
+        loss.backward()
+        res.append((y.asnumpy(), xa.grad.asnumpy()))
+    (cy, cg), (gy, gg) = res
+    custom = {"shape": list(CUSTOM_SHAPE),
+              "forward_of_max_abs": _max_abs_ratio(gy, cy),
+              "backward_of_max_abs": _max_abs_ratio(gg, cg),
+              "user_backward": bool(np.allclose(cg, 6.0 * x, rtol=1e-6))}
+    custom["ok"] = bool(custom["forward_of_max_abs"] <= CONTRIB_TOL
+                        and custom["backward_of_max_abs"] <= CONTRIB_TOL
+                        and custom["user_backward"])
+    launches, _ = _read_launches(torch, counters)
+    ctx["launches"]["contrib_custom"] = launches
+    return {"cells": rows, "custom": custom, "tol": CONTRIB_TOL,
+            "launches": launches, "card": ctx["smi"],
+            "ok": bool(ok and custom["ok"]
+                       and not any(launches.values()))}
+
+
 def main() -> int:
     import torch
 
@@ -8874,7 +9594,11 @@ def main() -> int:
               ("conv_nd", phase_conv_nd),
               ("train_sparse_lm", phase_train_sparse_lm),
               ("train_sparse_adam", phase_train_sparse_adam),
-              ("libsvm_sparse", phase_libsvm_sparse))
+              ("libsvm_sparse", phase_libsvm_sparse),
+              ("train_bert_dense", phase_train_bert_dense),
+              ("graph_spellings", phase_graph_spellings),
+              ("estimator_fit", phase_estimator_fit),
+              ("contrib_custom", phase_contrib_custom))
     named = sys.argv[1:]
     unknown = sorted(set(named) - {n for n, _ in phases})
     if unknown:

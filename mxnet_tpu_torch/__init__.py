@@ -4,7 +4,8 @@ Mirrors the JAX package's layout (``base``, ``context`` with ``Context``,
 ``current_context``, ``cpu_pinned`` and ``num_gpus``, ``engine`` and
 ``waitall``, ``nd`` / ``NDArray``, ``autograd``, ``passes``,
 ``precision``, ``contrib``, ``parallel``, ``lr_scheduler``, ``KVStore``, ``gluon``, ``init``, ``metric``, ``random``,
-``kv``, ``models``, ``optimizer``, ``parallel``, ``serving``,
+``kv``, ``models``, ``optimizer``, ``operator`` (``CustomOp``),
+``parallel``, ``serving``,
 ``recordio``, ``image``, ``io``, the runtime services ``telemetry``,
 ``profiler``, ``memwatch``, ``metrics_server``, ``checkpoint``,
 ``fault``, and the symbolic API ``sym`` / ``symbol``, ``mod`` / ``module``, ``rnn``,
@@ -43,6 +44,7 @@ from . import kvstore
 from . import kvstore as kv
 from .kvstore import KVStore
 from . import gluon
+from . import operator
 from . import parallel
 from . import precision
 from . import passes

@@ -196,17 +196,37 @@ def _has_nd(args, kwargs) -> bool:
             or any(isinstance(v, NDArray) for v in kwargs.values()))
 
 
+def _dropout_by_flag(data, p=0.5, mode="training", axes=(), **kwargs):
+    # ``nd.Dropout``'s rule: active in autograd's training mode (or with
+    # mode "always") unless ``training`` is given
+    from ..ops import registry
+
+    training = kwargs.pop("training", None)
+    if training is None:
+        training = autograd.is_training() or mode == "always"
+    return registry.get_op("Dropout").fn(data, p=p, axes=tuple(axes),
+                                         training=training, **kwargs)
+
+
 class _TensorOps:
     """``F`` of ``hybrid_forward`` in the port: the registered ops' torch
     functions by name (``F.FullyConnected``; ``F.concat``, ``flatten``
     and ``cast`` are ``Concat``, ``Flatten`` and ``Cast``, as in
-    ``mx.sym`` and ``mx.nd``), then torch's."""
+    ``mx.sym`` and ``mx.nd``; ``F.Dropout`` reads autograd's training
+    flag, as ``nd.Dropout`` does; ``F.Custom`` is ``nd.Custom`` on
+    tensors), then torch's."""
 
     _ALIASES = {"concat": "Concat", "flatten": "Flatten", "cast": "Cast"}
 
     def __getattr__(self, name):
         from ..ops import registry
 
+        if name == "Dropout":
+            return _dropout_by_flag
+        if name == "Custom":
+            from ..operator import Custom
+
+            return Custom
         try:
             return registry.get_op(self._ALIASES.get(name, name)).fn
         except MXNetError:

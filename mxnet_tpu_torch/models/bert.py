@@ -9,10 +9,14 @@ LayerNorm runs kernel K1; with no ``valid_length`` and attention dropout
 inactive, every attention runs kernels K3-K5 (``flash_attention``), and
 with a ``valid_length`` the masked dense path, as in the JAX package.
 
-``BERTForMLM`` and ``BERTModel`` (with no ``valid_length``) have
-``hybrid_forward(F, ...)``, the JAX blocks' bodies, so ``export`` writes
-the JAX package's BERT graph (``mx.mod.Module`` trains it; every
-LayerNorm node runs K1 and every attention node K3-K5 on the card).
+``BERTForMLM`` and ``BERTModel`` have ``hybrid_forward(F, ...)``, the
+JAX blocks' bodies, so ``export`` writes the JAX package's BERT graph
+(``mx.mod.Module`` trains it; every LayerNorm node runs K1 and every
+fused attention node K3-K5 on the card; at a dropout above 0 the graph
+holds ``Dropout`` nodes, the identity outside training).  With a
+``valid_length`` the body reads ``inputs.shape``, which a Symbol lacks in
+both packages, so such a call traces no graph; on tensors it builds the
+(B, T, T) keep mask by ``broadcast_lesser`` and ``batch_dot``.
 
 The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
 scopes with their prefixes, so ``collect_params()`` gives the JAX net's
@@ -28,7 +32,6 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
@@ -93,14 +96,22 @@ class BERTModel(HybridBlock):
         return out, torch.tanh(self.pooler(out[:, 0]))
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
-        if valid_length is not None:
-            raise MXNetError("BERTModel has a graph spelling without "
-                             "valid_length only")
         x = self.word_embed(inputs)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = self.embed_drop(self.embed_ln(self.pos_embed(x)))
-        out = self.encoder(x, None)
+        mask = None
+        if valid_length is not None:
+            # the JAX body reads the input's length, which a Symbol has
+            # not: a valid_length traces no graph there, nor here
+            T = inputs.shape[1]
+            steps = torch.arange(T, dtype=valid_length.dtype,
+                                 device=valid_length.device).reshape(1, -1)
+            keep = F.broadcast_lesser(steps,
+                                      F.Reshape(valid_length, shape=(-1, 1)))
+            mask = F.batch_dot(F.expand_dims(keep, axis=-1),
+                               F.expand_dims(keep, axis=1))
+        out = self.encoder(x, mask)
         first = F.Reshape(F.slice_axis(out, axis=1, begin=0, end=1),
                           shape=(0, -1))
         return out, F.Activation(self.pooler(first), act_type="tanh")

@@ -19,7 +19,10 @@ gives the JAX net's names and ``convert`` carries its weights.
 ``F`` argument (ignored here) and take tensors or NDArrays.  ``detect``
 reads the stage-two outputs back to the host and decodes each roi's
 best class in numpy, as the JAX method does, then runs ``box_nms`` on
-the input's device.  No kernel of the port is on this path.
+the input's device.  ``FasterRCNN.hybrid_forward`` (body and RPN) is
+the JAX block's, so ``export`` writes its graph node for node; the
+training loss traces no graph, in either package.  No kernel of the port
+is on this path.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..ndarray.ndarray import NDArray
 from ..ops import cv_ops
 from ..ops import nn as _ops
 from ..ops.elemwise import smooth_l1
+from ..symbol.symbol import Symbol
 
 __all__ = ["FasterRCNN", "FasterRCNNTrainLoss", "faster_rcnn_small"]
 
@@ -108,6 +112,9 @@ class FasterRCNN(HybridBlock):
         feat = self.body(x)
         r = self.rpn_conv(feat)
         return feat, self.rpn_cls(r), self.rpn_bbox(r)
+
+    def hybrid_forward(self, F, x):
+        return self.forward(x)
 
     # ------------------------------------------------------------------
     def rpn_probs(self, F, rpn_cls):
@@ -204,6 +211,14 @@ class FasterRCNNTrainLoss(HybridBlock):
         self._rpn_bg = rpn_bg_overlap
         self._rcnn_fg = rcnn_fg_overlap
         self._ce = gloss.SoftmaxCrossEntropyLoss()
+
+    def hybrid_forward(self, F, x, gt_boxes, im_info):
+        if isinstance(x, Symbol):
+            # the JAX body reads x.shape[0], which a Symbol has not: the
+            # training loss traces no graph there, nor here
+            raise AttributeError("FasterRCNNTrainLoss reads x.shape[0], "
+                                 "which a Symbol has not: it has no graph")
+        return self.forward(x, gt_boxes, im_info)
 
     def forward(self, x, gt_boxes, im_info):
         net = self.net

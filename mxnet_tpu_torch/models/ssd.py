@@ -14,7 +14,9 @@ mode from ``autograd``); with tensors it is a ``torch.nn.Module``.
 ``SSDTrainLoss`` is ``MultiBoxTarget`` matching with hard-negative
 mining, softmax cross-entropy over the kept anchors and smooth-L1 over
 the matched boxes; ``SSD.detect`` is softmax, ``MultiBoxDetection``'s
-decode and per-class NMS (``ops.cv_ops``).  No kernel of the port is on
+decode and per-class NMS (``ops.cv_ops``).  ``SSD.hybrid_forward`` is the
+JAX block's body, so ``export`` writes its graph node for node;
+``SSDTrainLoss`` traces no graph, in either package.  No kernel of the port is on
 this path: the JAX model reaches no Pallas kernel either.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..gluon import HybridBlock, loss as gloss, nn
 from ..ndarray.ndarray import NDArray
 from ..ops import cv_ops
 from ..ops.elemwise import smooth_l1
+from ..symbol.symbol import Symbol
 
 __all__ = ["SSD", "SSDTrainLoss", "ssd_300"]
 
@@ -98,6 +101,22 @@ class SSD(HybridBlock):
         return (torch.cat(anchors, dim=1), torch.cat(cls_preds, dim=1),
                 torch.cat(box_preds, dim=1))
 
+    def hybrid_forward(self, F, x):
+        # the JAX block's body: the graph ``export`` writes
+        feat = self.body(x)
+        anchors, cls_preds, box_preds = [], [], []
+        for i in range(self._num_scales):
+            feat = self.blocks[i](feat)
+            anchors.append(F._contrib_MultiBoxPrior(
+                feat, sizes=self.sizes[i], ratios=self.ratios[i]))
+            cls = F.transpose(self.cls_heads[i](feat), axes=(0, 2, 3, 1))
+            cls_preds.append(F.Reshape(cls,
+                                       shape=(0, -1, self.num_classes + 1)))
+            box = F.transpose(self.box_heads[i](feat), axes=(0, 2, 3, 1))
+            box_preds.append(F.Reshape(box, shape=(0, -1)))
+        return (F.concat(*anchors, dim=1), F.concat(*cls_preds, dim=1),
+                F.concat(*box_preds, dim=1))
+
     def detect(self, x, threshold=0.01, nms_threshold=0.45, topk=400):
         """Decode + NMS: (B, N, 6) rows [cls_id, score, x0, y0, x1, y1].
         An NDArray ``x`` runs the net by MXNet's convention and gives an
@@ -138,6 +157,15 @@ class SSDTrainLoss(HybridBlock):
         box_loss = smooth_l1((box_preds - box_target) * box_mask,
                              scalar=1.0).mean()
         return cls_loss + box_loss
+
+    def hybrid_forward(self, F, anchors, cls_preds, box_preds, labels):
+        if isinstance(cls_preds, Symbol):
+            # the JAX body unpacks MultiBoxTarget's outputs and reads
+            # cls_preds.shape, which a Symbol cannot give: the loss
+            # traces no graph there, nor here
+            raise AttributeError("SSDTrainLoss reads its inputs' shapes, "
+                                 "which a Symbol has not: it has no graph")
+        return self.forward(anchors, cls_preds, box_preds, labels)
 
 
 def ssd_300(num_classes=20, **kwargs) -> SSD:

@@ -35,15 +35,17 @@ cells); ``Transformer`` builds them post-LN, as the JAX class does
 projects to the vocabulary through its own ``out_proj`` (Gluon prefix
 ``out_``) instead of the shared embedding.
 
-The encoder's blocks (``MultiHeadAttention`` on its fused route,
-``PositionwiseFFN``, ``TransformerEncoderCell``, ``PositionalEmbedding``,
-``TransformerEncoder``) also have ``hybrid_forward(F, ...)``, the JAX
-blocks' bodies over ``F.<op>``, through which a block called with Symbols
-writes the JAX package's graph (``export``): the attention as
+Every block also has ``hybrid_forward(F, ...)``, the JAX block's body
+over ``F.<op>``, through which a block called with Symbols writes the JAX
+package's graph (``export``), node for node: the fused attention as
 ``_contrib_flash_attention`` (kernels K3-K5 when the graph runs on the
-card), the LayerNorms as ``LayerNorm`` ops (kernel K1).  The masked route,
-the decoder and the seq2seq ``Transformer`` have no graph spelling yet
-(ROADMAP A.11).
+card), the LayerNorms as ``LayerNorm`` ops (kernel K1), and the dense
+attention (a mask, or attention dropout while ``autograd`` is training) as
+``batch_dot`` / scale / ``softmax`` / ``Dropout`` / ``batch_dot``, with
+the causal rule built from ops (``ones_like``, ``linalg_makediag``,
+``cumsum``, ``broadcast_like``, ``where``) and the masks at -3e4 (a graph
+carries no dtype; -3e4 is exactly 0 after an f32 softmax and stays finite
+in a 16-bit export).
 
 :func:`label_smoothed_ce` is the training loss of BASELINE config 4
 (``bench.py:706-751``), with the JAX function's roundings.
@@ -58,6 +60,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import autograd as _autograd
 from .. import profiler as _profiler
 from ..base import MXNetError
 from ..context import resolve_device
@@ -67,6 +70,7 @@ from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops.kernels import flash_attention
 from ..ops.nn import activation as _activation_op
 from ..precision import runtime as _prec
+from ..symbol.symbol import Symbol
 
 __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
            "TransformerEncoderCell", "TransformerEncoder",
@@ -115,6 +119,50 @@ def _big_neg(dtype) -> float:
     return -3e4 if dtype in (torch.float16, torch.bfloat16) else -1e9
 
 
+def _graph_mask_scores(F, scores, mask, num_heads: int):
+    """``_mask_scores`` over ``F`` ops (the JAX function): -3e4 in a
+    Symbol trace, which carries no dtype."""
+    big_neg = (-3e4 if isinstance(scores, Symbol)
+               else _big_neg(scores.dtype))
+    m = F.broadcast_like(F.expand_dims(mask, axis=1),
+                         F.Reshape(scores, shape=(-4, -1, num_heads, 0, 0)),
+                         lhs_axes=(1,), rhs_axes=(1,))
+    m = F.Reshape(m, shape=(-3, 0, 0))
+    return F.where(m, scores, F.ones_like(scores) * big_neg)
+
+
+def _graph_causal(F, scores):
+    """The causal rule over ``F`` ops: in a Symbol trace (no host-side T)
+    the tril keep-mask is ``cumsum(identity, axis=0)`` (1 iff i >= j) and
+    masked scores take -3e4; on tensors the host-built triu addend in the
+    scores' type, as the JAX eager path adds it."""
+    if not isinstance(scores, Symbol):
+        T = scores.shape[-1]
+        addend = torch.triu(torch.full((T, T), _big_neg(scores.dtype),
+                                       dtype=scores.dtype,
+                                       device=scores.device), diagonal=1)
+        return F.broadcast_add(scores, addend[None])
+    ones_k = F.Reshape(
+        F.slice_axis(F.slice_axis(F.ones_like(scores), axis=0, begin=0,
+                                  end=1), axis=1, begin=0, end=1),
+        shape=(-1,))
+    keep = F.cumsum(F.linalg_makediag(ones_k), axis=0)
+    keep = F.broadcast_like(F.expand_dims(keep, axis=0), scores,
+                            lhs_axes=(0,), rhs_axes=(0,))
+    return F.where(keep, scores, F.ones_like(scores) * -3e4)
+
+
+def _graph_attention(F, q, k, v, head_dim: int, num_heads: int, mask,
+                     causal: bool, drop):
+    """The dense attention over ``F`` ops, (B*H, T, hd) in and out."""
+    scores = F.batch_dot(q, k, transpose_b=True) / math.sqrt(head_dim)
+    if causal:
+        scores = _graph_causal(F, scores)
+    if mask is not None:
+        scores = _graph_mask_scores(F, scores, mask, num_heads)
+    return F.batch_dot(drop(F.softmax(scores, axis=-1)), v)
+
+
 def _mask_scores(scores, mask, num_heads: int):
     """mask: (B, Tq, Tk), nonzero = keep, broadcast over the heads of the
     (B*H, Tq, Tk) scores; masked-out positions take the big negative."""
@@ -147,15 +195,19 @@ def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
     return torch.bmm(attn, v)
 
 
-def _linear(units: int, in_units: int, prefix: str) -> Dense:
-    return Dense(units, flatten=False, in_units=in_units, prefix=prefix)
+def _linear(units: int, in_units: int, prefix: str,
+            use_bias: bool = True) -> Dense:
+    return Dense(units, flatten=False, use_bias=use_bias, in_units=in_units,
+                 prefix=prefix)
 
 
 class MultiHeadAttention(HybridBlock):
-    """Self attention with a fused qkv projection, weight (3*units, in)."""
+    """Self attention with a fused qkv projection, weight (3*units, in);
+    ``use_bias=False`` gives its projections no bias Parameter."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
-                 causal: bool = False, prefix=None, params=None):
+                 use_bias: bool = True, causal: bool = False, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         if units % num_heads != 0:
             raise MXNetError(f"units {units} not divisible by heads "
@@ -164,8 +216,8 @@ class MultiHeadAttention(HybridBlock):
         self.head_dim = units // num_heads
         self.causal = causal
         with self.name_scope():
-            self.qkv = _linear(3 * units, units, "qkv_")
-            self.proj = _linear(units, units, "proj_")
+            self.qkv = _linear(3 * units, units, "qkv_", use_bias)
+            self.proj = _linear(units, units, "proj_", use_bias)
             self.attn_drop = Dropout(dropout)
 
     def forward(self, x, mask=None):
@@ -186,15 +238,17 @@ class MultiHeadAttention(HybridBlock):
         return self.proj(_merge_heads(out, H))
 
     def hybrid_forward(self, F, x, mask=None):
-        if mask is not None or (self.attn_drop.rate != 0.0
-                                and self.training):
-            raise MXNetError("MultiHeadAttention has a graph spelling for "
-                             "its fused route only (no mask, attention "
-                             "dropout inactive)")
+        # the route as the JAX block picks it, by autograd's flag
         q, k, v = F.split(self.qkv(x), num_outputs=3, axis=-1)
         q, k, v = (_graph_split_heads(F, t, self.num_heads, self.head_dim)
                    for t in (q, k, v))
-        out = F._contrib_flash_attention(q, k, v, causal=self.causal)
+        if mask is None and (self.attn_drop.rate == 0.0
+                             or not _autograd.is_training()):
+            out = F._contrib_flash_attention(q, k, v, causal=self.causal)
+        else:
+            out = _graph_attention(F, q, k, v, self.head_dim,
+                                   self.num_heads, mask, self.causal,
+                                   self.attn_drop)
         return self.proj(_graph_merge_heads(F, out, self.num_heads))
 
 
@@ -301,7 +355,7 @@ class MultiHeadCrossAttention(HybridBlock):
     weights q (units, in), kv (2*units, in)."""
 
     def __init__(self, units: int, num_heads: int, dropout: float = 0.0,
-                 prefix=None, params=None):
+                 use_bias: bool = True, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         if units % num_heads != 0:
             raise MXNetError(f"units {units} not divisible by heads "
@@ -309,9 +363,9 @@ class MultiHeadCrossAttention(HybridBlock):
         self.num_heads = num_heads
         self.head_dim = units // num_heads
         with self.name_scope():
-            self.q_proj = _linear(units, units, "q_")
-            self.kv = _linear(2 * units, units, "kv_")
-            self.proj = _linear(units, units, "proj_")
+            self.q_proj = _linear(units, units, "q_", use_bias)
+            self.kv = _linear(2 * units, units, "kv_", use_bias)
+            self.proj = _linear(units, units, "proj_", use_bias)
             self.attn_drop = Dropout(dropout)
 
     def forward(self, x, mem, mask=None):
@@ -325,6 +379,15 @@ class MultiHeadCrossAttention(HybridBlock):
                          _split_heads(k, H, hd), _split_heads(v, H, hd),
                          hd, H, mask, drop=self.attn_drop)
         return self.proj(_merge_heads(out, H))
+
+    def hybrid_forward(self, F, x, mem, mask=None):
+        H, hd = self.num_heads, self.head_dim
+        q = _graph_split_heads(F, self.q_proj(x), H, hd)
+        k, v = F.split(self.kv(mem), num_outputs=2, axis=-1)
+        out = _graph_attention(F, q, _graph_split_heads(F, k, H, hd),
+                               _graph_split_heads(F, v, H, hd), hd, H, mask,
+                               False, self.attn_drop)
+        return self.proj(_graph_merge_heads(F, out, H))
 
 
 class TransformerDecoderCell(HybridBlock):
@@ -357,6 +420,9 @@ class TransformerDecoderCell(HybridBlock):
         x = self.ln1(x + self.drop(self.self_attn(x, self_mask)))
         x = self.ln2(x + self.drop(self.cross_attn(x, mem, cross_mask)))
         return self.ln3(x + self.ffn(x))
+
+    def hybrid_forward(self, F, x, mem, self_mask=None, cross_mask=None):
+        return self.forward(x, mem, self_mask, cross_mask)
 
     def step(self, x_t, mem, cross_mask_t, cache):
         """Incremental decode of ONE position with cached self-attention
@@ -393,6 +459,9 @@ class TransformerDecoder(HybridBlock):
         for cell in self.layers:
             x = cell(x, mem, self_mask, cross_mask)
         return x
+
+    def hybrid_forward(self, F, x, mem, self_mask=None, cross_mask=None):
+        return self.forward(x, mem, self_mask, cross_mask)
 
 
 def _attend_cached(q_t, K, V, keep, num_heads: int, head_dim: int):
@@ -513,6 +582,31 @@ class Transformer(HybridBlock):
     def forward(self, src, tgt):
         mem, src_keep = self._encode_h(src)
         return self._decode_h(tgt, mem, src_keep)
+
+    def hybrid_forward(self, F, src, tgt):
+        """The JAX block's body over ``F`` ops (its ``_encode_h`` and
+        ``_decode_h``): (B, Tq, Tk) key-padding masks by ``not_equal`` and
+        ``broadcast_like``, the tied projection a ``FullyConnected`` on the
+        embedding's weight."""
+        def pad_mask(keep, like):
+            return F.broadcast_like(F.expand_dims(keep, axis=1), like,
+                                    lhs_axes=(1,), rhs_axes=(1,))
+
+        src_keep = F.not_equal(src, self.pad_id)
+        enc_mask = pad_mask(src_keep, src)
+        mem = self.embed(src) * math.sqrt(self.units)
+        mem = self.encoder(self.enc_drop(self.pos(mem)), enc_mask)
+        cross_mask = pad_mask(src_keep, tgt)
+        self_mask = pad_mask(F.not_equal(tgt, self.pad_id), tgt)
+        h = self.embed(tgt) * math.sqrt(self.units)
+        h = self.decoder(self.enc_drop(self.pos(h)), mem, self_mask,
+                         cross_mask)
+        if not self.tie_embeddings:
+            return self.out_proj(h)
+        emb = self.embed._reg_params["weight"]
+        w = emb.var() if isinstance(h, Symbol) else self.embed.weight
+        return F.FullyConnected(h, w, num_hidden=emb.shape[0], no_bias=True,
+                                flatten=False)
 
     def _decode_step(self, tok_t, pos, mem, src_keep, caches):
         """Logits (B, V) for one decode position using per-layer step

@@ -31,6 +31,7 @@ from ..context import (Context, current_context,  # noqa: F401
                        resolve_device)
 from ..ops import registry as _reg
 from .ndarray import NDArray, array, dtype_torch
+from ..operator import Custom  # noqa: F401  (mx.nd.Custom)
 from .utils import load, save, save_legacy
 from . import contrib  # noqa: F401  (nd.contrib namespace)
 from . import linalg  # noqa: F401  (nd.linalg namespace)

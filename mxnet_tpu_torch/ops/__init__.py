@@ -1,7 +1,7 @@
 """Operator registry and implementations (torch-backed), the counterpart
 of ``mxnet_tpu/ops/``.  Importing this package registers the ported ops;
 ``kernels`` holds the hand-written CUDA kernels and their plain
-versions."""
+versions; ``params`` the typed attribute descriptors."""
 from .registry import Operator, get_op, invoke, invoke_by_name, list_ops, \
     register
 from . import elemwise  # noqa: F401
@@ -17,6 +17,7 @@ from . import contrib_ops  # noqa: F401
 from . import cv_ops  # noqa: F401
 from . import quantization  # noqa: F401
 from . import warp_ops  # noqa: F401
+from . import params  # noqa: F401  (typed attribute descriptors)
 
 __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
            "list_ops"]

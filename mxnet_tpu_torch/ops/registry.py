@@ -32,6 +32,7 @@ import torch
 from .. import profiler as _profiler
 from ..base import MXNetError
 from ..passes import hooks as _pass_hooks
+from . import params as _params
 
 __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
            "invoke_fn", "list_ops"]
@@ -96,6 +97,9 @@ def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
     from ..context import resolve_device
     from ..ndarray.ndarray import NDArray
 
+    if attrs and op.name in _params._DECLARED:
+        # typed validation of the declared attrs (ops/params.py)
+        _params.validate_known(op.name, attrs)
     # the pass-pipeline consultation: the one module global dispatch
     # reads, an empty tuple when no pass is active
     op_hooks = _pass_hooks._OP_HOOKS

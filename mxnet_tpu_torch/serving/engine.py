@@ -64,7 +64,7 @@ import numpy as np
 import torch
 
 from .. import memwatch, telemetry
-from ..base import MXNetError
+from ..base import MXNetError, env_int
 from ..context import resolve_device
 from ..passes.builtin import pipeline_for_serving
 from . import sampling as _sampling
@@ -272,11 +272,15 @@ class _Active:
 class ServingEngine:
     """Fixed-slot continuous-batching engine (module docstring).
 
-    The defaults are the JAX engine's: 8 slots, pages of 16 rows, a pool
-    in which every slot can reach ``max_len`` (``pool_pages=None``), a
-    token readback every 4 steps, sampling, speculation and the prefix
-    cache off, 64 prefix entries, the queue bound of ``MX_SERVE_QUEUE``
-    (``queue_bound=None``).  ``device`` defaults to
+    The defaults are the JAX engine's: an argument left None reads its
+    variable, ``MX_SERVE_SLOTS`` (8 slots), ``MX_SERVE_PAGE_SIZE`` (pages
+    of 16 rows), ``MX_SERVE_POOL_PAGES`` (0: a pool in which every slot
+    can reach ``max_len``), ``MX_SERVE_STREAM_EVERY`` (a token readback
+    every 4 steps), ``MX_SERVE_SAMPLING``, ``MX_SERVE_SPEC_K`` and
+    ``MX_SERVE_PREFIX_CACHE`` (sampling, speculation and the prefix cache
+    off), ``MX_SERVE_PREFIX_ENTRIES`` (64 entries), and the queue bound
+    of ``MX_SERVE_QUEUE``; ``MX_SERVE_PREFIX_CHUNK`` (8) is the prefix
+    ingest's chunk.  ``device`` defaults to
     :func:`context.default_device` (``cuda:0``; raises without CUDA).
     ``dtype`` ("float32", "bfloat16" or "float16", as the JAX engine's)
     is the type of the KV pools and of the adapter's floating state (the
@@ -287,18 +291,24 @@ class ServingEngine:
     first dispatch to the end of the burst's token readback; a verify
     burst is one dispatch."""
 
-    def __init__(self, adapter: ServingAdapter, slots: int = 8,
-                 page_size: int = 16, pool_pages: Optional[int] = None,
-                 max_len: int = 64, stream_every: int = 4, device=None,
-                 dtype: str = "float32",
-                 queue_bound: Optional[int] = None, sampling: bool = False,
-                 spec_k: int = 0, draft=None, prefix_cache: bool = False,
-                 prefix_entries: int = 64):
+    def __init__(self, adapter: ServingAdapter,
+                 slots: Optional[int] = None,
+                 page_size: Optional[int] = None,
+                 pool_pages: Optional[int] = None,
+                 max_len: int = 64, stream_every: Optional[int] = None,
+                 device=None, dtype: str = "float32",
+                 queue_bound: Optional[int] = None,
+                 sampling: Optional[bool] = None,
+                 spec_k: Optional[int] = None, draft=None,
+                 prefix_cache: Optional[bool] = None,
+                 prefix_entries: Optional[int] = None):
         self._adapter = adapter
         self._device = resolve_device(device)
         self._dtype = torch_dtype(dtype)
-        self._sampling = bool(sampling)
-        self._spec_k = max(0, int(spec_k))
+        self._sampling = (env_int("MX_SERVE_SAMPLING", 0) != 0
+                          if sampling is None else bool(sampling))
+        self._spec_k = max(0, int(spec_k) if spec_k is not None
+                           else env_int("MX_SERVE_SPEC_K", 0))
         if self._spec_k and not adapter.uses_pages:
             raise MXNetError(
                 "speculative decoding (spec_k > 0) needs a paged-KV "
@@ -307,13 +317,17 @@ class ServingEngine:
         self._draft = draft
         if self._spec_k and self._draft is None:
             self._draft = NGramDraft()
-        if prefix_cache and not adapter.uses_pages:
+        prefix_on = (env_int("MX_SERVE_PREFIX_CACHE", 0) != 0
+                     if prefix_cache is None else bool(prefix_cache))
+        if prefix_on and not adapter.uses_pages:
             raise MXNetError(
                 "the prefix cache shares paged KV pages — it needs a "
                 "paged-KV adapter (uses_pages)")
-        self._prefix = (PrefixCache(prefix_entries) if prefix_cache
-                        else None)
-        self._prefix_chunk = 8
+        self._prefix = PrefixCache(
+            prefix_entries if prefix_entries is not None
+            else env_int("MX_SERVE_PREFIX_ENTRIES", 64)) \
+            if prefix_on else None
+        self._prefix_chunk = max(1, env_int("MX_SERVE_PREFIX_CHUNK", 8))
         # the label of the decode program in statusz and the serving
         # telemetry: fp32, or the quantized adapter's int8 / int4
         self._precision = str(getattr(adapter, "precision", "fp32"))
@@ -333,10 +347,14 @@ class ServingEngine:
         self._run_lock = threading.Lock()
         self._running = False
         self._weight_generation = 0
-        self._S = int(slots)
-        self._ps = int(page_size)
+        self._S = int(slots) if slots is not None \
+            else env_int("MX_SERVE_SLOTS", 8)
+        self._ps = int(page_size) if page_size is not None \
+            else env_int("MX_SERVE_PAGE_SIZE", 16)
         self._max_len = int(max_len)
-        self._stream_every = max(1, int(stream_every))
+        self._stream_every = max(1, int(stream_every)
+                                 if stream_every is not None
+                                 else env_int("MX_SERVE_STREAM_EVERY", 4))
         cap = adapter.max_positions()
         if cap is not None and self._max_len > cap:
             raise MXNetError(
@@ -346,7 +364,9 @@ class ServingEngine:
                 "the model with a larger max_length")
         if adapter.uses_pages:
             n_pages = pool_pages if pool_pages is not None \
-                else self._S * pages_for(self._max_len, self._ps) + 1
+                else env_int("MX_SERVE_POOL_PAGES", 0)
+            if not n_pages:  # every slot can reach max_len
+                n_pages = self._S * pages_for(self._max_len, self._ps) + 1
             self._cache = PagedKVCache(
                 adapter.num_layers, n_pages, self._ps, adapter.num_heads,
                 adapter.head_dim, device=self._device, dtype=self._dtype)

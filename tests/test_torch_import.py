@@ -249,13 +249,13 @@ def test_chip_smoke_fails_alone(tmp_path):
 _A9 = "A.9 (multi-GPU: meshes, Plan, sharding, pipeline, ring)"
 _SUPERSTEP = "A.6's superstep, with A.1"
 QUEUED = {
-    "mx": {"operator": "A.11.3", "env_vars": "A.11.6",
+    "mx": {"env_vars": "A.11.6",
            "runtime": "A.11.6", "util": "A.11.6", "is_np_array": "A.11.6",
            "test_utils": "A.11.6", "rtc": "A.11.8",
            "aot_cache": "not queued: the port compiles no executables",
            "tpu": "the TPU context: the port's cards are gpu(i)",
            "num_tpus": "the TPU context: the port's cards are gpu(i)"},
-    "nd": {"Custom": "A.11.3", "from_jax": "no counterpart: jax arrays",
+    "nd": {"from_jax": "no counterpart: jax arrays",
            "np": "an import, not a name", "Optional": "an import",
            "dtype_np": "an import"},
     "parallel": dict(
@@ -273,7 +273,7 @@ QUEUED = {
     "models": {n: _A9 for n in ("BERTForMLMPipelined",
                                 "StackedTransformerEncoder", "bert_pp",
                                 "bert_pp_sharding_rules", "bert_pp_small")},
-    "gluon": {"contrib": "A.11.4"},
+    "gluon": {},
     "gluon.nn": {},
     "gluon.model_zoo.vision": {},
     "io": {"native": "A.13 (item 6): the native libmxio pipeline"},

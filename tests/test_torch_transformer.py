@@ -147,3 +147,69 @@ def test_seeded_init_is_reproducible():
     ln = a.decoder.layers[0].ln3
     assert torch.equal(ln.weight, torch.ones(32))
     assert torch.equal(ln.bias, torch.zeros(32))
+
+
+# ---------------------------------------------------------------------------
+# use_bias in the JAX position (the blocks' signatures): the Parameters
+# and the outputs of both packages' blocks, atol 1e-5 (one layer, f32)
+# ---------------------------------------------------------------------------
+def _carry(jblock, tblock):
+    import mxnet_tpu_torch as tmx
+
+    tblock.initialize(ctx=tmx.cpu())
+    got = tblock.collect_params()
+    for name, p in jblock.collect_params().items():
+        got[name].set_data(tmx.nd.array(p.data().asnumpy(), ctx=tmx.cpu()))
+
+
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_attention_use_bias_matches_jax(use_bias):
+    from mxnet_tpu.models.transformer import (
+        MultiHeadAttention as JMHA, MultiHeadCrossAttention as JCross)
+    from mxnet_tpu_torch.models.transformer import (
+        MultiHeadAttention, MultiHeadCrossAttention)
+
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 5, 16).astype(np.float32)
+    mem = rng.randn(2, 7, 16).astype(np.float32)
+    mask = (rng.rand(2, 5, 7) > 0.3).astype(np.float32)
+    cases = ((JMHA(16, 2, 0.0, use_bias, prefix="ub_self_"),
+              MultiHeadAttention(16, 2, 0.0, use_bias, prefix="ub_self_"),
+              (x,)),
+             (JCross(16, 2, 0.0, use_bias, prefix="ub_cross_"),
+              MultiHeadCrossAttention(16, 2, 0.0, use_bias,
+                                      prefix="ub_cross_"), (x, mem, mask)))
+    for jb, tb, args in cases:
+        jb.initialize(mx.init.Xavier())
+        want = jb(*[nd.array(a) for a in args]).asnumpy()
+        assert sorted(tb.collect_params()) == sorted(jb.collect_params())
+        assert any(n.endswith("bias") for n in tb.collect_params()) \
+            == use_bias
+        _carry(jb, tb)
+        tb.eval()
+        with torch.no_grad():
+            got = tb(*[torch.from_numpy(a) for a in args]).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fourth_positional_argument_is_use_bias():
+    from mxnet_tpu.models.transformer import MultiHeadAttention as JMHA
+    from mxnet_tpu_torch.models.transformer import MultiHeadAttention
+
+    jb = JMHA(16, 2, 0.0, True, prefix="pos4_")
+    tb = MultiHeadAttention(16, 2, 0.0, True, prefix="pos4_")
+    assert tb.causal is False and jb._causal is False
+    assert "pos4_qkv_bias" in tb.collect_params()
+    x = np.random.RandomState(6).randn(1, 6, 16).astype(np.float32)
+    jb.initialize(mx.init.Xavier())
+    want = jb(nd.array(x)).asnumpy()
+    _carry(jb, tb)
+    with torch.no_grad():
+        got = tb.eval()(torch.from_numpy(x)).numpy()
+    # non-causal: the first position sees the last one
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    causal = MultiHeadAttention(16, 2, 0.0, causal=True, prefix="pos4_")
+    _carry(jb, causal)
+    with torch.no_grad():
+        c = causal.eval()(torch.from_numpy(x)).numpy()
+    assert np.abs(c[0, 0] - got[0, 0]).max() > 1e-4
