@@ -66,6 +66,7 @@ import torch
 from torch import nn
 
 from .. import autograd
+from .. import operator as _operator
 from .. import profiler as _profiler
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray
@@ -196,37 +197,20 @@ def _has_nd(args, kwargs) -> bool:
             or any(isinstance(v, NDArray) for v in kwargs.values()))
 
 
-def _dropout_by_flag(data, p=0.5, mode="training", axes=(), **kwargs):
-    # ``nd.Dropout``'s rule: active in autograd's training mode (or with
-    # mode "always") unless ``training`` is given
-    from ..ops import registry
-
-    training = kwargs.pop("training", None)
-    if training is None:
-        training = autograd.is_training() or mode == "always"
-    return registry.get_op("Dropout").fn(data, p=p, axes=tuple(axes),
-                                         training=training, **kwargs)
-
-
 class _TensorOps:
     """``F`` of ``hybrid_forward`` in the port: the registered ops' torch
     functions by name (``F.FullyConnected``; ``F.concat``, ``flatten``
     and ``cast`` are ``Concat``, ``Flatten`` and ``Cast``, as in
-    ``mx.sym`` and ``mx.nd``; ``F.Dropout`` reads autograd's training
-    flag, as ``nd.Dropout`` does; ``F.Custom`` is ``nd.Custom`` on
-    tensors), then torch's."""
+    ``mx.sym`` and ``mx.nd``), then torch's.  ``F.Custom`` is
+    ``nd.Custom``, which takes tensors too: a user op is no registered
+    op, in the JAX package either."""
 
     _ALIASES = {"concat": "Concat", "flatten": "Flatten", "cast": "Cast"}
+    Custom = staticmethod(_operator.Custom)
 
     def __getattr__(self, name):
         from ..ops import registry
 
-        if name == "Dropout":
-            return _dropout_by_flag
-        if name == "Custom":
-            from ..operator import Custom
-
-            return Custom
         try:
             return registry.get_op(self._ALIASES.get(name, name)).fn
         except MXNetError:

@@ -15,20 +15,16 @@ of per-step arrays.  Weights are Gluon-named (``i2h_weight``,
 ``ZoneoutCell`` draw their masks in training mode (the module's, which
 follows ``autograd``'s under an NDArray call).
 
-Each hybrid cell also has ``hybrid_forward(F, x, states, **params)``, the
-JAX cell's body over ``F`` ops; called with ``F`` the port's op table
-on tensors it steps as ``forward`` does (``F.Dropout`` and
-``ZoneoutCell`` reading autograd's training flag, as the JAX bodies do).
 Neither package steps a cell, a stack or an ``unroll`` on Symbols: the
 JAX cell reads its input's context and ``unroll`` its shape, which a
-Symbol lacks, so both raise there.  ``unroll`` inside a hybridized block
-runs eagerly through its ``CachedOp``.
+Symbol lacks, so both raise there, and a cell's one body is its
+``forward``.  ``unroll`` inside a hybridized block runs eagerly through
+its ``CachedOp``.
 """
 from __future__ import annotations
 
 import torch
 
-from ... import autograd
 from ...base import MXNetError
 from ...ops import indexing as _indexing
 from ...ops import nn as _ops
@@ -149,11 +145,11 @@ class RecurrentCell(Block):
 
 
 class HybridRecurrentCell(RecurrentCell, HybridBlock):
-    """A cell whose step is a ``forward(x, states)`` on tensors, and
-    ``hybrid_forward(F, x, states, **params)``, the JAX cell's body over
-    ``F`` ops (``F`` the port's op table on tensors).  A Symbol step has
-    no graph: the JAX cell reads its input's context first, which a
-    Symbol lacks, and so raises; this one raises the same error."""
+    """A cell whose step is a ``forward(x, states)`` on tensors (or, for
+    the contrib cells, ``hybrid_forward`` over the port's ``F`` ops).  A
+    Symbol step has no graph: the JAX cell reads its input's context
+    first, which a Symbol lacks, and so raises; this one raises the same
+    error."""
 
     def __call__(self, inputs, states):
         self._counter += 1
@@ -163,9 +159,6 @@ class HybridRecurrentCell(RecurrentCell, HybridBlock):
         raise AttributeError(
             f"{type(self).__name__} steps on arrays only: a Symbol has no "
             "context, which the cell reads (as the JAX cell does)")
-
-    def hybrid_forward(self, F, x, states, **kwargs):
-        raise NotImplementedError
 
     def _get_activation(self, F, inputs, activation, **kwargs):
         if isinstance(activation, str):
@@ -229,15 +222,6 @@ class RNNCell(_GatedCell):
         output = _activation(i2h + h2h, self._activation)
         return output, [output]
 
-    def hybrid_forward(self, F, inputs, states, i2h_weight, h2h_weight,
-                       i2h_bias, h2h_bias):
-        i2h = F.FullyConnected(inputs, i2h_weight, i2h_bias,
-                               num_hidden=self._hidden_size)
-        h2h = F.FullyConnected(states[0], h2h_weight, h2h_bias,
-                               num_hidden=self._hidden_size)
-        output = self._get_activation(F, i2h + h2h, self._activation)
-        return output, [output]
-
 
 class LSTMCell(_GatedCell):
     """LSTM cell, gates [i, f, c, o]."""
@@ -269,20 +253,6 @@ class LSTMCell(_GatedCell):
         next_h = _activation(o, rec) * _activation(next_c, self._activation)
         return next_h, [next_h, next_c]
 
-    def hybrid_forward(self, F, inputs, states, i2h_weight, h2h_weight,
-                       i2h_bias, h2h_bias):
-        i2h = F.FullyConnected(inputs, i2h_weight, i2h_bias,
-                               num_hidden=4 * self._hidden_size)
-        h2h = F.FullyConnected(states[0], h2h_weight, h2h_bias,
-                               num_hidden=4 * self._hidden_size)
-        gates = F.split(i2h + h2h, num_outputs=4, axis=1)
-        act = lambda g, a: self._get_activation(F, g, a)  # noqa: E731
-        rec = self._recurrent_activation
-        next_c = (act(gates[1], rec) * states[1]
-                  + act(gates[0], rec) * act(gates[2], self._activation))
-        next_h = act(gates[3], rec) * act(next_c, self._activation)
-        return next_h, [next_h, next_c]
-
 
 class GRUCell(_GatedCell):
     """GRU cell, gates [r, z, n], r applied to h W_hn^T + b_hn."""
@@ -307,21 +277,6 @@ class GRUCell(_GatedCell):
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
         n = torch.tanh(i_n + r * h_n)
-        next_h = (1.0 - z) * n + z * h
-        return next_h, [next_h]
-
-    def hybrid_forward(self, F, inputs, states, i2h_weight, h2h_weight,
-                       i2h_bias, h2h_bias):
-        h = states[0]
-        i2h = F.FullyConnected(inputs, i2h_weight, i2h_bias,
-                               num_hidden=3 * self._hidden_size)
-        h2h = F.FullyConnected(h, h2h_weight, h2h_bias,
-                               num_hidden=3 * self._hidden_size)
-        i_r, i_z, i_n = F.split(i2h, num_outputs=3, axis=1)
-        h_r, h_z, h_n = F.split(h2h, num_outputs=3, axis=1)
-        r = F.Activation(i_r + h_r, act_type="sigmoid")
-        z = F.Activation(i_z + h_z, act_type="sigmoid")
-        n = F.Activation(i_n + r * h_n, act_type="tanh")
         next_h = (1.0 - z) * n + z * h
         return next_h, [next_h]
 
@@ -378,11 +333,6 @@ class DropoutCell(HybridRecurrentCell):
         if self._rate > 0:
             inputs = _ops.dropout(inputs, p=self._rate, axes=self._axes,
                                   training=self.training)
-        return inputs, states
-
-    def hybrid_forward(self, F, inputs, states):
-        if self._rate > 0:
-            inputs = F.Dropout(inputs, p=self._rate, axes=self._axes)
         return inputs, states
 
 
@@ -448,26 +398,6 @@ class ZoneoutCell(_ModifierCell):
         self._prev_output = output
         return output, new_states
 
-    def hybrid_forward(self, F, inputs, states):
-        next_output, next_states = self.base_cell(inputs, states)
-        if not autograd.is_training():
-            return next_output, next_states
-
-        def mask(p, like):
-            return F.Dropout(F.ones_like(like), p=p)
-
-        prev = self._prev_output
-        if prev is None:
-            prev = F.zeros_like(next_output)
-        output = (F.where(mask(self.zoneout_outputs, next_output),
-                          next_output, prev)
-                  if self.zoneout_outputs != 0.0 else next_output)
-        new_states = ([F.where(mask(self.zoneout_states, new), new, old)
-                       for new, old in zip(next_states, states)]
-                      if self.zoneout_states != 0.0 else next_states)
-        self._prev_output = output
-        return output, new_states
-
 
 class ResidualCell(_ModifierCell):
     """The base cell's output plus its input."""
@@ -479,10 +409,6 @@ class ResidualCell(_ModifierCell):
         return "residual"
 
     def forward(self, inputs, states):
-        output, states = self.base_cell(inputs, states)
-        return output + inputs, states
-
-    def hybrid_forward(self, F, inputs, states):
         output, states = self.base_cell(inputs, states)
         return output + inputs, states
 

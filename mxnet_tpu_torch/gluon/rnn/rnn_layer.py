@@ -11,15 +11,13 @@ states, a layer starts from zeros and returns the output alone; with
 states (a list: [h] or, for LSTM, [h, c], each (layers * directions, N,
 hidden)) it returns (output, new states).  Dropout ``dropout`` falls
 between layers in training mode, drawn from the device's generator.
-``hybrid_forward(F, inputs, states, **params)`` is the JAX layer's body,
-one ``_fused_rnn`` node; neither package runs a layer on Symbols (the
-JAX layer reads its input's shape and context), so both raise there.
+Neither package runs a layer on Symbols (the JAX layer reads its
+input's shape and context), so both raise there.
 """
 from __future__ import annotations
 
 import torch
 
-from ... import autograd
 from ...ops.rnn_ops import _fused_rnn
 from ..block import HybridBlock
 from ..nn.basic_layers import weight_tensor
@@ -124,29 +122,6 @@ class _RNNLayer(HybridBlock):
             f"{type(self).__name__} runs on arrays only: a Symbol has no "
             "shape or context, which the layer reads (as the JAX layer "
             "does)")
-
-    def hybrid_forward(self, F, inputs, states, **params):
-        """The JAX layer's body: one fused ``_fused_rnn`` node over the
-        weights in layer, direction, kind order (dropout between layers
-        while autograd is training)."""
-        if self._layout == "NTC":
-            inputs = F.swapaxes(inputs, dim1=0, dim2=1)
-        weights = [params[f"{j}{i}_{kind}"]
-                   for i in range(self._num_layers)
-                   for j in self._directions()
-                   for kind in ("i2h_weight", "h2h_weight", "i2h_bias",
-                                "h2h_bias")]
-        state_c = (states[1] if self._mode == "lstm"
-                   else F.zeros_like(states[0]))
-        outs = F._fused_rnn(inputs, states[0], state_c, *weights,
-                            mode=self._mode, state_size=self._hidden_size,
-                            num_layers=self._num_layers,
-                            bidirectional=self._dir == 2, p=self._dropout,
-                            training=autograd.is_training())
-        out = outs[0]
-        if self._layout == "NTC":
-            out = F.swapaxes(out, dim1=0, dim2=1)
-        return out, list(outs[1:])
 
 
 class RNN(_RNNLayer):

@@ -14,9 +14,8 @@ JAX blocks' bodies, so ``export`` writes the JAX package's BERT graph
 (``mx.mod.Module`` trains it; every LayerNorm node runs K1 and every
 fused attention node K3-K5 on the card; at a dropout above 0 the graph
 holds ``Dropout`` nodes, the identity outside training).  With a
-``valid_length`` the body reads ``inputs.shape``, which a Symbol lacks in
-both packages, so such a call traces no graph; on tensors it builds the
-(B, T, T) keep mask by ``broadcast_lesser`` and ``batch_dot``.
+``valid_length`` the JAX body reads ``inputs.shape``, which a Symbol
+lacks, so such a call traces no graph in either package.
 
 The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
 scopes with their prefixes, so ``collect_params()`` gives the JAX net's
@@ -96,22 +95,17 @@ class BERTModel(HybridBlock):
         return out, torch.tanh(self.pooler(out[:, 0]))
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
+        if valid_length is not None:
+            # the JAX body reads the input's length, which a Symbol has
+            # not: a valid_length traces no graph there, nor here
+            raise AttributeError(
+                "BERTModel with a valid_length reads the input's shape, "
+                "which a Symbol has not (as the JAX block does)")
         x = self.word_embed(inputs)
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = self.embed_drop(self.embed_ln(self.pos_embed(x)))
-        mask = None
-        if valid_length is not None:
-            # the JAX body reads the input's length, which a Symbol has
-            # not: a valid_length traces no graph there, nor here
-            T = inputs.shape[1]
-            steps = torch.arange(T, dtype=valid_length.dtype,
-                                 device=valid_length.device).reshape(1, -1)
-            keep = F.broadcast_lesser(steps,
-                                      F.Reshape(valid_length, shape=(-1, 1)))
-            mask = F.batch_dot(F.expand_dims(keep, axis=-1),
-                               F.expand_dims(keep, axis=1))
-        out = self.encoder(x, mask)
+        out = self.encoder(x, None)
         first = F.Reshape(F.slice_axis(out, axis=1, begin=0, end=1),
                           shape=(0, -1))
         return out, F.Activation(self.pooler(first), act_type="tanh")

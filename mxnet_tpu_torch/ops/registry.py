@@ -16,8 +16,10 @@ Departures from the JAX package, on purpose:
     ``autograd.record()`` an op runs with grad enabled, and outside it
     under ``torch.no_grad()``, so arrays with ``attach_grad`` build no
     graph unless recording (see ``autograd.py``);
-  * no per-attribute ``jit`` cache and no typed attribute validation
-    (``ops/params.validate_known``): PyTorch dispatches eagerly;
+  * no per-attribute ``jit`` cache: PyTorch dispatches eagerly.  The
+    typed attribute validation (``ops/params.validate_known``) that the
+    JAX op runs on a cache miss runs here on the first dispatch of each
+    attribute combination of a declared op (``Operator.checked``);
   * the port's layers call op functions without ``invoke``, so
     :func:`register` makes each function a profiler site of its op's
     name (``profiler.op_site``); ``invoke`` times the whole dispatch,
@@ -38,10 +40,29 @@ __all__ = ["Operator", "register", "get_op", "invoke", "invoke_by_name",
            "invoke_fn", "list_ops"]
 
 _OPS: Dict[str, "Operator"] = {}
+_SCALARS = (bool, int, float, str, type(None))
+
+
+def _attrs_key(attrs: dict):
+    """``attrs`` as a set member, value types included (1 and True
+    differ), or None when a value is not a scalar or a tuple of them."""
+    items = []
+    for k, v in attrs.items():
+        if isinstance(v, tuple):
+            types = tuple(type(e) for e in v)
+            if not all(t in _SCALARS for t in types):
+                return None
+        elif type(v) in _SCALARS:
+            types = type(v)
+        else:
+            return None
+        items.append((k, v, types))
+    return frozenset(items)
 
 
 class Operator:
-    """A registered op: name, torch implementation, differentiability."""
+    """A registered op: name, torch implementation, differentiability;
+    ``checked`` holds the attribute combinations already validated."""
 
     def __init__(self, name: str, fn: Callable, differentiable: bool = True,
                  doc: Optional[str] = None):
@@ -49,6 +70,19 @@ class Operator:
         self.fn = fn
         self.differentiable = differentiable
         self.__doc__ = doc or fn.__doc__
+        self.checked: set = set()
+
+    def check_attrs(self, attrs: dict) -> None:
+        """Typed validation of the declared attrs (``ops/params.py``) on
+        the first sight of each combination, as the JAX op validates on
+        a jit-cache miss; a combination holding another value than a
+        scalar or a tuple of them is validated at every call."""
+        key = _attrs_key(attrs)
+        if key is not None and key in self.checked:
+            return
+        _params.validate_known(self.name, attrs)
+        if key is not None:
+            self.checked.add(key)
 
     def __repr__(self):
         return f"<Operator {self.name}>"
@@ -98,10 +132,10 @@ def _invoke_impl(op: Operator, inputs: Sequence, out=None, ctx=None,
     from ..ndarray.ndarray import NDArray
 
     if attrs and op.name in _params._DECLARED:
-        # typed validation of the declared attrs (ops/params.py)
-        _params.validate_known(op.name, attrs)
-    # the pass-pipeline consultation: the one module global dispatch
-    # reads, an empty tuple when no pass is active
+        op.check_attrs(attrs)
+    # the pass-pipeline consultation, an empty tuple when no pass is
+    # active (dispatch reads it and the declared ops' names, nothing
+    # else of module state)
     op_hooks = _pass_hooks._OP_HOOKS
     if op_hooks and inputs:
         for h in op_hooks:

@@ -36,6 +36,7 @@ from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.models import transformer as ttr
 from mxnet_tpu_torch.models.bert import bert_small
 from mxnet_tpu_torch.parallel import DataParallelStep
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 ATOL = 1e-5
 CPU = tmx.cpu()
@@ -180,19 +181,6 @@ def test_valid_length_bert_traces_no_graph_in_either(tmp_path):
         jnet.export(str(tmp_path / "j"), 0, input_names=names)
     with pytest.raises(AttributeError, match="shape"):
         tnet.export(str(tmp_path / "t"), 0, input_names=names)
-
-
-def test_valid_length_spelling_on_tensors_equals_forward():
-    """``hybrid_forward`` with a ``valid_length`` on tensors: the keep
-    mask by ``broadcast_lesser`` and ``batch_dot``, as eager."""
-    net = bert_small(dropout=0.0, device="cpu",
-                     generator=torch.Generator().manual_seed(2)).eval()
-    tok = torch.from_numpy(TOKENS)
-    vl = torch.from_numpy(VLEN)
-    with torch.no_grad():
-        want = net.bert(tok, None, vl)[0]
-        got = net.bert.hybrid_forward(TF, tok, None, vl)[0]
-    torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
 
 
 def test_masked_encoder_exports_node_for_node(tmp_path):

@@ -14,6 +14,7 @@ import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 CPU = tmx.cpu()
 TOL = dict(rtol=1e-6, atol=1e-7)

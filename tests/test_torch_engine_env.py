@@ -14,6 +14,7 @@ from mxnet_tpu.serving import ServingEngine as JEngine
 from mxnet_tpu.serving import TransformerAdapter as JAdapter
 from mxnet_tpu_torch.models.transformer import Transformer
 from mxnet_tpu_torch.serving import ServingEngine, TransformerAdapter
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 CFG = dict(units=16, hidden_size=32, num_heads=2, num_layers=1,
            max_length=64, dropout=0.0)

@@ -9,9 +9,8 @@ op-node name counters and a JAX variable's deferred ``__shape__``
 aside), and ``SymbolBlock`` of the port's export, run in both packages,
 gives the port's eager outputs (atol 1e-5).  Where the JAX block cannot
 be traced (a recurrent cell or layer reads its input's context or
-shape), the port raises too.  The recurrent spellings on tensors equal the eager steps (exactly:
-the same ops), and ``unroll`` inside a hybridized block gives the JAX
-block's outputs with the same weights (atol 1e-5).
+shape), the port raises too, and ``unroll`` inside a hybridized block
+gives the JAX block's outputs with the same weights (atol 1e-5).
 """
 import json
 
@@ -22,9 +21,9 @@ import torch
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu.models import transformer as jtr
-from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch.gluon.block import F as TF
 from mxnet_tpu_torch.models import transformer as ttr
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 CPU = tmx.cpu()
 ATOL = 1e-5
@@ -124,7 +123,7 @@ def test_decoder_cell_and_cross_attention(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# gluon.rnn: no graph in either package; the spellings on tensors
+# gluon.rnn: no graph in either package
 # ---------------------------------------------------------------------------
 def _cells(rnn):
     return {
@@ -164,56 +163,6 @@ def test_layers_trace_no_graph_in_either(layer):
         n = 2 if layer == "LSTM" else 1
         with pytest.raises(AttributeError):
             lay(mx.sym.var("x"), [mx.sym.var(f"h{i}") for i in range(n)])
-
-
-def _params(block):
-    return {n: p._tensor() for n, p in block._reg_params.items()}
-
-
-@pytest.mark.parametrize("kind", sorted(_cells(tmx.gluon.rnn)))
-@pytest.mark.parametrize("train", [False, True])
-def test_cell_spellings_on_tensors_equal_the_steps(kind, train):
-    cell = _cells(tmx.gluon.rnn)[kind]()
-    cell.initialize(tmx.init.Xavier(), ctx=CPU)
-    rng = np.random.RandomState(4)
-    x = torch.from_numpy(rng.randn(3, 4).astype(np.float32))
-    states = [torch.from_numpy(rng.randn(*s["shape"]).astype(np.float32))
-              for s in cell.state_info(3)]
-    mode = tag.train_mode if train else tag.predict_mode
-    with torch.no_grad(), mode():
-        cell.train(train)
-        tmx.random.seed(7)
-        want_out, want_states = cell(x, states)
-        cell.reset()
-        tmx.random.seed(7)
-        got_out, got_states = cell.hybrid_forward(TF, x, states,
-                                                  **_params(cell))
-    torch.testing.assert_close(got_out, want_out, atol=0, rtol=0)
-    for g, w in zip(got_states, want_states):
-        torch.testing.assert_close(g, w, atol=0, rtol=0)
-
-
-@pytest.mark.parametrize("layer", ["RNN", "LSTM", "GRU"])
-@pytest.mark.parametrize("layout", ["TNC", "NTC"])
-def test_layer_spellings_on_tensors_equal_forward(layer, layout):
-    lay = getattr(tmx.gluon.rnn, layer)(8, num_layers=2, input_size=4,
-                                        layout=layout, bidirectional=True)
-    lay.initialize(tmx.init.Xavier(), ctx=CPU)
-    rng = np.random.RandomState(5)
-    x = torch.from_numpy(rng.randn(5, 3, 4).astype(np.float32))
-    states = [torch.from_numpy(rng.randn(4, 3 if layout == "TNC" else 5, 8)
-                               .astype(np.float32))
-              for _ in range(2 if layer == "LSTM" else 1)]
-    if layout == "NTC":
-        x = x.transpose(0, 1).contiguous()
-        states = [torch.from_numpy(rng.randn(4, 3, 8).astype(np.float32))
-                  for _ in states]
-    with torch.no_grad():
-        want, want_states = lay.eval()(x, states)
-        got, got_states = lay.hybrid_forward(TF, x, states, **_params(lay))
-    torch.testing.assert_close(got, want, atol=0, rtol=0)
-    for g, w in zip(got_states, want_states):
-        torch.testing.assert_close(g, w, atol=0, rtol=0)
 
 
 def _stack_block(mx):

@@ -18,6 +18,7 @@ from mxnet_tpu.models import ssd as jssd
 from mxnet_tpu_torch.models import faster_rcnn as tfr
 from mxnet_tpu_torch.models import ssd as tssd
 from test_torch_graph_spellings import CPU, export_and_compare
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 
 def test_ssd_exports_and_its_loss_traces_no_graph(tmp_path):

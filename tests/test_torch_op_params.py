@@ -116,3 +116,27 @@ def test_declare_enriches_a_field():
             tp.validate_known("_test_only_op", {"k": 0})
     finally:
         tp._DECLARED.pop("_test_only_op")
+
+
+def test_dispatch_validates_each_attribute_combination_once(monkeypatch):
+    """The registry validates a declared op's attributes on the first
+    dispatch of each combination, as the JAX op does on a jit-cache
+    miss; a rejected combination is rejected again at every call."""
+    seen = []
+    real = tp.validate_known
+
+    def spy(name, attrs):
+        seen.append((name, attrs.get("act_type")))
+        return real(name, attrs)
+
+    monkeypatch.setattr(tp, "validate_known", spy)
+    monkeypatch.setattr(tr.get_op("Activation"), "checked", set())
+    a = tmx.nd.array(np.ones((2, 3), np.float32), ctx=tmx.cpu())
+    for act in ("relu", "relu", "tanh", "relu", "tanh"):
+        tmx.nd.Activation(a, act_type=act)
+    for _ in range(2):
+        with pytest.raises(tmx.base.MXNetError, match="not in"):
+            tmx.nd.Activation(a, act_type="swish")
+    assert [s for s in seen if s[0] == "Activation"] == [
+        ("Activation", "relu"), ("Activation", "tanh"),
+        ("Activation", "swish"), ("Activation", "swish")]

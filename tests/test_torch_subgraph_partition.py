@@ -12,6 +12,7 @@ import numpy as np
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 BOTH = (jmx, tmx)
 

@@ -25,6 +25,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.convert import from_mxnet_tpu_params
 from mxnet_tpu_torch.models.transformer import Transformer
 from mxnet_tpu_torch.serving import PagedKVCache, PagedStepCache, page_coords
+from torch_fresh_names import fresh_jax_names  # noqa: F401
 
 ATOL = 1e-4
 CFG = dict(units=32, hidden_size=64, num_heads=4, num_layers=2,
