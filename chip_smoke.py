@@ -114,7 +114,7 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           Transformer-big of seed + 1 written by
                           ``AsyncCheckpointer`` in format 1 and 2:
                           ``swap_weights`` of format 1 on replica 0 under
-                          160 requests flips on its run loop, later
+                          64 requests flips on its run loop, later
                           requests equal an engine restored from the
                           checkpoint, format 2 flips at once (generation
                           2); checkpoints of vocab 32008 and of bf16 are
@@ -659,6 +659,48 @@ Phases, each printing one JSON line (``{"phase": ..., "ok": ...}``):
                           the card vs the CPU, and an ``nd.Custom`` op's
                           forward and user backward card vs CPU, within
                           CONTRIB_TOL; K1-K7 0.
+  runtime_env             ``runtime.Features()`` (CUDA, CUDNN on; TPU,
+                          XLA, PALLAS off), ``util.get_gpu_count()`` and
+                          ``get_gpu_memory(0)`` against torch's (free
+                          within 1%), ``env_vars.check()`` over the run's
+                          environment, ``rtc.CudaModule("")`` raising
+                          ``MXNetError``; K1-K7 0.
+  test_utils_card         ``test_utils.check_consistency`` over
+                          ``[mx.cpu(), mx.gpu(0)]``: ``nd.LayerNorm``
+                          (16384, 768) K1 1; ``nd.contrib.flash_attention``
+                          N 24, L 512, hd 64 in f32 (K3 1, f32 core) and
+                          bf16 (K3 1, ``wgmma16``); ``add_layer_norm``
+                          (8192, 1024) under the fused_kernels pass, K6 1;
+                          the ``softmax_cross_entropy`` op (2048, 30522),
+                          plain torch, no kernel, and K7's wrapper on the
+                          same inputs, K7 1; each within ``_dtype_tol``,
+                          its max deviation beside it.  Then
+                          ``check_numeric_gradient`` of the f32 flash
+                          attention at (1, 8, 16) on the card: K3 769 (one
+                          a loss), K4 1, K5 1.
+  onnx_roundtrip          ``bench.py``'s ``bert_base()`` (f32, 8 x 128) and
+                          ``resnet50_v1b`` (f32, 32 x 224^2) exported
+                          (``HybridBlock.export`` -> ``contrib.onnx.
+                          export_model``), imported on the card
+                          (``import_to_gluon``) and run: within
+                          ZOO_EXPORT_TOL of max |eager|; eager BERT K1 26,
+                          K3 12, the imported graphs none; bytes, export
+                          and import s, eager and imported ms.  An int8
+                          net of Transformer-big's FFN widths exported as
+                          QDQ (``export_quantized_net``) and replayed in
+                          numpy: within one step of the data's
+                          QuantizeLinear scale of the card's output.
+  examples                ``python -m mxnet_tpu_torch.examples.<name>`` for
+                          train_mnist (LeNet), train_imagenet (``--rec``, a
+                          seeded 64-JPEG RecordIO, resnet50_v1b, 224^2),
+                          train_detection (SSD, ``--rec``) and train_wmt
+                          (``--model base``), four subprocesses on the
+                          card started together, at the scripts' models
+                          and widths (LeNet 2 epochs, the others 10
+                          steps): exit 0, finite losses, a throughput
+                          line; K1 300 in train_wmt (30 a step), no kernel
+                          in the others (the counters printed at each
+                          subprocess's exit).
 
 16-bit outputs are held to ``ulp_ratio`` <= 1: |kernel - plain| at most
 two units in the last place of the plain value plus one unit at the
@@ -2069,9 +2111,10 @@ def phase_serve_beam(torch, ctx):
 # the fleet: two replicas behind a Router, 8 client threads; 4 sessions
 # of 3 requests (serve's requests 0-11) and 4 without (12-15)
 FLEET_CLIENTS, FLEET_SESSIONS = 8, 4
-# the traffic a swap is staged under: ~5 s of one replica's decoding,
-# longer than loading, verifying and staging a checkpoint
-FLEET_SWAP_REQUESTS = 160
+# the traffic a swap is staged under: four times serve's 16 requests,
+# several times as long as loading, verifying and staging a checkpoint
+# (the phase's swap_weights line has verify_ms beside it)
+FLEET_SWAP_REQUESTS = 64
 
 
 def _http_json(url, body, timeout=600.0):
@@ -4470,9 +4513,10 @@ def phase_serve_int4(torch, ctx):
 # the wgmma16 ones) on the f32 paths, and the 16-bit wgmma16 of
 # flash_attention_16.cu (its own counts) on the 16-bit paths
 F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
-                   "profile_bert", "graph_spellings")
+                   "profile_bert", "graph_spellings", "test_utils_card",
+                   "onnx_roundtrip")
 BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16",
-                    "train_bert_dense_predict")
+                    "train_bert_dense_predict", "test_utils_card")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
@@ -4481,7 +4525,7 @@ KERNELS = (
       "train_transformer_bf16", "gluon_bert", "train_amp",
       "train_amp_fp16", "module_bert", "train_resume", "serve_fullprefix",
       "profile_bert", "train_bert_dense", "train_bert_dense_predict",
-      "graph_spellings")),
+      "graph_spellings", "test_utils_card", "onnx_roundtrip", "examples")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -4502,9 +4546,10 @@ KERNELS = (
      "mxnet_tpu_torch/csrc/flash_attention_16.cu",
      "mxnet_tpu/ops/pallas/flash_attention.py:158", BF16_FLASH_PATHS),
     ("add_layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
-     "mxnet_tpu/ops/pallas/fused.py:166", "imperative"),
+     "mxnet_tpu/ops/pallas/fused.py:166", ("imperative", "test_utils_card")),
     ("softmax_cross_entropy", "mxnet_tpu_torch/csrc/softmax_cross_entropy.cu",
-     "mxnet_tpu/ops/pallas/fused.py:36", "softmax_cross_entropy"),
+     "mxnet_tpu/ops/pallas/fused.py:36",
+     ("softmax_cross_entropy", "test_utils_card")),
 )
 
 
@@ -9486,6 +9531,551 @@ def phase_contrib_custom(torch, ctx):
                        and not any(launches.values()))}
 
 
+# ---------------------------------------------------------------------------
+# the last host-side modules: runtime, util, env_vars, rtc; test_utils'
+# card-vs-CPU oracles; contrib.onnx on the card; the example scripts
+# ---------------------------------------------------------------------------
+def phase_runtime_env(torch, ctx):
+    """``runtime.Features()`` on the card (CUDA and CUDNN on; TPU, XLA
+    and PALLAS off), ``util.get_gpu_count()`` equal to
+    ``torch.cuda.device_count()``, ``util.get_gpu_memory(0)`` within 1% of
+    ``torch.cuda.mem_get_info(0)`` (total equal), ``env_vars.check()`` over
+    the run's environment raising nothing, ``rtc.CudaModule("")`` raising
+    ``MXNetError``; K1-K7 0."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import env_vars, rtc, runtime, util
+
+    counters = _counters()
+    _zero_launches(torch, counters)
+    feats = {k: bool(f.enabled) for k, f in runtime.Features().items()}
+    feats_ok = (feats["CUDA"] and feats["CUDNN"]
+                and not any(feats[k] for k in ("TPU", "XLA", "PALLAS")))
+    count = util.get_gpu_count()
+    free, total = util.get_gpu_memory(0)
+    t_free, t_total = torch.cuda.mem_get_info(0)
+    mem_rel = abs(free - t_free) / max(t_free, 1)
+    env_vars._warned = False  # the import's check ran; run it again here
+    try:
+        env_vars.check(dict(os.environ))
+        env_error = None
+    except Exception as e:  # noqa: BLE001 - the gate is "raises nothing"
+        env_error = f"{type(e).__name__}: {e}"[:300]
+    try:
+        rtc.CudaModule("")
+        rtc_raised = None
+    except mx.MXNetError as e:
+        rtc_raised = str(e)[:200]
+    set_mxnet = sorted(k for k in os.environ if k.startswith("MXNET_"))
+    launches, _ = _read_launches(torch, counters)
+    ctx["launches"]["runtime_env"] = launches
+    return {"features": feats, "features_ok": bool(feats_ok),
+            "get_gpu_count": count,
+            "device_count": torch.cuda.device_count(),
+            "get_gpu_memory": [int(free), int(total)],
+            "mem_get_info": [int(t_free), int(t_total)],
+            "free_rel_diff": mem_rel, "env_check_error": env_error,
+            "mxnet_vars_set": set_mxnet,
+            "env_vars_registered": len(env_vars.ENV_VARS),
+            "rtc_raised": rtc_raised, "launches": launches,
+            "card": ctx["smi"],
+            "ok": bool(feats_ok and count == torch.cuda.device_count()
+                       and mem_rel <= 0.01 and total == t_total
+                       and env_error is None and rtc_raised is not None
+                       and not any(launches.values()))}
+
+
+# check_consistency over [cpu, gpu(0)]: (name, shapes of the numpy inputs,
+# launches expected on the card side, wgmma16 launches expected)
+TU_LN, TU_ALN, TU_SCE = (16384, 768), (8192, 1024), (2048, 30522)
+TU_FLASH = (24, 512, 64)  # N 24 (2 x 12 heads), L 512, hd 64
+TU_GRAD = (1, 8, 16)      # check_numeric_gradient's q, k, v: 384 elements
+TU_GRAD_EPS, TU_GRAD_RTOL, TU_GRAD_ATOL = 1e-2, 5e-2, 1e-3
+
+
+def _tu_inputs(rng, name):
+    if name == "LayerNorm":
+        return [rng.randn(*TU_LN), 1 + 0.1 * rng.randn(TU_LN[1]),
+                0.1 * rng.randn(TU_LN[1])]
+    if name.startswith("flash_attention"):
+        return [0.5 * rng.randn(*TU_FLASH) for _ in range(3)]
+    if name == "add_layer_norm":
+        return [rng.randn(*TU_ALN), rng.randn(*TU_ALN),
+                1 + 0.1 * rng.randn(TU_ALN[1]), 0.1 * rng.randn(TU_ALN[1])]
+    n, c = TU_SCE
+    return [2 * rng.randn(n, c), rng.randint(0, c, n)]
+
+
+def _tu_fns(mx):
+    """The functions check_consistency runs under each context."""
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.passes import FusedKernelPass, PassPipeline
+
+    nd = mx.nd
+    fused = PassPipeline([FusedKernelPass()])
+
+    def aln(x, r, g, b):
+        # the nd op is plain torch; the fused_kernels pass brings K6
+        with fused.scope():
+            return nd.contrib.add_layer_norm(x, r, g, b)
+
+    def bf16(q, k, v):
+        return nd.contrib.flash_attention(q.astype("bfloat16"),
+                                          k.astype("bfloat16"),
+                                          v.astype("bfloat16"))
+
+    return {
+        "LayerNorm": (lambda x, g, b: nd.LayerNorm(x, g, b),
+                      {"layer_norm": 1}, {}),
+        "flash_attention_f32": (lambda q, k, v: nd.contrib.flash_attention(
+            q, k, v), {"flash_attention_fwd": 1}, {}),
+        "flash_attention_bf16": (bf16, {"flash_attention_fwd": 1},
+                                 {"flash_attention_fwd": 1}),
+        "add_layer_norm": (aln, {"add_layer_norm": 1}, {}),
+        # the nd op is plain torch in both packages: no kernel
+        "softmax_cross_entropy": (lambda x, y: nd.softmax_cross_entropy(
+            x, y), {}, {}),
+        # K7 through its wrapper, per-row losses
+        "softmax_cross_entropy_kernel": (lambda x, y: mx.nd.NDArray(
+            kernels.softmax_cross_entropy(x.data, y.data.long())),
+            {"softmax_cross_entropy": 1}, {}),
+    }
+
+
+def _tu_row(torch, mx, counters, name, fn, inputs, want, want16):
+    from mxnet_tpu_torch.test_utils import (_dtype_tol, _get_tols,
+                                            check_consistency)
+
+    _zero_launches(torch, counters)
+    t0 = time.perf_counter()
+    try:
+        cpu_out, card_out = check_consistency(fn, [mx.cpu(), mx.gpu(0)],
+                                              inputs_np=inputs)
+        error = None
+    except AssertionError as e:
+        cpu_out = card_out = None
+        error = str(e)[-600:]
+    seconds = time.perf_counter() - t0
+    launches, w16 = _read_launches(torch, counters)
+    expected = {n: want.get(n, 0) for n in counters}
+    expected16 = {n: want16.get(n, 0) for n in WGMMA16_KERNELS}
+    row = {"shapes": [list(np.shape(a)) for a in inputs], "s": seconds,
+           "launches": launches, "launches_wgmma16": w16,
+           "launches_exact": launches == expected and w16 == expected16,
+           "error": error}
+    if cpu_out is not None:
+        kind = "bfloat16" if name.endswith("bf16") else "float32"
+        rtol, atol = _dtype_tol(kind)
+        diff = np.abs(cpu_out.astype(np.float64) - card_out)
+        row.update({"dtype": kind, "rtol": rtol, "atol": atol,
+                    "max_abs_dev": float(diff.max()),
+                    "dev_over_allowed": float(
+                        (diff / (atol + rtol * np.abs(card_out))).max())})
+    row["ok"] = bool(error is None and row["launches_exact"])
+    return row, launches, w16
+
+
+def phase_test_utils_card(torch, ctx):
+    """MXNet's own GPU-backend oracles on the card: ``test_utils.
+    check_consistency`` over ``[mx.cpu(), mx.gpu(0)]`` (the CPU side runs
+    the plain versions) for ``nd.LayerNorm`` at (16384, 768) (K1),
+    ``nd.contrib.flash_attention`` at N 24, L 512, hd 64 in f32 (K3's f32
+    core) and bf16 (K3's ``wgmma16`` design), ``nd.contrib.add_layer_norm``
+    at (8192, 1024) under the fused_kernels pass (K6), the
+    ``nd.softmax_cross_entropy`` op at (2048, 30522) (plain torch in both
+    packages: no kernel) and K7's wrapper on the same inputs, each within
+    ``_dtype_tol``; then ``check_numeric_gradient`` of the f32 flash
+    attention at (1, 8, 16) on the card (K3 once a loss, K4 and K5 once).
+    Launch counts exact; each comparison's max deviation beside its
+    tolerance."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.test_utils import check_numeric_gradient
+
+    counters = _counters()
+    rng = np.random.RandomState(SEED + 91)
+    rows, total, total16 = {}, {n: 0 for n in counters}, {
+        n: 0 for n in WGMMA16_KERNELS}
+    for name, (fn, want, want16) in _tu_fns(mx).items():
+        inputs = [np.asarray(a, np.float32) for a in _tu_inputs(rng, name)]
+        rows[name], lau, w16 = _tu_row(torch, mx, counters, name, fn,
+                                       inputs, want, want16)
+        for n in total:
+            total[n] += lau[n]
+        for n in total16:
+            total16[n] += w16[n]
+        torch.cuda.empty_cache()
+
+    # the numeric gradient, on the card; its comparisons recorded as made
+    q, k, v, w = (rng.randn(*TU_GRAD).astype(np.float32) * s
+                  for s in (0.5, 0.5, 0.5, 1.0))
+    arrs = [mx.nd.array(a, ctx=mx.gpu(0)) for a in (q, k, v)]
+    wt = mx.nd.array(w, ctx=mx.gpu(0))
+    devs, real = [], np.testing.assert_allclose
+
+    def spy(actual, desired, *args, **kw):
+        devs.append(float(np.abs(np.asarray(actual, np.float64)
+                                 - np.asarray(desired)).max()))
+        return real(actual, desired, *args, **kw)
+
+    _zero_launches(torch, counters)
+    t0 = time.perf_counter()
+    np.testing.assert_allclose = spy
+    try:
+        check_numeric_gradient(
+            lambda q_, k_, v_: (mx.nd.contrib.flash_attention(q_, k_, v_)
+                                * wt).sum(),
+            arrs, eps=TU_GRAD_EPS, rtol=TU_GRAD_RTOL, atol=TU_GRAD_ATOL)
+        grad_error = None
+    except AssertionError as e:
+        grad_error = str(e)[-600:]
+    finally:
+        np.testing.assert_allclose = real
+    launches, w16 = _read_launches(torch, counters)
+    elems = 3 * int(np.prod(TU_GRAD))
+    want = {n: 0 for n in counters}
+    want.update(flash_attention_fwd=1 + 2 * elems, flash_attention_dq=1,
+                flash_attention_dkv=1)
+    rows["check_numeric_gradient"] = grad = {
+        "shape": list(TU_GRAD), "elements": elems, "eps": TU_GRAD_EPS,
+        "rtol": TU_GRAD_RTOL, "atol": TU_GRAD_ATOL,
+        "max_abs_dev_by_input": devs, "s": time.perf_counter() - t0,
+        "launches": launches, "launches_expected": want,
+        "error": grad_error,
+        "ok": bool(grad_error is None and launches == want
+                   and not any(w16.values()))}
+    for n in total:
+        total[n] += launches[n]
+    ctx["launches"]["test_utils_card"] = total
+    ctx.setdefault("launches_wgmma16", {})["test_utils_card"] = total16
+    return {**rows, "launches": total, "launches_wgmma16": total16,
+            "card": ctx["smi"],
+            "ok": all(r["ok"] for r in rows.values()) and grad["ok"]}
+
+
+ONNX_BERT_BATCH = (8, 128)
+ONNX_RESNET = (32, 224)
+# the int8 net: Transformer-big's FFN widths, as serve_int8 quantizes them
+ONNX_QUANT = {"units": 1024, "hidden": 4096, "batch": 64, "calib": 4}
+ONNX_BERT_LAUNCHES = {"layer_norm": 26, "flash_attention_fwd": 12}
+
+
+def _run_qdq_graph(graph, x):
+    """A numpy replay of an exported QDQ graph (the oracle of
+    ``tests/test_onnx.py``'s ``_run_qdq_graph``)."""
+    vals = {"data": x}
+    for t in graph["initializer"]:
+        vals[t["name"]] = t["array"]
+    for n in graph["node"]:
+        i = [vals[k] for k in n["input"]]
+        op = n["op_type"]
+        if op == "QuantizeLinear":
+            vals[n["output"][0]] = np.clip(
+                np.round(i[0] / i[1]), -128, 127).astype(np.int8)
+        elif op == "DequantizeLinear":
+            vals[n["output"][0]] = i[0].astype(np.float32) * i[1]
+        elif op == "Gemm":
+            wm = i[1].T if n["attrs"].get("transB") else i[1]
+            vals[n["output"][0]] = i[0] @ wm + i[2]
+        elif op == "MatMul":
+            vals[n["output"][0]] = i[0] @ i[1]
+        elif op == "Add":
+            vals[n["output"][0]] = i[0] + i[1]
+        elif op == "Relu":
+            vals[n["output"][0]] = np.maximum(i[0], 0)
+        elif op == "Flatten":
+            vals[n["output"][0]] = i[0].reshape(i[0].shape[0], -1)
+        else:
+            raise AssertionError(f"unexpected op {op}")
+    return vals[graph["output"][0]["name"]]
+
+
+def _onnx_model(torch, mx, counters, net, x, dtype, expected):
+    """``net`` (eval mode, on the card) -> its eager output, counted and
+    timed -> ``HybridBlock.export`` -> ``export_model`` -> ``import_to_gluon``
+    on the card -> the imported forward, counted and timed."""
+    from mxnet_tpu_torch.contrib import onnx as onnx_mx
+
+    path = os.path.join(_exports_dir(), f"onnx-{os.getpid()}")
+    _zero_launches(torch, counters)
+    with torch.no_grad():
+        want = net(x).float().cpu().numpy()
+    eager_launches, eager16 = _read_launches(torch, counters)
+    with torch.no_grad():
+        eager_ms = time_ms(torch, lambda: net(x), samples=5, reps=2)
+    t0 = time.perf_counter()
+    net.export(path, 0)
+    export_s = time.perf_counter() - t0
+    onnx_path = path + ".onnx"
+    t0 = time.perf_counter()
+    onnx_mx.export_model(f"{path}-symbol.json", f"{path}-0000.params",
+                         [tuple(x.shape)], dtype, onnx_path)
+    onnx_s = time.perf_counter() - t0
+    onnx_bytes = os.path.getsize(onnx_path)
+    t0 = time.perf_counter()
+    sb = onnx_mx.import_to_gluon(onnx_path, ctx=mx.gpu(0))
+    import_s = time.perf_counter() - t0
+    xa = mx.nd.NDArray(x)
+    _zero_launches(torch, counters)
+    got = sb(xa)
+    got = (got[0] if isinstance(got, (list, tuple)) else got).asnumpy()
+    imported_launches, imported16 = _read_launches(torch, counters)
+    imported_ms = time_ms(torch, lambda: sb(xa), samples=5, reps=2)
+    nodes = len(onnx_mx.proto.parse_model(open(onnx_path, "rb").read())[
+        "graph"]["node"])
+    for suffix in ("-symbol.json", "-0000.params", ".onnx"):
+        os.remove(path + suffix)
+    want_l = {n: expected.get(n, 0) for n in counters}
+    row = {"input": list(x.shape), "onnx_bytes": onnx_bytes,
+           "onnx_nodes": nodes, "hybrid_export_s": export_s,
+           "export_model_s": onnx_s, "import_to_gluon_s": import_s,
+           "eager_ms": eager_ms, "imported_ms": imported_ms,
+           "of_max_abs": _max_abs_ratio(got, want), "tol": ZOO_EXPORT_TOL,
+           "eager_launches": eager_launches,
+           "eager_launches_wgmma16": eager16,
+           "imported_launches": imported_launches,
+           "imported_launches_wgmma16": imported16,
+           "finite": bool(np.isfinite(got).all())}
+    row["ok"] = bool(row["finite"] and got.shape == want.shape
+                     and row["of_max_abs"] <= ZOO_EXPORT_TOL
+                     and eager_launches == want_l
+                     and not any(eager16.values())
+                     and not any(imported_launches.values())
+                     and not any(imported16.values()))
+    return row, eager_launches
+
+
+def _onnx_quantized(torch, mx):
+    """A net of Transformer-big's FFN widths quantized to int8 on the card
+    (naive calibration on seeded batches), exported as QDQ and replayed
+    in numpy: within one step of the data's QuantizeLinear scale (its
+    calibrated threshold / 127) of the card's int8 output."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.contrib import onnx as onnx_mx
+    from mxnet_tpu_torch.contrib.quantization import quantize_net
+
+    c = ONNX_QUANT
+    rng = np.random.RandomState(SEED + 93)
+    mx.random.seed(SEED + 93)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(c["hidden"], activation="relu",
+                           in_units=c["units"]),
+            gluon.nn.Dense(c["units"], in_units=c["hidden"]))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    calib = [mx.nd.array(rng.randn(c["batch"], c["units"]), ctx=mx.gpu(0))
+             for _ in range(c["calib"])]
+    qnet = quantize_net(net, calib_data=calib, calib_mode="naive")
+    x = rng.randn(c["batch"], c["units"]).astype(np.float32)
+    card = qnet(mx.nd.array(x, ctx=mx.gpu(0))).asnumpy()
+    path = os.path.join(_exports_dir(), f"q-{os.getpid()}.onnx")
+    t0 = time.perf_counter()
+    onnx_mx.export_quantized_net(qnet, x.shape, path)
+    export_s = time.perf_counter() - t0
+    graph = onnx_mx.proto.parse_model(open(path, "rb").read())["graph"]
+    nbytes = os.path.getsize(path)
+    os.remove(path)
+    ops = [n["op_type"] for n in graph["node"]]
+    inits = {t["name"]: t["array"] for t in graph["initializer"]}
+    first_q = next(n for n in graph["node"] if n["op_type"] == "QuantizeLinear")
+    # a scalar initializer is written with dims [1], as the JAX codec does
+    step = float(np.asarray(inits[first_q["input"][1]]).reshape(-1)[0])
+    replay = _run_qdq_graph(graph, x)
+    dev = float(np.abs(replay - card).max())
+    int8_weights = sum(1 for a in inits.values()
+                       if a.dtype == np.int8 and a.ndim == 2)
+    return {"widths": [c["units"], c["hidden"], c["units"]],
+            "batch": c["batch"], "onnx_bytes": nbytes, "export_s": export_s,
+            "quantize_linear": ops.count("QuantizeLinear"),
+            "dequantize_linear": ops.count("DequantizeLinear"),
+            "int8_weight_initializers": int8_weights,
+            "max_abs_dev": dev, "scale_step": step,
+            "output_max_abs": float(np.abs(card).max()),
+            "ok": bool(dev <= step and ops.count("QuantizeLinear") == 2
+                       and ops.count("DequantizeLinear") == 4
+                       and int8_weights == 2)}
+
+
+def phase_onnx_roundtrip(torch, ctx):
+    """``contrib.onnx`` on the card: ``bench.py``'s ``bert_base()`` (f32,
+    inference mode, 8 x 128 tokens) and ``resnet50_v1b`` (f32, 32 x 3 x
+    224 x 224, BatchNorm stats from one training-mode forward) each
+    ``HybridBlock.export``-ed, ``export_model``-ed (opset 11: LayerNorm and
+    the fused attention as their decompositions),
+    ``import_to_gluon(ctx=mx.gpu(0))``-ed and run once: within
+    ZOO_EXPORT_TOL of max |eager|; the eager BERT forward K1 26 and K3 12
+    (f32 core), the imported graphs no kernel; the file's bytes, the
+    export and import seconds and CUDA-event ms of each forward.  Then
+    ``export_quantized_net`` of an int8 net of Transformer-big's FFN
+    widths, replayed in numpy against the card (``_onnx_quantized``)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    torch.cuda.empty_cache()
+    counters = _counters()
+    out = {}
+    net = bert_base(generator=torch.Generator().manual_seed(SEED + 92))
+    net.eval()
+    tokens = _bert_tokens(torch, ONNX_BERT_BATCH, SEED + 92).cuda()
+    out["bert_base"], launches = _onnx_model(
+        torch, mx, counters, net, tokens, np.int32, ONNX_BERT_LAUNCHES)
+    del net
+    torch.cuda.empty_cache()
+    B, R = ONNX_RESNET
+    mx.random.seed(SEED + 94)
+    net = vision.get_model("resnet50_v1b")
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    x = torch.from_numpy(np.random.RandomState(SEED + 94).rand(
+        B, 3, R, R).astype(np.float32)).cuda()
+    net.train()
+    with torch.no_grad():
+        net(x)  # the deferred shapes and BatchNorm's running stats
+    net.eval()
+    out["resnet50_v1b"], _ = _onnx_model(torch, mx, counters, net, x,
+                                         np.float32, {})
+    del net
+    torch.cuda.empty_cache()
+    _zero_launches(torch, counters)
+    out["int8_qdq"] = _onnx_quantized(torch, mx)
+    quant_launches, _ = _read_launches(torch, counters)
+    out["int8_qdq"]["launches"] = quant_launches
+    out["int8_qdq"]["ok"] = bool(out["int8_qdq"]["ok"]
+                                 and not any(quant_launches.values()))
+    ctx["launches"]["onnx_roundtrip"] = launches
+    return {**out, "launches": launches, "card": ctx["smi"],
+            "ok": all(r["ok"] for r in out.values())}
+
+
+# the examples as `python -m mxnet_tpu_torch.examples.<name>` runs them,
+# with the kernels' launch counters printed at exit
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "name = sys.argv[1]\n"
+    "sys.argv = [name] + sys.argv[2:]\n"
+    "from mxnet_tpu_torch.ops import kernels\n"
+    "try:\n"
+    "    runpy.run_module('mxnet_tpu_torch.examples.' + name,\n"
+    "                     run_name='__main__', alter_sys=True)\n"
+    "finally:\n"
+    "    names = " + repr(ALL_KERNELS) + "\n"
+    "    print('LAUNCHES ' + json.dumps({n: getattr(kernels, n).launches\n"
+    "                                    for n in names}), flush=True)\n")
+EXAMPLE_TIMEOUT = 600
+# the cuts (the script's whole run had passed 1,100 s): LeNet 2 epochs of
+# the script's 3 (it converges by the second), the others 10 steps of
+# their 30 or 20; the scripts' models, widths and batches are untouched
+EXAMPLE_EPOCHS_MNIST, EXAMPLE_STEPS = 2, 10
+
+
+def _example_args(folder):
+    """name -> (arguments, cut) of each example's card run: the default
+    model at full width; only steps or epochs are cut."""
+    img_rec, _, _ = _write_imagenet_rec(folder, 64, SEED + 95)
+    det_dir = os.path.join(folder, "det")
+    os.makedirs(det_dir)
+    det_rec, _, _ = _write_det_rec(det_dir, 64, SEED + 96)
+    steps = ["--steps", str(EXAMPLE_STEPS)]
+    return {
+        "train_mnist": (["--network", "lenet", "--epochs",
+                         str(EXAMPLE_EPOCHS_MNIST)],
+                        f"{EXAMPLE_EPOCHS_MNIST} epochs of 3"),
+        "train_imagenet": (["--rec", img_rec, "--model", "resnet50_v1b",
+                            *steps],
+                           f"{EXAMPLE_STEPS} steps of 30 (batch 32, 224^2, "
+                           "a seeded 64-JPEG RecordIO)"),
+        # the RecordIO's boxes carry DET_CLASSES classes
+        "train_detection": (["--model", "ssd", "--rec", det_rec,
+                             "--num-classes", str(DET_CLASSES), *steps],
+                            f"{EXAMPLE_STEPS} steps of 20 (the script's "
+                            "96^2, batch 4)"),
+        "train_wmt": (["--model", "base", *steps],
+                      f"{EXAMPLE_STEPS} steps of 30"),
+    }
+
+
+def _example_numbers(stdout):
+    """The losses, accuracies and the throughput line an example
+    printed."""
+    import re
+
+    number = r"([-+0-9.eE]+|nan|inf)"
+    losses = [float(v) for v in re.findall(r"loss[= ]" + number, stdout)]
+    losses += [float(v) for v in re.findall(r"-> " + number, stdout)]
+    acc = [float(v) for v in re.findall(r"train-accuracy=([0-9.]+)", stdout)]
+    through = [line for line in stdout.splitlines()
+               if line.startswith("throughput ")]
+    return losses, acc, through[-1] if through else None
+
+
+def _example_row(name, args, cut, proc, out, err, wall):
+    lines = out.splitlines()
+    launches = next((json.loads(x[len("LAUNCHES "):])
+                     for x in lines if x.startswith("LAUNCHES ")), None)
+    losses, acc, through = _example_numbers(out)
+    want = {n: 0 for n in ALL_KERNELS}
+    if name == "train_wmt":
+        want["layer_norm"] = TT_PER_STEP["layer_norm"] * EXAMPLE_STEPS
+    row = {"args": args, "cut": cut, "returncode": proc.returncode,
+           "s": wall, "losses": losses, "accuracies": acc,
+           "throughput": through, "launches": launches,
+           "launches_expected": want, "stdout_tail": out[-600:],
+           "stderr_tail": err[-600:]}
+    finite = all(math.isfinite(v) for v in losses) and bool(losses or acc)
+    row["ok"] = bool(proc.returncode == 0 and finite
+                     and through is not None and launches == want
+                     and (name != "train_mnist"
+                          or "MNIST example OK" in out))
+    return row
+
+
+def phase_examples(torch, ctx):
+    """The four ported example scripts, each a subprocess on the card at
+    its default model and full width, the four started together (their
+    throughputs share the host and the card): ``train_mnist`` (LeNet),
+    ``train_imagenet --rec`` over a seeded 64-image JPEG RecordIO
+    (``_write_imagenet_rec``) with ``resnet50_v1b`` at 224^2,
+    ``train_detection`` (SSD, ``--rec`` from ``_write_det_rec``),
+    ``train_wmt --model base``; epochs and steps cut (``_example_args``).
+    Each exits 0 with finite losses (LeNet: its accuracy gate) and prints
+    its throughput on a line of its own; K1 30 a step in train_wmt (every
+    attention masked: no flash kernel), no kernel in the others."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    folder = tempfile.mkdtemp(prefix="examples-", dir=_det_build_dir())
+    env = dict(os.environ, PYTHONPATH=here)
+    rows, total, procs = {}, {n: 0 for n in ALL_KERNELS}, {}
+    try:
+        plan = _example_args(folder)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for name, (args, _) in plan.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER, name, *args],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            out, err = proc.communicate(
+                timeout=max(1.0, EXAMPLE_TIMEOUT - (time.perf_counter()
+                                                    - t0)))
+            args, cut = plan[name]
+            rows[name] = row = _example_row(name, args, cut, proc, out, err,
+                                            time.perf_counter() - t0)
+            if row["throughput"] is not None:
+                print(f"examples {name}: {row['throughput']}", flush=True)
+            for n in total:
+                total[n] += (row["launches"] or {}).get(n, 0)
+        wall = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(folder, ignore_errors=True)
+    ctx["launches"]["examples"] = total
+    return {**rows, "together_s": wall, "launches": total,
+            "card": ctx["smi"],
+            "ok": len(rows) == 4 and all(r["ok"] for r in rows.values())}
+
 def main() -> int:
     import torch
 
@@ -9562,7 +10152,11 @@ def main() -> int:
               ("train_bert_dense", phase_train_bert_dense),
               ("graph_spellings", phase_graph_spellings),
               ("estimator_fit", phase_estimator_fit),
-              ("contrib_custom", phase_contrib_custom))
+              ("contrib_custom", phase_contrib_custom),
+              ("runtime_env", phase_runtime_env),
+              ("test_utils_card", phase_test_utils_card),
+              ("onnx_roundtrip", phase_onnx_roundtrip),
+              ("examples", phase_examples))
     named = sys.argv[1:]
     unknown = sorted(set(named) - {n for n, _ in phases})
     if unknown:

@@ -11,7 +11,8 @@ Mirrors the JAX package's layout (``base``, ``context`` with ``Context``,
 ``fault``, and the symbolic API ``sym`` / ``symbol``, ``mod`` / ``module``, ``rnn``,
 ``model``, ``callback``, ``monitor`` / ``Monitor``, ``name``,
 ``attribute`` / ``AttrScope``, ``subgraph``, ``viz`` /
-``visualization``) in plain
+``visualization``, and ``runtime``, ``util``, ``env_vars``, ``rtc``,
+``test_utils``, ``contrib.onnx``) in plain
 PyTorch idiom: Gluon blocks (and so the models) are ``torch.nn.Module``s,
 state is tensors on an explicit ``torch.device``,
 randomness comes from explicit ``torch.Generator``s.  The TPU's Pallas
@@ -75,6 +76,12 @@ from . import module as mod
 from . import rnn
 from . import visualization
 from . import visualization as viz
+from . import runtime
+from . import util
+from .util import is_np_array
+from . import env_vars
+from . import rtc
+from . import test_utils
 
 __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "current_context", "num_gpus", "default_device", "engine",
@@ -86,9 +93,13 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "checkpoint", "fault", "recordio", "image", "io", "models",
            "name", "attribute", "AttrScope", "symbol", "sym", "Symbol",
            "subgraph", "model", "callback", "monitor", "Monitor", "module",
-           "mod", "rnn", "visualization", "viz"]
+           "mod", "rnn", "visualization", "viz", "runtime", "util",
+           "is_np_array", "env_vars", "rtc", "test_utils"]
 
 metrics_server.maybe_start()
+# set MXNET_* variables that have no effect here go to the log, as the JAX
+# package's import does (env_vars.describe() lists them all)
+env_vars.check()
 
 
 def waitall():

@@ -206,10 +206,17 @@ def _send(handler, code: int, body, ctype: str = "application/json"):
     handler.wfile.write(payload)
 
 
-def _read_json_body(handler) -> dict:
+def _read_body(handler) -> bytes:
+    """Read the whole request body.  Every POST reads it before it
+    answers, whatever the route: a server that closes its socket with
+    unread bytes in it sends a reset, which can reach the client before
+    the answer does."""
     n = int(handler.headers.get("Content-Length") or 0)
-    raw = handler.rfile.read(n) if n else b"{}"
-    body = json.loads(raw.decode("utf-8"))
+    return handler.rfile.read(n) if n else b""
+
+
+def _parse_json_body(raw: bytes) -> dict:
+    body = json.loads((raw or b"{}").decode("utf-8"))
     if not isinstance(body, dict):
         raise ValueError("body must be a JSON object")
     return body
@@ -236,8 +243,9 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
     def do_POST(self):  # noqa: N802
         rep: "ReplicaServer" = self.server.replica  # type: ignore
         route = self.path.split("?", 1)[0].rstrip("/")
+        raw = _read_body(self)
         if route == "/generate":
-            self._generate(rep)
+            self._generate(rep, raw)
         elif route == "/admin/drain":
             rep.drain()
             _send(self, 200, {"draining": True, "rank": rep.rank})
@@ -247,13 +255,13 @@ class _ReplicaHandler(BaseHTTPRequestHandler):
         else:
             _send(self, 404, {"error": f"no such route {route!r}"})
 
-    def _generate(self, rep: "ReplicaServer"):
+    def _generate(self, rep: "ReplicaServer", raw: bytes):
         if rep.draining:
             _send(self, 503, {"error": "replica draining",
                               "rank": rep.rank})
             return
         try:
-            body = _read_json_body(self)
+            body = _parse_json_body(raw)
         except (ValueError, UnicodeDecodeError) as e:
             _send(self, 400, {"error": f"bad JSON body: {e}"})
             return
@@ -521,9 +529,10 @@ class _RouterHandler(BaseHTTPRequestHandler):
         router: "Router" = self.server.router  # type: ignore
         route, _, query = self.path.partition("?")
         route = route.rstrip("/")
+        raw = _read_body(self)
         if route == "/generate":
             try:
-                body = _read_json_body(self)
+                body = _parse_json_body(raw)
             except (ValueError, UnicodeDecodeError) as e:
                 _send(self, 400, {"error": f"bad JSON body: {e}"})
                 return

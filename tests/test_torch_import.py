@@ -249,10 +249,7 @@ def test_chip_smoke_fails_alone(tmp_path):
 _A9 = "A.9 (multi-GPU: meshes, Plan, sharding, pipeline, ring)"
 _SUPERSTEP = "A.6's superstep, with A.1"
 QUEUED = {
-    "mx": {"env_vars": "A.11.6",
-           "runtime": "A.11.6", "util": "A.11.6", "is_np_array": "A.11.6",
-           "test_utils": "A.11.6", "rtc": "A.11.8",
-           "aot_cache": "not queued: the port compiles no executables",
+    "mx": {"aot_cache": "not queued: the port compiles no executables",
            "tpu": "the TPU context: the port's cards are gpu(i)",
            "num_tpus": "the TPU context: the port's cards are gpu(i)"},
     "nd": {"from_jax": "no counterpart: jax arrays",
@@ -278,14 +275,15 @@ QUEUED = {
     "gluon.model_zoo.vision": {},
     "io": {"native": "A.13 (item 6): the native libmxio pipeline"},
     "serving": {},
+    "contrib.onnx": {},
 }
 
 
 def test_public_names_match_jax_or_are_queued():
     """Every public name of ``mx``, ``mx.nd``, ``mx.parallel``,
     ``mx.models``, ``mx.gluon``, ``mx.gluon.nn``,
-    ``mx.gluon.model_zoo.vision``, ``mx.io`` and ``mx.serving`` in the JAX
-    package is in
+    ``mx.gluon.model_zoo.vision``, ``mx.io``, ``mx.serving`` and
+    ``mx.contrib.onnx`` in the JAX package is in
     the port's namespace too, or listed above with the ROADMAP item that
     queues it; a listed name the port has gained fails, so the list stays
     current."""
@@ -308,13 +306,16 @@ def test_public_names_match_jax_or_are_queued():
                              jmx.gluon.model_zoo.vision,
                              tmx.gluon.model_zoo.vision),
                             ("io", jmx.io, tmx.io),
-                            ("serving", jmx.serving, tmx.serving)):
+                            ("serving", jmx.serving, tmx.serving),
+                            ("contrib.onnx", jmx.contrib.onnx,
+                             tmx.contrib.onnx)):
         missing = public(jmod) - public(tmod)
         assert missing == set(QUEUED[key]), (key, sorted(
             missing ^ set(QUEUED[key])))
     for name in ("Context", "current_context", "cpu_pinned", "num_gpus",
                  "waitall", "NDArray", "KVStore", "lr_scheduler",
-                 "parallel", "contrib", "engine"):
+                 "parallel", "contrib", "engine", "env_vars", "runtime",
+                 "util", "is_np_array", "test_utils", "rtc"):
         assert name in public(tmx), name
     assert {"AsyncLoss", "StepFence", "InflightRing", "drain_all",
             "inflight_limit"} <= public(tmx.parallel)

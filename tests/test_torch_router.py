@@ -142,6 +142,50 @@ def test_drain_undrain_through_router(fleet):
     assert workers[1].draining is True
 
 
+def _post_late_body(port, path, body=b"{}"):
+    """POST ``path`` with the body sent 0.3 s after the headers, as a
+    client that writes them apart may.  Returns (whether an answer came
+    before the body, the answer's status code).  A handler that answers
+    without reading its body closes the socket with the body unread,
+    which sends a reset that can destroy the answer in flight."""
+    import select
+    import socket
+    import time
+
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.sendall(f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                  f"Content-Type: application/json\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n".encode())
+        time.sleep(0.3)
+        early = bool(select.select([s], [], [], 0)[0])
+        try:
+            s.sendall(body)
+        except OSError:
+            pass
+        got = b""
+        try:
+            while True:
+                chunk = s.recv(65536)
+                if not chunk:
+                    break
+                got += chunk
+        except ConnectionResetError:
+            pass
+    return early, int(got.split(b"\r\n", 1)[0].split()[1])
+
+
+@pytest.mark.parametrize("path,code", [("/admin/drain?rank=1", 200),
+                                       ("/admin/undrain?rank=1", 200),
+                                       ("/admin/drain", 400),
+                                       ("/generate", 200),
+                                       ("/no/such/route", 404)])
+def test_router_reads_the_body_before_it_answers(fleet, path, code):
+    _, _, router = fleet
+    router.start()
+    body = b'{"prompt": [3]}' if path == "/generate" else b"{}"
+    assert _post_late_body(router.port, path, body) == (False, code)
+
+
 def test_http_errors_pass_through_without_failover(fleet):
     _, workers, router = fleet
     code, payload = router.dispatch({"prompt": [1], "boom": True})
@@ -294,6 +338,25 @@ def test_replica_server_end_to_end(nets, tmp_path, monkeypatch):
     assert not os.path.exists(serve_portfile_path(str(tmp_path), 0))
 
 
+@pytest.mark.parametrize("path,code", [("/admin/drain", 200),
+                                       ("/generate", 503),
+                                       ("/admin/undrain", 200),
+                                       ("/no/such/route", 404)])
+def test_replica_reads_the_body_before_it_answers(nets, tmp_path, path,
+                                                  code):
+    """Each route answers only once its body is in, draining or not."""
+    _, tnet = nets
+    rep = ReplicaServer(_port_engine(tnet), bos_id=BOS, eos_id=EOS, port=0,
+                        rank=0, directory=str(tmp_path)).start()
+    try:
+        if path == "/generate":
+            rep.drain()
+        assert _post_late_body(rep.port, path,
+                               b'{"prompt": [5, 6]}') == (False, code)
+    finally:
+        rep.stop()
+
+
 def test_port_and_jax_replicas_answer_alike(nets, tmp_path):
     """A port ReplicaServer and a JAX ReplicaServer over the same weights:
     equal /generate responses, directly and through one Router in front
@@ -372,7 +435,7 @@ def test_metrics_server_routes(tmp_path, monkeypatch):
 # what a handler thread may run: the routes and everything they call
 HOST_ONLY = [
     router_mod._ReplicaHandler, router_mod._RouterHandler,
-    router_mod._send, router_mod._read_json_body,
+    router_mod._send, router_mod._read_body, router_mod._parse_json_body,
     router_mod.parse_trace_header, router_mod.mint_trace,
     router_mod._sampling_defaults,
     ReplicaServer.generate, ReplicaServer._serve_wait, ReplicaServer.drain,
