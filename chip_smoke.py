@@ -3280,7 +3280,8 @@ def phase_train_bf16(torch, ctx):
     tps = TRAIN_BATCH * TRAIN_LEN * TRAIN_STEPS / wall
     ctx["train_bf16"] = {"tokens_per_s": tps,
                          "step_ms_median": statistics.median(step_ms),
-                         "max_memory_allocated_gb": peak_gb}
+                         "max_memory_allocated_gb": peak_gb,
+                         "losses": losses}
     del step, model
     torch.cuda.empty_cache()
     return {
@@ -3302,6 +3303,263 @@ def phase_train_bf16(torch, ctx):
                    and wgmma16 == {n: expected[n] for n in wgmma16}
                    and not any(f32_core.values())
                    and dtypes == ["torch.bfloat16"])}
+
+
+# ---------------------------------------------------------------------------
+# multi-GPU part 1 on one card: a one-rank NCCL group and the sp routes
+# ---------------------------------------------------------------------------
+DIST_STEPS = 3
+DIST_TRAINER_BATCH = (4, 128)
+DIST_TRAINER_STEPS = 2
+SP_SHAPE = (96, 512, 64)  # BERT-base's attention at 8 x 512 a rank
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _one_rank_group():
+    """This process as a one-rank NCCL group (localhost, a free port)."""
+    from mxnet_tpu_torch.parallel import dist
+
+    if not dist.is_initialized():
+        dist.init(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    return dist
+
+
+def _dist_bert_run(torch, dtype, mesh, tokens, labels):
+    """BERT-base from train's weights (seed), DIST_STEPS Adam steps at lr
+    1e-4 through DataParallelStep (over ``mesh`` when given) -> (losses,
+    parameters, launches by wrapper, wgmma16 launches)."""
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    model = bert_base(BERT_VOCAB, dropout=0.0,
+                      generator=torch.Generator().manual_seed(SEED))
+    if dtype == "bfloat16":
+        model = cast(model, "bfloat16")
+    step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4},
+                            mesh=mesh)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    _wgmma16_zero()
+    losses = [float(step.step(tokens, labels)) for _ in range(DIST_STEPS)]
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    params = [p.detach().clone() for p in model.parameters()]
+    del step, model
+    torch.cuda.empty_cache()
+    return losses, params, launches, _wgmma16_read()
+
+
+def _gluon_trainer_run(torch, kvstore, tokens, labels):
+    """The Gluon loop on BERT-base (NDArray call, record, backward,
+    ``Trainer.step``) for DIST_TRAINER_STEPS Adam steps through ``kvstore``
+    -> (losses, parameters)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    from mxnet_tpu_torch.models.bert import bert_base
+
+    net = bert_base(BERT_VOCAB, dropout=0.0,
+                    generator=torch.Generator().manual_seed(SEED))
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-4}, kvstore=kvstore)
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    x = nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y = nd.array(labels, ctx=mx.gpu(0))
+    losses = []
+    for _ in range(DIST_TRAINER_STEPS):
+        with autograd.record():
+            out = net(x)
+            loss = loss_fn(out.reshape((-1, BERT_VOCAB)),
+                           y.reshape((-1,))).mean()
+        loss.backward()
+        trainer.step(1)
+        losses.append(float(loss.asscalar()))
+    trainer.drain()
+    params = [p.detach().clone() for p in net.parameters()]
+    del net, trainer
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def _same(torch, a, b) -> bool:
+    """Two lists of tensors equal bit for bit."""
+    return len(a) == len(b) and all(bool(torch.equal(x, y))
+                                    for x, y in zip(a, b))
+
+
+def phase_dist_single(torch, ctx):
+    """The multi-GPU path on the one card: a one-rank NCCL group (a
+    localhost rendezvous on a free port) and ``make_mesh()`` of one rank.
+    BERT-base at 32 x 512 from train's weights and batch, DIST_STEPS Adam
+    steps through ``DataParallelStep(mesh=...)``, f32 then bf16: the
+    gradients go through the flat-bucket all-reduce of the group, which
+    over one rank is exact, so losses and parameters must equal the plain
+    step's bit for bit (run here from the same weights), and the losses
+    the first DIST_STEPS of the ``train`` / ``train_bf16`` phases.
+    Launches a step: K1 26, K3-K5 12 (all ``wgmma16`` in bf16).  Then the
+    Gluon loop on BERT-base at DIST_TRAINER_BATCH for DIST_TRAINER_STEPS
+    steps with ``kvstore="dist_sync"`` and with a ``nccl`` store over
+    ``[gpu(0)]``, each equal to ``kvstore="device"`` bit for bit."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    dist = _one_rank_group()
+    mesh = make_mesh()
+    tokens, labels = ctx["train_batch"]
+    rows, ok = {}, True
+    for dtype, phase in (("float32", "train_f32"),
+                         ("bfloat16", "train_bf16")):
+        plain = _dist_bert_run(torch, dtype, None, tokens, labels)
+        meshed = _dist_bert_run(torch, dtype, mesh, tokens, labels)
+        launches, w16 = meshed[2], meshed[3]
+        want = {n: k * DIST_STEPS for n, k in TRAIN_PER_STEP.items()}
+        want16 = ({n: want[n] for n in WGMMA16_KERNELS}
+                  if dtype == "bfloat16" else {n: 0 for n in WGMMA16_KERNELS})
+        earlier = ctx.get(phase, {}).get("losses", [])[:DIST_STEPS]
+        row = {"losses": meshed[0], "plain_losses": plain[0],
+               "phase_losses": earlier,
+               "losses_bitwise": meshed[0] == plain[0],
+               "params_bitwise": _same(torch, meshed[1], plain[1]),
+               "phase_losses_equal": meshed[0] == earlier,
+               "launches": launches, "launches_expected": want,
+               "launches_wgmma16": w16}
+        row["ok"] = bool(row["losses_bitwise"] and row["params_bitwise"]
+                         and row["phase_losses_equal"]
+                         and launches == want and w16 == want16)
+        ctx["launches"][f"dist_single_{dtype}"] = launches
+        if dtype == "bfloat16":
+            ctx.setdefault("launches_wgmma16", {})[
+                "dist_single_bfloat16"] = w16
+        rows[dtype] = row
+        ok = ok and row["ok"]
+        del plain, meshed
+    B, L = DIST_TRAINER_BATCH
+    tb, lb = tokens[:B, :L], labels[:B, :L]
+    ref = _gluon_trainer_run(torch, "device", tb, lb)
+    for name, kv in (("dist_sync", "dist_sync"),
+                     ("nccl", mx.kv.create("nccl"))):
+        got = _gluon_trainer_run(torch, kv, tb, lb)
+        rows[f"trainer_{name}"] = r = {
+            "losses": got[0], "device_losses": ref[0],
+            "losses_bitwise": got[0] == ref[0],
+            "params_bitwise": _same(torch, got[1], ref[1])}
+        r["ok"] = bool(r["losses_bitwise"] and r["params_bitwise"])
+        ok = ok and r["ok"]
+    return {"backend": dist.backend(), "world": dist.process_count(),
+            "mesh": dict(mesh.shape), **rows, "card": ctx["smi"], "ok": ok}
+
+
+def _sp_case(torch, route, q, k, v, do, causal, mesh):
+    """One route's output and q/k/v gradients, with the launches it made."""
+    from mxnet_tpu_torch.parallel import (ring_self_attention,
+                                          ulysses_self_attention)
+    from mxnet_tpu_torch.parallel.ring import gather_attention
+
+    fns = {"ring": lambda *a: ring_self_attention(mesh, *a, causal=causal),
+           "ulysses": lambda *a: ulysses_self_attention(mesh, *a,
+                                                        causal=causal),
+           "gather": lambda *a: gather_attention(*a, causal=causal,
+                                                 mesh=mesh)}
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    _wgmma16_zero()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fns[route](*leaves)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    launches = {n: counters[n].launches for n in FLASH}
+    return out.detach(), grads, launches, _wgmma16_read()
+
+
+def phase_sp_single(torch, ctx):
+    """The three sequence-parallel attention routes called directly on a
+    one-rank ``sp`` slice of the group (``make_mesh(sp=1)``) at BERT-base's
+    attention shape SP_SHAPE, f32 and bf16, causal and not: outputs and
+    q/k/v gradients against the plain version (``flash_attention_ref`` and
+    autograd) within the flash phase's tolerances (f32: 2e-5 on the
+    output, 1e-4 on the gradients; 16-bit: ``ulp_ratio`` <= 1, the
+    ``wgmma16`` design's 0.5).  This runs the routes' code and the kernels
+    on the card, not the exchanges: a slice of one exchanges nothing.
+    Ulysses and the gather run K3-K5 (one launch each a call); the ring's
+    per-block products are plain torch, as the JAX ring's are ``jnp``, so
+    it launches none.  The ring's one-block forward is timed beside K3 on
+    the same block."""
+    from mxnet_tpu_torch.ops.kernels import (flash_attention_fwd,
+                                             flash_attention_ref)
+    from mxnet_tpu_torch.ops.kernels.flash_attention import _design
+    from mxnet_tpu_torch.parallel import make_mesh, ring_self_attention
+
+    _one_rank_group()
+    mesh = make_mesh(sp=1)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    N, L, D = SP_SHAPE
+    tol = {"out": 2e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4}
+    rows, ok = [], True
+    total = {n: 0 for n in FLASH}
+    total16 = {n: 0 for n in WGMMA16_KERNELS}
+    for dtype in ("float32", "bfloat16"):
+        base = _flash_inputs(torch, g, N, L, L, D)
+        q, k, v, do = (t.to(getattr(torch, dtype)) for t in base)
+        eps = EPS16.get(dtype)
+        gate = (ULP_WGMMA16 if eps and _design(q.dtype, D) == "wgmma16"
+                else 1)
+        for causal in (False, True):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref_out, _ = flash_attention_ref(*leaves, causal)
+            ref = (ref_out.detach(),
+                   *torch.autograd.grad(ref_out, leaves, do))
+            for route in ("ring", "ulysses", "gather"):
+                out, grads, launches, w16 = _sp_case(
+                    torch, route, q, k, v, do, causal, mesh)
+                got = dict(zip(("out", "dq", "dk", "dv"), (out, *grads)))
+                want = dict(zip(("out", "dq", "dk", "dv"), ref))
+                if eps:
+                    # the ring rounds once from f32 (gate 1); the kernel
+                    # routes take the design's gate
+                    g_route = 1 if route == "ring" else gate
+                    err = {key: ulp_ratio(got[key], want[key], eps)
+                           for key in got}
+                    good = all(e <= g_route for e in err.values())
+                else:
+                    err = {key: float((got[key].float()
+                                       - want[key].float()).abs().max())
+                           for key in got}
+                    good = all(err[key] <= tol[key] for key in err)
+                expect = {n: 0 if route == "ring" else 1 for n in FLASH}
+                expect16 = {n: expect[n] if eps else 0
+                            for n in WGMMA16_KERNELS}
+                row = {"route": route, "dtype": dtype, "causal": causal,
+                       "errors" if not eps else "ulp_ratio": err,
+                       "launches": launches, "launches_wgmma16": w16,
+                       "ok": bool(good and launches == expect
+                                  and w16 == expect16)}
+                rows.append(row)
+                ok = ok and row["ok"]
+                for n in FLASH:
+                    total[n] += launches[n]
+                    total16[n] += w16[n]
+    ctx["launches"]["sp_single"] = {n: total.get(n, 0) for n in ALL_KERNELS}
+    ctx.setdefault("launches_wgmma16", {})["sp_single"] = total16
+    # the ring's per-block product against K3 on the same block (f32)
+    q, k, v, _ = _flash_inputs(torch, g, N, L, L, D)
+    ring_ms = time_ms(torch, lambda: ring_self_attention(mesh, q, k, v))
+    k3_ms = time_ms(torch, lambda: flash_attention_fwd(q, k, v))
+    return {"shape": SP_SHAPE, "mesh": dict(mesh.shape), "rows": rows,
+            "launches": ctx["launches"]["sp_single"],
+            "ring_block_fwd_ms": ring_ms, "k3_fwd_ms": k3_ms,
+            "card": ctx["smi"], "ok": ok}
 
 
 RESNET_BATCH, RESNET_RES = 256, 224  # bench.py:768-769
@@ -4514,9 +4772,10 @@ def phase_serve_int4(torch, ctx):
 # flash_attention_16.cu (its own counts) on the 16-bit paths
 F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
                    "profile_bert", "graph_spellings", "test_utils_card",
-                   "onnx_roundtrip")
+                   "onnx_roundtrip", "dist_single_float32", "sp_single")
 BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16",
-                    "train_bert_dense_predict", "test_utils_card")
+                    "train_bert_dense_predict", "test_utils_card",
+                    "dist_single_bfloat16", "sp_single")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
@@ -4525,7 +4784,8 @@ KERNELS = (
       "train_transformer_bf16", "gluon_bert", "train_amp",
       "train_amp_fp16", "module_bert", "train_resume", "serve_fullprefix",
       "profile_bert", "train_bert_dense", "train_bert_dense_predict",
-      "graph_spellings", "test_utils_card", "onnx_roundtrip", "examples")),
+      "graph_spellings", "test_utils_card", "onnx_roundtrip", "examples",
+      "dist_single_float32", "dist_single_bfloat16")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -10116,6 +10376,8 @@ def main() -> int:
               ("train_bf16", phase_train_bf16),
               ("train_amp", phase_train_amp),
               ("train_amp_fp16", phase_train_amp_fp16),
+              ("dist_single", phase_dist_single),
+              ("sp_single", phase_sp_single),
               ("imperative", phase_imperative),
               ("imperative_bf16", phase_imperative_bf16),
               ("train_resnet", phase_train_resnet),
@@ -10177,6 +10439,9 @@ def main() -> int:
         emit(line)
         if not ok:
             failed.append(name)
+    from mxnet_tpu_torch.parallel import dist
+
+    dist.shutdown()  # the one-rank group of dist_single and sp_single
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -750,12 +750,21 @@ def latest_valid_step(directory: str,
 
 def agree_resume_step(local_step: int, kv=None) -> int:
     """The group's common resume step: the minimum over the ranks' local
-    steps.  The port's kvstore has one worker (ROADMAP A.9), so this is
-    ``local_step``; a store of more workers raises."""
-    if kv is not None and getattr(kv, "num_workers", 1) > 1:
-        raise MXNetError("agree_resume_step over more than one worker "
-                         "needs a distributed kvstore (ROADMAP A.9)")
-    return int(local_step)
+    steps (a ``dist`` kvstore's processes: one all-reduce of a vector
+    holding each rank's step at its index, as the JAX function sums it);
+    ``local_step`` with one worker."""
+    if kv is None or getattr(kv, "num_workers", 1) <= 1:
+        return int(local_step)
+    import torch
+
+    from .ndarray.ndarray import NDArray
+    from .parallel import dist
+
+    vec = torch.zeros(kv.num_workers, dtype=torch.float32,
+                      device=dist.device())
+    vec[kv.rank] = float(local_step)
+    summed = kv._global_sum(NDArray(vec)).asnumpy()
+    return int(round(float(summed.min())))
 
 
 def load_checkpoint_state(directory: str, step: Optional[int] = None):

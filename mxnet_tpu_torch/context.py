@@ -188,8 +188,9 @@ def current_context() -> Context:
 
 
 def default_device() -> torch.device:
-    """The ``with`` scope's device, else ``cuda:0``; raises when CUDA is
-    unavailable."""
+    """The ``with`` scope's device, else the current CUDA device (``cuda:0``
+    unless the process selected another: a process of a group runs on
+    ``cuda:<local rank>``); raises when CUDA is unavailable."""
     ctx = _scoped()
     if ctx is not None:
         return ctx.device
@@ -197,7 +198,7 @@ def default_device() -> torch.device:
         raise MXNetError(
             "no CUDA device is available; pass device=\"cpu\" to run on "
             "the CPU with the kernels' plain PyTorch versions")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def resolve_device(device=None) -> torch.device:

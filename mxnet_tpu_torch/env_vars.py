@@ -26,7 +26,8 @@ from typing import Dict, Tuple
 
 __all__ = ["ENV_VARS", "describe", "check"]
 
-_A9 = "ROADMAP A.9 (multi-GPU: rendezvous, meshes, collectives)"
+_A9_2 = ("ROADMAP A.9 part 2 (multi-GPU: tensor and pipeline parallelism, "
+         "the planner, elastic resize, the launcher's supervisor)")
 _STEP = "ROADMAP A.1 (the superstep, with the captured training step)"
 _AOT = ("not queued: the port compiles no executables, so there is no "
         "AOT executable cache (aot_cache.py has no counterpart)")
@@ -76,28 +77,35 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
         "absorbed", "cuDNN's algorithm search is "
         "torch.backends.cudnn.benchmark, which the caller sets"),
     "MXNET_KVSTORE_USETREE": (
-        "absorbed", "no reduction tree to shape: the port's kvstore "
-        "holds one device until " + _A9),
+        "absorbed", "no reduction tree to shape: a device list reduces "
+        "through torch.cuda.comm (NCCL), processes through one all-reduce "
+        "a bucket (kvstore.py)"),
     "MXNET_KVSTORE_BIGARRAY_BOUND": (
-        "absorbed", "no PS key sharding; the kvstore holds one device "
-        "until " + _A9),
+        "absorbed", "no PS key sharding: MX_ALLREDUCE_BUCKET_MB sizes the "
+        "flat buckets (kvstore.py push_bucketed)"),
     "MXNET_ENABLE_GPU_P2P": (
-        "absorbed", "peer access is NCCL's choice (NCCL_P2P_DISABLE); one "
-        "card until " + _A9),
+        "absorbed", "peer access is NCCL's choice (NCCL_P2P_DISABLE)"),
     "MXNET_ENGINE_INFO": (
         "absorbed", "dependency logging: use mx.profiler or "
         "torch.profiler traces"),
     "OMP_NUM_THREADS": (
         "absorbed", "torch's intra-op thread pool and OpenCV read it "
         "themselves at start"),
-    "DMLC_ROLE": ("not honored", _A9),
-    "DMLC_PS_ROOT_URI": ("not honored", _A9),
-    "DMLC_PS_ROOT_PORT": ("not honored", _A9),
+    "DMLC_ROLE": (
+        "absorbed", "every process is a worker (no parameter-server "
+        "role); tools/launch.py exports it"),
+    "DMLC_PS_ROOT_URI": (
+        "honored", "rendezvous host when MX_COORDINATOR is unset "
+        "(parallel/dist.py init_from_env)"),
+    "DMLC_PS_ROOT_PORT": (
+        "honored", "rendezvous port when MX_COORDINATOR is unset "
+        "(parallel/dist.py init_from_env)"),
     "DMLC_NUM_WORKER": (
-        "honored", "process count for the fault harness (fault.py)"),
+        "honored", "process count: the rendezvous when MX_NUM_PROCS is "
+        "unset (parallel/dist.py), the fault harness (fault.py)"),
     "DMLC_WORKER_ID": (
-        "honored", "process rank (fault.py rank=, telemetry.py stream "
-        "naming)"),
+        "honored", "process rank: the rendezvous when MX_PROC_ID is unset "
+        "(parallel/dist.py), fault.py rank=, telemetry.py stream naming"),
     "DMLC_NUM_SERVER": (
         "absorbed", "no parameter-server role"),
     "PS_VERBOSE": ("absorbed", "see DMLC_NUM_SERVER"),
@@ -112,26 +120,43 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
     "MX_CKPT_SHARD_WAIT_S": (
         "honored", "seconds the leader rank waits for peer shard commit "
         "markers before publishing a sharded step (checkpoint.py)"),
-    "MX_RENDEZVOUS_TIMEOUT": ("not honored", _A9),
+    "MX_RENDEZVOUS_TIMEOUT": (
+        "honored", "seconds the rendezvous retries with backoff (default "
+        "300; parallel/dist.py)"),
     "MX_RESTART_COUNT": (
         "honored", "gang incarnation index: fault.py if-restart= and "
         "telemetry.py"),
-    "MX_ELASTIC": ("not honored", _A9),
-    "MX_PREV_NUM_PROCS": ("not honored", _A9),
+    "MX_ELASTIC": ("not honored", _A9_2),
+    "MX_PREV_NUM_PROCS": (
+        "honored", "a resize telemetry event at the rendezvous when it "
+        "differs from the world size (parallel/dist.py); the elastic "
+        "restore itself is " + _A9_2),
     # launcher contract
-    "MX_COORDINATOR": ("not honored", _A9),
+    "MX_COORDINATOR": (
+        "honored", "host:port of the rendezvous store, rank 0 serves it "
+        "(parallel/dist.py init_from_env; tools/launch.py exports it)"),
     "MX_NUM_PROCS": (
-        "honored", "gang process count (fault.py)"),
+        "honored", "gang process count: the rendezvous "
+        "(parallel/dist.py), fault.py"),
     "MX_PROC_ID": (
-        "honored", "this process's gang rank (fault.py rank= qualifier, "
-        "telemetry.py stream naming)"),
-    "MX_FORCE_CPU": ("not honored", _A9),
+        "honored", "this process's gang rank: the rendezvous "
+        "(parallel/dist.py), fault.py rank= qualifier, telemetry.py stream "
+        "naming"),
+    "MX_LOCAL_RANK": (
+        "honored", "this process's card, cuda:<MX_LOCAL_RANK> (default "
+        "MX_PROC_ID; parallel/dist.py, exported by tools/launch.py)"),
+    "MX_FORCE_CPU": (
+        "honored", "1 starts the process group on the CPU with gloo "
+        "instead of NCCL on a card (parallel/dist.py; tools/launch.py "
+        "--force-cpu)"),
     # fused optimizer apply + bucketed allreduce
     "MX_FUSED_UPDATE": (
         "honored", "0 pins the per-parameter Updater path instead of the "
         "fused optimizer apply (optimizer/fused.py get_updater)"),
     "MX_ALLREDUCE_BUCKET_MB": (
-        "not honored", "push_bucketed, with " + _A9),
+        "honored", "flat-bucket cap of the gradient all-reduce (default "
+        "32; 0 = one collective a key): kvstore.py push_bucketed, "
+        "DataParallelStep over a mesh (parallel/dist.py bucket_cap_bytes)"),
     # async step pipeline
     "MX_ASYNC_INFLIGHT": (
         "honored", "bounded in-flight step window (default 2; 0 = every "
@@ -250,7 +275,7 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
     "MX_TRACE_HEARTBEAT_GAP_SEC": (
         "tool", "tools/trace_report.py's silent-stream gap (default 30)"),
     # parallelism Plan
-    "MX_PLAN": ("not honored", _A9),
+    "MX_PLAN": ("not honored", "the planner reads it: " + _A9_2),
     # precision
     "MX_AMP": (
         "honored", "graph-level AMP for steps built without an explicit "

@@ -7,10 +7,13 @@ The encoder-decoder Transformer trains with label-smoothed cross entropy
 through the fused multi-input ``DataParallelStep`` on one device.  The
 default data is a synthetic reverse-copy corpus; point --src/--tgt at
 token-id files (one space-separated sentence per line) for real data.
-``--dp`` or ``--sp`` above 1 asks for a mesh of several cards, which the
-port does not have yet (ROADMAP A.9): it raises.
+``--dp`` and ``--sp`` above 1 train over a mesh of dp x sp processes, one
+card each, which the port's launcher starts (every process builds the
+same batch and the step cuts its block; ``--sp`` splits the sequence)::
 
     python -m mxnet_tpu_torch.examples.train_wmt --model base --steps 30
+    python -m mxnet_tpu_torch.tools.launch -n 4 --launcher local \
+        python -m mxnet_tpu_torch.examples.train_wmt --dp 2 --sp 2
 """
 import argparse
 import time
@@ -24,7 +27,7 @@ from mxnet_tpu_torch.models.transformer import (Transformer,
                                                 label_smoothed_ce,
                                                 transformer_base,
                                                 transformer_big)
-from mxnet_tpu_torch.parallel import DataParallelStep
+from mxnet_tpu_torch.parallel import DataParallelStep, dist, make_mesh
 
 PAD, BOS, EOS = 0, 1, 2
 
@@ -102,12 +105,20 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
+    mesh, rank = None, 0
     if args.dp * args.sp != 1:
-        raise mx.MXNetError(
-            f"--dp {args.dp} --sp {args.sp} asks for a mesh of "
-            f"{args.dp * args.sp} devices; the port trains on one device "
-            "until ROADMAP A.9 (multi-GPU: meshes, collectives) lands")
-    ctx = context_of(args.device)
+        n_dev = args.dp * args.sp
+        dist.init_from_env(force_cpu=args.device == "cpu")
+        if dist.process_count() != n_dev:
+            raise SystemExit(
+                f"--dp {args.dp} --sp {args.sp} needs {n_dev} processes, "
+                f"have {dist.process_count()}: start them with python -m "
+                f"mxnet_tpu_torch.tools.launch -n {n_dev}")
+        mesh, rank = make_mesh(sp=args.sp), dist.process_index()
+        ctx = (mx.cpu() if args.device == "cpu"
+               else mx.gpu(dist.device().index))
+    else:
+        ctx = context_of(args.device)
 
     mx.random.seed(0)
     net = build_net(args.model, args.vocab_size)
@@ -120,7 +131,7 @@ def main(argv=None):
         lambda logits, labels: label_smoothed_ce(logits, labels,
                                                  smoothing=args.smoothing),
         optimizer="adam", optimizer_params={"learning_rate": args.lr},
-        device=ctx)
+        device=ctx, mesh=mesh)
 
     rng = np.random.RandomState(0)
     if args.src and args.tgt:
@@ -139,7 +150,7 @@ def main(argv=None):
         # lazy AsyncLoss: forced at step 0 (the first step's set-up split
         # off) and at the end
         loss = step.step((sb, tb), lb)
-        if i == 0:
+        if i == 0 and rank == 0:
             val = float(loss)
             print(f"step 0: loss={val:.4f} (first step "
                   f"{time.perf_counter() - t0:.1f}s)", flush=True)
@@ -148,9 +159,12 @@ def main(argv=None):
     val = float(loss)
     dt = time.perf_counter() - t0
     rate = tokens_per_step * max(args.steps - 1, 1) / dt
-    print(f"throughput {rate:.0f} tok/s")
-    print(f"final loss {val:.4f}  {rate:.0f} tok/s")
+    if rank == 0:
+        print(f"throughput {rate:.0f} tok/s")
+        print(f"final loss {val:.4f}  {rate:.0f} tok/s")
     assert np.isfinite(val)
+    if mesh is not None:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

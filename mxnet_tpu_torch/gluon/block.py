@@ -56,6 +56,7 @@ were Gluon blocks used it, and still may).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import re
 import threading
@@ -190,6 +191,23 @@ def _gluon_hook(hook):
         return hook(module, *rest)
 
     return run
+
+
+@contextlib.contextmanager
+def _on_replicas(swap):
+    """Each (Parameter, tensor) of ``swap``: the tensor stands in the
+    owning module's slot for the call, the Parameter's own after it."""
+    saved = []
+    try:
+        for p, t in swap:
+            slots = (p._owner._parameters if p._attr in p._owner._parameters
+                     else p._owner._buffers)
+            saved.append((slots, p._attr, slots[p._attr]))
+            slots[p._attr] = t
+        yield
+    finally:
+        for slots, attr, t in reversed(saved):
+            slots[attr] = t
 
 
 def _has_nd(args, kwargs) -> bool:
@@ -403,9 +421,11 @@ class Block(nn.Module):
         if any(m.training != train for m in self.modules()):
             self.train(train)
         recording = autograd.is_recording()
+        views, swap = self._replica_call(_arrays_in(list(args)
+                                                    + list(kwargs.values())))
         if recording:
             autograd.register_leaves(
-                p._view for p in self._leaf_params()
+                views.get(id(p), p._view) for p in self._leaf_params()
                 if p.grad_req != "null"
                 and (p._inited or p._deferred is not None))
             autograd.register_leaves(_arrays_in(list(args)
@@ -415,11 +435,30 @@ class Block(nn.Module):
         _nd_call.depth = getattr(_nd_call, "depth", 0) + 1
         try:
             with torch.set_grad_enabled(recording):
-                out = (self._run(targs, tkwargs) if run is None
-                       else run(*targs, **tkwargs))
+                with _on_replicas(swap):
+                    out = (self._run(targs, tkwargs) if run is None
+                           else run(*targs, **tkwargs))
         finally:
             _nd_call.depth -= 1
         return _wrap(out)
+
+    def _replica_call(self, arrays):
+        """For a call with NDArrays of a context that is not the first of
+        the Parameters' device list: ({id(Parameter): that context's data
+        view}, [(Parameter, that context's tensor)]); empty otherwise."""
+        if not Parameter.any_replicas:
+            return {}, []
+        ctx = next((a.context for a in arrays), None)
+        if ctx is None:
+            return {}, []
+        views, swap = {}, []
+        for p in self._leaf_params():
+            if p._replicas and p._owner is not None and ctx in p.list_ctx():
+                i = p._index(ctx)
+                if i:
+                    views[id(p)] = p._replica_views[i - 1]
+                    swap.append((p, p._replicas[i - 1]))
+        return views, swap
 
     def _leaf_params(self) -> List[Parameter]:
         return list(self.collect_params().values())

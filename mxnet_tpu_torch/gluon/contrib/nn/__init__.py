@@ -2,8 +2,9 @@
 
 ``SyncBatchNorm`` is ``BatchNorm`` over axis 1 with ``num_devices``
 accepted and unused: on one device its batch statistics are that
-device's, as the JAX class's are in its per-device eager path.  Statistics
-across cards wait for the port's multi-device step (ROADMAP A.9).
+device's, as the JAX class's are in its per-device eager path (the
+port's step over several processes refuses a BatchNorm: it has no
+synchronized statistics).
 ``HybridConcurrent`` (and ``Concurrent``) runs each child on the same
 input and concatenates the outputs along ``axis``; ``Identity`` returns
 its input.  Each has ``hybrid_forward``, the JAX block's body, so it

@@ -35,8 +35,19 @@ buffer, empty until ``autograd.backward`` writes the looked-up rows into
 it (``zero_grad`` empties it again), as the JAX Parameter does; ``stype``
 is recorded and the weight stays dense, as there.
 
-Departures: one device per Parameter (a list of more raises and names
-ROADMAP A.9); the initializers draw from the CPU generator of ``random``,
+A Parameter initialized on a device list (``ctx=[gpu(0), gpu(1)]``,
+``[cpu(0), cpu(1)]``) keeps the module's tensor on the first context and
+a copy of it on each other one (``list_data``, ``list_grad``,
+``list_ctx``; ``data(ctx)`` / ``grad(ctx)`` pick one).  Distinct ``cpu(i)``
+contexts are distinct copies, though torch has one CPU device.  A block
+called with NDArrays of another context of the list runs on that
+context's copies: each copy stands in its owning module's slot for the
+call (``block._on_replicas``; ``torch.func.functional_call`` would not
+run a block's replacement forward, such as a recurrent cell's
+``unroll``), so its gradients land in that copy's buffer; ``set_data``
+and the initializer write every copy.
+
+Departure: the initializers draw from the CPU generator of ``random``,
 not numpy's.
 """
 from __future__ import annotations
@@ -50,7 +61,7 @@ from torch import nn
 from torch.nn.parameter import UninitializedBuffer, UninitializedParameter
 
 from ..base import MXNetError, tensor_from_numpy
-from ..context import default_device, resolve_device
+from ..context import Context, default_device, resolve_device
 from ..ndarray.ndarray import NDArray, dtype_torch
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
@@ -72,21 +83,34 @@ def _dtype_name(dtype) -> str:
 
 
 def one_device(ctx) -> torch.device:
-    """``ctx`` (None, a device or a list of one) as a ``torch.device``;
-    None is the card (``context.default_device``)."""
+    """The device of ``ctx`` (None, a device, or a list whose first entry
+    counts); None is the card (``context.default_device``)."""
     if ctx is None:
         return default_device()
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError(
-                f"a Parameter lives on one device in the port, got "
-                f"{len(ctx)}: {list(ctx)}; multi-device Parameters wait "
-                "for ROADMAP A.9")
+        if not ctx:
+            raise MXNetError("an empty device list")
         ctx = ctx[0]
     dev = resolve_device(ctx)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def contexts(ctx) -> List[Context]:
+    """``ctx`` (None, a context or device, or a list of them) as a list of
+    Contexts; None is the card."""
+    if ctx is None:
+        return [Context.from_device(default_device())]
+    if not isinstance(ctx, (list, tuple)):
+        ctx = [ctx]
+    if not ctx:
+        raise MXNetError("an empty device list")
+    out = [c if isinstance(c, Context)
+           else Context.from_device(one_device(c)) for c in ctx]
+    if len(set(out)) != len(out):
+        raise MXNetError(f"a context appears twice in {out}")
+    return out
 
 
 def _as_tensor(data) -> torch.Tensor:
@@ -153,7 +177,43 @@ class _GradView(_View):
         return self._param._grad_tensor()
 
 
+class _ReplicaView(_View):
+    """The copy of a Parameter on context ``i`` (> 0) of its list."""
+    __slots__ = ("_i",)
+
+    def __init__(self, param: "Parameter", i: int):
+        super().__init__(param)
+        self._i = i
+
+    def __reduce__(self):
+        return (type(self), (self._param, self._i),
+                (self._grad, self._grad_req))
+
+    def _tensor(self):
+        return self._param._replicas[self._i - 1]
+
+    @property
+    def context(self):
+        return self._param.list_ctx()[self._i]
+
+    ctx = context
+
+
+class _ReplicaGradView(_ReplicaView):
+    __slots__ = ()
+
+    def _tensor(self):
+        t = self._param._replicas[self._i - 1]
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return t.grad
+
+
 class Parameter:
+    # set once any Parameter holds copies on a device list: a block's
+    # NDArray call looks for them only then
+    any_replicas = False
+
     def __init__(self, name: str, grad_req: str = "write", shape=None,
                  dtype="float32", lr_mult: float = 1.0, wd_mult: float = 1.0,
                  init=None, allow_deferred_init: bool = False,
@@ -181,6 +241,10 @@ class Parameter:
         self._trainer = None
         self._view = _DataView(self)
         self._grad_view = _GradView(self)
+        # a device list: its Contexts, and the copies on all but the first
+        self._ctx_list: Optional[List[Context]] = None
+        self._replicas: List[torch.Tensor] = []
+        self._replica_views: List[_ReplicaView] = []
         self._sync_grad_state()
 
     def __repr__(self):
@@ -226,6 +290,16 @@ class Parameter:
             if not want:
                 t.grad = None
             t.lr_mult, t.wd_mult = self._lr_mult, self._wd_mult
+        for r, view in zip(self._replicas, self._replica_views):
+            if isinstance(r, nn.Parameter):
+                want = self._grad_req != "null"
+                r.requires_grad = want and r.is_floating_point()
+                if not want:
+                    r.grad = None
+                r.lr_mult, r.wd_mult = self._lr_mult, self._wd_mult
+            view._grad_req = self._grad_req
+            view._grad = (None if self._grad_req == "null" else
+                          view._grad or _ReplicaGradView(self, view._i))
         grad = self._grad_view
         if self.grad_stype == "row_sparse":
             grad = self._sparse_grad_buffer(t)
@@ -282,6 +356,40 @@ class Parameter:
             device=device, dtype=dtype_torch(self.dtype), copy=True))
         self._inited = True
         self._deferred = None
+        self._sync_replicas()
+
+    @torch.no_grad()
+    def _sync_replicas(self) -> None:
+        """One copy of the tensor on each context of the list but the
+        first (fresh gradients), with the views over them."""
+        ctxs = self._ctx_list or []
+        t = self._tensor()
+        self._replicas, self._replica_views = [], []
+        for i, c in enumerate(ctxs[1:], start=1):
+            r = t.detach().to(one_device(c), copy=True)
+            if isinstance(t, nn.Parameter):
+                r = nn.Parameter(r, requires_grad=t.requires_grad)
+                r.lr_mult, r.wd_mult = self._lr_mult, self._wd_mult
+            self._replicas.append(r)
+            Parameter.any_replicas = True
+            view = _ReplicaView(self, i)
+            view._grad = (None if self._grad_req == "null"
+                          else _ReplicaGradView(self, i))
+            view._grad_req = self._grad_req
+            self._replica_views.append(view)
+
+    def _index(self, ctx) -> int:
+        """The position of ``ctx`` in the context list (0 for None)."""
+        if ctx is None:
+            return 0
+        c = ctx if isinstance(ctx, Context) else \
+            Context.from_device(one_device(ctx))
+        ctxs = self.list_ctx()
+        for i, x in enumerate(ctxs):
+            if x == c:
+                return i
+        raise MXNetError(f"parameter {self.name} not initialized on "
+                         f"{ctx}; it lives on {ctxs}")
 
     def _gluon_data(self) -> torch.Tensor:
         """The value in Gluon's layout, a detached view."""
@@ -328,7 +436,9 @@ class Parameter:
         shape unknown, defer to the first call."""
         if self._inited and not force_reinit:
             return
-        dev = one_device(ctx)
+        ctxs = contexts(ctx)
+        dev = one_device(ctxs[0])
+        self._ctx_list = ctxs if len(ctxs) > 1 else None
         eff_init = init or self.init or default_init
         if not _shape_known(self.shape):
             if self.allow_deferred_init:
@@ -380,31 +490,44 @@ class Parameter:
                     f"parameter {self.name} deferred (shape unknown yet)")
             raise MXNetError(f"parameter {self.name} has not been "
                              "initialized; call .initialize() first")
-        if ctx is not None and one_device(ctx) != self._tensor().device:
-            raise MXNetError(f"parameter {self.name} not initialized on "
-                             f"{ctx}; it lives on {self._tensor().device}")
+        if ctx is not None:
+            self._index(ctx)
 
     def data(self, ctx=None) -> NDArray:
         self._check_initialized(ctx)
-        return self._view
+        i = self._index(ctx)
+        return self._view if i == 0 else self._replica_views[i - 1]
 
     def list_data(self) -> List[NDArray]:
-        return [self.data()]
+        self._check_initialized()
+        return [self._view] + list(self._replica_views)
 
     def grad(self, ctx=None) -> NDArray:
         self._check_initialized(ctx)
         if self._grad_req == "null":
             raise MXNetError(f"parameter {self.name} has grad_req='null'")
+        i = self._index(ctx)
+        if i:
+            if self.grad_stype == "row_sparse":
+                raise MXNetError("a row_sparse gradient on a device list "
+                                 "is not ported")
+            return self._replica_views[i - 1]._grad
         if self.grad_stype == "row_sparse":
             return self._sparse_grad_buffer(self._tensor())
         return self._grad_view
 
     def list_grad(self) -> List[NDArray]:
-        return [self.grad()]
-
-    def list_ctx(self) -> List[torch.device]:
         self._check_initialized()
-        return [self._tensor().device]
+        return [self.grad(c) for c in self.list_ctx()]
+
+    def list_ctx(self) -> List[Context]:
+        self._check_initialized()
+        first = Context.from_device(self._tensor().device)
+        if self._ctx_list is None:
+            return [first]
+        if self._ctx_list[0].device == self._tensor().device:
+            return list(self._ctx_list)
+        return [first] + list(self._ctx_list[1:])
 
     def set_data(self, data) -> None:
         """Overwrite the value (in Gluon's layout); on a Parameter not
@@ -431,8 +554,11 @@ class Parameter:
         if ctx is not None and not self._inited:
             init = self._deferred[0] if self._deferred else None
             self._deferred = (init, one_device(ctx))
+            ctxs = contexts(ctx)
+            self._ctx_list = ctxs if len(ctxs) > 1 else None
         self.set_data(value)
-        if ctx is not None and self._tensor().device != one_device(ctx):
+        if ctx is not None and (self._tensor().device != one_device(ctx)
+                                or contexts(ctx) != self.list_ctx()):
             self.reset_ctx(ctx)
 
     def zero_grad(self) -> None:
@@ -445,16 +571,23 @@ class Parameter:
                 buf.zero()
         elif t.grad is not None:
             t.grad.zero_()
+        for r in self._replicas:
+            if r.grad is not None:
+                r.grad.zero_()
 
     def reset_ctx(self, ctx) -> None:
-        dev = one_device(ctx)
+        ctxs = contexts(ctx)
         self._check_initialized()
-        self._store(self._tensor().detach().to(dev, copy=True))
+        self._ctx_list = ctxs if len(ctxs) > 1 else None
+        self._store(self._tensor().detach().to(one_device(ctxs[0]),
+                                               copy=True))
+        self._sync_replicas()
 
     def cast(self, dtype) -> None:
         self.dtype = _dtype_name(dtype)
         if self._inited:
             self._store(self._tensor().detach().to(dtype_torch(dtype)))
+            self._sync_replicas()
 
     def var(self):
         """The graph variable of this Parameter (its name, Gluon shape and

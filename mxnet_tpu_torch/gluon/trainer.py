@@ -35,8 +35,15 @@ A row-sparse gradient (``Embedding(sparse_grad=True)``) takes the
 optimizer's lazy update through the per-parameter path; the kvstore
 reduces it dense, and ``_row_sparse_pull`` pulls the whole value, as the
 JAX Trainer does (``_contains_sparse_grad`` stays False there too).
-Not ported: more than one device (A.9); ``ignore_stale_grad`` is accepted
-and, as in the JAX package, not checked.
+Over a device list (Parameters initialized on ``[gpu(0), gpu(1)]``) or
+with a ``dist`` kvstore, the Trainer makes its kvstore as the JAX one
+does (``trainer.py:84-114``): ``allreduce_grads`` hands every live
+Parameter's ``list_grad()`` to ``push_bucketed`` (``trainer.py:242``) and
+pulls the sums back into each context's gradient, and the update runs one
+updater per context; with ``update_on_kvstore`` the store's updater
+applies the summed gradient and ``step`` pulls the weights into every
+context.  ``ignore_stale_grad`` is accepted and, as in the JAX package,
+not checked.
 """
 from __future__ import annotations
 
@@ -89,6 +96,7 @@ class Trainer:
         self._updaters = None
         self._step_count = 0
         self._inflight = None
+        self._last_n_buckets = 0
 
     def _init_optimizer(self, optimizer, optimizer_params):
         param_dict = dict(enumerate(self._params))
@@ -117,16 +125,16 @@ class Trainer:
     def _init_kvstore(self) -> None:
         kvstore = self._kvstore_params["kvstore"]
         update_on_kvstore = self._kvstore_params["update_on_kvstore"]
+        ctx_list = self._check_contexts()
         kv = None
         if kvstore:
             if isinstance(kvstore, kvs_mod.KVStore):
                 kv = kvstore
-            elif "dist" in str(kvstore):
-                kv = kvs_mod.create(kvstore)  # raises: ROADMAP A.9
+            elif len(ctx_list) > 1 or "dist" in str(kvstore):
+                kv = kvs_mod.create(kvstore)
         if kv is None:
             self._kvstore = None
             self._update_on_kvstore = False
-            self._updaters = [opt_mod.get_updater(self._optimizer)]
         else:
             self._kvstore = kv
             if self._compression_params:
@@ -135,12 +143,20 @@ class Trainer:
                                        else update_on_kvstore)
             if self._update_on_kvstore:
                 kv.set_updater(opt_mod.get_updater(self._optimizer))
-            else:
-                self._updaters = [opt_mod.get_updater(self._optimizer)]
             for i, param in enumerate(self._params):
                 if param._inited:
-                    kv.init(i, param.data())
+                    kv.init(i, param.data(param.list_ctx()[0]))
+        if not self._update_on_kvstore:
+            self._updaters = [opt_mod.get_updater(self._optimizer)
+                              for _ in range(max(len(ctx_list), 1))]
         self._kv_initialized = True
+
+    def _check_contexts(self):
+        """The device list of the first initialized Parameter."""
+        for param in self._params:
+            if param._inited:
+                return param.list_ctx()
+        return []
 
     def _row_sparse_pull(self, parameter, out, row_id, full_idx=False):
         """Dense, as the JAX Trainer's: the whole value."""
@@ -167,7 +183,8 @@ class Trainer:
         depth = 0
         if limit > 0:
             fence = StepFence(
-                [p.data() for _i, p in self._live() if p._inited],
+                [d for _i, p in self._live() if p._inited
+                 for d in p.list_data()],
                 step=self._step_count, executor="Trainer",
                 ring=self._inflight)
             depth = self._inflight.admit(fence)
@@ -210,8 +227,10 @@ class Trainer:
             return
         for _i, p in live:
             p._check_initialized()
-        self._kvstore.push([i for i, _p in live],
-                           [p.list_grad() for _i, p in live])
+        # flat buckets move many gradients a collective; the store holds
+        # what per-key pushes would have made
+        self._last_n_buckets = self._kvstore.push_bucketed(
+            [i for i, _p in live], [p.list_grad() for _i, p in live])
         if not self._update_on_kvstore:
             for i, p in live:
                 self._kvstore.pull(i, p.list_grad())
@@ -228,22 +247,24 @@ class Trainer:
     def _update(self, ignore_stale_grad: bool = False) -> None:
         from ..optimizer.fused import FusedUpdater
 
-        entries = []
+        per_dev = [[] for _ in (self._updaters or [])]
         for i, param in self._live():
             # a Parameter never initialized, or still deferred, raises
             param._check_initialized()
             if self._update_on_kvstore:
                 self._kvstore.pull(i, param.list_data())
-            else:
-                entries.append((i, param.grad(), param.data()))
+                continue
+            for entries, w, g in zip(per_dev, param.list_data(),
+                                     param.list_grad()):
+                entries.append((i, g, w))
         if self._update_on_kvstore:
             return
-        upd = self._updaters[0]
-        if isinstance(upd, FusedUpdater):
-            upd.apply(entries)
-        else:
-            for i, g, w in entries:
-                upd(i, g, w)
+        for upd, entries in zip(self._updaters, per_dev):
+            if isinstance(upd, FusedUpdater):
+                upd.apply(entries)
+            else:
+                for i, g, w in entries:
+                    upd(i, g, w)
 
     # ------------------------------------------------------------------
     def save_states(self, fname: str) -> None:

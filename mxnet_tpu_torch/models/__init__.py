@@ -1,6 +1,7 @@
 """Models of the port (Gluon blocks, which are ``torch.nn`` modules), under
 the names ``mxnet_tpu/models/__init__.py`` exports (its pipelined BERT,
-``bert_pp``, waits for multi-GPU, ROADMAP A.9), and the word language
+``bert_pp``, waits for pipeline parallelism, ROADMAP A.9 part 2), and the
+word language
 model of MXNet's Gluon example (``word_lm``)."""
 from . import transformer
 from . import bert

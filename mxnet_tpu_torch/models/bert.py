@@ -22,6 +22,11 @@ scopes with their prefixes, so ``collect_params()`` gives the JAX net's
 names (``bertformlm0_bert_encoder_layer0_attn_qkv_weight``), which
 ``convert.from_mxnet_tpu_params`` maps.  The tensor-parallel sharding rules of
 the JAX module are not ported.
+
+Under a step's sequence-parallel scope each process holds L/sp positions:
+the positional embedding reads its offset, attention takes the scope's
+route, and the pooler reads the global first token (sp rank 0's,
+gathered over ``sp``); a ``valid_length`` raises there.
 """
 from __future__ import annotations
 
@@ -31,9 +36,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
+from ..parallel.ring import gather_sequence
+from ..parallel.scope import ring_scope
 from .transformer import PositionalEmbedding, TransformerEncoder
 
 __all__ = ["BERTModel", "BERTForMLM", "bert_base", "bert_small"]
@@ -87,12 +95,20 @@ class BERTModel(HybridBlock):
             x = x + self.token_type_embed(token_types)
         x = self.embed_drop(self.embed_ln(self.pos_embed(x)))
         mask = None
+        scope = ring_scope()
         if valid_length is not None:
+            if scope is not None:
+                raise MXNetError(
+                    "BERTModel's valid_length mask is not ported under "
+                    "sequence parallelism (it reads global positions)")
             steps = torch.arange(inputs.shape[1], device=inputs.device)
             keep = steps[None, :] < valid_length.reshape(-1, 1)
             mask = keep[:, :, None] & keep[:, None, :]       # (B, T, T)
         out = self.encoder(x, mask)
-        return out, torch.tanh(self.pooler(out[:, 0]))
+        first = out[:, :1]
+        if scope is not None:  # the global first token is sp rank 0's
+            first = gather_sequence(first, scope[0])
+        return out, torch.tanh(self.pooler(first[:, 0]))
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
         if valid_length is not None:

@@ -67,6 +67,11 @@ from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.loss import log_softmax
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
+from ..ops.contrib_ops import sp_attention as _sp_attention
+from ..parallel.ring import gather_sequence as _gather_sequence
+from ..parallel.scope import global_count as _global_count
+from ..parallel.scope import ring_scope as _ring_scope
+from ..parallel.scope import seq_offset as _seq_offset
 from ..ops.kernels import flash_attention
 from ..ops.nn import activation as _activation_op
 from ..precision import runtime as _prec
@@ -82,7 +87,17 @@ __all__ = ["MultiHeadAttention", "MultiHeadCrossAttention", "PositionwiseFFN",
 # (``flash_attention`` looked up at each call)
 _flash_site = _profiler.op_site(
     "_contrib_flash_attention",
-    lambda *args, **kwargs: flash_attention(*args, **kwargs))
+    lambda *args, **kwargs: _fused_attention(*args, **kwargs))
+
+
+def _fused_attention(q, k, v, causal=False, sm_scale=None):
+    """K3-K5, or the sequence-parallel route of a step's scope
+    (``ops.contrib_ops.sp_attention``)."""
+    routed = _sp_attention(q, k, v, causal, 1.0 / math.sqrt(q.shape[-1])
+                           if sm_scale is None else sm_scale)
+    if routed is not None:
+        return routed
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
 
 
 def _split_heads(t, num_heads: int, head_dim: int):
@@ -177,13 +192,29 @@ def _attention(q, k, v, head_dim: int, num_heads: int, mask=None,
     """softmax(q k^T / sqrt(hd) [+ causal] [masked]) v over (B*H, T, hd);
     the two products are ``batch_dot`` and the softmax ``softmax`` of the
     AMP policy."""
+    q_off = 0
+    scope = _ring_scope()
+    if scope is not None:
+        # a sequence-parallel rank holds L/sp queries and keys: attend to
+        # the keys of the whole slice (K, V and the mask's key axis
+        # gathered over sp), causal from this rank's offset
+        k, v = (_gather_sequence(t, scope[0]) for t in (k, v))
+        if mask is not None:
+            mask = _gather_sequence(
+                mask.transpose(1, 2).to(torch.uint8), scope[0]
+            ).transpose(1, 2)
+        q_off = _seq_offset(q.shape[1])
     q, k = _prec.cast_inputs("batch_dot", q, k)
     scores = torch.bmm(q, k.transpose(1, 2)) / math.sqrt(head_dim)
     if causal:
-        T = scores.shape[-1]
-        addend = torch.triu(torch.full((T, T), _big_neg(scores.dtype),
-                                       dtype=scores.dtype,
-                                       device=scores.device), diagonal=1)
+        Tq, Tk = scores.shape[-2:]
+        qpos = q_off + torch.arange(Tq, device=scores.device)[:, None]
+        kpos = torch.arange(Tk, device=scores.device)[None, :]
+        addend = torch.where(
+            kpos > qpos, torch.tensor(_big_neg(scores.dtype),
+                                      dtype=scores.dtype,
+                                      device=scores.device),
+            torch.zeros((), dtype=scores.dtype, device=scores.device))
         scores = scores + addend[None]
     if mask is not None:
         scores = _mask_scores(scores, mask, num_heads)
@@ -321,7 +352,9 @@ class PositionalEmbedding(HybridBlock):
         self._gluon_param("weight", shape=(max_length, units))
 
     def forward(self, x):
-        return x + self.weight[:x.shape[1]][None]
+        # a sequence-parallel rank holds positions [off, off + T)
+        off = _seq_offset(x.shape[1])
+        return x + self.weight[off:off + x.shape[1]][None]
 
     def hybrid_forward(self, F, x, weight):
         pos = F.slice_like(F.expand_dims(weight, axis=0), x, axes=(1,))
@@ -759,7 +792,12 @@ def label_smoothed_ce(logits, labels, smoothing: float = 0.1,
                        for w in (1.0 - smoothing, smoothing))
     loss = w_nll * nll[:, 0] + w_smooth * smooth
     keep = (lab != pad_id).to(lab.dtype)
-    return (loss * keep).sum() / torch.clamp(keep.sum(), min=1.0)
+    # a step over several processes averages their losses: divide by the
+    # non-pad count of the whole batch (times the processes), not this
+    # process's, so the average is the global loss
+    count, world = _global_count(keep.sum())
+    loss = (loss * keep).sum() / torch.clamp(count, min=1.0)
+    return loss * world if world > 1 else loss
 
 
 def transformer_base(vocab_size: int, **kwargs) -> Transformer:

@@ -45,7 +45,7 @@ def dtype_torch(dtype) -> torch.dtype:
 
 class NDArray:
     __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req",
-                 "__weakref__")
+                 "_mxctx", "__weakref__")
 
     # numpy should defer to our reflected dunders
     __array_priority__ = 1000.0
@@ -55,6 +55,9 @@ class NDArray:
         self._ctx = (data.device if ctx is None
                      else ctx if type(ctx) is torch.device
                      else resolve_device(ctx))
+        # the Context it was placed on: cpu(1) and cpu(0) share the one
+        # torch CPU device but stay distinct contexts (a device list)
+        self._mxctx = ctx if isinstance(ctx, Context) else None
         self._version = 0
         self._grad = None
         self._grad_req = "write"
@@ -87,6 +90,9 @@ class NDArray:
 
     @property
     def context(self) -> Context:
+        tagged = getattr(self, "_mxctx", None)
+        if tagged is not None and tagged.device == self._data.device:
+            return tagged
         return Context.from_device(self._ctx)
 
     ctx = context
@@ -170,9 +176,11 @@ class NDArray:
 
     def as_in_context(self, ctx) -> "NDArray":
         dev = resolve_device(ctx)
-        if dev == self._ctx:
+        if dev == self._ctx and (not isinstance(ctx, Context)
+                                 or ctx == self.context):
             return self
-        return NDArray(self._data.detach().to(dev), ctx=dev)
+        return NDArray(self._data.detach().to(dev),
+                       ctx=ctx if isinstance(ctx, Context) else dev)
 
     as_in_ctx = as_in_context
 

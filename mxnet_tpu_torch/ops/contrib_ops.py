@@ -6,8 +6,9 @@ pooling, deformable convolution (v1) and ``histogram``.
 CUDA tensor it runs kernels K3-K5 (``ops.kernels.flash_attention``: f32,
 head dims up to 128, zero-padded to 16/32/64/128; raising above), as the
 JAX op runs its Pallas kernel wherever it compiles natively; on the CPU it
-is the JAX op's dense composition.  The ring/Ulysses sequence-parallel
-routes of the JAX op are not ported.
+is the JAX op's dense composition.  Under a step's sequence-parallel
+scope (``parallel.scope.ring_attention_scope``) 3-d inputs take the
+route :func:`sp_attention` picks, with the JAX op's gate.
 
 The rest are plain torch, as they are plain ``jnp`` in the JAX package:
 ``_contrib_AdaptiveAvgPooling2D`` through an integral image,
@@ -36,11 +37,51 @@ def _dense_attention(q, k, v, causal, sm_scale):
     return torch.einsum("nqk,nkd->nqd", p, v.float()).to(q.dtype)
 
 
+def sp_attention(q, k, v, causal, sm_scale):
+    """The sequence-parallel route of the active scope for 3-d q/k/v, each
+    this process's (N, L/sp, D) block, or None without a scope.  The JAX
+    op's gate (``mxnet_tpu/ops/contrib_ops.py:44-72``): ``sp`` > 1,
+    self-attention (equal lengths), N divisible by the batch axes, and for
+    Ulysses by ``sp`` too; then ``ring`` or ``ulysses`` as the scope says.
+    Anything else, and the ``gspmd`` mode, takes the K/V gather
+    (``parallel.ring.gather_attention``), which computes what GSPMD's
+    gathered attention computes for the JAX step."""
+    from ..parallel.scope import ring_scope
+
+    scope = ring_scope()
+    if scope is None or q.dim() != 3:
+        return None
+    mesh, batch_axes, mode = scope
+    sp = mesh.axis_size("sp")
+    if sp == 1:
+        return None
+    ok = q.shape[1] == k.shape[1] == v.shape[1]
+    if ok and mode == "ulysses":
+        ok = q.shape[0] % sp == 0
+    if ok and mode == "ulysses":
+        from ..parallel.ulysses import ulysses_self_attention
+
+        return ulysses_self_attention(mesh, q, k, v, causal=causal,
+                                      sm_scale=sm_scale)
+    if ok and mode == "ring":
+        from ..parallel.ring import ring_self_attention
+
+        return ring_self_attention(mesh, q, k, v, causal=causal,
+                                   sm_scale=sm_scale)
+    from ..parallel.ring import gather_attention
+
+    return gather_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                            mesh=mesh)
+
+
 @register("_contrib_flash_attention")
 def flash_attention_op(q, k, v, causal=False, sm_scale=None):
     """Fused softmax(q k^T * sm_scale) v; q/k/v (N, L, D) or (B, H, L, D)."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    routed = sp_attention(q, k, v, causal, sm_scale)
+    if routed is not None:
+        return routed
     if q.device.type == "cuda":
         from .kernels import flash_attention
 

@@ -1,7 +1,7 @@
-"""The fused training step, on one device.
+"""The fused training step, on one device or over a mesh of processes.
 
-Counterpart of ``mxnet_tpu/parallel/data_parallel.py::DataParallelStep``
-for a mesh of one device: ``step(data, label)`` runs the block's forward
+Counterpart of ``mxnet_tpu/parallel/data_parallel.py::DataParallelStep``:
+``step(data, label)`` runs the block's forward
 in training mode, takes the f32 mean of ``loss_fn(out, label)`` (as
 ``loss_of`` does), runs the backward, applies one optimizer update and
 returns an :class:`AsyncLoss` without waiting for the device.
@@ -99,15 +99,43 @@ the JAX step leaves its ``_step_count``); the scaled step keeps it on the
 card.  The step updates the block's own tensors, so ``sync_to_block``
 only drains.
 
-Not ported: meshes and sharding (A.9), the superstep (with A.1's
-captured step) and AOT executables (the port compiles none).
+``mesh=`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` over the
+processes of a ``torch.distributed`` group, one card each), ``rules=``,
+``batch_axes=``, ``seq_axis=``, ``ring_attention=`` and ``plan=`` take
+the JAX step's meaning and gating; every parameter is replicated.  Each
+process is given the GLOBAL batch, as the JAX step is, and slices its own
+block (``sharding.Placement.local``): with an ``sp`` axis > 1 and a
+sequence dimension 1 that divides by it (or ``seq_axis=1``), dimension 0
+over ``dp`` and 1 over ``sp``; otherwise (an NCHW image batch) dimension 0
+over ``dp`` x ``sp``.  The forward and the loss run under the scopes the
+model's ops read: ``ring_attention_scope`` when the sequence is sharded
+(``ring``, ``ulysses``, or the K/V gather for ``gspmd``) and
+``batch_reduction_scope``.  After the backward every gradient is summed
+over the mesh in flat buckets of ``dist.bucket_cap_bytes()`` (one
+all-reduce each, all started before the first is waited on) and divided
+by the number of processes, as is the loss; ``clip_global_norm`` and the
+update act on the reduced gradients, so every replica takes the same
+update.  At construction every parameter and float buffer is broadcast
+from the mesh's first rank.  ``accum_steps`` splits each process's block
+(``a[i::k]``, the global mean is the same).  A BatchNorm's statistics are
+those of the process's block (the JAX step's are global): the step raises
+for a block holding one when the mesh has more than one process.  tp > 1
+and pp > 1 raise (ROADMAP A.9 part 2).  ``layout()`` reports the world
+size, the mesh axes and the ranks; ``state_dict()`` holds every
+(replicated) array whole on every process, and ``shard_state_dict()``
+makes rank 0 the owner of each.
+
+Not ported: tensor and pipeline parallelism (A.9 part 2), the superstep
+(with A.1's captured step) and AOT executables (the port compiles none).
 """
 from __future__ import annotations
 
 import logging
 import math
 import time
-from typing import Callable, Dict, Optional
+import contextlib
+from dataclasses import replace
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -122,9 +150,13 @@ from ..optimizer.foreach import adam_, grad_terms_, sgd_
 from ..passes.builtin import pipeline_for_training
 from ..precision import loss_scale as _ls
 from ..precision.config import PrecisionConfig
+from . import dist
 from .async_loss import AsyncLoss, InflightRing, inflight_limit
+from .plan import Plan
+from .scope import batch_reduction_scope, ring_attention_scope
+from .sharding import ShardingRules, shard_batch, shard_batch_seq
 
-__all__ = ["DataParallelStep"]
+__all__ = ["DataParallelStep", "make_train_step", "compile_step_with_plan"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.data_parallel")
 
@@ -163,18 +195,6 @@ def _cpu_tensor(value) -> torch.Tensor:
     return tensor_from_numpy(value).reshape(value.shape)  # keeps a 0-d
 
 
-def _dp_plan_json(accum_steps: int, precision) -> dict:
-    """``Plan.to_json()`` of the JAX step's plan on a one-device ``dp``
-    mesh (``mxnet_tpu/parallel/plan.py``), which ``layout()`` carries;
-    ``Plan`` itself waits for A.9."""
-    return {"mesh_axes": [["dp", 1]], "rules": [], "batch_axes": ["dp"],
-            "seq_axis": None, "sp_attention": "gspmd",
-            "pp_microbatches": 4, "accum_steps": int(accum_steps),
-            "precision": (precision.to_json() if precision is not None
-                          else None),
-            "strategy": "dp"}
-
-
 def _layouts_equal(a: dict, b: dict) -> bool:
     """Whether two layouts denote the same placement (the JAX rule)."""
     keys = ("world_size", "mesh_axes", "device_ids", "specs")
@@ -189,19 +209,40 @@ class DataParallelStep:
                  optimizer_params: Optional[Dict] = None, device=None,
                  remat: bool = False, accum_steps: int = 1,
                  clip_global_norm: Optional[float] = None,
-                 precision: Optional[PrecisionConfig] = None):
+                 precision: Optional[PrecisionConfig] = None, mesh=None,
+                 rules: Optional[ShardingRules] = None,
+                 batch_axes: Sequence[str] = ("dp", "sp"),
+                 seq_axis: Optional[int] = None, ring_attention=False,
+                 pp_microbatches: int = 4, plan: Optional[Plan] = None):
         if optimizer not in ("sgd", "adam"):
             raise MXNetError(f"fused step supports sgd/adam, got {optimizer}")
         if int(accum_steps) < 1:
             raise MXNetError(f"accum_steps must be >= 1, got {accum_steps}")
         opt = dict(optimizer_params or {})
+        self.mesh, self.plan = self._resolve_plan(
+            mesh, plan, rules, batch_axes, seq_axis, ring_attention,
+            accum_steps, pp_microbatches, precision)
+        precision = self.plan.precision
+        accum_steps = self.plan.accum_steps
+        for axis in ("tp", "pp"):
+            if self.plan.axis_size(axis) > 1:
+                raise MXNetError(
+                    f"{axis} = {self.plan.axis_size(axis)}: tensor and "
+                    "pipeline parallelism are ROADMAP A.9 part 2; the "
+                    "port's step runs dp and sp")
+        # collectives run whenever a process group holds the mesh, one
+        # process included (its all-reduce is exact)
+        self._collective = self.mesh is not None and dist.is_initialized()
+        self._world = self.mesh.size if self._collective else 1
+        if self.mesh is not None and self.mesh.size > 1 \
+                and not self._collective:
+            self.mesh.group(("dp",))  # raises: no process group
+        if device is None and self._collective:
+            device = dist.device()
         self.device = resolve_device(device)
         self.block = block.to(self.device)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
-        if precision is None:
-            # the env default, read once: the config is part of the step
-            precision = PrecisionConfig.from_env()
         self.precision = precision
         self._loss_scale_cfg = (precision.loss_scale
                                 if precision is not None else None)
@@ -247,6 +288,88 @@ class DataParallelStep:
         self._inflight = InflightRing(self._tele_name)
         memwatch.register("params", self, _params_arrays)
         memwatch.register("optimizer", self, _opt_state_arrays)
+        self._group = None
+        if self._collective:
+            self._group = self.mesh.group(("dp", "sp"))
+            if self._world > 1:
+                self._check_no_batch_norm()
+            self._broadcast_from_first()
+
+    # -- the plan and the mesh ---------------------------------------------
+    @staticmethod
+    def _resolve_plan(mesh, plan, rules, batch_axes, seq_axis,
+                      ring_attention, accum_steps, pp_microbatches,
+                      precision):
+        """(mesh or None, Plan), with the JAX constructor's rules: a plan
+        excludes the strategy keywords; without one the keywords build it
+        (``ring_attention`` on a mesh with no ``sp`` axis stays inert)."""
+        if plan is not None:
+            clash = [kw for kw, val, dflt in (
+                ("rules", rules, None),
+                ("batch_axes", tuple(batch_axes), ("dp", "sp")),
+                ("seq_axis", seq_axis, None),
+                ("ring_attention", ring_attention, False),
+                ("accum_steps", int(accum_steps), 1),
+                ("pp_microbatches", pp_microbatches, 4),
+                ("precision", precision, None),
+            ) if val != dflt]
+            if clash:
+                raise MXNetError(
+                    f"DataParallelStep: both plan= and strategy kwargs "
+                    f"{clash} given — the Plan already carries them")
+            if mesh is None:
+                mesh = plan.build_mesh()
+            elif not plan.matches_mesh(mesh):
+                raise MXNetError(
+                    f"Plan axes {dict(plan.mesh_axes)} do not match the "
+                    f"given mesh {dict(mesh.shape)}")
+        else:
+            if ring_attention not in (True, False, "ring", "ulysses"):
+                raise MXNetError("ring_attention must be bool, 'ring' or "
+                                 f"'ulysses', got {ring_attention!r}")
+            sp_mode = ("gspmd" if ring_attention is False
+                       else "ring" if ring_attention is True
+                       else ring_attention)
+            shape = dict(mesh.shape) if mesh is not None else {"dp": 1}
+            if sp_mode != "gspmd" and shape.get("sp", 1) < 2 \
+                    and seq_axis != 1:
+                sp_mode = "gspmd"
+            plan = Plan(
+                mesh_axes=tuple(shape.items()),
+                rules=rules or ShardingRules(),
+                batch_axes=tuple(a for a in batch_axes if a in shape),
+                seq_axis=seq_axis, sp_attention=sp_mode,
+                pp_microbatches=int(pp_microbatches),
+                accum_steps=int(accum_steps), precision=precision)
+        if plan.precision is None:
+            # the env default, read once: the config is part of the step
+            env_precision = PrecisionConfig.from_env()
+            if env_precision is not None:
+                plan = replace(plan, precision=env_precision)
+        return mesh, plan
+
+    def _check_no_batch_norm(self) -> None:
+        from ..gluon.nn.basic_layers import BatchNorm
+
+        for m in self.block.modules():
+            if isinstance(m, (BatchNorm, torch.nn.modules.batchnorm._BatchNorm)):
+                raise MXNetError(
+                    f"{type(m).__name__} in a step over {self._world} "
+                    "processes: its batch statistics would be this "
+                    "process's block's, the JAX step's are the global "
+                    "batch's (a synchronized BatchNorm is not ported)")
+
+    @torch.no_grad()
+    def _broadcast_from_first(self) -> None:
+        """Every parameter and float buffer from the mesh's first rank, so
+        the replicas start equal."""
+        import torch.distributed as tdist
+
+        src = int(self.mesh.ranks.reshape(-1)[0])
+        tensors = list(self.block.parameters()) + [
+            b for b in self.block.buffers() if b.is_floating_point()]
+        for t in tensors:
+            tdist.broadcast(t.data, src, group=self._group)
 
     # -- the learning rate ------------------------------------------------
     def _current_lr(self, num_update: int) -> float:
@@ -302,21 +425,27 @@ class DataParallelStep:
                 for n, p in self.block.collect_params().items()]
 
     def layout(self) -> dict:
-        """The JAX step's ``layout()`` on a one-device mesh: world size,
-        mesh axes, the device, every parameter replicated (an empty
-        spec), the plan's JSON and the pass pipeline's."""
+        """The JAX step's ``layout()``: world size, mesh axes, the device
+        ids (the mesh's ranks; the card's index without a mesh), every
+        parameter replicated (an empty spec), the plan's JSON and the pass
+        pipeline's."""
+        if self.mesh is not None:
+            axes = [[n, int(s)] for n, s in self.mesh.shape.items()]
+            ids = [int(r) for r in self.mesh.ranks.reshape(-1)]
+        else:
+            axes, ids = [["dp", 1]], [int(self.device.index or 0)]
         return {
-            "world_size": 1,
-            "mesh_axes": [["dp", 1]],
-            "device_ids": [int(self.device.index or 0)],
+            "world_size": dist.process_count(),
+            "mesh_axes": axes,
+            "device_ids": ids,
             "platform": "gpu" if self.device.type == "cuda" else "cpu",
             "specs": {sname: [] for sname, *_ in self._entries()},
-            "plan": _dp_plan_json(self.accum_steps, self.precision),
+            "plan": self.plan.to_json(),
             "passes": self._pipeline.to_json(),
         }
 
     def snapshot_requires_collective(self) -> bool:
-        """False: one process holds every array whole."""
+        """False: every process holds every (replicated) array whole."""
         return False
 
     def _host_state(self):
@@ -358,8 +487,9 @@ class DataParallelStep:
     def shard_state_dict(self) -> dict:
         """The format-2 form of :meth:`state_dict`: ``{"params": {name:
         [(0, value)]}, "opt_state": {...}, "manifest": {...},
-        "optimizer", "rank": 0, "nprocs": 1}``; rank 0 owns every array
-        as one shard covering it whole."""
+        "optimizer", "rank", "nprocs"}``; rank 0 owns every (replicated)
+        array as one shard covering it whole, and the other ranks' payloads
+        are empty."""
         manifest = {"params": {}, "opt_state": {}}
         local = {"params": {}, "opt_state": {}}
         for section, key, t in self._host_state():
@@ -370,9 +500,12 @@ class DataParallelStep:
                 "shards": [{"rank": 0, "j": 0,
                             "slice": [[0, int(n)] for n in t.shape]}]}
             local[section][key] = [(0, value)]
+        rank = dist.process_index()
+        if rank != 0:  # replicas: rank 0 owns each array
+            local = {"params": {}, "opt_state": {}}
         return {"params": local["params"], "opt_state": local["opt_state"],
                 "manifest": manifest, "optimizer": self.optimizer,
-                "rank": 0, "nprocs": 1}
+                "rank": rank, "nprocs": dist.process_count()}
 
     @torch.no_grad()
     def load_state_dict(self, state: dict,
@@ -469,6 +602,98 @@ class DataParallelStep:
             x = tensor_from_numpy(x)
         return x.to(self.device, non_blocking=True)
 
+    def _placements(self, datas, label):
+        """(placement of each input, of the label, sp_active): the JAX
+        step's ``_input_shardings`` over this step's mesh."""
+        mesh, plan = self.mesh, self.plan
+        sp = mesh.axis_size("sp")
+        sp_active = (sp > 1 and "sp" in plan.batch_axes
+                     and plan.seq_axis != -1
+                     and any(np.ndim(a) >= 2 for a in datas))
+        if sp_active and plan.seq_axis is None:
+            sp_active = all(np.shape(a)[1] % sp == 0
+                            for a in datas if np.ndim(a) >= 2)
+        if plan.seq_axis == 1 and sp_active:
+            bad = [tuple(np.shape(a)) for a in datas
+                   if np.ndim(a) >= 2 and np.shape(a)[1] % sp != 0]
+            if bad:
+                raise MXNetError(
+                    f"seq_axis=1: sequence dims of {bad} are not divisible "
+                    f"by sp={sp}")
+
+        def one(arr):
+            nd = np.ndim(arr)
+            if sp_active and nd >= 2 and np.shape(arr)[1] % sp == 0:
+                return shard_batch_seq(mesh, nd)
+            if sp_active:  # rank-1 (or ragged) input under SP: dp only
+                return shard_batch(mesh, ("dp",), nd)
+            return shard_batch(mesh, plan.batch_axes, max(nd, 1))
+
+        return tuple(one(a) for a in datas), one(label), sp_active
+
+    def _place(self, datas, label):
+        """The inputs on this step's device, each cut to this process's
+        block of the global batch under a mesh -> (datas, label,
+        sp_active)."""
+        from ..ndarray.ndarray import NDArray
+
+        if self.mesh is None or self.mesh.size == 1:
+            return (tuple(self._put(d) for d in datas), self._put(label),
+                    False)
+        datas = tuple(d.data if isinstance(d, NDArray) else d for d in datas)
+        if isinstance(label, NDArray):
+            label = label.data
+        data_pl, label_pl, sp_active = self._placements(datas, label)
+
+        def cut(x, pl):
+            if isinstance(x, np.ndarray):
+                x = tensor_from_numpy(x)
+            if x.dim() == 0:
+                return x.to(self.device, non_blocking=True)
+            return x[pl.local(tuple(x.shape))].contiguous().to(
+                self.device, non_blocking=True)
+
+        return (tuple(cut(d, p) for d, p in zip(datas, data_pl)),
+                cut(label, label_pl), sp_active)
+
+    def _scopes(self, sp_active):
+        """The forward's scopes: the sequence-parallel route when the
+        inputs were sequence-sharded, and the loss's batch reduction over
+        more than one process."""
+        stack = contextlib.ExitStack()
+        if sp_active:
+            dim0 = tuple(a for a in self.plan.batch_axes
+                         if a != "sp" and self.mesh.axis_size(a) > 1)
+            stack.enter_context(ring_attention_scope(
+                self.mesh, dim0, mode=self.plan.sp_attention))
+        if self._world > 1:
+            stack.enter_context(batch_reduction_scope(self._group,
+                                                      self._world))
+        return stack
+
+    def _allreduce_mean(self, tensors):
+        """Each tensor summed over the mesh in place and divided by the
+        number of processes: flat buckets of ``bucket_cap_bytes``, one
+        all-reduce each, all started before the first is waited on."""
+        import torch.distributed as tdist
+
+        pending = []
+        for idx in dist.buckets(tensors):
+            one = len(idx) == 1 and tensors[idx[0]].is_contiguous()
+            flat = (tensors[idx[0]].view(-1) if one
+                    else dist.flatten_bucket([tensors[i] for i in idx]))
+            pending.append((idx, flat, one, tdist.all_reduce(
+                flat, group=self._group, async_op=True)))
+        for idx, flat, one, work in pending:
+            work.wait()
+            if self._world > 1:
+                flat.div_(self._world)
+            if not one:
+                for i, part in zip(idx, dist.unflatten_bucket(
+                        flat, [tuple(tensors[i].shape) for i in idx])):
+                    tensors[i].copy_(part)
+        return tensors
+
     def stage(self, data, label):
         """One batch on this step's device ahead of its ``step`` ->
         (data tuple, label) of NDArrays (``io.DevicePrefetchIter`` calls
@@ -547,8 +772,7 @@ class DataParallelStep:
             datas = tuple(data) if isinstance(data, (tuple, list)) \
                 else (data,)
             raw = datas + (label,)
-            datas = tuple(self._put(d) for d in datas)
-            label = self._put(label)
+            datas, label, sp_active = self._place(datas, label)
         step_no = self.num_update + 1
         with telemetry.span("dispatch", step=step_no,
                             traced=step_no == 1):
@@ -559,9 +783,9 @@ class DataParallelStep:
                     # compiled program is: the ops inside record nothing
                     loss = profiler.timed_call(
                         f"FusedStep:{type(self.block).__name__}",
-                        self._dispatch, datas, label)
+                        self._dispatch, datas, label, sp_active)
                 else:
-                    loss = self._dispatch(datas, label)
+                    loss = self._dispatch(datas, label, sp_active)
             except Exception as e:
                 if memwatch.is_resource_exhausted(e):
                     memwatch.emit_oom_report(
@@ -592,9 +816,9 @@ class DataParallelStep:
             handle.wait()  # synchronous mode: a failure surfaces here
         return handle
 
-    def _dispatch(self, datas, label) -> torch.Tensor:
+    def _dispatch(self, datas, label, sp_active=False) -> torch.Tensor:
         """The forward, backward and update of one step on placed inputs
-        -> the device loss."""
+        -> the device loss (the mean over the mesh's processes)."""
         k = self.accum_steps
         if k > 1:
             for d in datas + (label,):
@@ -617,11 +841,12 @@ class DataParallelStep:
         for i in range(k):
             if i and bufs:
                 torch._foreach_copy_(bufs, start)
-            loss_i = self._loss(
-                tuple(self._microbatch(d, i, k) for d in datas),
-                self._microbatch(label, i, k))
-            made = [b.clone() for b in bufs]
-            (loss_i * scale if scaled else loss_i).backward()
+            with self._scopes(sp_active):
+                loss_i = self._loss(
+                    tuple(self._microbatch(d, i, k) for d in datas),
+                    self._microbatch(label, i, k))
+                made = [b.clone() for b in bufs]
+                (loss_i * scale if scaled else loss_i).backward()
             if bufs:  # what the forward made of them, not the recomputation
                 sums = made if sums is None else torch._foreach_add(sums,
                                                                     made)
@@ -633,6 +858,10 @@ class DataParallelStep:
                  for p in self.params]
         if k > 1:
             grads = torch._foreach_div(grads, k)
+        if self._collective:
+            with torch.no_grad():
+                grads = self._allreduce_mean(grads)
+                loss = self._allreduce_mean([loss.detach().reshape(1)])[0][0]
         with torch.no_grad():
             if not scaled:
                 self._update(grads)
@@ -709,3 +938,22 @@ class DataParallelStep:
                                       corr * (lr * m))
             torch._foreach_div_(step, [denom[i] for i in idx])
             torch._foreach_sub_([w[i] for i in idx], step)
+
+
+def make_train_step(block, loss_fn, mesh=None, **kwargs) -> DataParallelStep:
+    return DataParallelStep(block, loss_fn, mesh=mesh, **kwargs)
+
+
+def compile_step_with_plan(block, loss_fn, plan: Plan, mesh=None,
+                           **kwargs) -> DataParallelStep:
+    """The step for any :class:`~mxnet_tpu_torch.parallel.plan.Plan` (the
+    JAX package's single compile path; the port compiles nothing, so this
+    is the constructor with ``plan=``), recording one ``plan`` telemetry
+    event."""
+    step = DataParallelStep(block, loss_fn, mesh=mesh, plan=plan, **kwargs)
+    if telemetry.enabled():
+        telemetry.record(
+            "plan", executor=step._tele_name, strategy=plan.strategy,
+            plan=plan.to_json(), passes=step._pipeline.names(),
+            predicted=plan.predicted)
+    return step

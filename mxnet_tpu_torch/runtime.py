@@ -6,8 +6,9 @@ src/libinfo.cc's compile-time flags).
 The key set is the JAX package's; the values say what this build
 provides: ``CUDA``, ``CUDNN`` and ``NCCL`` from torch, ``OPENCV`` from
 ``cv2``; ``TPU``, ``XLA`` and ``PALLAS`` are False (the kernels are CUDA
-C++); ``DIST_KVSTORE`` and ``ICI_COLLECTIVES`` are False until the
-multi-card work (ROADMAP A.9).
+C++); ``DIST_KVSTORE`` is whether ``torch.distributed`` is there (the
+``dist_sync`` stores run on it) and ``ICI_COLLECTIVES`` is False (the
+TPU's interconnect).
 """
 from __future__ import annotations
 
@@ -29,6 +30,12 @@ def _nccl() -> bool:
         return False
 
 
+def _dist() -> bool:
+    import torch.distributed as dist
+
+    return bool(dist.is_available())
+
+
 def _detect():
     feats = {
         "TPU": False,
@@ -39,7 +46,7 @@ def _detect():
         "MIOPEN": False,
         "NCCL": _nccl(),
         "ICI_COLLECTIVES": False,
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": _dist(),
         "OPENCV": False,
         "BLAS_OPEN": True,
         "F16C": True,

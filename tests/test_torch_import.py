@@ -117,7 +117,17 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.rnn.rnn_cell",
           "mxnet_tpu_torch.rnn.io",
           "mxnet_tpu_torch.rnn.rnn",
-          "mxnet_tpu_torch.visualization")
+          "mxnet_tpu_torch.visualization",
+          "mxnet_tpu_torch.parallel.dist",
+          "mxnet_tpu_torch.parallel.mesh",
+          "mxnet_tpu_torch.parallel.sharding",
+          "mxnet_tpu_torch.parallel.plan",
+          "mxnet_tpu_torch.parallel.scope",
+          "mxnet_tpu_torch.parallel.ring",
+          "mxnet_tpu_torch.parallel.ulysses",
+          "mxnet_tpu_torch.tools.launch",
+          "mxnet_tpu_torch.tools.multigpu_smoke",
+          "mxnet_tpu_torch.examples.bert_pretrain")
 
 
 def _no_cuda():
@@ -246,7 +256,8 @@ def test_chip_smoke_fails_alone(tmp_path):
 # JAX names the port does not have, each with what queues it in ROADMAP.md
 # (or why it has no counterpart); everything else the JAX namespaces
 # export, the port's export too.
-_A9 = "A.9 (multi-GPU: meshes, Plan, sharding, pipeline, ring)"
+_A9_2 = ("A.9 part 2 (multi-GPU: tensor and pipeline parallelism, "
+         "the planner)")
 _SUPERSTEP = "A.6's superstep, with A.1"
 QUEUED = {
     "mx": {"aot_cache": "not queued: the port compiles no executables",
@@ -256,20 +267,13 @@ QUEUED = {
            "np": "an import, not a name", "Optional": "an import",
            "dtype_np": "an import"},
     "parallel": dict(
-        {n: _A9 for n in (
-            "Plan", "compile_step_with_plan", "device_mesh", "dist",
-            "dp_plan", "global_allreduce", "host_barrier", "local_mesh",
-            "make_mesh", "make_train_step", "mesh", "pipeline",
-            "pipeline_apply", "pipeline_plan", "plan", "planner", "ring",
-            "ring_attention", "ring_attention_scope", "ring_plan",
-            "ring_scope", "ring_scope_mesh", "ring_self_attention", "scope",
-            "sharding", "tensor_parallel_plan", "ulysses", "ulysses_plan",
-            "ulysses_self_attention")},
+        {n: _A9_2 for n in ("pipeline", "pipeline_apply", "planner")},
         StackedAsyncLoss=_SUPERSTEP, SuperstepLossView=_SUPERSTEP,
         superstep_k=_SUPERSTEP),
-    "models": {n: _A9 for n in ("BERTForMLMPipelined",
-                                "StackedTransformerEncoder", "bert_pp",
-                                "bert_pp_sharding_rules", "bert_pp_small")},
+    "models": {n: _A9_2 for n in ("BERTForMLMPipelined",
+                                  "StackedTransformerEncoder", "bert_pp",
+                                  "bert_pp_sharding_rules",
+                                  "bert_pp_small")},
     "gluon": {},
     "gluon.nn": {},
     "gluon.model_zoo.vision": {},

@@ -158,9 +158,14 @@ def test_kvstore_set_optimizer_updates_on_push_and_states_round_trip(
 
 
 def test_kvstore_spanning_devices_raises():
-    for name in ("nccl", "dist_sync", "dist_async"):
-        with pytest.raises(MXNetError, match="A.9"):
-            tkv.create(name)
+    # nccl and dist_sync are ported (A.9 part 1): nccl is the device store,
+    # dist_sync without the launcher's variables one worker; dist_async
+    # raises, as in the JAX package
+    assert tkv.create("nccl").type == "device"
+    kv = tkv.create("dist_sync")
+    assert (kv.type, kv.rank, kv.num_workers) == ("dist_sync", 0, 1)
+    with pytest.raises(MXNetError, match="dist_async"):
+        tkv.create("dist_async")
     with pytest.raises(MXNetError, match="unknown"):
         tkv.create("nope")
     with pytest.raises(MXNetError, match="no updater"):

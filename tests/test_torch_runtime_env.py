@@ -73,8 +73,7 @@ def test_features_keep_the_jax_keys_with_this_builds_values():
     feats = runtime.Features()
     assert list(feats) == list(jruntime.Features())
     assert {f.name for f in runtime.feature_list()} == set(feats)
-    for name in ("TPU", "XLA", "PALLAS", "MIOPEN", "DIST_KVSTORE",
-                 "ICI_COLLECTIVES"):
+    for name in ("TPU", "XLA", "PALLAS", "MIOPEN", "ICI_COLLECTIVES"):
         assert feats.is_enabled(name) is False, name
     assert feats.is_enabled("cuda") is torch.cuda.is_available()
     assert feats.is_enabled("CUDNN") is torch.backends.cudnn.is_available()
@@ -82,6 +81,8 @@ def test_features_keep_the_jax_keys_with_this_builds_values():
 
     assert feats.is_enabled("NCCL") is bool(
         dist.is_available() and dist.is_nccl_available())
+    # the dist_sync stores run on torch.distributed
+    assert feats.is_enabled("DIST_KVSTORE") is bool(dist.is_available())
     try:
         import cv2  # noqa: F401
         has_cv2 = True
@@ -112,17 +113,22 @@ def test_rtc_raises_and_names_the_ports_kernel_route(cls):
 # --------------------------------------------------------------------------
 def test_registry_holds_every_jax_variable_and_the_ports_own():
     assert set(jenv.ENV_VARS) <= set(env_vars.ENV_VARS)
-    assert set(env_vars.ENV_VARS) - set(jenv.ENV_VARS) == {"CUDA_HOME"}
+    assert set(env_vars.ENV_VARS) - set(jenv.ENV_VARS) == {"CUDA_HOME",
+                                                           "MX_LOCAL_RANK"}
     for name, (disp, detail) in env_vars.ENV_VARS.items():
         assert disp in DISPOSITIONS, name
         assert detail, name
         if disp == "not honored":
             assert "ROADMAP" in detail or "not queued" in detail, name
     # the ones the JAX package honors and the port reads nowhere name what
-    # queues them: multi-GPU (A.9), the superstep (A.1), the AOT cache
-    for name in ("DMLC_ROLE", "MX_COORDINATOR", "MX_PLAN", "MX_ELASTIC",
-                 "MX_RENDEZVOUS_TIMEOUT"):
-        assert env_vars.ENV_VARS[name] == ("not honored", env_vars._A9)
+    # queues them: multi-GPU part 2 (A.9), the superstep (A.1), the AOT
+    # cache; the rendezvous variables are honored since A.9 part 1
+    for name in ("MX_PLAN", "MX_ELASTIC"):
+        disp, detail = env_vars.ENV_VARS[name]
+        assert disp == "not honored" and env_vars._A9_2 in detail
+    for name in ("MX_COORDINATOR", "MX_RENDEZVOUS_TIMEOUT", "MX_FORCE_CPU",
+                 "MX_LOCAL_RANK"):
+        assert env_vars.ENV_VARS[name][0] == "honored", name
     assert env_vars.ENV_VARS["MX_SUPERSTEP"][1] == env_vars._STEP
     assert env_vars.ENV_VARS["MX_EXECUTABLE_CACHE_DIR"][1] == env_vars._AOT
 

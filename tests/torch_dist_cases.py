@@ -1,0 +1,336 @@
+"""Worker bodies of the port's multi-process parity tests.
+
+Run by the port's launcher as a gloo group on the CPU::
+
+    python -m mxnet_tpu_torch.tools.launch -n 4 --force-cpu \\
+        python tests/torch_dist_cases.py OUTDIR attention step
+
+Each named case runs on every rank and writes ``OUTDIR/<case>-<rank>.npz``
+(rank 0 only, where the ranks hold replicas); the test files hold the
+results against the JAX package in the pytest process.  Inputs the JAX
+side also needs (weights, batches) are read from ``OUTDIR`` too.
+"""
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from mxnet_tpu_torch.parallel import dist  # noqa: E402
+
+# the attention inputs: N 8, L 64, D 16, from RandomState(0)
+ATT_SHAPE = (8, 64, 16)
+STEP_LR = 1e-3
+STEPS = 2
+
+
+def attention_inputs():
+    rng = np.random.RandomState(0)
+    return [rng.randn(*ATT_SHAPE).astype(np.float32) for _ in range(4)]
+
+
+# meshes over permuted device lists: the slices' blocks follow the mesh's
+# order, not the process group's (which sorts its ranks)
+PERMUTED = {"perm_sp4": ({"sp": 4}, [2, 0, 3, 1]),
+            "perm_dp2sp2": ({"dp": 2, "sp": 2}, [1, 0, 3, 2])}
+
+
+def _attention_routes(mesh):
+    from mxnet_tpu_torch.parallel import (ring_self_attention,
+                                          ulysses_self_attention)
+    from mxnet_tpu_torch.parallel.ring import gather_attention
+
+    return {
+        "ring": lambda a, b, c, causal: ring_self_attention(
+            mesh, a, b, c, causal=causal),
+        "ulysses": lambda a, b, c, causal: ulysses_self_attention(
+            mesh, a, b, c, causal=causal),
+        "gather": lambda a, b, c, causal: gather_attention(
+            a, b, c, causal=causal, mesh=mesh),
+    }
+
+
+def _attention_blocks(mesh, prefix):
+    """Every route x causal on this rank's sp block of the inputs."""
+    q, k, v, do = attention_inputs()
+    coords = mesh.coords()
+    sl = coords["sp"]
+    n = ATT_SHAPE[1] // mesh.axis_size("sp")
+    blk = slice(sl * n, (sl + 1) * n)
+    out = {f"{prefix}coords": np.array([coords.get("dp", 0), sl])}
+    for name, fn in _attention_routes(mesh).items():
+        for causal in (False, True):
+            ts = [torch.tensor(x[:, blk]).requires_grad_() for x in (q, k, v)]
+            o = fn(*ts, causal)
+            o.backward(torch.tensor(do[:, blk]))
+            key = f"{prefix}{name}-{int(causal)}"
+            out[key + "-out"] = o.detach().numpy()
+            for t, g in zip(ts, "qkv"):
+                out[f"{key}-d{g}"] = t.grad.numpy()
+    return out
+
+
+def case_attention(outdir, rank):
+    """ring / ulysses / gather x causal, each rank its L/4 block; then the
+    same on the meshes of ``PERMUTED``."""
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    out = _attention_blocks(make_mesh(sp=4), "")
+    for name, (axes, devices) in PERMUTED.items():
+        out.update(_attention_blocks(make_mesh(devices=devices, **axes),
+                                     f"{name}/"))
+    np.savez(os.path.join(outdir, f"attention-{rank}.npz"), **out)
+
+
+def _mlm(loss):
+    def mlm(logits, labels):
+        return loss(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+    return mlm
+
+
+STEP_MESHES = {"dp4": ({}, False), "ring": ({"sp": 2}, True),
+               "ulysses": ({"sp": 2}, "ulysses"), "gspmd": ({"sp": 2}, False)}
+
+
+def case_step(outdir, rank):
+    """BERT (bert_small widths) on dp4 and dp2 x sp2 (ring, ulysses, the
+    gather): two Adam steps each from the weights in start.npz."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params, gluon_name
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.bert import bert_small
+    from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
+
+    data = np.load(os.path.join(outdir, "start.npz"))
+    prefix = str(data["prefix"])
+    start = {k: data[k] for k in data.files if k not in ("prefix", "tokens")}
+    tokens = data["tokens"]
+    out = {}
+    for name, (axes, ring) in STEP_MESHES.items():
+        net = bert_small(dropout=0.0, device="cpu", init_weights=False)
+        from_mxnet_tpu_params(net, start, prefix)
+        step = DataParallelStep(
+            net, _mlm(SoftmaxCrossEntropyLoss()), optimizer="adam",
+            optimizer_params={"learning_rate": STEP_LR}, device="cpu",
+            mesh=make_mesh(**axes), ring_attention=ring)
+        out[f"{name}-losses"] = np.array(
+            [float(step.step(tokens, tokens.astype(np.float32)))
+             for _ in range(STEPS)])
+        for k, v in net.state_dict().items():
+            out[f"{name}-param-{prefix}{gluon_name(net, k)}"] = v.numpy()
+        out[f"{name}-layout"] = np.array(repr(step.layout()))
+    out.update(_image_fallback(rank))
+    losses, params = wmt_run(make_mesh(sp=2))
+    out["wmt-losses"] = losses
+    out.update({f"wmt-param-{k}": v for k, v in params.items()})
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"step-{rank}.npz"), **out)
+
+
+def wmt_run(mesh=None):
+    """The tiny Transformer of train_wmt without dropout, two SGD steps
+    on its synthetic batch with padding (label-smoothed cross entropy
+    over the non-pad tokens) -> (losses, parameters).  SGD, since the
+    attention key biases have a zero gradient in exact arithmetic, which
+    Adam would scale up from rounding noise to about lr."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.examples.train_wmt import synthetic_batch
+    from mxnet_tpu_torch.models.transformer import (Transformer,
+                                                    label_smoothed_ce)
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    mx.random.seed(0)
+    net = Transformer(64, units=32, hidden_size=64, num_heads=4,
+                      num_layers=1, dropout=0.0, init_weights=False)
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    src, tgt_in, tgt_out = synthetic_batch(np.random.RandomState(0), 4, 6,
+                                           64)
+    src[:, 4:] = 0  # padded sources: the masks cross the sp blocks
+    step = DataParallelStep(net, label_smoothed_ce, optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.5,
+                                              "momentum": 0.9},
+                            device="cpu", mesh=mesh)
+    losses = [float(step.step((src, tgt_in), tgt_out.astype(np.float32)))
+              for _ in range(STEPS)]
+    return np.array(losses), {k: v.detach().numpy()
+                              for k, v in net.state_dict().items()}
+
+
+def image_net():
+    from mxnet_tpu_torch import gluon, init
+
+    torch.manual_seed(0)
+    net = gluon.nn.HybridSequential(prefix="img_")
+    with net.name_scope():
+        net.add(gluon.nn.Conv2D(4, 3, padding=1, in_channels=3),
+                gluon.nn.GlobalAvgPool2D(), gluon.nn.Flatten(),
+                gluon.nn.Dense(3, in_units=4))
+    from mxnet_tpu_torch import context
+
+    net.initialize(init.Xavier(), ctx=context.cpu())
+    return net
+
+
+def image_batch():
+    rng = np.random.RandomState(1)
+    return (rng.rand(8, 3, 6, 6).astype(np.float32),
+            rng.randint(0, 3, 8).astype(np.float32))
+
+
+def _image_fallback(rank):
+    """An NCHW batch on dp2 x sp2: dim 1 (3 channels) does not divide by
+    sp, so the batch is split over dp x sp (the JAX step's fallback)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
+
+    net = image_net()
+    x, y = image_batch()
+    step = DataParallelStep(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.1},
+                            device="cpu", mesh=make_mesh(sp=2))
+    loss = float(step.step(x, y))
+    _, _, sp_active = step._placements((x,), y)
+    return {"image-loss": np.array(loss),
+            "image-sp_active": np.array(sp_active),
+            **{f"image-param-{k}": v.detach().numpy()
+               for k, v in net.state_dict().items()}}
+
+
+def case_kvstore(outdir, rank):
+    """The JAX worker's dist_sync checks (tests/dist/
+    dist_sync_kvstore_worker.py) and a Trainer over the processes."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    cpu = mx.cpu()
+    kv = mx.kv.create("dist_sync")
+    n, shape = kv.num_workers, (4, 3)
+    out = {"num_workers": np.array(n), "rank": np.array(kv.rank)}
+    kv.init("a", nd.zeros(shape, ctx=cpu))
+    kv.push("a", nd.ones(shape, ctx=cpu) * (rank + 1))
+    a = nd.zeros(shape, ctx=cpu)
+    kv.pull("a", out=a)
+    out["push_sum"] = a.asnumpy()
+    kv.init("b", nd.ones(shape, ctx=cpu) * (rank + 7))
+    b = nd.zeros(shape, ctx=cpu)
+    kv.pull("b", out=b)
+    out["init_broadcast"] = b.asnumpy()
+    kv2 = mx.kv.create("dist_sync")
+    kv2.set_optimizer(mx.optimizer.SGD(learning_rate=0.1))
+    kv2.init(3, nd.ones(shape, ctx=cpu))
+    for _ in range(4):
+        kv2.push(3, nd.ones(shape, ctx=cpu) * (rank + 1))
+    w = nd.zeros(shape, ctx=cpu)
+    kv2.pull(3, out=w)
+    out["server_sgd"] = w.asnumpy()
+    # many keys in flat buckets of 64 bytes: 3 buckets of 16 floats each
+    os.environ["MX_ALLREDUCE_BUCKET_MB"] = str(64 / (1 << 20))
+    keys = [10, 11, 12, 13, 14, 15]
+    for k in keys:
+        kv.init(k, nd.zeros((8,), ctx=cpu))
+    out["n_buckets"] = np.array(kv.push_bucketed(
+        keys, [nd.ones((8,), ctx=cpu) * (rank + k) for k in keys]))
+    del os.environ["MX_ALLREDUCE_BUCKET_MB"]
+    pulled = [nd.zeros((8,), ctx=cpu) for _ in keys]
+    kv.pull(keys, out=pulled)
+    out["bucket_sums"] = np.stack([p.asnumpy() for p in pulled])
+    from mxnet_tpu_torch.checkpoint import agree_resume_step
+
+    out["resume_step"] = np.array(agree_resume_step(10 + 5 * rank, kv))
+    for name, params in trainer_run(rank, n).items():
+        out[f"trainer-{name}"] = params
+    kv.barrier()
+    np.savez(os.path.join(outdir, f"kvstore-{rank}.npz"), **out)
+
+
+def trainer_batches():
+    rng = np.random.RandomState(2)
+    return [(rng.rand(8, 4).astype(np.float32),
+             rng.rand(8, 3).astype(np.float32)) for _ in range(3)]
+
+
+def trainer_run(rank=0, n=1, kvstore="dist_sync"):
+    """A Dense(3) trained by Adam for 3 steps on the batches of
+    ``trainer_batches``, each process on its n-th of every batch and the
+    step's batch size the global one; one process (n 1) takes them whole."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+
+    torch.manual_seed(0)
+    net = gluon.nn.Dense(3, in_units=4, prefix="tr_")
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 0.1}, kvstore=kvstore)
+    for x, y in trainer_batches():
+        b = x.shape[0] // n
+        xs = nd.array(x[rank * b:(rank + 1) * b], ctx=mx.cpu())
+        ys = nd.array(y[rank * b:(rank + 1) * b], ctx=mx.cpu())
+        with autograd.record():
+            loss = ((net(xs) - ys) ** 2).sum()
+        loss.backward()
+        trainer.step(x.shape[0])
+    return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+
+
+BERT_PRETRAIN_ARGS = ["--steps", "2", "--seq-len", "16", "--device", "cpu"]
+
+
+def case_bert_pretrain(outdir, rank):
+    """``examples.bert_pretrain`` on a dp1 x sp2 mesh (Ulysses) over this
+    group; rank 0's output goes to ``bert_pretrain-0.txt``.  The example
+    shuts the group down at its end, so this case comes last."""
+    import contextlib
+    import io
+
+    from mxnet_tpu_torch.examples import bert_pretrain
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        bert_pretrain.main(["--sp", "2", "--sp-attention", "ulysses"]
+                           + BERT_PRETRAIN_ARGS)
+    if rank == 0:
+        with open(os.path.join(outdir, "bert_pretrain-0.txt"), "w") as f:
+            f.write(text.getvalue())
+
+
+CASES = {"attention": case_attention, "step": case_step,
+         "kvstore": case_kvstore, "bert_pretrain": case_bert_pretrain}
+
+
+def start_group(outdir, n, *names):
+    """Launch ``n`` ranks running ``names`` from a thread of the calling
+    process (the launcher in-process: no second interpreter to import the
+    port); ``wait()`` returns the gang's exit code."""
+    import threading
+
+    from mxnet_tpu_torch.tools.launch import launch
+
+    rc = []
+    t = threading.Thread(target=lambda: rc.append(launch(
+        [sys.executable, os.path.abspath(__file__), str(outdir), *names],
+        n, force_cpu=True)), daemon=True)
+    t.start()
+
+    def wait(timeout=300):
+        t.join(timeout)
+        return rc[0] if rc else None
+
+    return wait
+
+
+def main():
+    outdir, names = sys.argv[1], sys.argv[2:]
+    torch.set_num_threads(1)  # four ranks share the host's cores
+    dist.init_from_env()
+    rank = dist.process_index()
+    for name in names:
+        CASES[name](outdir, rank)
+    if dist.is_initialized():  # a case may have ended the group itself
+        dist.barrier()
+        dist.shutdown()
+    print(f"rank {rank}: {' '.join(names)} OK", flush=True)
+
+
+if __name__ == "__main__":
+    main()
