@@ -3562,6 +3562,248 @@ def phase_sp_single(torch, ctx):
             "card": ctx["smi"], "ok": ok}
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU part 2 on one card: the pipelined BERT and the tp / pp paths
+# ---------------------------------------------------------------------------
+PP_STEPS = 3
+PP_SINGLE_MICRO = 4
+# one stacked layer, kernel route vs plain route (f32: of each tensor's
+# max |plain|; bf16: the kernel route's distance from the f32 plain route
+# as a multiple of the bf16 plain route's, as the bf16 training checks
+# bound a bf16 step by its own spread; see _route_errors)
+PP_LAYER_TOL = {"float32": 1e-4, "bfloat16": 2.0}
+# against the plain step from the same weights (multigpu_smoke's f32 gates)
+PP_SINGLE_TOL = {"loss_rel": 1e-5, "param_of_max": 1e-5}
+
+
+def _bert_pp(torch, dtype):
+    from mxnet_tpu_torch.gluon.block import cast
+    from mxnet_tpu_torch.models.bert_pp import BERTForMLMPipelined
+
+    model = BERTForMLMPipelined(BERT_VOCAB, dropout=0.0,
+                                generator=torch.Generator().manual_seed(SEED))
+    return cast(model, "bfloat16") if dtype == "bfloat16" else model
+
+
+def _counted_run(torch, step, tokens, labels, steps, scope=None):
+    """``steps`` steps with the counters zeroed just before and read just
+    after -> (losses, step ms, launches, wgmma16 launches)."""
+    import contextlib
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    _wgmma16_zero()
+    losses, ms = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        with scope() if scope is not None else contextlib.nullcontext():
+            handle = step.step(tokens, labels)
+        b.record()
+        losses.append(handle)
+        ms.append((a, b))
+    torch.cuda.synchronize()
+    return ([float(h) for h in losses], [a.elapsed_time(b) for a, b in ms],
+            {n: fn.launches for n, fn in counters.items()}, _wgmma16_read())
+
+
+def _layer_routes(torch, enc, x):
+    """Layer 0 of the stack on ``x``: the kernels' route (K1, K3-K5) and
+    the plain one (``layer_norm_ref``, ``flash_attention_ref``) -> their
+    outputs and the gradients of x and of the layer's tensors, a dict
+    each."""
+    from mxnet_tpu_torch.ops.kernels import flash_attention_ref, layer_norm_ref
+
+    def plain_ln(y, gamma, beta):
+        u = y.shape[-1]
+        return layer_norm_ref(y.reshape(-1, u), gamma, beta,
+                              1e-5)[0].reshape(y.shape)
+
+    def plain_attention(q, k, v):
+        return flash_attention_ref(q, k, v, False)[0]
+
+    g = torch.Generator(device=x.device).manual_seed(SEED + 7)
+    cot = torch.randn(x.shape, generator=g, device=x.device).to(x.dtype)
+    out = {}
+    for route, kw in (("kernel", {}), ("plain", {"ln": plain_ln,
+                                               "attention": plain_attention})):
+        p = {k: v[0].detach().clone().requires_grad_()
+             for k, v in enc.stacked().items()}
+        xi = x.detach().clone().requires_grad_()
+        y = enc._layer(p, xi, **kw)
+        y.backward(cot)
+        out[route] = {"out": y.detach(), "dx": xi.grad,
+                      **{f"d{k}": v.grad for k, v in p.items()}}
+    return out
+
+
+def _route_errors(routes, tol, ref=None):
+    """Each tensor's kernel-route error: f32, max |kernel - plain| within
+    ``tol`` of max |plain|; bf16 (``ref`` the f32 plain route), the kernel
+    route's max distance from ``ref`` within ``tol`` times the bf16 plain
+    route's plus one bf16 epsilon of max |ref|."""
+    k, p = routes["kernel"], routes["plain"]
+    out = {}
+    for n in k:
+        if ref is None:
+            err = float((k[n].float() - p[n].float()).abs().max())
+            allow = tol * max(float(p[n].float().abs().max()), 1e-30)
+            out[n] = {"err": err, "allow": allow}
+        else:
+            err = float((k[n].float() - ref[n]).abs().max())
+            plain = float((p[n].float() - ref[n]).abs().max())
+            allow = (tol * plain
+                     + EPS16["bfloat16"] * float(ref[n].abs().max()))
+            out[n] = {"err": err, "plain_err": plain, "allow": allow}
+        out[n]["ok"] = bool(out[n]["err"] <= out[n]["allow"])
+    return out
+
+
+def phase_train_bert_pp(torch, ctx):
+    """``BERTForMLMPipelined()`` at BERT-base's widths (12 x 768, vocab
+    30,522, dropout 0) from seeded weights trains PP_STEPS Adam steps at
+    lr 1e-4 on train's 32 x 512 batch off the pp mesh (the stack's loop),
+    f32 then bf16: finite falling losses, K1 26 and K3-K5 12 a step (all
+    ``wgmma16`` in bf16).  Layer 0 of the stack on a (32, 512, 768) input
+    runs the kernels' route and the plain one (``layer_norm_ref``,
+    ``flash_attention_ref``) on the card: output, input and parameter
+    gradients within PP_LAYER_TOL."""
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    tokens, labels = ctx["train_batch"]
+    rows, ok = {}, True
+    layer_ref = None
+    for dtype in ("float32", "bfloat16"):
+        model = _bert_pp(torch, dtype)
+        # the layer check first, on the seeded weights (bf16: the f32
+        # ones rounded), so the f32 plain route is the same function
+        dev = tokens.device
+        g = torch.Generator(device=dev).manual_seed(SEED + 6)
+        x = torch.randn((TRAIN_BATCH, TRAIN_LEN, model.encoder._units),
+                        generator=g, device=dev).to(getattr(torch, dtype))
+        routes = _layer_routes(torch, model.encoder, x)
+        if dtype == "float32":
+            layer_ref = {n: t.float() for n, t in routes["plain"].items()}
+        err = _route_errors(routes, PP_LAYER_TOL[dtype],
+                            None if dtype == "float32" else layer_ref)
+        del routes, x
+        step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                                optimizer_params={"learning_rate": 1e-4})
+        losses, ms, launches, w16 = _counted_run(torch, step, tokens, labels,
+                                                 PP_STEPS)
+        # embed_ln + 2 a layer + mlm_ln, an attention a layer: BERT-base's
+        want = {n: k * PP_STEPS for n, k in TRAIN_PER_STEP.items()}
+        want16 = {n: want[n] if dtype == "bfloat16" else 0
+                  for n in WGMMA16_KERNELS}
+        path = f"train_bert_pp_{dtype}"
+        ctx["launches"][path] = launches
+        if dtype == "bfloat16":
+            ctx.setdefault("launches_wgmma16", {})[path] = w16
+        row = {"losses": losses, "step_ms": ms,
+               "step_ms_median": statistics.median(ms),
+               "tokens_per_s": TRAIN_BATCH * TRAIN_LEN
+               / (statistics.median(ms) * 1e-3),
+               "launches": launches, "launches_expected": want,
+               "launches_wgmma16": w16,
+               "layer_route": err}
+        row["ok"] = bool(all(math.isfinite(v) for v in losses)
+                         and losses[-1] < losses[0] and launches == want
+                         and w16 == want16
+                         and all(e["ok"] for e in err.values()))
+        rows[dtype] = row
+        ok = ok and row["ok"]
+        del step, model
+        torch.cuda.empty_cache()
+    return {"model": "BERTForMLMPipelined", "batch": TRAIN_BATCH,
+            "seq_len": TRAIN_LEN, **rows, "card": ctx["smi"], "ok": ok}
+
+
+def _pp_single_run(torch, make, rules, mesh, tokens, labels, scope=None):
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    model = make()
+    step = DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4},
+                            mesh=mesh, rules=rules)
+    losses, ms, launches, w16 = _counted_run(torch, step, tokens, labels,
+                                             PP_STEPS, scope)
+    shards = len(step._shards)
+    state = step.state_dict() if mesh is not None else None
+    params = [p.detach().clone() for p in model.parameters()]
+    del step, model
+    torch.cuda.empty_cache()
+    return losses, params, launches, shards, state
+
+
+def phase_tp_pp_single(torch, ctx):
+    """The tensor- and pipeline-parallel code paths at size one on the one
+    card: a one-rank NCCL group and ``make_mesh()`` (tp 1, pp 1).  BERT-base
+    with ``bert_sharding_rules`` (every matched parameter sliced to its
+    one-rank shard, the layers' tp branches and collectives, the vocab-
+    parallel embedding and the gathered decoder) and
+    ``BERTForMLMPipelined`` with ``bert_pp_sharding_rules`` under a
+    ``pipeline_parallel_scope`` of PP_SINGLE_MICRO microbatches (the GPipe
+    schedule at pp 1), PP_STEPS f32 Adam steps each at 32 x 512, held
+    against the plain step (no mesh) from the same weights within
+    PP_SINGLE_TOL (the tp path's bit-equality is recorded too).  Launches
+    a step: K1 26 and K3-K5 12 on the tp path; K1 2 + 24 x 4 and K3-K5
+    12 x 4 on the pp path.  The gathered ``state_dict()`` holds every
+    array whole."""
+    import functools
+
+    from mxnet_tpu_torch.models.bert import bert_base, bert_sharding_rules
+    from mxnet_tpu_torch.models.bert_pp import bert_pp_sharding_rules
+    from mxnet_tpu_torch.parallel import make_mesh
+    from mxnet_tpu_torch.parallel.scope import pipeline_parallel_scope
+
+    _one_rank_group()
+    mesh = make_mesh()
+    tokens, labels = ctx["train_batch"]
+    M = PP_SINGLE_MICRO
+    cases = {
+        "tp": (lambda: bert_base(BERT_VOCAB, dropout=0.0,
+                                 generator=torch.Generator().manual_seed(
+                                     SEED)),
+               bert_sharding_rules(), None,
+               {n: k * PP_STEPS for n, k in TRAIN_PER_STEP.items()}),
+        "pp": (functools.partial(_bert_pp, torch, "float32"),
+               bert_pp_sharding_rules(),
+               lambda: pipeline_parallel_scope(mesh, (), M),
+               {**{n: 0 for n in ALL_KERNELS},
+                "layer_norm": (2 + 24 * M) * PP_STEPS,
+                **{n: 12 * M * PP_STEPS for n in FLASH}}),
+    }
+    rows, ok = {}, True
+    for name, (make, rules, scope, want) in cases.items():
+        plain = _pp_single_run(torch, make, None, None, tokens, labels)
+        got = _pp_single_run(torch, make, rules, mesh, tokens, labels, scope)
+        scale = max(float(p.float().abs().max()) for p in plain[1])
+        param_err = max(float((a.float() - b.float()).abs().max())
+                        for a, b in zip(got[1], plain[1])) / scale
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], plain[0]))
+        whole = sorted(tuple(np.shape(v)) for v in
+                       got[4]["params"].values()) == sorted(
+                           tuple(p.shape) for p in plain[1])
+        path = f"tp_pp_single_{name}"
+        ctx["launches"][path] = got[2]
+        row = {"losses": got[0], "plain_losses": plain[0],
+               "loss_rel_err": loss_rel, "param_err_of_max": param_err,
+               "bitwise": got[0] == plain[0] and param_err == 0.0,
+               "sharded_params": got[3], "state_whole": whole,
+               "launches": got[2], "launches_expected": want}
+        row["ok"] = bool(loss_rel <= PP_SINGLE_TOL["loss_rel"]
+                         and param_err <= PP_SINGLE_TOL["param_of_max"]
+                         and got[3] > 0 and whole and got[2] == want)
+        rows[name] = row
+        ok = ok and row["ok"]
+        del plain, got
+    return {"mesh": dict(mesh.shape), "microbatches": M, **rows,
+            "card": ctx["smi"], "ok": ok}
+
+
 RESNET_BATCH, RESNET_RES = 256, 224  # bench.py:768-769
 RESNET_WARMUP, RESNET_STEPS = 2, 5
 RESNET_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
@@ -4772,10 +5014,13 @@ def phase_serve_int4(torch, ctx):
 # flash_attention_16.cu (its own counts) on the 16-bit paths
 F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
                    "profile_bert", "graph_spellings", "test_utils_card",
-                   "onnx_roundtrip", "dist_single_float32", "sp_single")
+                   "onnx_roundtrip", "dist_single_float32", "sp_single",
+                   "train_bert_pp_float32", "tp_pp_single_tp",
+                   "tp_pp_single_pp")
 BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16",
                     "train_bert_dense_predict", "test_utils_card",
-                    "dist_single_bfloat16", "sp_single")
+                    "dist_single_bfloat16", "sp_single",
+                    "train_bert_pp_bfloat16")
 KERNELS = (
     ("layer_norm", "mxnet_tpu_torch/csrc/layer_norm.cu",
      "mxnet_tpu/ops/pallas/fused.py:98",
@@ -4785,7 +5030,9 @@ KERNELS = (
       "train_amp_fp16", "module_bert", "train_resume", "serve_fullprefix",
       "profile_bert", "train_bert_dense", "train_bert_dense_predict",
       "graph_spellings", "test_utils_card", "onnx_roundtrip", "examples",
-      "dist_single_float32", "dist_single_bfloat16")),
+      "dist_single_float32", "dist_single_bfloat16",
+      "train_bert_pp_float32", "train_bert_pp_bfloat16", "tp_pp_single_tp",
+      "tp_pp_single_pp")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -10378,6 +10625,8 @@ def main() -> int:
               ("train_amp_fp16", phase_train_amp_fp16),
               ("dist_single", phase_dist_single),
               ("sp_single", phase_sp_single),
+              ("train_bert_pp", phase_train_bert_pp),
+              ("tp_pp_single", phase_tp_pp_single),
               ("imperative", phase_imperative),
               ("imperative_bf16", phase_imperative_bf16),
               ("train_resnet", phase_train_resnet),
@@ -10441,7 +10690,7 @@ def main() -> int:
             failed.append(name)
     from mxnet_tpu_torch.parallel import dist
 
-    dist.shutdown()  # the one-rank group of dist_single and sp_single
+    dist.shutdown()  # the one-rank group of dist_single to tp_pp_single
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

@@ -26,8 +26,9 @@ from typing import Dict, Tuple
 
 __all__ = ["ENV_VARS", "describe", "check"]
 
-_A9_2 = ("ROADMAP A.9 part 2 (multi-GPU: tensor and pipeline parallelism, "
-         "the planner, elastic resize, the launcher's supervisor)")
+_A9_3 = ("ROADMAP A.9 part 3 (multi-GPU: format-2 checkpoints sharded "
+         "across ranks, elastic resize, the launcher's supervisor, the "
+         "synchronized BatchNorm)")
 _STEP = "ROADMAP A.1 (the superstep, with the captured training step)"
 _AOT = ("not queued: the port compiles no executables, so there is no "
         "AOT executable cache (aot_cache.py has no counterpart)")
@@ -126,11 +127,11 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
     "MX_RESTART_COUNT": (
         "honored", "gang incarnation index: fault.py if-restart= and "
         "telemetry.py"),
-    "MX_ELASTIC": ("not honored", _A9_2),
+    "MX_ELASTIC": ("not honored", _A9_3),
     "MX_PREV_NUM_PROCS": (
         "honored", "a resize telemetry event at the rendezvous when it "
         "differs from the world size (parallel/dist.py); the elastic "
-        "restore itself is " + _A9_2),
+        "restore itself is " + _A9_3),
     # launcher contract
     "MX_COORDINATOR": (
         "honored", "host:port of the rendezvous store, rank 0 serves it "
@@ -275,7 +276,9 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
     "MX_TRACE_HEARTBEAT_GAP_SEC": (
         "tool", "tools/trace_report.py's silent-stream gap (default 30)"),
     # parallelism Plan
-    "MX_PLAN": ("not honored", "the planner reads it: " + _A9_2),
+    "MX_PLAN": (
+        "honored", "the planner's strategy override, auto | dp | tp | pp | "
+        "sp | ring | ulysses (parallel/planner.py plan_for)"),
     # precision
     "MX_AMP": (
         "honored", "graph-level AMP for steps built without an explicit "

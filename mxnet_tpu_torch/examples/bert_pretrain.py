@@ -6,10 +6,16 @@ defaults (``--sp`` is the port's addition: sequence parallelism, with
 One card:  python -m mxnet_tpu_torch.examples.bert_pretrain --steps 20
 dp4:       python -m mxnet_tpu_torch.tools.launch -n 4 --launcher local \\
                python -m mxnet_tpu_torch.examples.bert_pretrain --dp 4
+dp2 x tp2: ... bert_pretrain --dp 2 --tp 2
+dp2 x pp2: ... bert_pretrain --dp 2 --pp 2   (the stacked pp encoder)
 
 Every process builds the same seeded weights and batch; the step cuts
-each process's block of the batch.  ``--tp`` and ``--pp`` above 1 raise:
-tensor and pipeline parallelism are ROADMAP A.9 part 2.
+each process's block of the batch and, with the rules, of the weights:
+``bert_sharding_rules`` (Megatron tensor parallelism over ``--tp``), or
+with ``--pp`` above 1 the pipelined BERT (``BERTForMLMPipelined`` /
+``bert_pp_small``) and ``bert_pp_sharding_rules``, as the JAX example
+picks them.  ``--sp`` above 1 with ``--tp`` or ``--pp`` above 1 raises
+(ROADMAP A.9 part 3).
 """
 import argparse
 import time
@@ -19,7 +25,11 @@ import numpy as np
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import gluon
 from mxnet_tpu_torch.examples import context_of
-from mxnet_tpu_torch.models.bert import bert_base, bert_small
+from mxnet_tpu_torch.models.bert import (bert_base, bert_sharding_rules,
+                                         bert_small)
+from mxnet_tpu_torch.models.bert_pp import (BERTForMLMPipelined,
+                                            bert_pp_sharding_rules,
+                                            bert_pp_small)
 from mxnet_tpu_torch.parallel import DataParallelStep, dist, make_mesh
 
 
@@ -35,7 +45,7 @@ def main(argv=None):
                     choices=["ring", "ulysses", "gather"])
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--pp", type=int, default=1,
-                    help="pipeline stages (ROADMAP A.9 part 2)")
+                    help="pipeline stages (uses the stacked pp encoder)")
     ap.add_argument("--pp-microbatches", type=int, default=2)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -43,13 +53,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
-    if args.tp > 1 or args.pp > 1:
-        raise mx.MXNetError(
-            f"--tp {args.tp} --pp {args.pp}: tensor and pipeline "
-            "parallelism are ROADMAP A.9 part 2; the port's step runs "
-            "--dp and --sp")
 
-    n_dev = args.dp * args.sp
+    n_dev = args.dp * args.sp * args.tp * args.pp
     mesh, rank = None, 0
     if n_dev > 1:
         dist.init_from_env(force_cpu=args.device == "cpu")
@@ -58,14 +63,21 @@ def main(argv=None):
                 f"need {n_dev} processes, have {dist.process_count()}: "
                 f"start them with python -m mxnet_tpu_torch.tools.launch "
                 f"-n {n_dev}")
-        mesh, rank = make_mesh(sp=args.sp), dist.process_index()
+        mesh = make_mesh(sp=args.sp, tp=args.tp, pp=args.pp)
+        rank = dist.process_index()
         ctx = (mx.cpu() if args.device == "cpu"
                else mx.gpu(dist.device().index))
     else:
         ctx = context_of(args.device)
 
     mx.random.seed(0)
-    make = bert_base if args.model == "base" else bert_small
+    if args.pp > 1:
+        make = (BERTForMLMPipelined if args.model == "base"
+                else bert_pp_small)
+        rules = bert_pp_sharding_rules()
+    else:
+        make = bert_base if args.model == "base" else bert_small
+        rules = bert_sharding_rules()
     net = make(dropout=0.0, init_weights=False)
     if args.model != "base":
         args.seq_len = min(args.seq_len, 64)  # small-config max_length
@@ -83,6 +95,7 @@ def main(argv=None):
     step = DataParallelStep(net, mlm_loss, optimizer="adam",
                             optimizer_params={"learning_rate": 1e-4},
                             device=ctx, mesh=mesh, ring_attention=ring,
+                            rules=rules,
                             pp_microbatches=args.pp_microbatches)
     V = 30522 if args.model == "base" else 512
     rng = np.random.RandomState(0)

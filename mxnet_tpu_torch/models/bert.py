@@ -20,8 +20,14 @@ lacks, so such a call traces no graph in either package.
 The blocks are Gluon ``HybridBlock``s made in the JAX classes' name
 scopes with their prefixes, so ``collect_params()`` gives the JAX net's
 names (``bertformlm0_bert_encoder_layer0_attn_qkv_weight``), which
-``convert.from_mxnet_tpu_params`` maps.  The tensor-parallel sharding rules of
-the JAX module are not ported.
+``convert.from_mxnet_tpu_params`` maps.  :func:`bert_sharding_rules` is
+the JAX module's Megatron table; under a step over a mesh with a ``tp``
+axis the layers run it with explicit collectives
+(``parallel.tensor_parallel``): qkv and ffn1 column-parallel, proj and
+ffn2 row-parallel, the word embedding vocab-parallel (ids outside a rank's
+rows give zeros, then an all-reduce) and the decoder vocab-split (local
+logits, then an all-gather over ``tp``, so the loss sees the whole
+vocabulary).
 
 Under a step's sequence-parallel scope each process holds L/sp positions:
 the positional embedding reads its offset, attention takes the scope's
@@ -40,11 +46,14 @@ from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
+from ..parallel import tensor_parallel as _tp
 from ..parallel.ring import gather_sequence
 from ..parallel.scope import ring_scope
+from ..parallel.sharding import ShardingRules
 from .transformer import PositionalEmbedding, TransformerEncoder
 
-__all__ = ["BERTModel", "BERTForMLM", "bert_base", "bert_small"]
+__all__ = ["BERTModel", "BERTForMLM", "bert_base", "bert_small",
+           "bert_sharding_rules"]
 
 
 @torch.no_grad()
@@ -89,8 +98,12 @@ class BERTModel(HybridBlock):
             self.pooler = Dense(units, flatten=False, in_units=units,
                                 prefix="pooler_")
 
+    _SHARD_FORMS = {"word_embed.weight": ((("tp", None),), 1)}
+
     def forward(self, inputs, token_types=None, valid_length=None):
-        x = self.word_embed(inputs)
+        x = (_tp.vocab_parallel_embedding(self.word_embed, inputs)
+             if _tp.shard_of(self.word_embed.weight) is not None
+             else self.word_embed(inputs))
         if token_types is not None:
             x = x + self.token_type_embed(token_types)
         x = self.embed_drop(self.embed_ln(self.pos_embed(x)))
@@ -161,15 +174,40 @@ class BERTForMLM(HybridBlock):
             self.to(device)
             self._mark_initialized()
 
+    _SHARD_FORMS = {"decoder.weight": ((("tp", None),), 1),
+                    "decoder.bias": ((("tp",),), 1)}
+
     def forward(self, inputs, token_types=None, valid_length=None):
         seq, _ = self.bert(inputs, token_types, valid_length)
         h = self.mlm_ln(F.gelu(self.mlm_dense(seq), approximate="none"))
+        if _tp.shard_of(self.decoder.weight) is not None:
+            return _tp.column_parallel(self.decoder, h, gather=True)
         return self.decoder(h)
 
     def hybrid_forward(self, F, inputs, token_types=None, valid_length=None):
         seq, _ = self.bert(inputs, token_types, valid_length)
         h = self.mlm_ln(F.LeakyReLU(self.mlm_dense(seq), act_type="gelu"))
         return self.decoder(h)
+
+
+def bert_sharding_rules() -> ShardingRules:
+    """Megatron-style TP rules over the 'tp' mesh axis (the JAX table).
+
+    Dense weights are (out, in): axis-0 split = column parallel, axis-1 =
+    row parallel.  qkv and ffn1 are column-parallel; proj and ffn2 are
+    row-parallel; embeddings and the MLM decoder split the vocab axis.
+    """
+    return ShardingRules([
+        (r".*qkv_weight$", ("tp", None)),
+        (r".*qkv_bias$", ("tp",)),
+        (r".*proj_weight$", (None, "tp")),
+        (r".*ffn1_weight$", ("tp", None)),
+        (r".*ffn1_bias$", ("tp",)),
+        (r".*ffn2_weight$", (None, "tp")),
+        (r".*word_embed_weight$", ("tp", None)),
+        (r".*decoder_weight$", ("tp", None)),
+        (r".*decoder_bias$", ("tp",)),
+    ])
 
 
 def bert_base(vocab_size: int = 30522, **kwargs) -> BERTForMLM:

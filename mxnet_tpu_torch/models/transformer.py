@@ -47,6 +47,13 @@ the causal rule built from ops (``ones_like``, ``linalg_makediag``,
 carries no dtype; -3e4 is exactly 0 after an f32 softmax and stays finite
 in a 16-bit export).
 
+Under a step whose rules cut their weights over ``tp``
+(``models.bert.bert_sharding_rules``), ``MultiHeadAttention`` and
+``PositionwiseFFN`` run Megatron's pattern (``_SHARD_FORMS``,
+``parallel.tensor_parallel``): ``qkv`` and ``ffn1`` column-parallel (the
+attention on this rank's H/tp heads), ``proj`` and ``ffn2`` row-parallel
+with the bias added once, after the all-reduce.
+
 :func:`label_smoothed_ce` is the training loss of BASELINE config 4
 (``bench.py:706-751``), with the JAX function's roundings.
 """
@@ -72,6 +79,7 @@ from ..parallel.ring import gather_sequence as _gather_sequence
 from ..parallel.scope import global_count as _global_count
 from ..parallel.scope import ring_scope as _ring_scope
 from ..parallel.scope import seq_offset as _seq_offset
+from ..parallel import tensor_parallel as _tp
 from ..ops.kernels import flash_attention
 from ..ops.nn import activation as _activation_op
 from ..precision import runtime as _prec
@@ -251,9 +259,20 @@ class MultiHeadAttention(HybridBlock):
             self.proj = _linear(units, units, "proj_", use_bias)
             self.attn_drop = Dropout(dropout)
 
+    # Megatron's attention: qkv column-parallel (this rank's heads of q,
+    # k and v), proj row-parallel
+    _SHARD_FORMS = {"qkv.weight": ((("tp", None),), 3),
+                    "qkv.bias": ((("tp",),), 3),
+                    "proj.weight": (((None, "tp"),), 1)}
+
     def forward(self, x, mask=None):
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
         H, hd = self.num_heads, self.head_dim
+        tp = _tp.shard_of(self.qkv.weight) is not None
+        if tp:  # this rank's H / tp heads
+            H //= _tp.tp_size()
+            q, k, v = _tp.column_parallel(self.qkv, x).chunk(3, dim=-1)
+        else:
+            q, k, v = self.qkv(x).chunk(3, dim=-1)
         q, k, v = (_split_heads(t, H, hd) for t in (q, k, v))
         if mask is None and (self.attn_drop.rate == 0.0
                              or not self.training):
@@ -266,6 +285,8 @@ class MultiHeadAttention(HybridBlock):
         else:
             out = _attention(q, k, v, hd, H, mask, self.causal,
                              self.attn_drop)
+        if _tp.shard_of(self.proj.weight) is not None:
+            return _tp.row_parallel(self.proj, _merge_heads(out, H))
         return self.proj(_merge_heads(out, H))
 
     def hybrid_forward(self, F, x, mask=None):
@@ -303,8 +324,20 @@ class PositionwiseFFN(HybridBlock):
             self.ffn_2 = _linear(units, hidden_size, "ffn2_")
             self.drop = Dropout(dropout)
 
+    # Megatron's feed-forward: ffn1 column-parallel, ffn2 row-parallel
+    _SHARD_FORMS = {"ffn_1.weight": ((("tp", None),), 1),
+                    "ffn_1.bias": ((("tp",),), 1),
+                    "ffn_2.weight": (((None, "tp"),), 1)}
+
     def forward(self, x):
-        return self.drop(self.ffn_2(self.act(self.ffn_1(x))))
+        h = (_tp.column_parallel(self.ffn_1, x)
+             if _tp.shard_of(self.ffn_1.weight) is not None
+             else self.ffn_1(x))
+        h = self.act(h)
+        h = (_tp.row_parallel(self.ffn_2, h)
+             if _tp.shard_of(self.ffn_2.weight) is not None
+             else self.ffn_2(h))
+        return self.drop(h)
 
     def hybrid_forward(self, F, x):
         h = self.ffn_1(x)

@@ -101,32 +101,49 @@ only drains.
 
 ``mesh=`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` over the
 processes of a ``torch.distributed`` group, one card each), ``rules=``,
-``batch_axes=``, ``seq_axis=``, ``ring_attention=`` and ``plan=`` take
-the JAX step's meaning and gating; every parameter is replicated.  Each
-process is given the GLOBAL batch, as the JAX step is, and slices its own
-block (``sharding.Placement.local``): with an ``sp`` axis > 1 and a
-sequence dimension 1 that divides by it (or ``seq_axis=1``), dimension 0
-over ``dp`` and 1 over ``sp``; otherwise (an NCHW image batch) dimension 0
-over ``dp`` x ``sp``.  The forward and the loss run under the scopes the
-model's ops read: ``ring_attention_scope`` when the sequence is sharded
-(``ring``, ``ulysses``, or the K/V gather for ``gspmd``) and
+``batch_axes=``, ``seq_axis=``, ``ring_attention=``,
+``pp_microbatches=`` and ``plan=`` take the JAX step's meaning and
+gating.  Each process is given the GLOBAL batch, as the JAX step is, and
+slices its own block (``sharding.Placement.local``): with an ``sp`` axis
+> 1 and a sequence dimension 1 that divides by it (or ``seq_axis=1``),
+dimension 0 over ``dp`` and 1 over ``sp``; otherwise (an NCHW image batch)
+dimension 0 over the batch axes (``dp`` x ``sp``); the ``tp`` and ``pp``
+ranks of one data block are given the same block.  At construction every
+parameter and float buffer is broadcast from the mesh's first rank; then
+each parameter a rule places on the ``tp`` or ``pp`` axis keeps the
+block its process holds, and so do its optimizer slots
+(``tensor_parallel.shard_parameters``; a parameter no rule matches stays
+replicated, and a rule the port's layers cannot run raises, naming ROADMAP
+A.9 part 3).  The forward and the loss run under the scopes the model's
+ops read: ``ring_attention_scope`` when the sequence is sharded
+(``ring``, ``ulysses``, or the K/V gather for ``gspmd``),
+``tensor_parallel_scope`` when parameters are sharded (the layers' tp
+collectives), ``pipeline_parallel_scope`` when ``pp`` > 1 (a stacked
+encoder's GPipe schedule, ``parallel/pipeline.py``) and
 ``batch_reduction_scope``.  After the backward every gradient is summed
-over the mesh in flat buckets of ``dist.bucket_cap_bytes()`` (one
-all-reduce each, all started before the first is waited on) and divided
-by the number of processes, as is the loss; ``clip_global_norm`` and the
-update act on the reduced gradients, so every replica takes the same
-update.  At construction every parameter and float buffer is broadcast
-from the mesh's first rank.  ``accum_steps`` splits each process's block
-(``a[i::k]``, the global mean is the same).  A BatchNorm's statistics are
-those of the process's block (the JAX step's are global): the step raises
-for a block holding one when the mesh has more than one process.  tp > 1
-and pp > 1 raise (ROADMAP A.9 part 2).  ``layout()`` reports the world
-size, the mesh axes and the ranks; ``state_dict()`` holds every
-(replicated) array whole on every process, and ``shard_state_dict()``
-makes rank 0 the owner of each.
+over the data axes (``dp`` and ``sp``) in flat buckets of
+``dist.bucket_cap_bytes()`` (one all-reduce each, all started before the
+first is waited on) and divided by their extent, as is the loss: the
+ranks of a ``tp`` or ``pp`` slice computed the same batch, and a
+replicated parameter's gradient is the same on each of them, so nothing
+is summed over those axes.  ``clip_global_norm`` sums the squared norms
+of sharded gradients over the axes they are cut along, once, and the
+update acts on the reduced gradients, so every replica takes the same
+update.  ``accum_steps`` splits each process's block (``a[i::k]``, the
+global mean is the same).  A BatchNorm's statistics are those of the
+process's block (the JAX step's are global): the step raises for a block
+holding one when the mesh has more than one process (a synchronized
+BatchNorm is ROADMAP A.9 part 3), as it does for sp > 1 with tp or pp
+> 1, and for ``remat`` with pp > 1.  ``layout()`` reports the world size,
+the mesh axes, the ranks and each parameter's spec from the rules (the
+JAX step's); ``state_dict()`` holds every array whole, in the JAX layout,
+on every process (a sharded one gathered over its slice, a collective:
+every process calls it), and ``shard_state_dict()`` makes rank 0 the
+owner of each.
 
-Not ported: tensor and pipeline parallelism (A.9 part 2), the superstep
-(with A.1's captured step) and AOT executables (the port compiles none).
+Not ported: format-2 checkpoints sharded across ranks (A.9 part 3), the
+superstep (with A.1's captured step) and AOT executables (the port
+compiles none).
 """
 from __future__ import annotations
 
@@ -153,8 +170,10 @@ from ..precision.config import PrecisionConfig
 from . import dist
 from .async_loss import AsyncLoss, InflightRing, inflight_limit
 from .plan import Plan
-from .scope import batch_reduction_scope, ring_attention_scope
+from .scope import (batch_reduction_scope, pipeline_parallel_scope,
+                    ring_attention_scope, tensor_parallel_scope)
 from .sharding import ShardingRules, shard_batch, shard_batch_seq
+from .tensor_parallel import A93, ParamShard, shard_of, shard_parameters
 
 __all__ = ["DataParallelStep", "make_train_step", "compile_step_with_plan"]
 
@@ -224,16 +243,24 @@ class DataParallelStep:
             accum_steps, pp_microbatches, precision)
         precision = self.plan.precision
         accum_steps = self.plan.accum_steps
-        for axis in ("tp", "pp"):
-            if self.plan.axis_size(axis) > 1:
-                raise MXNetError(
-                    f"{axis} = {self.plan.axis_size(axis)}: tensor and "
-                    "pipeline parallelism are ROADMAP A.9 part 2; the "
-                    "port's step runs dp and sp")
+        model_par = [f"{a} = {self.plan.axis_size(a)}" for a in ("tp", "pp")
+                     if self.plan.axis_size(a) > 1]
+        if model_par and self.plan.axis_size("sp") > 1:
+            raise MXNetError(
+                f"sp = {self.plan.axis_size('sp')} with "
+                f"{' and '.join(model_par)}: sequence parallelism composed "
+                f"with tensor or pipeline parallelism is {A93}")
+        if remat and self.plan.axis_size("pp") > 1:
+            raise MXNetError(f"remat with pp = {self.plan.axis_size('pp')}: "
+                             f"recomputing a pipeline schedule is {A93}")
         # collectives run whenever a process group holds the mesh, one
         # process included (its all-reduce is exact)
         self._collective = self.mesh is not None and dist.is_initialized()
         self._world = self.mesh.size if self._collective else 1
+        # the data axes' extent: what the gradients and the loss are
+        # averaged over (the tp and pp ranks of a block compute it alike)
+        self._extent = (self.mesh.axis_size("dp") * self.mesh.axis_size("sp")
+                        if self._collective else 1)
         if self.mesh is not None and self.mesh.size > 1 \
                 and not self._collective:
             self.mesh.group(("dp",))  # raises: no process group
@@ -241,6 +268,14 @@ class DataParallelStep:
             device = dist.device()
         self.device = resolve_device(device)
         self.block = block.to(self.device)
+        self._group = None
+        self._shards: Dict[int, ParamShard] = {}
+        if self._collective:
+            self._group = self.mesh.group(("dp", "sp"))
+            if self._world > 1:
+                self._check_no_batch_norm()
+            self._broadcast_from_first()
+            self._shard(self.plan.rules)
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.precision = precision
@@ -288,12 +323,6 @@ class DataParallelStep:
         self._inflight = InflightRing(self._tele_name)
         memwatch.register("params", self, _params_arrays)
         memwatch.register("optimizer", self, _opt_state_arrays)
-        self._group = None
-        if self._collective:
-            self._group = self.mesh.group(("dp", "sp"))
-            if self._world > 1:
-                self._check_no_batch_norm()
-            self._broadcast_from_first()
 
     # -- the plan and the mesh ---------------------------------------------
     @staticmethod
@@ -357,19 +386,58 @@ class DataParallelStep:
                     f"{type(m).__name__} in a step over {self._world} "
                     "processes: its batch statistics would be this "
                     "process's block's, the JAX step's are the global "
-                    "batch's (a synchronized BatchNorm is not ported)")
+                    f"batch's (a synchronized BatchNorm is {A93})")
 
     @torch.no_grad()
     def _broadcast_from_first(self) -> None:
-        """Every parameter and float buffer from the mesh's first rank, so
-        the replicas start equal."""
+        """Every parameter and float buffer from the mesh's first rank to
+        every process, so the replicas start equal."""
         import torch.distributed as tdist
 
         src = int(self.mesh.ranks.reshape(-1)[0])
         tensors = list(self.block.parameters()) + [
             b for b in self.block.buffers() if b.is_floating_point()]
         for t in tensors:
-            tdist.broadcast(t.data, src, group=self._group)
+            tdist.broadcast(t.data, src)
+
+    def _rule_names(self):
+        """[(name the rules match, tensor)]: a Gluon block's
+        ``collect_params`` names (the JAX step's), a plain module's torch
+        names."""
+        if not hasattr(self.block, "_collect_params_with_prefix"):
+            return [(n, t) for n, t, *_ in self._entries()]
+        return [(n, p._tensor())
+                for n, p in self.block.collect_params().items()]
+
+    @torch.no_grad()
+    def _shard(self, rules: ShardingRules) -> None:
+        """Cut every parameter the rules place on a model axis to the block
+        this process holds; the groups its collectives use are made here,
+        by every process in the same order."""
+        if not rules:
+            return
+        self._shards = shard_parameters(self.block, self.mesh, rules,
+                                        self._rule_names())
+        for t in self.block.parameters():
+            sh = self._shards.get(id(t))
+            if sh is None:
+                continue
+            if shard_of(t) is not None:
+                raise MXNetError("a parameter is sharded by two steps")
+            t.data = sh.local(t.data).contiguous()
+            t._mx_shard = sh
+        import torch.distributed as tdist
+
+        wanted = [a for a in dict.fromkeys(
+            sh.axes for sh in self._shards.values()) if a]
+        wanted += [axes for axes in (("tp",), ("pp",), ("pp", "tp"))
+                   if all(self.mesh.axis_size(a) > 1 for a in axes)]
+        for axes in dict.fromkeys(wanted):
+            group = self.mesh.group(axes)
+            # one collective on every group first: the pipeline's first
+            # use of its group is point-to-point, which NCCL wants after
+            # the whole group has joined one
+            tdist.all_reduce(torch.zeros(1, device=self.device), group=group)
 
     # -- the learning rate ------------------------------------------------
     def _current_lr(self, num_update: int) -> float:
@@ -434,19 +502,42 @@ class DataParallelStep:
             ids = [int(r) for r in self.mesh.ranks.reshape(-1)]
         else:
             axes, ids = [["dp", 1]], [int(self.device.index or 0)]
+        rules = self.plan.rules
+        by_id = {id(t): n for n, t in self._rule_names()}
+        specs = {sname: [list(a) if isinstance(a, tuple) else a
+                         for a in rules.spec_for(by_id.get(id(t), sname),
+                                                 self._global_ndim(t))]
+                 for sname, t, *_ in self._entries()}
         return {
             "world_size": dist.process_count(),
             "mesh_axes": axes,
             "device_ids": ids,
             "platform": "gpu" if self.device.type == "cuda" else "cpu",
-            "specs": {sname: [] for sname, *_ in self._entries()},
+            "specs": specs,
             "plan": self.plan.to_json(),
             "passes": self._pipeline.to_json(),
         }
 
+    @staticmethod
+    def _global_ndim(t) -> int:
+        sh = shard_of(t)
+        return t.dim() if sh is None else len(sh.shape)
+
     def snapshot_requires_collective(self) -> bool:
-        """False: every process holds every (replicated) array whole."""
-        return False
+        """Whether a host copy of the state gathers shards (every process
+        must then take it together)."""
+        return any(sh.axes for sh in self._shards.values())
+
+    def _whole(self, value, param):
+        """``value`` (``param`` or one of its slots) whole: gathered over
+        its shard's slice when ``param`` is sharded."""
+        sh = self._shards.get(id(param))
+        return value if sh is None else sh.gather(value)
+
+    def _local(self, value, param):
+        """This process's block of a whole ``value`` for ``param``."""
+        sh = self._shards.get(id(param))
+        return value if sh is None else sh.local(value)
 
     def _host_state(self):
         """[(section, key, device tensor)] of the state, in the JAX
@@ -455,13 +546,16 @@ class DataParallelStep:
         out = []
         entries = self._entries()
         for sname, t, to_gluon, _ in entries:
-            out.append(("params", sname, to_gluon(t.detach())))
+            out.append(("params", sname,
+                        to_gluon(self._whole(t.detach(), t))))
         prefixes = ("mom",) if self.optimizer == "sgd" else ("mean", "var")
         for k, prefix in enumerate(prefixes):
             for sname, t, to_gluon, _ in entries:
                 i = slot_of.get(id(t))
-                slot = (self.opt_state[k][i] if i is not None else
-                        torch.zeros_like(t, dtype=torch.float32))
+                slot = (self._whole(self.opt_state[k][i], t)
+                        if i is not None else torch.zeros(
+                            self._whole(t.detach(), t).shape,
+                            dtype=torch.float32, device=t.device))
                 out.append(("opt_state", f"{prefix}.{sname}",
                             to_gluon(slot)))
         if self.optimizer == "adam":
@@ -530,7 +624,8 @@ class DataParallelStep:
         for sname, t, _, from_gluon in entries:
             if sname not in params_host:
                 raise MXNetError(f"checkpoint missing parameter {sname}")
-            t.copy_(from_gluon(_cpu_tensor(params_host[sname])))
+            t.copy_(self._local(from_gluon(_cpu_tensor(params_host[sname])),
+                                t))
         opt = dict(state.get("opt_state") or {})
         amp_state = {k[len("amp."):]: opt.pop(k)
                      for k in list(opt) if k.startswith("amp.")}
@@ -548,7 +643,8 @@ class DataParallelStep:
                 key = f"{prefix}.{sname}"
                 dst = self.opt_state[k][i]
                 if key in opt:
-                    dst.copy_(from_gluon(_cpu_tensor(opt[key])))
+                    dst.copy_(self._local(from_gluon(_cpu_tensor(opt[key])),
+                                          t))
                 elif opt:
                     raise MXNetError(
                         f"checkpoint optimizer state is missing slot "
@@ -666,15 +762,22 @@ class DataParallelStep:
                          if a != "sp" and self.mesh.axis_size(a) > 1)
             stack.enter_context(ring_attention_scope(
                 self.mesh, dim0, mode=self.plan.sp_attention))
-        if self._world > 1:
+        if self._shards:
+            stack.enter_context(tensor_parallel_scope(self.mesh))
+        if self.mesh is not None and self.mesh.axis_size("pp") > 1:
+            dim0 = tuple(a for a in self.plan.batch_axes
+                         if a != "sp" and self.mesh.axis_size(a) > 1)
+            stack.enter_context(pipeline_parallel_scope(
+                self.mesh, dim0, self.plan.pp_microbatches))
+        if self._extent > 1:
             stack.enter_context(batch_reduction_scope(self._group,
-                                                      self._world))
+                                                      self._extent))
         return stack
 
     def _allreduce_mean(self, tensors):
-        """Each tensor summed over the mesh in place and divided by the
-        number of processes: flat buckets of ``bucket_cap_bytes``, one
-        all-reduce each, all started before the first is waited on."""
+        """Each tensor summed over the data axes in place and divided by
+        their extent: flat buckets of ``bucket_cap_bytes``, one all-reduce
+        each, all started before the first is waited on."""
         import torch.distributed as tdist
 
         pending = []
@@ -686,8 +789,8 @@ class DataParallelStep:
                 flat, group=self._group, async_op=True)))
         for idx, flat, one, work in pending:
             work.wait()
-            if self._world > 1:
-                flat.div_(self._world)
+            if self._extent > 1:
+                flat.div_(self._extent)
             if not one:
                 for i, part in zip(idx, dist.unflatten_bucket(
                         flat, [tuple(tensors[i].shape) for i in idx])):
@@ -818,7 +921,7 @@ class DataParallelStep:
 
     def _dispatch(self, datas, label, sp_active=False) -> torch.Tensor:
         """The forward, backward and update of one step on placed inputs
-        -> the device loss (the mean over the mesh's processes)."""
+        -> the device loss (the mean over the data axes' processes)."""
         k = self.accum_steps
         if k > 1:
             for d in datas + (label,):
@@ -866,7 +969,8 @@ class DataParallelStep:
             if not scaled:
                 self._update(grads)
             else:
-                finite = _ls.grads_finite([g.float() for g in grads])
+                finite = self._model_all(
+                    _ls.grads_finite([g.float() for g in grads]))
                 self._update(grads, scale)
                 # the skip step: every held tensor selects its old value
                 for t, old in zip(held, before):
@@ -886,12 +990,46 @@ class DataParallelStep:
         rescale = self._rescale if rescale is None else rescale
         scale = rescale
         if self.clip_global_norm is not None and grads:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))) * abs(rescale)
+            norm = self._global_norm(grads) * abs(rescale)
             scale = torch.clamp(self.clip_global_norm / (norm + 1e-12),
                                 max=1.0) * rescale
         return grad_terms_(grads, w, scale, self._clip,
                            [self._wd * m for m in self._wd_mults])
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The L2 norm of every trainable gradient: a sharded one's squared
+        norm summed over the slice it is cut along, once; a replicated
+        one's counted once, not once a process."""
+        norms = torch._foreach_norm(grads)
+        if not any(sh.axes for sh in self._shards.values()):
+            return torch.linalg.vector_norm(torch.stack(norms))
+        import torch.distributed as tdist
+
+        by_axes: Dict[tuple, list] = {}
+        for p, n in zip(self.params, norms):
+            sh = self._shards.get(id(p))
+            by_axes.setdefault(sh.axes if sh is not None else (), []).append(n)
+        total = None
+        for axes in sorted(by_axes):
+            sq = torch.stack(by_axes[axes]).float().square().sum()
+            if axes:
+                tdist.all_reduce(sq, group=self.mesh.group(axes))
+            total = sq if total is None else total + sq
+        return total.sqrt()
+
+    def _model_all(self, flag: torch.Tensor) -> torch.Tensor:
+        """``flag`` (a 0-d bool) true on every process of this one's tp x
+        pp slice: a non-finite shard skips the step everywhere."""
+        axes = tuple(a for a in ("pp", "tp") if self.mesh is not None
+                     and self._shards and self.mesh.axis_size(a) > 1)
+        if not axes:
+            return flag
+        import torch.distributed as tdist
+
+        f = flag.to(torch.int32).reshape(1)
+        tdist.all_reduce(f, op=tdist.ReduceOp.MIN,
+                         group=self.mesh.group(axes))
+        return f[0].bool()
 
     def _update(self, grads, loss_scale=None) -> None:
         # f32 views: the tensors themselves where they are f32, copies of

@@ -6,9 +6,9 @@ the sequence-axis contract, the sequence-parallel attention mechanism,
 the pipeline and accumulation microbatch counts and the precision
 config; it validates, serializes (``to_json`` / ``from_json``, lossless,
 as the JAX ``Plan.to_json()`` spells it) and builds its mesh over the
-process group.  All five strategy shims are here, since plans are data;
-``DataParallelStep`` runs the dp and sp ones and raises on tp > 1 or
-pp > 1, which ROADMAP A.9 part 2 queues.
+process group.  ``DataParallelStep`` (and ``compile_step_with_plan``)
+runs every one of the five strategy shims' plans; ``parallel/planner.py``
+chooses one analytically.
 """
 from __future__ import annotations
 
@@ -194,7 +194,7 @@ def tensor_parallel_plan(rules: ShardingRules, tp: int, dp: int = 0,
                          n_devices: Optional[int] = None,
                          accum_steps: int = 1) -> Plan:
     """Tensor parallelism through per-parameter rules, with dp over the
-    rest (data only here: the step raises on tp > 1, ROADMAP A.9 part 2)."""
+    rest."""
     if tp < 2:
         raise MXNetError(f"tensor_parallel_plan: tp must be >= 2, got {tp}")
     dp = _resolve_dp(dp, n_devices, tp)
@@ -206,8 +206,9 @@ def pipeline_plan(pp: int, microbatches: int = 4, dp: int = 0,
                   n_devices: Optional[int] = None,
                   rules: Optional[ShardingRules] = None,
                   accum_steps: int = 1) -> Plan:
-    """GPipe pipeline parallelism over ``pp`` (data only here: the step
-    raises on pp > 1, ROADMAP A.9 part 2)."""
+    """GPipe pipeline parallelism over ``pp``: a stacked encoder
+    (``models/bert_pp.py``) runs its layers through
+    ``pipeline.pipeline_apply``."""
     if pp < 2:
         raise MXNetError(f"pipeline_plan: pp must be >= 2, got {pp}")
     dp = _resolve_dp(dp, n_devices, pp)

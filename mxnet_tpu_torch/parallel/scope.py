@@ -16,6 +16,15 @@ sequence element under the active scope (0 without one): the
 positional embeddings read it, since a rank's model sees only its slice
 of the sequence.
 
+``tensor_parallel_scope(mesh)`` is active while a step whose parameters
+are sharded over ``tp`` runs its forward and backward: a layer whose
+parameters carry a placement (``tensor_parallel.shard_of``) reads
+``tp_scope()`` for the mesh, whose ``tp`` slice its collectives run over.
+``pipeline_parallel_scope(mesh, batch_axes, microbatches)`` is active
+around a step over a mesh whose ``pp`` axis is more than one process: a
+stacked encoder (``models.bert_pp``) then runs its layers through
+``pipeline.pipeline_apply``.
+
 ``batch_reduction_scope(group, world)`` is active while a step of more
 than one process runs its forward and loss: a loss that normalizes by a
 count it computes itself (``label_smoothed_ce``'s non-pad tokens) reads
@@ -31,7 +40,8 @@ from typing import Optional, Tuple
 from ..base import MXNetError
 
 __all__ = ["ring_scope", "ring_scope_mesh", "ring_attention_scope",
-           "pipeline_scope", "pipeline_parallel_scope", "seq_offset",
+           "pipeline_scope", "pipeline_parallel_scope", "tp_scope",
+           "tensor_parallel_scope", "seq_offset",
            "batch_reduction", "batch_reduction_scope", "global_count"]
 
 _state = threading.local()
@@ -71,6 +81,21 @@ def pipeline_parallel_scope(mesh, batch_axes: Tuple[str, ...] = (),
         yield
     finally:
         _state.pp_scope = prev
+
+
+def tp_scope():
+    """The mesh of the active tensor-parallel scope, or None."""
+    return getattr(_state, "tp_scope", None)
+
+
+@contextlib.contextmanager
+def tensor_parallel_scope(mesh):
+    prev = getattr(_state, "tp_scope", None)
+    _state.tp_scope = mesh
+    try:
+        yield
+    finally:
+        _state.tp_scope = prev
 
 
 @contextlib.contextmanager

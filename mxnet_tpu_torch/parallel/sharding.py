@@ -4,10 +4,9 @@ Counterpart of ``mxnet_tpu/parallel/sharding.py``.  A
 :class:`ShardingRules` is the same ordered table of (name pattern,
 partition spec) pairs, with ``spec_for``, ``to_json`` / ``from_json`` and
 equality; a spec is a tuple of mesh-axis names (or tuples of them, or
-None) per dimension, the JAX ``PartitionSpec``'s contents.  The step of
-this package replicates every parameter (tensor parallelism, which the
-rules drive, is ROADMAP A.9 part 2), so the rules are carried, compared
-and serialized, and not applied.
+None) per dimension, the JAX ``PartitionSpec``'s contents.  The step
+applies them over the ``tp`` and ``pp`` axes: each matched parameter
+keeps the block its process holds (``tensor_parallel.ParamShard``).
 
 ``replicated``, ``shard_batch`` and ``shard_batch_seq`` return a
 :class:`Placement`: the spec of the JAX function's ``NamedSharding`` and,
@@ -65,6 +64,13 @@ class ShardingRules:
                 spec = tuple(spec)[:ndim]
                 return spec + (None,) * (ndim - len(spec))
         return ()
+
+    def pattern_for(self, name: str) -> Optional[str]:
+        """The pattern of the first rule that matches ``name``, or None."""
+        for pat, _ in self._rules:
+            if pat.match(name):
+                return pat.pattern
+        return None
 
 
 @dataclass(frozen=True)

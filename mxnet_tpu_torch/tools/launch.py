@@ -2,7 +2,7 @@
 
 The port's counterpart of the JAX package's ``tools/launch.py`` (its
 command line and environment contract; the supervisor, restarts and
-preemption resume are ROADMAP A.9 part 2)::
+preemption resume are ROADMAP A.9 part 3)::
 
     python -m mxnet_tpu_torch.tools.launch -n 4 --launcher local \\
         python -m mxnet_tpu_torch.tools.multigpu_smoke

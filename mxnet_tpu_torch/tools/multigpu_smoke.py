@@ -12,20 +12,29 @@ the route whose offsets only a slice of more than one rank exercises).
 Then BERT-base (``bert_base(30522, dropout=0.0)``, seeded weights, the
 global batch 32 x 512 of ``chip_smoke.py``'s ``train`` phase, Adam at lr
 1e-4) trains ``--steps`` steps in f32 and then in bf16 on each layout:
-dp4, and dp2 x sp2 with the K/V gather (``gspmd``), ring and Ulysses
-routes.  Each layout's losses and final parameters (rank 0's) are held
-against dp4's from the same weights: losses within ``LOSS_TOL`` relative,
-parameters within ``PARAM_TOL`` of the largest |value| of dp4's and, in
-f32, within ``UPDATE_TOL`` of dp4's largest change from the start.  Then
-the Gluon loop with ``Trainer(kvstore="dist_sync")`` on each rank's
-quarter of the batch against ``DataParallelStep`` on dp4 (3 steps).
-Recorded: step ms (CUDA-event median of the timed steps, rank 0) and
-tokens/s per card, each rank's launches of K1 and K3-K5 (and of the
-``wgmma16`` design) over the timed steps (K1 26 and K3-K5 12 a step; the
-ring's block products are plain torch, so it launches no K3-K5), the
-NCCL all-reduce of the step's flat gradient buckets in GB/s (bus
-bandwidth, 2 (n - 1) / n of the bytes, over the CUDA-event median of
-10), and ``nvidia-smi``'s name and power limit of each card.
+dp4, dp2 x sp2 with the K/V gather (``gspmd``), ring and Ulysses routes,
+and with ``bert_sharding_rules`` dp2 x tp2 and tp4 (Megatron tensor
+parallelism); then the pipelined BERT (``BERTForMLMPipelined()``, the
+same widths) with ``bert_pp_sharding_rules`` and PP_MICRO microbatches
+on dp4 (the loop), dp2 x pp2, pp4 and pp2 x tp2.  Each layout's losses
+and final parameters (gathered whole, rank 0's) are held against its
+model's dp4 run from the same weights: losses within ``LOSS_TOL``
+relative, parameters within ``PARAM_TOL`` of the largest |value| of dp4's
+and, in f32, within ``UPDATE_TOL`` of dp4's largest change from the
+start.  Then the Gluon loop with ``Trainer(kvstore="dist_sync")`` on each
+rank's quarter of the batch against ``DataParallelStep`` on dp4 (3
+steps).  Recorded: step ms (CUDA-event median of the timed steps, rank 0)
+and tokens/s per card, each rank's launches of K1 and K3-K5 (and of the
+``wgmma16`` design) over the timed steps (K1 26 and K3-K5 12 a step, on
+H/tp heads under tp; under pp K3-K5 L/pp x M and K1 2 + 2 (L/pp) M a
+step; the ring's block products are plain torch, so it launches no
+K3-K5), the NCCL all-reduce of the step's flat gradient buckets in GB/s
+(bus bandwidth, 2 (n - 1) / n of the bytes, over the CUDA-event median of
+10), the planner's ranking and predicted breakdown for BERT-base on the
+cards (``planner.Hardware`` with the card's 989 TFLOP/s bf16 or 67
+TFLOP/s f32, that bus bandwidth and 80 GB) beside the measured step ms of
+each layout (read, not gated), and ``nvidia-smi``'s name and power limit
+of each card.
 
 Rank 0 prints one JSON line per layout and dtype, then the summary, and
 writes it all to ``--out`` (default ``build/multigpu_smoke.json``); the
@@ -49,8 +58,21 @@ BERT_VOCAB = 30522
 BATCH, SEQ = 32, 512
 SEED = 0
 LR = 1e-4
-LAYOUTS = (("dp4", {}, False), ("gather", {"sp": 2}, False),
-           ("ring", {"sp": 2}, True), ("ulysses", {"sp": 2}, "ulysses"))
+# name, model, mesh axes, ring_attention, rules; each layout is held
+# against the first of its model
+LAYOUTS = (("dp4", "bert", {}, False, None),
+           ("gather", "bert", {"sp": 2}, False, None),
+           ("ring", "bert", {"sp": 2}, True, None),
+           ("ulysses", "bert", {"sp": 2}, "ulysses", None),
+           ("dp2tp2", "bert", {"tp": 2}, False, "bert"),
+           ("tp4", "bert", {"tp": 4}, False, "bert"),
+           ("pp_dp4", "bert_pp", {}, False, "bert_pp"),
+           ("dp2pp2", "bert_pp", {"pp": 2}, False, "bert_pp"),
+           ("pp4", "bert_pp", {"pp": 4}, False, "bert_pp"),
+           ("pp2tp2", "bert_pp", {"pp": 2, "tp": 2}, False, "bert_pp"))
+PP_MICRO = 4
+LAYERS = 12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # against dp4 from the same weights, where the reduction order of every
 # sum differs: the readings on four H100s were 2.05e-7 (f32) and 3.41e-5
 # (bf16) on the loss, 1.09e-6 and 7.32e-4 of max |param| on the
@@ -99,13 +121,91 @@ def _batch():
         tokens.astype(np.float32))
 
 
-def _model(dtype):
+def _model(dtype, kind="bert"):
     from mxnet_tpu_torch.gluon.block import cast
     from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.models.bert_pp import BERTForMLMPipelined
 
-    model = bert_base(BERT_VOCAB, dropout=0.0,
-                      generator=torch.Generator().manual_seed(SEED))
+    make = bert_base if kind == "bert" else BERTForMLMPipelined
+    model = make(BERT_VOCAB, dropout=0.0,
+                 generator=torch.Generator().manual_seed(SEED))
     return cast(model, "bfloat16") if dtype == "bfloat16" else model
+
+
+def _rules(kind):
+    """The sharding rules of a layout (None: every parameter whole)."""
+    from mxnet_tpu_torch.models.bert import bert_sharding_rules
+    from mxnet_tpu_torch.models.bert_pp import bert_pp_sharding_rules
+
+    if kind is None:
+        return None
+    return (bert_sharding_rules if kind == "bert"
+            else bert_pp_sharding_rules)()
+
+
+def _planner(bus_gb_per_s, measured):
+    """The planner's ranking for BERT-base's signature (32 x 512, 12
+    stacked layers, ``bert_sharding_rules``) over the cards, for each
+    dtype's peak rate, beside the measured median step ms of the layout of
+    the same mesh (dp4, dp2 x sp2 as the gather, dp2 x tp2, tp4, dp2 x
+    pp2, pp4, pp2 x tp2; the pp ones on the pipelined model)."""
+    from mxnet_tpu_torch.models.bert import bert_sharding_rules
+    from mxnet_tpu_torch.parallel import dist, planner
+
+    n = dist.process_count()
+    model = _model("float32")
+    names = {(("dp", 4),): "dp4", (("dp", 2), ("sp", 2)): "gather",
+             (("dp", 2), ("tp", 2)): "dp2tp2",
+             (("tp", 4),): "tp4", (("dp", 2), ("pp", 2)): "dp2pp2",
+             (("pp", 4),): "pp4", (("pp", 2), ("tp", 2)): "pp2tp2"}
+    out = {}
+    for dtype, nbytes in (("float32", 4), ("bfloat16", 2)):
+        sig = planner.signature_of(model, (BATCH, SEQ),
+                                   rules=bert_sharding_rules(),
+                                   stacked_layers=LAYERS,
+                                   bytes_per_param=nbytes)
+        hw = planner.Hardware(flops_per_device=PEAK_FLOPS[dtype],
+                              ici_bw=bus_gb_per_s * 1e9,
+                              mem_per_device=80e9)
+        plan = planner.plan_for(sig, n, hw=hw, strategy="auto",
+                                microbatches=PP_MICRO)
+        rows = []
+        for c in planner.enumerate_plans(sig, n, hw=hw,
+                                         microbatches=PP_MICRO):
+            key = tuple((a, s) for a, s in c.plan.mesh_axes if s > 1)
+            layout = names.get(key)
+            rows.append({
+                "mesh": dict(key), "strategy": c.plan.strategy,
+                "predicted_ms": c.step_s * 1e3,
+                "predicted_compute_ms": c.cost["compute_s"] * 1e3,
+                "predicted_comm_ms": {k: v * 1e3
+                                      for k, v in c.cost["comm"].items()},
+                "mem_gb": c.cost["mem_bytes"] / 1e9,
+                "measured_layout": layout,
+                "measured_ms": measured.get(f"{layout}-{dtype}")})
+        out[dtype] = {"chosen": plan.strategy,
+                      "chosen_mesh": {a: s for a, s in plan.mesh_axes
+                                      if s > 1},
+                      "ranking": rows}
+    del model
+    return out
+
+
+def _per_step(axes, ring):
+    """Launches a step of each counted kernel on one rank."""
+    pp = axes.get("pp", 1)
+    if pp > 1:
+        per = LAYERS // pp * PP_MICRO
+        return {"layer_norm": 2 + 2 * per, **{n: per for n in FLASH}}
+    return {k: (0 if ring is True and k in FLASH else v)
+            for k, v in PER_STEP.items()}
+
+
+def _whole_params(step):
+    """Every parameter of the step's block whole, in ``collect_params``
+    order, on the card (a sharded one gathered over its slice)."""
+    return [step._whole(p._tensor().detach(), p._tensor())
+            for p in step.block.collect_params().values()]
 
 
 def _counters():
@@ -114,14 +214,15 @@ def _counters():
     return {n: getattr(kernels, n) for n in ("layer_norm",) + FLASH}
 
 
-def _run_layout(axes, ring, dtype, steps, tokens, labels):
+def _run_layout(kind, axes, ring, rules, dtype, steps, tokens, labels):
     """(losses, step ms, launches, wgmma16 launches, parameters, step)."""
     from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
 
-    model = _model(dtype)
+    model = _model(dtype, kind)
     step = DataParallelStep(model, _mlm_loss(), optimizer="adam",
                             optimizer_params={"learning_rate": LR},
-                            mesh=make_mesh(**axes), ring_attention=ring)
+                            mesh=make_mesh(**axes), ring_attention=ring,
+                            rules=_rules(rules), pp_microbatches=PP_MICRO)
     losses = [float(step.step(tokens, labels))]  # the first: set-up
     counters = _counters()
     torch.cuda.synchronize()
@@ -142,8 +243,7 @@ def _run_layout(axes, ring, dtype, steps, tokens, labels):
     ms = [a.elapsed_time(b) for a, b, _ in marks]
     launches = {n: fn.launches for n, fn in counters.items()}
     w16 = {n: counters[n].launches_wgmma16 for n in FLASH}
-    params = [p.detach().clone() for p in model.parameters()]
-    return losses, ms, launches, w16, params, step
+    return losses, ms, launches, w16, _whole_params(step), step
 
 
 def _ulp_ratio(got, want):
@@ -326,39 +426,45 @@ def main(argv=None) -> int:
     ok = att["ok"]
     if rank == 0:
         print(json.dumps({"sp_attention": att}), flush=True)
+    measured = {}
     for dtype in ("float32", "bfloat16"):
-        ref = None
-        p0 = [p.detach().to(dist.device()) for p in _model(dtype).parameters()]
-        for name, axes, ring in LAYOUTS:
+        ref, p0 = {}, {}
+        for name, kind, axes, ring, rules in LAYOUTS:
             t0 = time.perf_counter()
+            if kind not in p0:
+                fresh = _model(dtype, kind)
+                p0[kind] = [p._tensor().detach().to(dist.device())
+                            for p in fresh.collect_params().values()]
+                del fresh
             losses, ms, launches, w16, params, step = _run_layout(
-                axes, ring, dtype, args.steps, tokens, labels)
-            # the ring's block products are plain torch (the JAX ring is
-            # jnp): no K3-K5 there
-            want = {k: (0 if ring is True and k in FLASH else v)
-                    * (args.steps - 1) for k, v in PER_STEP.items()}
-            row = {"layout": name, "dtype": dtype, "losses": losses,
+                kind, axes, ring, rules, dtype, args.steps, tokens, labels)
+            want = {k: v * (args.steps - 1)
+                    for k, v in _per_step(axes, ring).items()}
+            row = {"layout": name, "model": kind, "mesh": axes,
+                   "dtype": dtype, "losses": losses,
                    "step_ms": ms, "step_ms_median": statistics.median(ms),
                    "tokens_per_s_per_card": BATCH * SEQ / n
                    / (statistics.median(ms) * 1e-3),
                    "launches": launches, "launches_wgmma16": w16,
                    "launches_expected": want, "wall_s": None}
+            measured[f"{name}-{dtype}"] = row["step_ms_median"]
             row["launches_ok"] = launches == want and (
                 w16 == {k: want[k] for k in FLASH} if dtype == "bfloat16"
                 else not any(w16.values()))
-            if name == "dp4":
-                ref = (losses, params)
-                if dtype == "float32":
+            if kind not in ref:
+                ref[kind] = (losses, params)
+                if dtype == "float32" and name == "dp4":
                     report["allreduce"] = _allreduce_gbps(
                         [p for p in step.params])
             else:
-                scale = max(float(p.abs().max()) for p in ref[1])
+                r_losses, r_params = ref[kind]
+                scale = max(float(p.abs().max()) for p in r_params)
                 row["loss_rel_err"] = max(
-                    abs(a - b) / abs(b) for a, b in zip(losses, ref[0]))
+                    abs(a - b) / abs(b) for a, b in zip(losses, r_losses))
                 diff = max(float((a.float() - b.float()).abs().max())
-                           for a, b in zip(params, ref[1]))
+                           for a, b in zip(params, r_params))
                 moved = max(float((b.float() - c.float()).abs().max())
-                            for b, c in zip(ref[1], p0))
+                            for b, c in zip(r_params, p0[kind]))
                 row["param_err_of_max"] = diff / scale
                 # the difference over dp4's largest change from the start
                 row["param_err_of_update"] = diff / moved
@@ -390,6 +496,10 @@ def main(argv=None) -> int:
             del step, params
             torch.cuda.empty_cache()
         ref = p0 = None
+    report["planner"] = _planner(report["allreduce"]["bus_gb_per_s"],
+                                 measured)
+    if rank == 0:
+        print(json.dumps({"planner": report["planner"]}), flush=True)
     t_losses, s_losses, err = _trainer_vs_step(tokens, labels)
     report["trainer_dist_sync"] = {
         "trainer_losses": t_losses, "step_losses": s_losses,

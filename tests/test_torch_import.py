@@ -125,6 +125,10 @@ NEEDED = ("mxnet_tpu_torch.optimizer.optimizer",
           "mxnet_tpu_torch.parallel.scope",
           "mxnet_tpu_torch.parallel.ring",
           "mxnet_tpu_torch.parallel.ulysses",
+          "mxnet_tpu_torch.parallel.tensor_parallel",
+          "mxnet_tpu_torch.parallel.pipeline",
+          "mxnet_tpu_torch.parallel.planner",
+          "mxnet_tpu_torch.models.bert_pp",
           "mxnet_tpu_torch.tools.launch",
           "mxnet_tpu_torch.tools.multigpu_smoke",
           "mxnet_tpu_torch.examples.bert_pretrain")
@@ -256,8 +260,6 @@ def test_chip_smoke_fails_alone(tmp_path):
 # JAX names the port does not have, each with what queues it in ROADMAP.md
 # (or why it has no counterpart); everything else the JAX namespaces
 # export, the port's export too.
-_A9_2 = ("A.9 part 2 (multi-GPU: tensor and pipeline parallelism, "
-         "the planner)")
 _SUPERSTEP = "A.6's superstep, with A.1"
 QUEUED = {
     "mx": {"aot_cache": "not queued: the port compiles no executables",
@@ -267,13 +269,9 @@ QUEUED = {
            "np": "an import, not a name", "Optional": "an import",
            "dtype_np": "an import"},
     "parallel": dict(
-        {n: _A9_2 for n in ("pipeline", "pipeline_apply", "planner")},
         StackedAsyncLoss=_SUPERSTEP, SuperstepLossView=_SUPERSTEP,
         superstep_k=_SUPERSTEP),
-    "models": {n: _A9_2 for n in ("BERTForMLMPipelined",
-                                  "StackedTransformerEncoder", "bert_pp",
-                                  "bert_pp_sharding_rules",
-                                  "bert_pp_small")},
+    "models": {},
     "gluon": {},
     "gluon.nn": {},
     "gluon.model_zoo.vision": {},
@@ -322,4 +320,8 @@ def test_public_names_match_jax_or_are_queued():
                  "util", "is_np_array", "test_utils", "rtc"):
         assert name in public(tmx), name
     assert {"AsyncLoss", "StepFence", "InflightRing", "drain_all",
-            "inflight_limit"} <= public(tmx.parallel)
+            "inflight_limit", "pipeline", "pipeline_apply",
+            "planner"} <= public(tmx.parallel)
+    assert {"BERTForMLMPipelined", "StackedTransformerEncoder", "bert_pp",
+            "bert_pp_sharding_rules", "bert_pp_small"} <= public(tmx.models)
+    assert "bert_sharding_rules" in public(tmx.models.bert)

@@ -6,9 +6,9 @@ round-trip; ``validate`` raises the JAX messages; ``make_mesh`` over 8
 ranks gives the JAX mesh's axis sizes over 8 virtual devices, ``dp=0``
 included; ``ShardingRules.spec_for`` gives the JAX specs for BERT's rules
 (``mxnet_tpu/models/bert.py:90``); a placement's block of a global array
-is the JAX ``NamedSharding``'s index for the same device.  The step
-refuses tp and pp (ROADMAP A.9 part 2) and a plan given with strategy
-keywords, and the launcher's variables are honored.
+is the JAX ``NamedSharding``'s index for the same device.  A tp or pp
+step without a process group raises as a dp one does, a plan given with
+strategy keywords raises, and the launcher's variables are honored.
 """
 import jax
 import numpy as np
@@ -149,8 +149,15 @@ def _tiny_step(**kwargs):
 
 @pytest.mark.parametrize("axes", [{"tp": 2}, {"pp": 2}])
 def test_step_refuses_tensor_and_pipeline_parallelism(axes):
-    with pytest.raises(MXNetError, match="A.9 part 2"):
+    """tp2 and pp2 steps run over a process group (the gloo tests of
+    test_torch_tensor_parallel.py and test_torch_pipeline.py); without one
+    they raise as a dp2 step does."""
+    with pytest.raises(MXNetError, match="needs a process group") as dp:
+        _tiny_step(mesh=make_mesh(devices=range(2)))
+    with pytest.raises(MXNetError, match="needs a process group") as err:
         _tiny_step(mesh=make_mesh(devices=range(2), **axes))
+    assert str(err.value).split(": start")[1] == str(dp.value).split(
+        ": start")[1]
 
 
 def test_step_refuses_a_plan_with_strategy_keywords():

@@ -273,13 +273,142 @@ def trainer_run(rank=0, n=1, kvstore="dist_sync"):
     return {k: p.data().asnumpy() for k, p in net.collect_params().items()}
 
 
+# tensor parallelism: bert_small on these meshes, from start<V>.npz;
+# name -> (mesh axes, vocabulary, clip_global_norm)
+TP_LAYOUTS = {"dp2tp2": ({"tp": 2}, 512, None),
+              "tp4": ({"tp": 4}, 512, None),
+              "tp4_v510": ({"tp": 4}, 510, None),
+              "dp2tp2_clip": ({"tp": 2}, 512, 0.5)}
+# pipeline parallelism: bert_pp_small from start_pp.npz, 2 microbatches
+PP_LAYOUTS = {"dp2pp2": {"pp": 2}, "pp4": {"pp": 4},
+              "pp2tp2": {"pp": 2, "tp": 2}}
+PP_MICROBATCHES = 2
+
+
+def _sharded_run(outdir, make, start_file, axes, rules, clip=None,
+                 microbatches=4):
+    """Two Adam steps of ``make(dropout=0.0)`` from the weights in
+    ``start_file`` on ``make_mesh(**axes)`` with ``rules`` -> {losses,
+    gathered params, state, layout} (the gathers are collectives)."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
+
+    data = np.load(os.path.join(outdir, start_file))
+    prefix = str(data["prefix"])
+    start = {k: data[k] for k in data.files if k not in ("prefix", "tokens")}
+    tokens = data["tokens"]
+    vocab = next(v.shape[0] for k, v in start.items()
+                 if k.endswith("word_embed_weight"))
+    net = make(vocab_size=vocab, dropout=0.0, device="cpu",
+               init_weights=False)
+    from_mxnet_tpu_params(net, start, prefix)
+    step = DataParallelStep(
+        net, _mlm(SoftmaxCrossEntropyLoss()), optimizer="adam",
+        optimizer_params={"learning_rate": STEP_LR}, device="cpu",
+        mesh=make_mesh(**axes), rules=rules, clip_global_norm=clip,
+        pp_microbatches=microbatches)
+    losses = [float(step.step(tokens, tokens.astype(np.float32)))
+              for _ in range(STEPS)]
+    state = step.state_dict()
+    out = {"losses": np.array(losses), "layout": np.array(repr(step.layout())),
+           "collective": np.array(step.snapshot_requires_collective())}
+    for sec in ("params", "opt_state"):
+        for k, v in state[sec].items():
+            out[f"{sec}/{k}"] = np.asarray(v)
+    return out
+
+
+def case_tp(outdir, rank):
+    """bert_small on the meshes of ``TP_LAYOUTS`` with
+    ``bert_sharding_rules``; rank 0 writes ``tp-0.npz``."""
+    from mxnet_tpu_torch.models.bert import bert_sharding_rules, bert_small
+
+    out = {}
+    for name, (axes, vocab, clip) in TP_LAYOUTS.items():
+        res = _sharded_run(outdir, bert_small, f"start{vocab}.npz", axes,
+                           bert_sharding_rules(), clip=clip)
+        out.update({f"{name}:{k}": v for k, v in res.items()})
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"tp-{rank}.npz"), **out)
+
+
+def _pipeline_vs_loop(outdir, rank):
+    """``pipeline_apply`` over the pp4 mesh (one layer a stage) with the
+    whole stack on every process, against the loop over the same stack:
+    the output, the input's gradient and this stage's rows of the stack's
+    gradients, and the two microbatch errors of the scope."""
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.models.bert_pp import bert_pp_small
+    from mxnet_tpu_torch.parallel import make_mesh, pipeline_apply
+
+    data = np.load(os.path.join(outdir, "start_pp.npz"))
+    prefix = str(data["prefix"])
+    net = bert_pp_small(dropout=0.0, device="cpu", init_weights=False)
+    from_mxnet_tpu_params(net, {k: data[k] for k in data.files
+                                if k not in ("prefix", "tokens")}, prefix)
+    enc = net.encoder
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.randn(2, 4, 16, 64).astype(np.float32))
+    cot = torch.tensor(rng.randn(2, 4, 16, 64).astype(np.float32))
+    mesh = make_mesh(pp=4)
+    out = {}
+    for tag, run in (("loop", None), ("pipe", mesh)):
+        xi = x.clone().requires_grad_()
+        stack = {k: v.detach().clone().requires_grad_()
+                 for k, v in enc.stacked().items()}
+        if run is None:
+            y = torch.stack([_loop(enc, stack, xi[m]) for m in range(2)])
+        else:
+            y = pipeline_apply(run, enc._layer, stack, xi)
+        (y * cot).sum().backward()
+        out[f"{tag}-out"] = y.detach().numpy()
+        out[f"{tag}-dx"] = xi.grad.numpy()
+        for k, v in stack.items():
+            out[f"{tag}-d{k}"] = v.grad[rank].numpy()
+    from mxnet_tpu_torch.parallel.scope import pipeline_parallel_scope
+
+    for tag, (axes, m) in {"err-micro": ({"pp": 4}, 3),
+                           "err-dp": ({"dp": 2, "pp": 2}, 8)}.items():
+        try:
+            with pipeline_parallel_scope(make_mesh(**axes),
+                                         ("dp",) if "dp" in axes else (),
+                                         m):
+                enc(torch.zeros(8 // axes.get("dp", 1), 16, 64))
+            out[tag] = np.array("")
+        except MXNetError as e:
+            out[tag] = np.array(str(e))
+    return out
+
+
+def _loop(enc, stack, x):
+    for i in range(next(iter(stack.values())).shape[0]):
+        x = enc._layer({k: v[i] for k, v in stack.items()}, x)
+    return x
+
+
+def case_pp(outdir, rank):
+    """bert_pp_small on the meshes of ``PP_LAYOUTS`` with
+    ``bert_pp_sharding_rules``, then :func:`_pipeline_vs_loop`; every rank
+    writes ``pp-<rank>.npz``."""
+    from mxnet_tpu_torch.models.bert_pp import (bert_pp_sharding_rules,
+                                                bert_pp_small)
+
+    out = {}
+    for name, axes in PP_LAYOUTS.items():
+        res = _sharded_run(outdir, bert_pp_small, "start_pp.npz", axes,
+                           bert_pp_sharding_rules(),
+                           microbatches=PP_MICROBATCHES)
+        out.update({f"{name}:{k}": v for k, v in res.items()})
+    out.update(_pipeline_vs_loop(outdir, rank))
+    np.savez(os.path.join(outdir, f"pp-{rank}.npz"), **out)
+
+
 BERT_PRETRAIN_ARGS = ["--steps", "2", "--seq-len", "16", "--device", "cpu"]
 
 
-def case_bert_pretrain(outdir, rank):
-    """``examples.bert_pretrain`` on a dp1 x sp2 mesh (Ulysses) over this
-    group; rank 0's output goes to ``bert_pretrain-0.txt``.  The example
-    shuts the group down at its end, so this case comes last."""
+def _bert_pretrain(outdir, rank, name, args):
     import contextlib
     import io
 
@@ -287,15 +416,37 @@ def case_bert_pretrain(outdir, rank):
 
     text = io.StringIO()
     with contextlib.redirect_stdout(text):
-        bert_pretrain.main(["--sp", "2", "--sp-attention", "ulysses"]
-                           + BERT_PRETRAIN_ARGS)
+        bert_pretrain.main(args + BERT_PRETRAIN_ARGS)
     if rank == 0:
-        with open(os.path.join(outdir, "bert_pretrain-0.txt"), "w") as f:
+        with open(os.path.join(outdir, f"{name}-0.txt"), "w") as f:
             f.write(text.getvalue())
 
 
+def case_bert_pretrain(outdir, rank):
+    """``examples.bert_pretrain`` on a dp1 x sp2 mesh (Ulysses) over this
+    group; rank 0's output goes to ``bert_pretrain-0.txt``.  The example
+    shuts the group down at its end, so this case comes last."""
+    _bert_pretrain(outdir, rank, "bert_pretrain",
+                   ["--sp", "2", "--sp-attention", "ulysses"])
+
+
+def case_bert_pretrain_tp(outdir, rank):
+    """``examples.bert_pretrain --dp 2 --tp 2`` (last, as above)."""
+    _bert_pretrain(outdir, rank, "bert_pretrain_tp",
+                   ["--dp", "2", "--tp", "2"])
+
+
+def case_bert_pretrain_pp(outdir, rank):
+    """``examples.bert_pretrain --dp 2 --pp 2`` (last, as above)."""
+    _bert_pretrain(outdir, rank, "bert_pretrain_pp",
+                   ["--dp", "2", "--pp", "2"])
+
+
 CASES = {"attention": case_attention, "step": case_step,
-         "kvstore": case_kvstore, "bert_pretrain": case_bert_pretrain}
+         "kvstore": case_kvstore, "bert_pretrain": case_bert_pretrain,
+         "tp": case_tp, "pp": case_pp,
+         "bert_pretrain_tp": case_bert_pretrain_tp,
+         "bert_pretrain_pp": case_bert_pretrain_pp}
 
 
 def start_group(outdir, n, *names):
