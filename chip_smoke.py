@@ -711,7 +711,7 @@ the last line ``{"ok": true, "device": {...}}``.  Any failed phase makes
 the script exit non-zero without that line, as does a machine without
 CUDA or a directory without the package.
 
-Times are CUDA-event medians of 25 samples of 10 back-to-back calls each
+Times are CUDA-event medians of 15 samples of 10 back-to-back calls each
 (at K7's (16384, 30522) shapes 10 samples of 5, and 5 of 2 for its plain
 version), enqueued behind a device sleep so that host-side launch cost
 does not show as device time.  ``bound_ms`` is the larger of the bytes the
@@ -781,7 +781,7 @@ def ulp_ratio(got, want, eps: float) -> float:
     return float(((g - w).abs() / allow).max())
 
 
-def time_ms(torch, fn, samples: int = 25, reps: int = 10) -> float:
+def time_ms(torch, fn, samples: int = 15, reps: int = 10) -> float:
     """Median device ms per call of ``fn``."""
     for _ in range(3):
         fn()
@@ -2918,15 +2918,15 @@ def phase_softmax_cross_entropy(torch, ctx):
             # F.cross_entropy asserts on the device for any other label
             lib = time_ms(torch, lambda: F.cross_entropy(
                 x, y, reduction="none", ignore_index=-1),
-                samples=10 if big else 25, reps=5 if big else 10)
+                samples=10 if big else 15, reps=5 if big else 10)
         rows.append({
             "case": name, "N": n, "C": c, "ignore_label": ignore,
             "live_rows": live, "max_abs_err": err, "grad_max_abs_err": gerr,
             "ok": err <= tol["loss"] and gerr <= tol["grad"],
             "ms": time_ms(torch, lambda: softmax_cross_entropy(x, y, ignore),
-                          samples=10 if big else 25, reps=5 if big else 10),
+                          samples=10 if big else 15, reps=5 if big else 10),
             "plain_ms": time_ms(torch, lambda: softmax_cross_entropy_ref(
-                x, y, ignore), samples=5 if big else 25,
+                x, y, ignore), samples=5 if big else 15,
                 reps=2 if big else 10),
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by})
         del x, y, got
@@ -2995,14 +2995,14 @@ def _sce_row16(torch, g, name, dtype, n, c, ignore, kind, tol):
     if ((y_np >= 0) & (y_np < c) | (y_np == -1)).all():
         lib = time_ms(torch, lambda: F.cross_entropy(
             x, y, reduction="none", ignore_index=-1),
-            samples=10 if big else 25, reps=5 if big else 10)
+            samples=10 if big else 15, reps=5 if big else 10)
     row = {"case": name, "dtype": dtype, "N": n, "C": c,
            "ignore_label": ignore, "live_rows": live, "max_abs_err": err,
            "grad_ulp_ratio": ratio, "ok": err <= tol["loss"] and ratio <= 1,
            "ms": time_ms(torch, lambda: softmax_cross_entropy(x, y, ignore),
-                         samples=10 if big else 25, reps=5 if big else 10),
+                         samples=10 if big else 15, reps=5 if big else 10),
            "plain_ms": time_ms(torch, lambda: softmax_cross_entropy_ref(
-               x, y, ignore), samples=5 if big else 25,
+               x, y, ignore), samples=5 if big else 15,
                reps=2 if big else 10),
            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
     del x
@@ -3802,6 +3802,197 @@ def phase_tp_pp_single(torch, ctx):
         del plain, got
     return {"mesh": dict(mesh.shape), "microbatches": M, **rows,
             "card": ctx["smi"], "ok": ok}
+
+
+ELASTIC_STEPS = 4  # the uninterrupted run; the other saves at half
+ELASTIC_RESNET_BATCH = 32
+ELASTIC_RESNET_STEPS = 2
+# sync_batch_norm over the one-rank group against the local BatchNorm on
+# the stem's BatchNorm input: of the reference's max |value|
+ELASTIC_SYNCBN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _elastic_bert(torch, mesh):
+    from mxnet_tpu_torch.models.bert import bert_base
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    model = bert_base(BERT_VOCAB, dropout=0.0,
+                      generator=torch.Generator().manual_seed(SEED))
+    return DataParallelStep(model, _mlm_loss(torch), optimizer="adam",
+                            optimizer_params={"learning_rate": 1e-4},
+                            mesh=mesh)
+
+
+def _elastic_resnet(torch, mesh, x, y):
+    """resnet50_v1b NCHW f32 from the seed, ELASTIC_RESNET_STEPS SGD
+    steps (over ``mesh`` when given) -> (losses, parameters and float
+    buffers)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.resnet import resnet50_v1b
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    model = resnet50_v1b(layout="NCHW",
+                         generator=torch.Generator().manual_seed(SEED))
+    step = DataParallelStep(model, SoftmaxCrossEntropyLoss(),
+                            optimizer="sgd", optimizer_params=RESNET_SGD,
+                            mesh=mesh)
+    losses = [float(step.step(x, y)) for _ in range(ELASTIC_RESNET_STEPS)]
+    state = [t.detach().clone() for t in model.state_dict().values()]
+    del step, model
+    torch.cuda.empty_cache()
+    return losses, state
+
+
+def _syncbn_function_check(torch, mesh):
+    """``sync_batch_norm`` over the one-rank group (its all-gather and
+    all-reduce on the card) against the local BatchNorm (torch's fused
+    one) on a seeded (ELASTIC_RESNET_BATCH, 64, 112, 112) input, the
+    stem's BatchNorm input, f32 NCHW and bf16 NHWC: output and the
+    gradients of the input, gamma and beta, each of the reference's max
+    |value| (ELASTIC_SYNCBN_TOL)."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    from mxnet_tpu_torch.parallel.sync_batch_norm import sync_batch_norm
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (ELASTIC_RESNET_BATCH, 64, 112, 112)
+    x0 = torch.randn(shape, generator=g, device=dev) * 2 + 0.5
+    dy0 = torch.randn(shape, generator=g, device=dev)
+    w0 = torch.rand(64, generator=g, device=dev) + 0.5
+    b0 = torch.randn(64, generator=g, device=dev)
+    red = (mesh.group(("dp", "sp")), 1)
+    rows, ok = {}, True
+    for dtype, axis in (("float32", 1), ("bfloat16", 3)):
+        dt = getattr(torch, dtype)
+        x = x0 if axis == 1 else x0.permute(0, 2, 3, 1).contiguous()
+        dy = dy0 if axis == 1 else dy0.permute(0, 2, 3, 1).contiguous()
+        errs = {}
+        outs = []
+        for fn in ("sync", "local"):
+            leaves = [x.to(dt).detach().clone().requires_grad_(),
+                      w0.clone().requires_grad_(),
+                      b0.clone().requires_grad_()]
+            if fn == "sync":
+                out = sync_batch_norm(*leaves, 1e-5, axis, red)[0]
+            else:
+                out = ops_nn.batch_norm(
+                    leaves[0], leaves[1], leaves[2], torch.zeros_like(w0),
+                    torch.ones_like(w0), eps=1e-5, fix_gamma=False,
+                    axis=axis, training=True)
+            out.backward(dy.to(dt))
+            outs.append([out.detach().float()]
+                        + [t.grad.float() for t in leaves])
+        for name, a, b in zip(("out", "dx", "dgamma", "dbeta"), *outs):
+            errs[name] = float((a - b).abs().max()) / float(b.abs().max())
+        tol = ELASTIC_SYNCBN_TOL[dtype]
+        rows[dtype] = {"err_of_max": errs, "tol": tol,
+                       "ok": all(e <= tol for e in errs.values())}
+        ok = ok and rows[dtype]["ok"]
+        del outs
+    torch.cuda.synchronize()
+    return rows, ok
+
+
+def phase_elastic_single(torch, ctx):
+    """The elastic path on the one card, over the one-rank NCCL group of
+    ``dist_single`` and ``make_mesh()``.  BERT-base at 32 x 512 from
+    train's weights and batch: ELASTIC_STEPS f32 Adam steps uninterrupted,
+    against half of them, a format-2 save (``AsyncCheckpointer(sharded=
+    True)``, the step's ``shard_state_dict``: no collective), a restore
+    into a fresh step (``checkpoint.restore``, the lazy arrays read block
+    by block) and the other half: losses and parameters equal bit for
+    bit; launches over the interrupted run's steps K1 26 and K3-K5 12 a
+    step.  Then resnet50_v1b NCHW f32 at ELASTIC_RESNET_BATCH x 224^2
+    (cuDNN deterministic, no autotuning), ELASTIC_RESNET_STEPS SGD steps
+    through the meshed step (its BatchNorm path) against the plain step:
+    losses, parameters and running statistics equal bit for bit; and the
+    synchronized BatchNorm's autograd function over the one-rank group
+    against the local BatchNorm (``_syncbn_function_check``)."""
+    import shutil
+
+    from mxnet_tpu_torch import checkpoint
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    _one_rank_group()
+    mesh = make_mesh()
+    tokens, labels = ctx["train_batch"]
+    half = ELASTIC_STEPS // 2
+    ref = _elastic_bert(torch, mesh)
+    ref_losses = [float(ref.step(tokens, labels))
+                  for _ in range(ELASTIC_STEPS)]
+    ref_params = [p.detach().clone() for p in ref.block.parameters()]
+    del ref
+    torch.cuda.empty_cache()
+    ckdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "elastic_single")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    counters = _counters()
+    step = _elastic_bert(torch, mesh)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    _wgmma16_zero()
+    ck = checkpoint.AsyncCheckpointer(ckdir, save_every=half, sharded=True)
+    losses = []
+    for _ in range(half):
+        losses.append(float(step.step(tokens, labels)))
+        ck.step(step)
+    t0 = time.perf_counter()
+    ck.close()
+    save_s = time.perf_counter() - t0
+    del step
+    torch.cuda.empty_cache()
+    step = _elastic_bert(torch, mesh)
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(ckdir, step)
+    restore_s = time.perf_counter() - t0
+    losses += [float(step.step(tokens, labels)) for _ in range(half)]
+    torch.cuda.synchronize()
+    launches = {n: fn.launches for n, fn in counters.items()}
+    w16 = _wgmma16_read()
+    ctx["launches"]["elastic_single"] = launches
+    params = [p.detach().clone() for p in step.block.parameters()]
+    nbytes = sum(os.path.getsize(os.path.join(ckdir, f"step-{half}", f))
+                 for f in os.listdir(os.path.join(ckdir, f"step-{half}")))
+    del step
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    want = {n: k * ELASTIC_STEPS for n, k in TRAIN_PER_STEP.items()}
+    bert = {"losses": losses, "uninterrupted_losses": ref_losses,
+            "restored_step": restored,
+            "losses_bitwise": losses == ref_losses,
+            "params_bitwise": _same(torch, params, ref_params),
+            "launches": launches, "launches_expected": want,
+            "launches_wgmma16": w16, "save_s": save_s,
+            "restore_s": restore_s, "checkpoint_bytes": nbytes}
+    bert["ok"] = bool(bert["losses_bitwise"] and bert["params_bitwise"]
+                      and restored == half and launches == want
+                      and not any(w16.values()))
+    del params, ref_params
+    bench = torch.backends.cudnn.benchmark
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        B, R = ELASTIC_RESNET_BATCH, RESNET_RES
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.rand(B, 3, R, R).astype(np.float32)).cuda()
+        y = torch.from_numpy(rng.randint(0, 1000, B).astype(
+            np.float32)).cuda()
+        plain = _elastic_resnet(torch, None, x, y)
+        meshed = _elastic_resnet(torch, mesh, x, y)
+        fn_rows, fn_ok = _syncbn_function_check(torch, mesh)
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        torch.backends.cudnn.deterministic = det
+    resnet = {"batch": B, "losses": meshed[0], "plain_losses": plain[0],
+              "losses_bitwise": meshed[0] == plain[0],
+              "state_bitwise": _same(torch, meshed[1], plain[1]),
+              "sync_function": fn_rows}
+    resnet["ok"] = bool(resnet["losses_bitwise"] and resnet["state_bitwise"]
+                        and fn_ok)
+    return {"mesh": dict(mesh.shape), "bert": bert, "resnet": resnet,
+            "card": ctx["smi"], "ok": bert["ok"] and resnet["ok"]}
 
 
 RESNET_BATCH, RESNET_RES = 256, 224  # bench.py:768-769
@@ -5016,7 +5207,7 @@ F32_FLASH_PATHS = ("train", "gluon_bert", "module_bert", "train_resume",
                    "profile_bert", "graph_spellings", "test_utils_card",
                    "onnx_roundtrip", "dist_single_float32", "sp_single",
                    "train_bert_pp_float32", "tp_pp_single_tp",
-                   "tp_pp_single_pp")
+                   "tp_pp_single_pp", "elastic_single")
 BF16_FLASH_PATHS = ("train_bf16", "train_amp", "train_amp_fp16",
                     "train_bert_dense_predict", "test_utils_card",
                     "dist_single_bfloat16", "sp_single",
@@ -5032,7 +5223,7 @@ KERNELS = (
       "graph_spellings", "test_utils_card", "onnx_roundtrip", "examples",
       "dist_single_float32", "dist_single_bfloat16",
       "train_bert_pp_float32", "train_bert_pp_bfloat16", "tp_pp_single_tp",
-      "tp_pp_single_pp")),
+      "tp_pp_single_pp", "elastic_single")),
     ("paged_decode_attention", "mxnet_tpu_torch/csrc/paged_attention.cu",
      "mxnet_tpu/ops/pallas/paged_attention.py:38",
      ("serve", "serve_sampling", "serve_spec", "serve_prefix",
@@ -10627,6 +10818,7 @@ def main() -> int:
               ("sp_single", phase_sp_single),
               ("train_bert_pp", phase_train_bert_pp),
               ("tp_pp_single", phase_tp_pp_single),
+              ("elastic_single", phase_elastic_single),
               ("imperative", phase_imperative),
               ("imperative_bf16", phase_imperative_bf16),
               ("train_resnet", phase_train_resnet),
@@ -10690,7 +10882,7 @@ def main() -> int:
             failed.append(name)
     from mxnet_tpu_torch.parallel import dist
 
-    dist.shutdown()  # the one-rank group of dist_single to tp_pp_single
+    dist.shutdown()  # the one-rank group of dist_single to elastic_single
 
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)

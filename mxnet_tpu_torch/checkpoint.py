@@ -18,9 +18,13 @@ with every array equal bit for bit (the arrays go through
   * format 2 (``sharded=True`` or ``MX_CKPT_SHARDED``): per-rank
     ``params-shard-R.nd`` files with an atomic ``shard-R.json`` digest
     marker and a shard manifest in ``meta.json`` next to ``layout``.
-    The port runs one process, so rank 0 owns every shard, each a whole
-    parameter; a format-2 directory of the JAX package (any world size)
-    loads through :class:`_LazyShardedArray`.
+    Each rank of a group persists the shards it owns (a step's
+    ``shard_state_dict``, which gathers nothing, so the preemption path's
+    ``save_now`` is safe on sharded state); the leader (``writer=True``)
+    waits for every owner's marker and publishes.  A format-2 directory
+    of either package, from any world size or layout, loads through
+    :class:`_LazyShardedArray`, whose ``read_slice`` reads only the shard
+    files a slice covers.
 
 Parameters are keyed by structural names
 (``encoder.layers.0.attn.qkv.weight``), in Gluon's layouts and dtypes,
@@ -32,8 +36,9 @@ bytes (the JAX package's pickle of numpy states).  A target with
 slots (``mom.*``, ``mean.*``, ``var.*``, ``t``, ``amp.*``) go to
 ``opt_state.nd`` and its ``layout()`` (with the optimizer's name) to
 ``meta.json`` in format 1, and through its ``shard_state_dict`` in format
-2; ``restore`` hands the loaded state to its ``load_state_dict``.  Such
-checkpoints cross packages both ways with their slots.  ``meta.json``'s
+2; ``restore`` hands the loaded state to its ``load_state_dict``, the
+format-2 arrays uncomposed, so each process reads only its own blocks.
+Such checkpoints cross packages both ways with their slots.  ``meta.json``'s
 ``rng`` (the JAX package's PRNG key) is left null by the port, which
 records torch's generator states under ``torch_rng`` instead; seeds do
 not carry across the packages.
@@ -228,6 +233,11 @@ class AsyncCheckpointer:
         if self._step % self.save_every != 0:
             return False
         if not self.writer and not self.sharded:
+            # a non-writing member joins the gather a sharded step's
+            # state_dict runs on every rank, and discards the copy
+            needs = getattr(params, "snapshot_requires_collective", None)
+            if needs is not None and needs():
+                params.state_dict()
             return False
         # bounded queue: blocks if two writes are already in flight
         self._queue.put(self._snap(params, trainer, extra))
@@ -268,9 +278,14 @@ class AsyncCheckpointer:
         ``unfinished_tasks``; the staging directories are thread-unique."""
         if self._step == 0:
             return 0
-        if not self.writer and not self.sharded:
+        # a rank-local snapshot cannot gather: a sharded step's state goes
+        # out in format 2 whatever the checkpointer's format
+        needs = getattr(params, "snapshot_requires_collective", None)
+        sharded = self.sharded or (_is_step_target(params)
+                                   and needs is not None and needs())
+        if not self.writer and not sharded:
             return 0
-        snap = self._snap(params, trainer, extra)
+        snap = self._snap(params, trainer, extra, sharded)
         if "sharded" in snap:
             # a SIGTERM handler cannot sit out the full peer-marker wait
             snap["wait_s"] = 2.0
@@ -284,10 +299,12 @@ class AsyncCheckpointer:
         return self._step
 
     # ------------------------------------------------------------------
-    def _snap(self, params, trainer, extra) -> dict:
+    def _snap(self, params, trainer, extra, sharded=None) -> dict:
         """The writer's work item: host params (format 1) or this rank's
-        shard state (format 2), a step's optimizer slots and layout,
-        trainer states, the RNG states."""
+        shard state (format 2; ``sharded`` defaults to the checkpointer's
+        format), a step's optimizer slots and layout, trainer states, the
+        RNG states."""
+        sharded = self.sharded if sharded is None else sharded
         snap = {
             "step": self._step,
             "trainer": (self._trainer_states(trainer)
@@ -297,7 +314,7 @@ class AsyncCheckpointer:
         }
         if _is_step_target(params):
             layout = params.layout()
-            if self.sharded:
+            if sharded:
                 state = params.shard_state_dict()
                 snap["sharded"] = state
             else:
@@ -308,7 +325,7 @@ class AsyncCheckpointer:
             snap["layout"] = layout
             return snap
         host = _snapshot_params(params)
-        if self.sharded:
+        if sharded:
             snap["sharded"] = _block_shard_state(host, telemetry.rank())
             snap["layout"] = _block_layout(host)
         else:
@@ -436,6 +453,11 @@ class AsyncCheckpointer:
         rank = int(state["rank"])
         t0 = time.perf_counter()
         fault.on_write_begin(step)
+        if not self.writer and rank not in _manifest_ranks(
+                state["manifest"]):
+            # owns no shard: the leader waits for no marker from this
+            # rank, which may find the step already published
+            return
         tmp = os.path.join(self.dir, f".tmp-{step}-shard")
         final = os.path.join(self.dir, f"step-{step}")
         os.makedirs(tmp, exist_ok=True)

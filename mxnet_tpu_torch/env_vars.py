@@ -11,7 +11,9 @@ reads:
                is accepted but has nothing to configure here (the
                torch-level control is named);
   tool         read by a report tool under ``tools/`` that runs over the
-               port's telemetry files, not by the package;
+               port's telemetry files (and by its copy under
+               ``mxnet_tpu_torch/tools/``, which the port's launcher runs),
+               not by the package;
   not honored  the port reads it nowhere yet; the detail names the
                ROADMAP item that queues it, or says that none does.
 
@@ -26,9 +28,6 @@ from typing import Dict, Tuple
 
 __all__ = ["ENV_VARS", "describe", "check"]
 
-_A9_3 = ("ROADMAP A.9 part 3 (multi-GPU: format-2 checkpoints sharded "
-         "across ranks, elastic resize, the launcher's supervisor, the "
-         "synchronized BatchNorm)")
 _STEP = "ROADMAP A.1 (the superstep, with the captured training step)"
 _AOT = ("not queued: the port compiles no executables, so there is no "
         "AOT executable cache (aot_cache.py has no counterpart)")
@@ -127,11 +126,15 @@ ENV_VARS: Dict[str, Tuple[str, str]] = {
     "MX_RESTART_COUNT": (
         "honored", "gang incarnation index: fault.py if-restart= and "
         "telemetry.py"),
-    "MX_ELASTIC": ("not honored", _A9_3),
+    "MX_ELASTIC": (
+        "honored", "set by tools/launch.py --elastic in every incarnation: "
+        "a restore onto another world size then records no resize event "
+        "(parallel/data_parallel.py load_state_dict), the rendezvous does"),
     "MX_PREV_NUM_PROCS": (
-        "honored", "a resize telemetry event at the rendezvous when it "
-        "differs from the world size (parallel/dist.py); the elastic "
-        "restore itself is " + _A9_3),
+        "honored", "the world size before an elastic resize, exported to "
+        "the first incarnation after it (tools/launch.py): a resize "
+        "telemetry event at the rendezvous (parallel/dist.py), and the "
+        "restore records none (parallel/data_parallel.py)"),
     # launcher contract
     "MX_COORDINATOR": (
         "honored", "host:port of the rendezvous store, rank 0 serves it "

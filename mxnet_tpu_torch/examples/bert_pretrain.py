@@ -15,7 +15,7 @@ each process's block of the batch and, with the rules, of the weights:
 with ``--pp`` above 1 the pipelined BERT (``BERTForMLMPipelined`` /
 ``bert_pp_small``) and ``bert_pp_sharding_rules``, as the JAX example
 picks them.  ``--sp`` above 1 with ``--tp`` or ``--pp`` above 1 raises
-(ROADMAP A.9 part 3).
+(ROADMAP A.9 part 4).
 """
 import argparse
 import time

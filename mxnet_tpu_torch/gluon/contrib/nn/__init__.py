@@ -2,9 +2,12 @@
 
 ``SyncBatchNorm`` is ``BatchNorm`` over axis 1 with ``num_devices``
 accepted and unused: on one device its batch statistics are that
-device's, as the JAX class's are in its per-device eager path (the
-port's step over several processes refuses a BatchNorm: it has no
-synchronized statistics).
+device's, as the JAX class's are in its per-device eager path, and in a
+``DataParallelStep`` over several processes they are the global batch's
+(the moments merged over the step's data axes,
+``parallel/sync_batch_norm.py``), as the JAX fused step's are.  Every
+``BatchNorm`` takes that route in such a step, so the two give the same
+result.
 ``HybridConcurrent`` (and ``Concurrent``) runs each child on the same
 input and concatenates the outputs along ``axis``; ``Identity`` returns
 its input.  Each has ``hybrid_forward``, the JAX block's body, so it

@@ -230,7 +230,13 @@ class BatchNorm(HybridBlock):
     batch_stat.astype(running.dtype) * (1 - momentum)`` with the biased f32
     variance, each operation rounded in the running stats' dtype, on the
     device under ``no_grad``; there is no host sync.  In eval mode (or
-    with ``use_global_stats``) it normalizes by the running stats."""
+    with ``use_global_stats``) it normalizes by the running stats.
+
+    Under the batch reduction scope of a ``DataParallelStep`` over more
+    than one process, the batch's statistics are the global batch's
+    (``parallel/sync_batch_norm.py``: the moments merged over the step's
+    data axes), so every process moves the same running stats, as the JAX
+    step's BatchNorm does over its global batch."""
 
     def __init__(self, in_channels: int = 0, axis: int = 1,
                  momentum: float = 0.9, epsilon: float = 1e-5,
@@ -279,9 +285,20 @@ class BatchNorm(HybridBlock):
             return _ops.batch_norm(x, self.weight, self.bias,
                                    self.running_mean, self.running_var,
                                    use_global_stats=True, **kw)
-        out, mean, var = _ops.batch_norm(
-            x, self.weight, self.bias, self.running_mean, self.running_var,
-            output_mean_var=True, training=True, **kw)
+        from ...parallel.scope import batch_reduction
+
+        red = batch_reduction()
+        if red is not None and red[1] > 1:
+            from ...parallel.sync_batch_norm import sync_batch_norm
+
+            x, w, b = _prec.cast_inputs("BatchNorm", x, self.weight,
+                                        self.bias)
+            out, mean, var, _ = sync_batch_norm(
+                x, w if self.scale else None, b, self.eps, self.axis, red)
+        else:
+            out, mean, var = _ops.batch_norm(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var, output_mean_var=True, training=True, **kw)
         m = self.momentum
         with torch.no_grad():
             for run, stat in ((self.running_mean, mean),

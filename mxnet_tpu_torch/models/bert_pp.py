@@ -190,7 +190,7 @@ class StackedTransformerEncoder(HybridBlock):
             raise MXNetError(
                 "the stacked encoder's layers are not sharded over pp "
                 "(bert_pp_sharding_rules): a pipeline over a whole stack on "
-                f"every stage is {_tp.A93}")
+                f"every stage is {_tp.A94}")
         # strided microbatches (rows i::m) of this process's block
         xm = x.reshape(x.shape[0] // m, m, *x.shape[1:]).transpose(
             0, 1).contiguous()

@@ -91,13 +91,12 @@ Parameter of the block has its entry (a frozen one zero slots), in
 Gluon's layout, the parameters in their dtype and the slots in f32, as
 numpy arrays (bfloat16 ones as CPU tensors, which numpy lacks).
 ``load_state_dict(state, saved_layout)`` writes such a state back in
-place (a JAX step's too), ``shard_state_dict()`` is the format-2 form
-(one process: rank 0 owns every array whole) and ``layout()`` the JAX
-step's layout on a one-device mesh.  Adam's ``t`` is counted apart from
-``num_update`` (the lr schedule's count, which a restore leaves alone, as
-the JAX step leaves its ``_step_count``); the scaled step keeps it on the
-card.  The step updates the block's own tensors, so ``sync_to_block``
-only drains.
+place (a JAX step's too), ``shard_state_dict()`` is the format-2 form and
+``layout()`` the JAX step's layout on a one-device mesh.  Adam's ``t`` is
+counted apart from ``num_update`` (the lr schedule's count, which a
+restore leaves alone, as the JAX step leaves its ``_step_count``); the
+scaled step keeps it on the card.  The step updates the block's own
+tensors, so ``sync_to_block`` only drains.
 
 ``mesh=`` (a :class:`~mxnet_tpu_torch.parallel.mesh.Mesh` over the
 processes of a ``torch.distributed`` group, one card each), ``rules=``,
@@ -114,7 +113,7 @@ each parameter a rule places on the ``tp`` or ``pp`` axis keeps the
 block its process holds, and so do its optimizer slots
 (``tensor_parallel.shard_parameters``; a parameter no rule matches stays
 replicated, and a rule the port's layers cannot run raises, naming ROADMAP
-A.9 part 3).  The forward and the loss run under the scopes the model's
+A.9 part 4).  The forward and the loss run under the scopes the model's
 ops read: ``ring_attention_scope`` when the sequence is sharded
 (``ring``, ``ulysses``, or the K/V gather for ``gspmd``),
 ``tensor_parallel_scope`` when parameters are sharded (the layers' tp
@@ -130,27 +129,39 @@ is summed over those axes.  ``clip_global_norm`` sums the squared norms
 of sharded gradients over the axes they are cut along, once, and the
 update acts on the reduced gradients, so every replica takes the same
 update.  ``accum_steps`` splits each process's block (``a[i::k]``, the
-global mean is the same).  A BatchNorm's statistics are those of the
-process's block (the JAX step's are global): the step raises for a block
-holding one when the mesh has more than one process (a synchronized
-BatchNorm is ROADMAP A.9 part 3), as it does for sp > 1 with tp or pp
-> 1, and for ``remat`` with pp > 1.  ``layout()`` reports the world size,
-the mesh axes, the ranks and each parameter's spec from the rules (the
-JAX step's); ``state_dict()`` holds every array whole, in the JAX layout,
-on every process (a sharded one gathered over its slice, a collective:
-every process calls it), and ``shard_state_dict()`` makes rank 0 the
-owner of each.
+global mean is the same).  A BatchNorm in training takes the statistics
+of the global batch, as the JAX step's do: under the batch reduction
+scope it merges every process's count, mean and M2 over the data axes
+(``parallel/sync_batch_norm.py``; a torch ``_BatchNorm`` module of a
+plain block is routed there too), so every process holds the same
+running statistics.  sp > 1 with tp or pp > 1, and ``remat`` with pp > 1,
+raise (ROADMAP A.9 part 4).  ``layout()`` reports the world size, the mesh
+axes, the ranks and each parameter's spec from the rules (the JAX step's);
+``state_dict()`` holds every array whole, in the JAX layout, on every
+process (a sharded one gathered over its slice, a collective: every
+process calls it).
 
-Not ported: format-2 checkpoints sharded across ranks (A.9 part 3), the
-superstep (with A.1's captured step) and AOT executables (the port
-compiles none).
+``shard_state_dict()`` runs no collective, as the JAX step's does: every
+process derives the same manifest from the placements alone
+(``ParamShard.blocks(rank)`` of every rank of the mesh), the owner of a
+block is the lowest rank that holds it, and each process returns the
+blocks it owns (a replicated array, Adam's ``t`` and the ``amp.*``
+entries are rank 0's, one full-shape shard).  The fused ``qkv`` weight's
+block ``[q_r; k_r; v_r]`` is three shards, each its own slice of the JAX
+layout.  ``load_state_dict`` reads, of a checkpoint's lazy format-2
+arrays, only this process's blocks (``read_slice``), whatever the world
+size or layout it was saved on.
+
+Not ported: the superstep (with A.1's captured step) and AOT executables
+(the port compiles none).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
+import os
 import time
-import contextlib
 from dataclasses import replace
 from typing import Callable, Dict, Optional, Sequence
 
@@ -173,7 +184,8 @@ from .plan import Plan
 from .scope import (batch_reduction_scope, pipeline_parallel_scope,
                     ring_attention_scope, tensor_parallel_scope)
 from .sharding import ShardingRules, shard_batch, shard_batch_seq
-from .tensor_parallel import A93, ParamShard, shard_of, shard_parameters
+from .sync_batch_norm import sync_torch_batch_norms as _sync_torch_batch_norms
+from .tensor_parallel import A94, ParamShard, shard_of, shard_parameters
 
 __all__ = ["DataParallelStep", "make_train_step", "compile_step_with_plan"]
 
@@ -249,10 +261,10 @@ class DataParallelStep:
             raise MXNetError(
                 f"sp = {self.plan.axis_size('sp')} with "
                 f"{' and '.join(model_par)}: sequence parallelism composed "
-                f"with tensor or pipeline parallelism is {A93}")
+                f"with tensor or pipeline parallelism is {A94}")
         if remat and self.plan.axis_size("pp") > 1:
             raise MXNetError(f"remat with pp = {self.plan.axis_size('pp')}: "
-                             f"recomputing a pipeline schedule is {A93}")
+                             f"recomputing a pipeline schedule is {A94}")
         # collectives run whenever a process group holds the mesh, one
         # process included (its all-reduce is exact)
         self._collective = self.mesh is not None and dist.is_initialized()
@@ -273,7 +285,7 @@ class DataParallelStep:
         if self._collective:
             self._group = self.mesh.group(("dp", "sp"))
             if self._world > 1:
-                self._check_no_batch_norm()
+                _sync_torch_batch_norms(self.block)
             self._broadcast_from_first()
             self._shard(self.plan.rules)
         self.loss_fn = loss_fn
@@ -376,17 +388,6 @@ class DataParallelStep:
             if env_precision is not None:
                 plan = replace(plan, precision=env_precision)
         return mesh, plan
-
-    def _check_no_batch_norm(self) -> None:
-        from ..gluon.nn.basic_layers import BatchNorm
-
-        for m in self.block.modules():
-            if isinstance(m, (BatchNorm, torch.nn.modules.batchnorm._BatchNorm)):
-                raise MXNetError(
-                    f"{type(m).__name__} in a step over {self._world} "
-                    "processes: its batch statistics would be this "
-                    "process's block's, the JAX step's are the global "
-                    f"batch's (a synchronized BatchNorm is {A93})")
 
     @torch.no_grad()
     def _broadcast_from_first(self) -> None:
@@ -539,34 +540,43 @@ class DataParallelStep:
         sh = self._shards.get(id(param))
         return value if sh is None else sh.local(value)
 
-    def _host_state(self):
-        """[(section, key, device tensor)] of the state, in the JAX
-        ``state_dict``'s order, in Gluon's layouts."""
+    def _local_state(self):
+        """[(section, key, local device tensor, ParamShard or None,
+        to_gluon)] of the state, in the JAX ``state_dict``'s order: this
+        process's block of each array and its placement (None: whole).  A
+        sharded parameter's Gluon layout is its torch one."""
         slot_of = {id(p): i for i, p in enumerate(self.params)}
+        same = lambda v: v  # noqa: E731
         out = []
         entries = self._entries()
         for sname, t, to_gluon, _ in entries:
-            out.append(("params", sname,
-                        to_gluon(self._whole(t.detach(), t))))
+            out.append(("params", sname, t.detach(), self._shards.get(id(t)),
+                        to_gluon))
         prefixes = ("mom",) if self.optimizer == "sgd" else ("mean", "var")
         for k, prefix in enumerate(prefixes):
             for sname, t, to_gluon, _ in entries:
                 i = slot_of.get(id(t))
-                slot = (self._whole(self.opt_state[k][i], t)
-                        if i is not None else torch.zeros(
-                            self._whole(t.detach(), t).shape,
-                            dtype=torch.float32, device=t.device))
-                out.append(("opt_state", f"{prefix}.{sname}",
-                            to_gluon(slot)))
+                slot = (self.opt_state[k][i] if i is not None else
+                        torch.zeros(t.shape, dtype=torch.float32,
+                                    device=t.device))
+                out.append(("opt_state", f"{prefix}.{sname}", slot,
+                            self._shards.get(id(t)), to_gluon))
         if self.optimizer == "adam":
             t = (self._t if self.scaler_state is not None else
                  torch.tensor(self._t_host, dtype=torch.int32))
-            out.append(("opt_state", "t", t))
+            out.append(("opt_state", "t", t, None, same))
         if self.scaler_state is not None:
             for key in _ls.SCALER_KEYS:
                 out.append(("opt_state", f"amp.{key}",
-                            self.scaler_state[key]))
+                            self.scaler_state[key], None, same))
         return out
+
+    def _host_state(self):
+        """[(section, key, device tensor)] of the state, every array whole
+        (a sharded one gathered over its slice), in Gluon's layouts."""
+        return [(section, key,
+                 to_gluon(value if sh is None else sh.gather(value)))
+                for section, key, value, sh, to_gluon in self._local_state()]
 
     def state_dict(self, allow_collective: bool = True) -> dict:
         """Host copy of the training state (see the module's docstring).
@@ -579,27 +589,48 @@ class DataParallelStep:
         return out
 
     def shard_state_dict(self) -> dict:
-        """The format-2 form of :meth:`state_dict`: ``{"params": {name:
-        [(0, value)]}, "opt_state": {...}, "manifest": {...},
-        "optimizer", "rank", "nprocs"}``; rank 0 owns every (replicated)
-        array as one shard covering it whole, and the other ranks' payloads
-        are empty."""
+        """The format-2 form of :meth:`state_dict`, with no collective:
+        ``{"params": {name: [(j, value)]}, "opt_state": {...}, "manifest":
+        {...}, "optimizer", "rank", "nprocs"}``.  The manifest, the same on
+        every process, lists each array's shape, dtype and shards (``rank``
+        the owner, ``j`` its index among the owner's shards of the array,
+        ``slice`` the [start, stop) of each dimension in the JAX layout);
+        the payloads are the shards this process owns."""
+        rank = dist.process_index()
         manifest = {"params": {}, "opt_state": {}}
         local = {"params": {}, "opt_state": {}}
-        for section, key, t in self._host_state():
-            value = _host_array(t)
+        for section, key, value, sh, to_gluon in self._local_state():
+            if sh is None:
+                value = to_gluon(value)
+                shape = tuple(value.shape)
+                shards = [{"rank": 0, "j": 0,
+                           "slice": [[0, int(n)] for n in shape]}]
+                payloads = [(0, _host_array(value))] if rank == 0 else []
+            else:
+                shape = sh.shape
+                shards, payloads = _owned_blocks(sh, value, rank)
             manifest[section][key] = {
-                "shape": [int(n) for n in t.shape],
-                "dtype": str(t.dtype).replace("torch.", ""),
-                "shards": [{"rank": 0, "j": 0,
-                            "slice": [[0, int(n)] for n in t.shape]}]}
-            local[section][key] = [(0, value)]
-        rank = dist.process_index()
-        if rank != 0:  # replicas: rank 0 owns each array
-            local = {"params": {}, "opt_state": {}}
+                "shape": [int(n) for n in shape],
+                "dtype": str(value.dtype).replace("torch.", ""),
+                "shards": shards}
+            if payloads:
+                local[section][key] = payloads
         return {"params": local["params"], "opt_state": local["opt_state"],
                 "manifest": manifest, "optimizer": self.optimizer,
                 "rank": rank, "nprocs": dist.process_count()}
+
+    def _load_into(self, dst: torch.Tensor, value, param,
+                   from_gluon) -> None:
+        """Write this process's block of a loaded array into ``dst`` (a
+        parameter or one of its slots): of a lazy format-2 array only the
+        blocks ``param``'s placement holds are read; any other value is
+        taken whole."""
+        sh = self._shards.get(id(param))
+        if sh is not None and hasattr(value, "read_slice"):
+            for glob, loc in sh.blocks():
+                dst[loc].copy_(value.read_slice(glob))
+            return
+        dst.copy_(self._local(from_gluon(_cpu_tensor(value)), param))
 
     @torch.no_grad()
     def load_state_dict(self, state: dict,
@@ -624,8 +655,7 @@ class DataParallelStep:
         for sname, t, _, from_gluon in entries:
             if sname not in params_host:
                 raise MXNetError(f"checkpoint missing parameter {sname}")
-            t.copy_(self._local(from_gluon(_cpu_tensor(params_host[sname])),
-                                t))
+            self._load_into(t, params_host[sname], t, from_gluon)
         opt = dict(state.get("opt_state") or {})
         amp_state = {k[len("amp."):]: opt.pop(k)
                      for k in list(opt) if k.startswith("amp.")}
@@ -643,8 +673,7 @@ class DataParallelStep:
                 key = f"{prefix}.{sname}"
                 dst = self.opt_state[k][i]
                 if key in opt:
-                    dst.copy_(self._local(from_gluon(_cpu_tensor(opt[key])),
-                                          t))
+                    self._load_into(dst, opt[key], t, from_gluon)
                 elif opt:
                     raise MXNetError(
                         f"checkpoint optimizer state is missing slot "
@@ -686,6 +715,15 @@ class DataParallelStep:
             telemetry.record("reshard", executor=self._tele_name,
                              n_params=len(entries), old_world=old_world,
                              new_world=cur["world_size"])
+            if old_world is not None and old_world != cur["world_size"] \
+                    and not os.environ.get("MX_ELASTIC") \
+                    and not os.environ.get("MX_PREV_NUM_PROCS"):
+                # a resize by hand: under the supervisor the rendezvous
+                # records it (MX_PREV_NUM_PROCS), and a later restart of
+                # the same size must not record it again
+                telemetry.record("resize", old_world=old_world,
+                                 new_world=cur["world_size"],
+                                 source="restore")
         return info
 
     # -- the step ---------------------------------------------------------
@@ -1076,6 +1114,31 @@ class DataParallelStep:
                                       corr * (lr * m))
             torch._foreach_div_(step, [denom[i] for i in idx])
             torch._foreach_sub_([w[i] for i in idx], step)
+
+
+def _owned_blocks(sh: ParamShard, local: torch.Tensor, rank: int):
+    """(manifest shards, this rank's payloads) of a placed array: every
+    block of every rank of the mesh, each owned by the lowest rank holding
+    it, in the order of their slices (the JAX ``_local_shard_split``'s)."""
+    def key(glob):
+        return tuple((int(s.start), int(s.stop)) for s in glob)
+
+    owners: Dict[tuple, int] = {}
+    for r in sorted(int(r) for r in sh.mesh.ranks.reshape(-1)):
+        for glob, _ in sh.blocks(r):
+            k = key(glob)
+            if all(a < b for a, b in k):  # GSPMD's ceil cut may leave none
+                owners.setdefault(k, r)
+    mine = {key(glob): loc for glob, loc in sh.blocks(rank)}
+    shards, payloads, counters = [], [], {}
+    for k in sorted(owners):
+        owner = owners[k]
+        j = counters.get(owner, 0)
+        counters[owner] = j + 1
+        shards.append({"rank": owner, "j": j, "slice": [list(p) for p in k]})
+        if owner == rank:
+            payloads.append((j, _host_array(local[mine[k]])))
+    return shards, payloads
 
 
 def make_train_step(block, loss_fn, mesh=None, **kwargs) -> DataParallelStep:

@@ -168,7 +168,10 @@ def _initialize_with_retry(coord: str, n: int, rank: int, backend_name: str,
 
 def _record_resize(n: int) -> None:
     """A ``resize`` telemetry event when the launcher says the world size
-    changed (``MX_PREV_NUM_PROCS``), as the JAX package records it."""
+    changed (``MX_PREV_NUM_PROCS``, exported by ``tools/launch.py
+    --elastic`` to the first incarnation after a resize), as the JAX
+    package records it; the restore that follows reshards the checkpoint
+    (``DataParallelStep.load_state_dict``) and records none."""
     from .. import telemetry
 
     prev = _env("MX_PREV_NUM_PROCS")

@@ -45,9 +45,9 @@ from ..base import MXNetError
 __all__ = ["ParamShard", "shard_parameters", "shard_of", "copy_to_tp",
            "reduce_from_tp", "gather_from_tp", "column_parallel",
            "row_parallel", "vocab_parallel_embedding", "tp_size",
-           "A93"]
+           "A94"]
 
-A93 = "ROADMAP A.9 part 3"
+A94 = "ROADMAP A.9 part 4"
 _MODEL_AXES = ("tp", "pp")
 
 
@@ -218,7 +218,7 @@ def shard_parameters(block, mesh, rules, entries) -> Dict[int, ParamShard]:
     whole.  An axis of one process shards nothing, unless the layer has a
     form for it (its shard is then the whole tensor, and its layers run
     their tensor-parallel code).  Raises :class:`MXNetError` naming the
-    parameter, the rule and ROADMAP A.9 part 3 for what the port cannot
+    parameter, the rule and ROADMAP A.9 part 4 for what the port cannot
     run."""
     forms = _forms(block)
     out = {}
@@ -239,7 +239,7 @@ def shard_parameters(block, mesh, rules, entries) -> Dict[int, ParamShard]:
             raise MXNetError(
                 f"{name}: rule {pattern!r} -> {spec} shards a parameter over "
                 f"the data axes {bad}; the port shards parameters over tp "
-                f"and pp only ({A93})")
+                f"and pp only ({A94})")
         form = forms.get(id(t))
         fused = None if form is None else _allowed(form[1], spec)
         if fused is None:
@@ -248,7 +248,7 @@ def shard_parameters(block, mesh, rules, entries) -> Dict[int, ParamShard]:
                     f"{name}: rule {pattern!r} -> {spec} has no "
                     f"tensor-parallel form in the port's "
                     f"{type(t).__name__ if form is None else form[0]} "
-                    f"layer ({A93})")
+                    f"layer ({A94})")
             continue
         out[id(t)] = ParamShard(mesh, spec, tuple(t.shape), fused)
     return out

@@ -121,13 +121,12 @@ def test_registry_holds_every_jax_variable_and_the_ports_own():
         if disp == "not honored":
             assert "ROADMAP" in detail or "not queued" in detail, name
     # the ones the JAX package honors and the port reads nowhere name what
-    # queues them: multi-GPU part 3 (A.9), the superstep (A.1), the AOT
-    # cache; the rendezvous variables are honored since A.9 part 1, the
-    # planner's MX_PLAN since part 2
-    disp, detail = env_vars.ENV_VARS["MX_ELASTIC"]
-    assert disp == "not honored" and env_vars._A9_3 in detail
+    # queues them: the superstep (A.1), the AOT cache; the rendezvous
+    # variables are honored since A.9 part 1, the planner's MX_PLAN since
+    # part 2, the elastic resize's since part 3
     for name in ("MX_COORDINATOR", "MX_RENDEZVOUS_TIMEOUT", "MX_FORCE_CPU",
-                 "MX_LOCAL_RANK", "MX_PLAN"):
+                 "MX_LOCAL_RANK", "MX_PLAN", "MX_ELASTIC",
+                 "MX_PREV_NUM_PROCS"):
         assert env_vars.ENV_VARS[name][0] == "honored", name
     assert env_vars.ENV_VARS["MX_SUPERSTEP"][1] == env_vars._STEP
     assert env_vars.ENV_VARS["MX_EXECUTABLE_CACHE_DIR"][1] == env_vars._AOT

@@ -259,10 +259,12 @@ def _refusal(case):
 def test_what_the_port_cannot_run_names_a93(case):
     """sp with tp, remat with pp, a rule on a layer with no tensor-parallel
     form (the pooler) and a rule over a data axis raise, naming ROADMAP A.9
-    part 3 (and the parameter and rule where there is one)."""
+    part 4 (and the parameter and rule where there is one).  A BatchNorm
+    in a step over several processes runs since A.9 part 3
+    (``tests/test_torch_syncbn.py``)."""
     from mxnet_tpu_torch.base import MXNetError
 
-    with pytest.raises(MXNetError, match="A.9 part 3") as err:
+    with pytest.raises(MXNetError, match="A.9 part 4") as err:
         _refusal(case)
     if case == "no_form":
         assert "pooler_weight" in str(err.value)

@@ -10,6 +10,8 @@ Each named case runs on every rank and writes ``OUTDIR/<case>-<rank>.npz``
 results against the JAX package in the pytest process.  Inputs the JAX
 side also needs (weights, batches) are read from ``OUTDIR`` too.
 """
+import contextlib
+import json
 import os
 import sys
 
@@ -442,11 +444,362 @@ def case_bert_pretrain_pp(outdir, rank):
                    ["--dp", "2", "--pp", "2"])
 
 
+# ---------------------------------------------------------------------------
+# format-2 checkpoints across ranks, resizes and the elastic supervisor
+# ---------------------------------------------------------------------------
+_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor",
+                "all_gather_object", "broadcast", "broadcast_object_list",
+                "barrier", "reduce", "reduce_scatter",
+                "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+                "gather", "scatter", "send", "recv", "isend", "irecv",
+                "batch_isend_irecv")
+
+
+@contextlib.contextmanager
+def counting_collectives(counts):
+    """Count every call of a ``torch.distributed`` collective or
+    point-to-point function into ``counts`` (name -> calls)."""
+    import torch.distributed as tdist
+
+    saved = {n: getattr(tdist, n) for n in _COLLECTIVES if hasattr(tdist, n)}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name, fn in saved.items():
+        setattr(tdist, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(tdist, name, fn)
+
+
+RESIZE_TOKENS = np.random.RandomState(0).randint(0, 512, (8, 16)).astype(
+    np.int32)
+
+
+def bert_tp_step(outdir, axes, rules=True, start="start512.npz"):
+    """(step, tokens): ``bert_small`` from the weights in ``start`` (None:
+    seeded, with RESIZE_TOKENS) on ``make_mesh(**axes)``, with
+    ``bert_sharding_rules`` when ``rules``, Adam at STEP_LR."""
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models.bert import bert_sharding_rules, bert_small
+    from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
+
+    if start is None:
+        net = bert_small(vocab_size=512, dropout=0.0, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+        tokens = RESIZE_TOKENS
+    else:
+        data = np.load(os.path.join(outdir, start))
+        net = bert_small(vocab_size=512, dropout=0.0, device="cpu",
+                         init_weights=False)
+        from_mxnet_tpu_params(net, {k: data[k] for k in data.files
+                                    if k not in ("prefix", "tokens")},
+                              str(data["prefix"]))
+        tokens = data["tokens"]
+    step = DataParallelStep(
+        net, _mlm(SoftmaxCrossEntropyLoss()), optimizer="adam",
+        optimizer_params={"learning_rate": STEP_LR}, device="cpu",
+        mesh=make_mesh(**axes), rules=bert_sharding_rules() if rules else None)
+    return step, tokens
+
+
+def _flat_state(state, prefix=""):
+    return {f"{prefix}{sec}/{k}": np.asarray(v)
+            for sec in ("params", "opt_state") for k, v in state[sec].items()}
+
+
+def case_ckpt_sharded(outdir, rank):
+    """bert_small on dp2 x tp2: STEPS Adam steps, each saved in format 2
+    to ``port_ckpt`` (rank 0 the leader); the collectives
+    ``shard_state_dict`` calls, the payloads it returns and the gathered
+    state; then the JAX step's directory ``jax_ckpt`` restored onto dp4
+    and tp4.  Every rank writes ``ckpt_sharded-<rank>.npz``."""
+    from mxnet_tpu_torch import checkpoint
+
+    step, tokens = bert_tp_step(outdir, {"tp": 2})
+    ck = checkpoint.AsyncCheckpointer(os.path.join(outdir, "port_ckpt"),
+                                      save_every=1, keep=STEPS,
+                                      writer=rank == 0, sharded=True)
+    losses = []
+    for _ in range(STEPS):
+        losses.append(float(step.step(tokens, tokens.astype(np.float32))))
+        ck.step(step)
+    ck.close()
+    counts = {}
+    with counting_collectives(counts):
+        shard = step.shard_state_dict()
+    out = {"losses": np.array(losses),
+           "shard_collectives": np.array(sum(counts.values())),
+           "shard_rank": np.array(shard["rank"]),
+           "shard_nprocs": np.array(shard["nprocs"]),
+           "manifest": np.array(json.dumps(shard["manifest"]))}
+    for sec in ("params", "opt_state"):
+        for k, payloads in shard[sec].items():
+            for j, v in payloads:
+                out[f"payload/{sec}/{k}#{j}"] = _numpy(v)
+    out.update(_flat_state(step.state_dict(), "saved:"))
+    # format 1 of a sharded step: every rank joins the gather, rank 0
+    # writes; the preemption path's save_now cannot gather, so it writes
+    # format 2 whatever the checkpointer's format
+    f1 = checkpoint.AsyncCheckpointer(os.path.join(outdir, "port_f1"),
+                                      save_every=STEPS + 1,
+                                      initial_step=STEPS, writer=rank == 0)
+    f1.step(step)
+    f1.close()
+    pre = checkpoint.AsyncCheckpointer(os.path.join(outdir, "port_pre"),
+                                       save_every=100, initial_step=STEPS,
+                                       writer=rank == 0)
+    # the leader's constructor clears staging dirs: every rank constructs
+    # before any writes, as a training loop's steps order them
+    dist.barrier()
+    out["save_now"] = np.array(pre.save_now(step))
+    pre.close()
+    for name, axes in (("dp4", ({}, False)), ("tp4", ({"tp": 4}, True))):
+        step2, _ = bert_tp_step(outdir, axes[0], rules=axes[1])
+        got = checkpoint.restore(os.path.join(outdir, "jax_ckpt"), step2)
+        out[f"restored_step:{name}"] = np.array(got)
+        out.update(_flat_state(step2.state_dict(), f"{name}:"))
+    np.savez(os.path.join(outdir, f"ckpt_sharded-{rank}.npz"), **out)
+
+
+def _numpy(v):
+    return v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _restore_into(outdir, src, axes, rules, tag, out):
+    """Restore ``src`` onto ``make_mesh(**axes)``; the gathered state and
+    the load's info go to ``out`` under ``tag``."""
+    from mxnet_tpu_torch import checkpoint
+
+    step, _ = bert_tp_step(outdir, axes, rules=rules, start=None)
+    state = checkpoint.load_checkpoint_state(os.path.join(outdir, src))
+    info = step.load_state_dict(
+        {"params": state["params"], "opt_state": state["opt_state"]},
+        saved_layout=state["layout"])
+    out[f"{tag}:info"] = np.array(json.dumps(info))
+    out[f"{tag}:step"] = np.array(state["step"])
+    out.update(_flat_state(step.state_dict(), f"{tag}:"))
+    return step
+
+
+def case_resize_save2(outdir, rank):
+    """Two ranks, tp2: STEPS Adam steps saved in format 2 to ``r2``; the
+    gathered state (the oracle) to ``resize_save2-0.npz``."""
+    from mxnet_tpu_torch import checkpoint
+
+    step, tokens = bert_tp_step(outdir, {"tp": 2}, start=None)
+    ck = checkpoint.AsyncCheckpointer(os.path.join(outdir, "r2"),
+                                      save_every=STEPS, writer=rank == 0,
+                                      sharded=True)
+    for _ in range(STEPS):
+        step.step(tokens, tokens.astype(np.float32))
+        ck.step(step)
+    ck.close()
+    out = _flat_state(step.state_dict(), "oracle:")
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"resize_save2-{rank}.npz"), **out)
+
+
+def case_resize_2to4(outdir, rank):
+    """Four ranks: ``r2`` restored onto dp4 and onto dp2 x tp2; the second
+    saved again in format 2 to ``r4`` at the same step."""
+    from mxnet_tpu_torch import checkpoint
+
+    out = {}
+    _restore_into(outdir, "r2", {}, False, "dp4", out)
+    step = _restore_into(outdir, "r2", {"tp": 2}, True, "dp2tp2", out)
+    ck = checkpoint.AsyncCheckpointer(os.path.join(outdir, "r4"),
+                                      save_every=STEPS,
+                                      initial_step=STEPS - 1,
+                                      writer=rank == 0, sharded=True)
+    ck.step(step)
+    ck.close()
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"resize_2to4-{rank}.npz"), **out)
+
+
+def case_resize_4to2(outdir, rank):
+    """Two ranks: ``r4`` (dp2 x tp2) restored onto tp2 and onto dp2."""
+    out = {}
+    _restore_into(outdir, "r4", {"tp": 2}, True, "tp2", out)
+    _restore_into(outdir, "r4", {}, False, "dp2", out)
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"resize_4to2-{rank}.npz"), **out)
+
+
+ELASTIC_TOTAL, ELASTIC_SAVE_EVERY, ELASTIC_PER_RANK = 6, 2, 4
+
+
+def _elastic_run(outdir, rank, ckdir, tag, demand=None):
+    """The elastic worker: a Dense net trained by SGD over ``make_mesh()``
+    of every process, ELASTIC_PER_RANK rows a rank of a seeded shuffle
+    (``NDArrayIter``, its position in the checkpoint); resumes from the
+    gang's common newest scheduled step of ``ckdir`` (or ``demand``),
+    whatever world size saved it, and checkpoints in format 2 every
+    ELASTIC_SAVE_EVERY steps (rank 0 the leader).  Rank 0 writes the
+    final parameters to ``final_<tag>.npz``."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import checkpoint, fault, gluon
+    from mxnet_tpu_torch.io.io import NDArrayIter
+    from mxnet_tpu_torch.parallel import DataParallelStep, make_mesh
+
+    world = dist.process_count()
+    kv = mx.kv.create("dist_sync")
+    rng = np.random.RandomState(0)
+    X = rng.randn(96, 4).astype(np.float32)
+    Y = X @ np.array([[1.0], [-2.0], [3.0], [0.5]], np.float32)
+    torch.manual_seed(0)
+    net = gluon.nn.Dense(1, in_units=4, prefix="el_")
+    net.initialize(mx.init.Normal(0.5), ctx=mx.cpu())
+    step = DataParallelStep(net, gluon.loss.L2Loss(), optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.05,
+                                              "momentum": 0.9},
+                            device="cpu", mesh=make_mesh())
+    it = NDArrayIter(X, Y, batch_size=ELASTIC_PER_RANK * world,
+                     shuffle=True, seed=7, ctx=mx.cpu())
+    local = checkpoint.latest_valid_step(ckdir,
+                                         multiple_of=ELASTIC_SAVE_EVERY)
+    start = checkpoint.agree_resume_step(local, kv)
+    if demand is not None:
+        start = demand
+    if start:
+        state = checkpoint.load_checkpoint_state(ckdir, step=start)
+        info = step.load_state_dict(
+            {"params": state["params"], "opt_state": state["opt_state"]},
+            saved_layout=state["layout"])
+        it.set_state(state["extra"]["iter"])
+        print(f"elastic: rank {rank} resuming at step {start} world "
+              f"{world} resharded={info['resharded']} "
+              f"old_world={info['old_world']}", flush=True)
+    ckpt = checkpoint.AsyncCheckpointer(
+        ckdir, save_every=ELASTIC_SAVE_EVERY, keep=100, initial_step=start,
+        writer=rank == 0, sharded=True)
+    fault.install_preemption_handler(ckpt, step)
+    for _ in range(start, ELASTIC_TOTAL):
+        try:
+            batch = it.next()
+        except StopIteration:
+            it.reset()
+            batch = it.next()
+        float(step.step(batch.data[0], batch.label[0]))
+        ckpt.step(step, extra={"iter": it.get_state()})
+    ckpt.close()
+    params = step.state_dict()["params"]
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"final_{tag}.npz"), **params)
+    print(f"elastic: rank {rank}/{world} done", flush=True)
+
+
+def case_elastic(outdir, rank):
+    """The elastic run: checkpoints under ``ckpt``."""
+    _elastic_run(outdir, rank, os.path.join(outdir, "ckpt"), "elastic")
+
+
+def case_elastic_baseline(outdir, rank):
+    """A fixed gang resumed at ``baseline/resume_step`` from
+    ``baseline/ckpt`` (a copy of the elastic run's directory)."""
+    base = os.path.join(outdir, "baseline")
+    with open(os.path.join(base, "resume_step")) as f:
+        demand = int(f.read())
+    _elastic_run(outdir, rank, os.path.join(base, "ckpt"), "baseline",
+                 demand)
+
+
+# ---------------------------------------------------------------------------
+# the synchronized BatchNorm
+# ---------------------------------------------------------------------------
+SYNCBN_STEPS = 2
+SYNCBN_LR = 0.1
+
+
+def syncbn_batch():
+    """16 NCHW images, deliberately non-iid over the batch (each block of
+    4 its own scale and offset), and 5-class labels."""
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.randn(4, 3, 6, 6) * (i + 1) + i
+                        for i in range(4)]).astype(np.float32)
+    return x, rng.randint(0, 5, 16).astype(np.float32)
+
+
+def syncbn_net(start, sync=False):
+    """Conv2D(8) + BatchNorm (or SyncBatchNorm) + relu + pooling + Dense(5)
+    with the weights of ``start`` (Gluon names, prefix ``sbn_``)."""
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.convert import from_mxnet_tpu_params
+    from mxnet_tpu_torch.gluon.contrib.nn import SyncBatchNorm
+
+    net = gluon.nn.HybridSequential(prefix="sbn_")
+    with net.name_scope():
+        net.add(gluon.nn.Conv2D(8, 3, padding=1, in_channels=3),
+                SyncBatchNorm(in_channels=8, num_devices=4,
+                              prefix="batchnorm0_") if sync
+                else gluon.nn.BatchNorm(in_channels=8),
+                gluon.nn.Activation("relu"), gluon.nn.GlobalAvgPool2D(),
+                gluon.nn.Flatten(), gluon.nn.Dense(5, in_units=8))
+    from_mxnet_tpu_params(net, start, "sbn_")
+    return net
+
+
+def torch_bn_net():
+    torch.manual_seed(0)
+    return torch.nn.Sequential(
+        torch.nn.Conv2d(3, 8, 3, padding=1), torch.nn.BatchNorm2d(8),
+        torch.nn.ReLU(), torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+        torch.nn.Linear(8, 5))
+
+
+def syncbn_run(net, mesh=None):
+    """SYNCBN_STEPS SGD steps on ``syncbn_batch`` -> (losses, state)."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import DataParallelStep
+
+    x, y = syncbn_batch()
+    step = DataParallelStep(net, SoftmaxCrossEntropyLoss(), optimizer="sgd",
+                            optimizer_params={"learning_rate": SYNCBN_LR,
+                                              "momentum": 0.9},
+                            device="cpu", mesh=mesh)
+    losses = [float(step.step(x, y)) for _ in range(SYNCBN_STEPS)]
+    return np.array(losses), step.state_dict()
+
+
+def case_syncbn(outdir, rank):
+    """The net of ``syncbn_net`` on dp4 (BatchNorm, then SyncBatchNorm) and
+    on dp2 x sp2 (the NCHW batch split over dp x sp), and the torch
+    modules of ``torch_bn_net`` on dp4; rank 0 writes ``syncbn-0.npz``."""
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    data = np.load(os.path.join(outdir, "syncbn_start.npz"))
+    start = {k: data[k] for k in data.files}
+    out = {}
+    for name, sync, axes in (("dp4", False, {}), ("dp4_sync", True, {}),
+                             ("dp2sp2", False, {"sp": 2})):
+        losses, state = syncbn_run(syncbn_net(start, sync),
+                                   make_mesh(**axes))
+        out[f"{name}:losses"] = losses
+        out.update(_flat_state(state, f"{name}:"))
+    losses, state = syncbn_run(torch_bn_net(), make_mesh())
+    out["torch_bn:losses"] = losses
+    out.update(_flat_state(state, "torch_bn:"))
+    if rank == 0:
+        np.savez(os.path.join(outdir, f"syncbn-{rank}.npz"), **out)
+
+
 CASES = {"attention": case_attention, "step": case_step,
          "kvstore": case_kvstore, "bert_pretrain": case_bert_pretrain,
          "tp": case_tp, "pp": case_pp,
          "bert_pretrain_tp": case_bert_pretrain_tp,
-         "bert_pretrain_pp": case_bert_pretrain_pp}
+         "bert_pretrain_pp": case_bert_pretrain_pp,
+         "ckpt_sharded": case_ckpt_sharded,
+         "resize_save2": case_resize_save2, "resize_2to4": case_resize_2to4,
+         "resize_4to2": case_resize_4to2, "elastic": case_elastic,
+         "elastic_baseline": case_elastic_baseline, "syncbn": case_syncbn}
 
 
 def start_group(outdir, n, *names):
